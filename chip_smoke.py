@@ -1,0 +1,594 @@
+#!/usr/bin/env python3
+"""GPU smoke run of the PyTorch port: TPC-H Q6 from snappy Parquet at SF10.
+
+    python3 chip_smoke.py [--scale 10] [--seed 20261017]
+
+Needs one CUDA card (and the CUDA toolkit's nvcc); exits non-zero without
+one, and without the ``spark_rapids_tpu_torch`` package beside it.
+Phases, each failing the run at its first mismatch:
+
+1. card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+2. build: the K1 kernel (nvcc) and the host snappy library (g++), in
+   parallel;
+3. K1 against its plain torch version on the card, for every bit width
+   1..24 over random hybrid run tables (RLE and packed runs, counts that
+   are not multiples of 8, a truncated last payload), up to 64 Mi values;
+   exact equality;
+4. Q6 at ``--scale`` through the session: lineitem columns generated with
+   numpy from ``--seed`` (TPC-H spec 4.2.3), written as 8 snappy,
+   dictionary-encoded Parquet files by the port's writer, read back under
+   the TPC-H schema (decimal(12,2), DATE) and collected twice; both
+   results must equal an exact numpy reference.  The launch counts are set
+   to 0 just before the timed collect and read just after.  Then a
+   stage-by-stage breakdown, and one collect under ``torch.profiler`` for
+   K1's device time inside the query and the card's idle share;
+5. Q6 in memory (``LocalTableScan``) on the same arrays, exact;
+6. K1 timed with CUDA events at the pages the Q6 files hold, beside its
+   bound and its plain version; the torch snappy gather checked against
+   the host decompressor on the same pages.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from decimal import Decimal
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SF10_ROWS = 59_986_052
+N_FILES = 8
+K1_BIG_VALUES = 64 << 20           # values in the largest K1 check page
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+K1_SOURCE = "spark_rapids_tpu_torch/csrc/unpack_runs.cu"
+K1_REPLACES = "spark_rapids_tpu/pallas/decode.py:31"
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke FAILED: {msg}")
+
+
+# ---------------------------------------------------------------------------
+# data
+# ---------------------------------------------------------------------------
+
+def lineitem_q6(n: int, scale: float, seed: int):
+    """The four Q6 columns as unscaled cents / epoch days (TPC-H 4.2.3)."""
+    rng = np.random.default_rng(seed)
+    quantity = rng.integers(1, 51, n, dtype=np.int64)
+    discount = rng.integers(0, 11, n, dtype=np.int64)          # 0.00..0.10
+    partkey = rng.integers(1, max(int(scale * 200_000), 1) + 1, n,
+                           dtype=np.int64)
+    retail = (90_000 + (partkey // 10) % 20_001
+              + 100 * (partkey % 1_000))                        # cents
+    start = 8035                                                # 1992-01-01
+    end = 10440                                                 # 1998-08-02
+    orderdate = rng.integers(start, end + 1, n, dtype=np.int64)
+    shipdate = (orderdate + rng.integers(1, 122, n)).astype(np.int32)
+    return {"l_quantity": quantity * 100,
+            "l_extendedprice": quantity * retail,
+            "l_discount": discount,
+            "l_shipdate": shipdate}
+
+
+def q6_reference(li) -> Decimal:
+    f = ((li["l_shipdate"] >= 8766) & (li["l_shipdate"] < 9131)
+         & (li["l_discount"] >= 5) & (li["l_discount"] <= 7)
+         & (li["l_quantity"] < 2400))
+    rev = int(np.sum(li["l_extendedprice"][f] * li["l_discount"][f],
+                     dtype=np.int64))
+    return Decimal(rev).scaleb(-4)
+
+
+def q6_query(df):
+    from datetime import date
+
+    from spark_rapids_tpu_torch.session import col, lit, sum_
+
+    return (df.filter((col("l_shipdate") >= lit(date(1994, 1, 1)))
+                      & (col("l_shipdate") < lit(date(1995, 1, 1)))
+                      & (col("l_discount") >= lit(Decimal("0.05")))
+                      & (col("l_discount") <= lit(Decimal("0.07")))
+                      & (col("l_quantity") < lit(Decimal(24))))
+            .select((col("l_extendedprice") * col("l_discount"))
+                    .alias("revenue"))
+            .agg(sum_("revenue", "revenue")))
+
+
+def schemas():
+    from spark_rapids_tpu_torch import types as T
+
+    names = ["l_quantity", "l_extendedprice", "l_discount", "l_shipdate"]
+    money = T.DecimalType(12, 2)
+    write = T.StructType([T.StructField(nm, T.DATE if nm == "l_shipdate"
+                                        else T.LONG, False)
+                          for nm in names])
+    read = T.StructType([T.StructField(nm, T.DATE if nm == "l_shipdate"
+                                       else money, False)
+                         for nm in names])
+    return write, read
+
+
+def write_files(li, n: int, out_dir: str, device):
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.io.parquet_encode import write_parquet_device
+
+    wsch, _ = schemas()
+    os.makedirs(out_dir, exist_ok=True)
+    bounds = np.linspace(0, n, N_FILES + 1).astype(np.int64)
+    paths = []
+    for i in range(N_FILES):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        cols = [HostColumn.from_numpy(li[f.name][lo:hi], f.dataType)
+                for f in wsch.fields]
+        path = os.path.join(out_dir, f"lineitem-{i:02d}.parquet")
+        write_parquet_device(path, wsch, cols, hi - lo, device=device)
+        paths.append(path)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# K1 checks
+# ---------------------------------------------------------------------------
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        out.append(b | 0x80 if v else b)
+        if not v:
+            return bytes(out)
+
+
+def random_hybrid_stream(rng, bw: int, total: int, max_run: int):
+    """A hybrid RLE/bit-packed stream of at least ``total`` values whose
+    last packed payload is cut short; returns (bytes, total)."""
+    vbytes = (bw + 7) // 8
+    parts = []
+    got = 0
+    last_packed = None
+    while got < total:
+        want = int(rng.integers(1, max_run + 1))
+        if rng.random() < 0.4:
+            value = int(rng.integers(0, 1 << bw))
+            parts.append(_varint(want << 1)
+                         + value.to_bytes(vbytes, "little"))
+            got += want
+        else:
+            groups = -(-want // 8)
+            parts.append(_varint((groups << 1) | 1))
+            parts.append(rng.integers(0, 256, groups * bw,
+                                      dtype=np.uint8).tobytes())
+            last_packed = len(parts) - 1
+            got += groups * 8
+    if last_packed is not None:                 # truncate the last payload
+        p = parts[last_packed]
+        parts[last_packed] = p[:max(len(p) - int(rng.integers(1, bw + 1)),
+                                    0)]
+        parts = parts[:last_packed + 1]
+    buf = b"".join(parts)
+    return buf, total - int(rng.integers(0, 8))
+
+
+def check_k1(device, seed: int):
+    import torch
+
+    from spark_rapids_tpu_torch.io.parquet_native import split_hybrid_runs
+    from spark_rapids_tpu_torch.pallas import decode
+    from spark_rapids_tpu_torch.perfcounters import to_device
+
+    rng = np.random.default_rng(seed)
+    cases = [(bw, 1 << 20, 2048) for bw in range(1, 25)]
+    cases.append((13, K1_BIG_VALUES, K1_BIG_VALUES // 4))
+    cases.append((24, K1_BIG_VALUES, K1_BIG_VALUES // 3))
+    for bw, total, max_run in cases:
+        buf, total = random_hybrid_stream(rng, bw, total, max_run)
+        runs = split_hybrid_runs(buf, bw, total)
+        table = decode.run_table(runs, total)
+        dev_buf = to_device(np.frombuffer(buf, np.uint8), device)
+        dev_tab = {k: to_device(v, device) for k, v in table.items()}
+        got = decode.unpack_runs(dev_buf, 0, dev_tab, bw, total)
+        want = decode.unpack_runs_plain(dev_buf, 0, dev_tab, bw, total)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            fail(f"K1 bw={bw} total={total}: {bad} values differ from "
+                 "the plain version")
+        if total <= (1 << 21):
+            # zero bytes past the cut payload: what the kernel reads there
+            host = decode.expand_runs_host(runs, buf + bytes(bw), total, bw)
+            if not np.array_equal(got.cpu().numpy().astype(np.uint32), host):
+                fail(f"K1 bw={bw}: differs from expand_runs_host")
+        del got, want, dev_buf, dev_tab
+    log(f"K1: equal to its plain version for every bw in 1..24 and at "
+        f"{K1_BIG_VALUES} values (bw 13, 24), max_abs_err 0")
+
+
+def check_decimal128(device, seed: int):
+    """The 64x64->128 multiply and the 128-bit sum on the card, against
+    Python integers, at the int64 edges (wrapping int64 on CUDA)."""
+    import torch
+
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    rng = np.random.default_rng(seed)
+    edges = [0, 1, -1, 10 ** 18 - 1, -(10 ** 18 - 1), -(2 ** 63),
+             2 ** 63 - 1, 2 ** 32, -(2 ** 32) + 1]
+    a = edges * len(edges) + [int(x) for x in rng.integers(
+        -(2 ** 63), 2 ** 63 - 1, 4096, dtype=np.int64)]
+    b = [e for e in edges for _ in edges] + [int(x) for x in rng.integers(
+        -(2 ** 63), 2 ** 63 - 1, 4096, dtype=np.int64)]
+    hi, lo = D.mul64_to_128(torch.tensor(a, device=device),
+                            torch.tensor(b, device=device))
+    got = [D.to_py(h, l) for h, l in zip(hi.tolist(), lo.tolist())]
+    if got != [x * y for x, y in zip(a, b)]:
+        fail("mul64_to_128 on the card differs from exact products")
+    valid = torch.ones(len(a), dtype=torch.bool, device=device)
+    for n in (len(edges) ** 2, len(a)):     # the edges alone; all of them
+        ok, _, sh, sl = D.sum128_global(hi[:n], lo[:n], valid[:n])
+        want = sum(x * y for x, y in zip(a[:n], b[:n]))
+        fits = -(2 ** 127) <= want < 2 ** 127
+        if bool(ok) != fits or (fits and D.to_py(int(sh), int(sl)) != want):
+            fail(f"sum128_global on the card differs from the exact sum "
+                 f"of {n} products")
+    log(f"decimal128: mul64_to_128 and sum128_global exact on the card "
+        f"({len(a)} products incl. +-(10^18-1) and INT64_MIN)")
+
+
+def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def main_path_pages(path: str):
+    """The dictionary-index data pages of one Q6 file, as the scan sees them."""
+    from spark_rapids_tpu_torch.io.parquet_native import (read_column_pages,
+                                                          read_footer)
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    groups, _ = read_footer(data)
+    out = []
+    for g in groups:
+        for info in g.columns:
+            cp = read_column_pages(data, info, g.num_rows)
+            out += [(info.name, page) for page in cp.pages]
+    return out
+
+
+def time_k1_and_gather(paths, device):
+    """K1 at every index page of the first file, and the snappy gather on
+    the same stored pages against the host decompressor."""
+    import torch
+
+    from spark_rapids_tpu_torch.io.parquet_native import split_hybrid_runs
+    from spark_rapids_tpu_torch.native import snappy_uncompress
+    from spark_rapids_tpu_torch.pallas import decode
+    from spark_rapids_tpu_torch.pallas.decompress import (_parse_ops,
+                                                          snappy_gather)
+    from spark_rapids_tpu_torch.perfcounters import to_device
+
+    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_bytes": 0}
+    max_err = 0
+    for name, page in main_path_pages(paths[0]):
+        bw, n = page.index_bit_width, page.num_values
+        runs = split_hybrid_runs(page.value_buf, bw, n)
+        table = decode.run_table(runs, n)
+        dev_buf = to_device(np.frombuffer(page.value_buf, np.uint8), device)
+        dev_tab = {k: to_device(v, device) for k, v in table.items()}
+
+        def kernel():
+            return decode.unpack_runs(dev_buf, 0, dev_tab, bw, n)
+
+        def plain():
+            return decode.unpack_runs_plain(dev_buf, 0, dev_tab, bw, n)
+
+        ms = _cuda_time_ms(kernel, 20)
+        plain_ms = _cuda_time_ms(plain, 3, warmup=1)
+        err = int((kernel().to(torch.int64) - plain().to(torch.int64))
+                  .abs().max())
+        max_err = max(max_err, err)
+        nbytes = decode.bound_bytes(table, bw, n)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"K1 page {name}: bw={bw} values={n} runs={len(runs)} "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({nbytes} bytes)")
+        totals["ms"] += ms
+        totals["plain_ms"] += plain_ms
+        totals["bound_bytes"] += nbytes
+        # the torch snappy gather on the stored page, against the host
+        usize, ops = _parse_ops(page.raw_values)
+        comp = to_device(np.frombuffer(page.raw_values, np.uint8), device)
+        arrs = [to_device(np.array([o[i] for o in ops], np.int64), device)
+                for i in (1, 3)]
+        lit = to_device(np.array([1 - o[0] for o in ops], np.int64), device)
+        got = snappy_gather(comp, arrs[0], arrs[1], lit, usize).cpu().numpy()
+        want = np.frombuffer(snappy_uncompress(page.raw_values, usize),
+                             np.uint8)
+        if not np.array_equal(got, want):
+            fail(f"snappy gather differs from the host on page {name}")
+        log(f"snappy gather page {name}: {usize} bytes, {len(ops)} ops, "
+            "equal to the host decompressor")
+    if max_err:
+        fail(f"K1 differs from its plain version at the main-path pages "
+             f"(max_abs_err {max_err})")
+    return totals, max_err
+
+
+def check_gather_chains(device, seed: int):
+    """A compressible stream with dist-1 RLE chains through the gather."""
+    from spark_rapids_tpu_torch.native import snappy_compress
+    from spark_rapids_tpu_torch.pallas.decompress import snappy_to_device
+
+    rng = np.random.default_rng(seed)
+    raw = np.repeat(rng.integers(0, 256, 1 << 16, dtype=np.uint8),
+                    rng.integers(1, 600, 1 << 16)).tobytes()
+    got = snappy_to_device(snappy_compress(raw), device).cpu().numpy()
+    if got.tobytes() != raw:
+        fail("snappy gather differs on an RLE-chain stream")
+    log(f"snappy gather: RLE-chain stream of {len(raw)} bytes equal")
+
+
+# ---------------------------------------------------------------------------
+# main
+# ---------------------------------------------------------------------------
+
+def build_all():
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.pallas import decode
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(decode.build_kernel), pool.submit(native.get_lib)]
+        for f in futs:
+            f.result()
+    return time.perf_counter() - t0
+
+
+def run_q6(paths, li, n: int, device):
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.pallas import decode
+    from spark_rapids_tpu_torch.session import TpuSession
+
+    _, rsch = schemas()
+    want = q6_reference(li)
+    conf = {"spark.rapids.sql.format.parquet.decode.device": True,
+            "spark.rapids.sql.format.parquet.reader.type": "PERFILE"}
+    s = TpuSession(conf, device=device)
+    q = q6_query(s.read.schema(rsch).parquet(*paths))
+    plan_line = q.explain().splitlines()[0]
+    log(f"plan: {plan_line}")
+    if plan_line != ("TpuHashAggregate(Complete) keys=[] aggs=[sum(revenue) "
+                     "AS revenue] fused=[FilterProject]"):
+        fail(f"unexpected plan line {plan_line!r}")
+    first = q.collect()
+    if first != [(want,)]:
+        fail(f"Q6 from Parquet, first run: {first} != {want}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode.unpack_launches = 0
+    snap = PC.snapshot()
+    t0 = time.perf_counter()
+    second = q.collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = decode.unpack_launches
+    delta = PC.since(snap)
+    if second != [(want,)]:
+        fail(f"Q6 from Parquet, second run: {second} != {want}")
+    if launches <= 0:
+        fail("the Q6 run launched K1 no time")
+    log(f"Q6 parquet: revenue {second[0][0]} == numpy reference; {n} rows "
+        f"in {secs:.3f} s = {n / secs:.0f} rows/s")
+    log(f"Q6 parquet counters: unpack_launches={launches} "
+        f"bytes_h2d={delta['bytes_h2d']} host_syncs={delta['host_syncs']} "
+        f"chunk_decode_fallbacks={delta['chunk_decode_fallbacks']} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    return {"seconds": secs, "launches": launches, "want": want, "query": q}
+
+
+def profile_collect(q, want):
+    """One more Parquet Q6 collect under ``torch.profiler``: K1's device
+    time summed over its launches inside the query, and the share of the
+    collect's wall time in which the card ran nothing (kernels and copies
+    merged into busy intervals).  The profiler's own host cost makes the
+    collect slower, so the idle share is an upper bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        got = q.collect()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    if got != [(want,)]:
+        fail(f"Q6 from Parquet under the profiler: {got} != {want}")
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        log("Q6 parquet profile: the profiler saw no device activity; K1 "
+            "time inside the query and the idle share not measured")
+        return
+    k1 = [e for e in dev if "unpack_runs" in e.name]
+    k1_ms = sum(e.time_range.elapsed_us() for e in k1) / 1e3
+    busy_us, end = 0.0, None
+    for e in sorted(dev, key=lambda e: e.time_range.start):
+        a, b = e.time_range.start, e.time_range.end
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    idle = 1.0 - busy_us / (wall_s * 1e6)
+    log(f"Q6 parquet profile: collect {wall_s:.3f} s under the profiler; "
+        f"K1 {len(k1)} launches, {k1_ms:.4f} ms device time in all; device "
+        f"busy {busy_us / 1e3:.3f} ms over {len(dev)} kernels and copies; "
+        f"idle share {idle:.4f}")
+
+
+def time_breakdown(paths, device):
+    """Where one Parquet Q6 spends its time, stage by stage: the host half
+    of the scan alone, the whole device decode of a file, and the fused
+    filter/project/aggregate on a batch already on the card."""
+    import torch
+
+    from spark_rapids_tpu_torch.io.parquet_device import read_parquet_device
+    from spark_rapids_tpu_torch.io.parquet_native import split_hybrid_runs
+    from spark_rapids_tpu_torch.session import TpuSession
+
+    t0 = time.perf_counter()
+    for p in paths:
+        for _, page in main_path_pages(p):
+            split_hybrid_runs(page.value_buf, page.index_bit_width,
+                              page.num_values)
+    host_s = time.perf_counter() - t0
+    _, rsch = schemas()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = []
+    for p in paths:
+        batches.append(read_parquet_device(p, rsch, device))
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    s = TpuSession({"spark.rapids.sql.format.parquet.decode.device": True,
+                    "spark.rapids.sql.format.parquet.reader.type":
+                    "PERFILE"}, device=device)
+    agg = q6_query(s.read.schema(rsch).parquet(*paths))._planned()
+    agg._aggregate_batch(batches[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        agg._aggregate_batch(b)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    log(f"breakdown: host pages+run headers {host_s:.3f} s, scan (host + "
+        f"H2D + device decode) {scan_s:.3f} s, fused stage+aggregate on "
+        f"the card {stage_s:.4f} s, over {len(paths)} files")
+
+
+def run_q6_memory(li, want, device):
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
+    from spark_rapids_tpu_torch.session import DataFrame, TpuSession
+
+    _, rsch = schemas()
+    s = TpuSession({}, device=device)
+    host = [HostColumn.from_numpy(li[f.name], f.dataType)
+            for f in rsch.fields]
+    got = q6_query(DataFrame(LocalTableScan(host, rsch), s)).collect()
+    if got != [(want,)]:
+        fail(f"Q6 in memory: {got} != {want}")
+    log(f"Q6 in memory: revenue {got[0][0]} == numpy reference")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scale", type=float, default=10.0)
+    ap.add_argument("--seed", type=int, default=20261017)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    try:
+        import spark_rapids_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})",
+              file=sys.stderr)
+        return 2
+    device = torch.device("cuda")
+
+    # 1. card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(f"card: {smi}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
+        f"{sys.version.split()[0]}")
+
+    # 2. build
+    log(f"build: K1 (nvcc) and host snappy (g++) in {build_all():.1f} s")
+
+    # 3. K1 against its plain version
+    check_k1(device, args.seed)
+    check_gather_chains(device, args.seed)
+    check_decimal128(device, args.seed)
+
+    # 4. Q6 from Parquet
+    n = int(round(SF10_ROWS * args.scale / 10))
+    t0 = time.perf_counter()
+    li = lineitem_q6(n, args.scale, args.seed)
+    data_dir = os.path.join(HERE, "spark_rapids_tpu_torch", "build",
+                            f"q6_sf{args.scale:g}_seed{args.seed}")
+    paths = write_files(li, n, data_dir, device)
+    log(f"data: {n} rows written to {N_FILES} files "
+        f"({sum(os.path.getsize(p) for p in paths)} bytes) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    widths = sorted({(name, page.index_bit_width)
+                     for p in paths for name, page in main_path_pages(p)})
+    log(f"index bit widths: {widths}")
+    q6 = run_q6(paths, li, n, device)
+
+    time_breakdown(paths, device)
+    profile_collect(q6["query"], q6["want"])
+
+    # 5. Q6 in memory
+    run_q6_memory(li, q6["want"], device)
+
+    # 6. K1 timing at the main path's pages, snappy gather on them
+    k1, err = time_k1_and_gather(paths, device)
+    kernels = {"kernels": [{
+        "name": "unpack_runs",
+        "route": "cuda",
+        "source": K1_SOURCE,
+        "replaces": K1_REPLACES,
+        "launches": q6["launches"],
+        "max_abs_err": err,
+        "ms": k1["ms"],
+        "plain_ms": k1["plain_ms"],
+        "bound_ms": k1["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
+        "bound_by": "bytes",
+        "library_ms": None,
+    }]}
+    log(json.dumps(kernels))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,76 @@
+"""ColumnarBatch — port of ``spark_rapids_tpu/columnar/batch.py``.
+
+A batch is a list of flat ``DeviceColumn``s of exactly ``num_rows`` rows
+(no capacity padding, see ``column.py``) plus its schema.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Sequence
+
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn, HostColumn
+from spark_rapids_tpu_torch.perfcounters import sync_get
+
+
+@dataclasses.dataclass
+class ColumnarBatch:
+    columns: List[DeviceColumn]
+    num_rows: int
+    schema: T.StructType
+
+    @property
+    def capacity(self) -> int:
+        return self.columns[0].capacity if self.columns else self.num_rows
+
+    @property
+    def device(self) -> torch.device:
+        return self.columns[0].device
+
+    @property
+    def row_mask(self) -> torch.Tensor:
+        """(capacity,) bool — every row of an unpadded batch is logical."""
+        return torch.arange(self.capacity, device=self.device) \
+            < self.num_rows
+
+    @staticmethod
+    def from_host_columns(cols: Sequence[HostColumn], names: Sequence[str],
+                          device) -> "ColumnarBatch":
+        n = cols[0].num_rows if cols else 0
+        schema = T.StructType(
+            [T.StructField(nm, c.dtype) for nm, c in zip(names, cols)])
+        return ColumnarBatch([DeviceColumn.from_host(c, device)
+                              for c in cols], n, schema)
+
+    def to_host_columns(self) -> List[HostColumn]:
+        """All buffers of all columns in ONE logical host sync."""
+        n = self.num_rows
+        flat = []
+        for c in self.columns:
+            flat += [c.validity[:n], c.data[:n]]
+        host = sync_get(*flat)
+        return [HostColumn(c.dtype, host[2 * i], data=host[2 * i + 1])
+                for i, c in enumerate(self.columns)]
+
+    def to_pydict(self) -> dict:
+        host = self.to_host_columns()
+        return {f.name: c.to_pylist()
+                for f, c in zip(self.schema.fields, host)}
+
+    def to_rows(self) -> List[tuple]:
+        cols = [c.to_pylist() for c in self.to_host_columns()]
+        return list(zip(*cols)) if cols else [()] * self.num_rows
+
+    @staticmethod
+    def concat(batches: Sequence["ColumnarBatch"]) -> "ColumnarBatch":
+        first = batches[0]
+        cols = [DeviceColumn(c.dtype,
+                             torch.cat([b.columns[i].validity
+                                        for b in batches]),
+                             data=torch.cat([b.columns[i].data
+                                             for b in batches]))
+                for i, c in enumerate(first.columns)]
+        return ColumnarBatch(cols, sum(b.num_rows for b in batches),
+                             first.schema)

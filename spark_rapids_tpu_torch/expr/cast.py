@@ -1,0 +1,140 @@
+"""Cast — the part of ``spark_rapids_tpu/expr/cast.py`` that comparison and
+arithmetic coercion need: integral widening/narrowing, integral -> decimal,
+and decimal -> decimal rescale (HALF_UP; overflow -> null, or an error
+under ANSI), on the int64 path and on the 128-bit limb path.  Any other
+cast raises at evaluation.
+"""
+from __future__ import annotations
+
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
+                                                    column_torch_dtype)
+from spark_rapids_tpu_torch.expr.base import EvalContext, UnaryExpression
+
+_INTEGRAL = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
+
+
+class Cast(UnaryExpression):
+    def __init__(self, child, to: T.DataType, ansi: bool = False):
+        super().__init__(child)
+        self.to = to
+        self._dataType = to
+        self.ansi_override = ansi
+
+    def sql_string(self):
+        return f"CAST({self.child.sql_string()} AS {self.to.simpleString})"
+
+    def _resolve_type(self):
+        self._dataType = self.to
+        self._nullable = True
+
+    def resolve(self, schema):
+        if schema is not None and not self.child.resolved:
+            self.children = [self.child.resolve(schema)]
+        self._resolve_type()
+        self.resolved = True
+        return self
+
+    def do_columnar_eval(self, ctx: EvalContext, cols):
+        c = cols[0]
+        src, dst = self.child.dataType, self.to
+        ansi = ctx.ansi or self.ansi_override
+        if src == dst:
+            return c
+        if isinstance(src, _INTEGRAL) and isinstance(dst, _INTEGRAL):
+            return _int_to_int(ctx, c, src, dst, ansi)
+        if isinstance(src, _INTEGRAL) and isinstance(dst, T.DecimalType):
+            return _int_to_dec(ctx, c, src, dst, ansi)
+        if isinstance(src, T.DecimalType) and isinstance(dst, T.DecimalType):
+            return _dec_to_dec(ctx, c, src, dst, ansi)
+        raise TypeError(f"cast {src} -> {dst} is not ported yet")
+
+
+_I_MIN = {T.ByteType: -(2 ** 7), T.ShortType: -(2 ** 15),
+          T.IntegerType: -(2 ** 31), T.LongType: -(2 ** 63)}
+_I_MAX = {T.ByteType: 2 ** 7 - 1, T.ShortType: 2 ** 15 - 1,
+          T.IntegerType: 2 ** 31 - 1, T.LongType: 2 ** 63 - 1}
+
+
+def _int_to_int(ctx, c, src, dst, ansi):
+    narrowing = (_I_MIN[type(dst)] > _I_MIN[type(src)]
+                 or _I_MAX[type(dst)] < _I_MAX[type(src)])
+    if ansi and narrowing:
+        bad = (c.data < _I_MIN[type(dst)]) | (c.data > _I_MAX[type(dst)])
+        ctx.add_error(bad & c.validity, f"cast overflow to {dst} (ANSI)")
+    # narrowing wraps, Java semantics
+    return DeviceColumn(dst, c.validity,
+                        data=c.data.to(column_torch_dtype(dst)))
+
+
+def _p10(k):
+    return 10 ** int(min(max(k, 0), 18))
+
+
+def _dec_rescale(ctx, data, validity, from_scale, to: T.DecimalType, ansi,
+                 op):
+    from spark_rapids_tpu_torch.expr.arithmetic import _decimal_bound_check
+
+    diff = to.scale - from_scale
+    if diff >= 0:
+        out = data * _p10(diff)
+    else:
+        den = _p10(-diff)
+        q = torch.div(data, den, rounding_mode="trunc")
+        rem = data - q * den
+        round_away = rem.abs() * 2 >= den
+        out = q + torch.where(round_away, torch.sign(data),
+                              torch.zeros_like(data))
+    validity = _decimal_bound_check(ctx, out, to, validity, ansi, op)
+    return out, validity
+
+
+def _dec128_rescale(ctx, hi, lo, validity, from_scale, dst: T.DecimalType,
+                    ansi, op):
+    """(hi, lo) at from_scale -> dst scale/precision; 128-bit limb path."""
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    diff = dst.scale - from_scale
+    over = torch.zeros_like(validity)
+    if diff >= 0:
+        over, hi, lo = D.mul128_pow10(hi, lo, diff)
+    else:
+        hi, lo = D.div128_pow10_half_up(hi, lo, -diff)
+    ok = D.in_bounds(hi, lo, dst.precision) & ~over
+    if ansi:
+        ctx.add_error(~ok & validity, f"decimal {op} overflow (ANSI)")
+    else:
+        validity = validity & ok
+    return hi, lo, validity
+
+
+def _dec_to_dec(ctx, c, src: T.DecimalType, dst: T.DecimalType, ansi):
+    if not src.is_128 and not dst.is_128:
+        data, validity = _dec_rescale(ctx, c.data, c.validity, src.scale,
+                                      dst, ansi, "cast")
+        return DeviceColumn(dst, validity, data=data)
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    hi, lo = D.column_limbs(c)
+    hi, lo, validity = _dec128_rescale(ctx, hi, lo, c.validity, src.scale,
+                                       dst, ansi, "cast")
+    if dst.is_128:
+        return DeviceColumn(dst, validity, data=D.pack(hi, lo))
+    # narrowing: the bound check guarantees |v| < 10^18, so lo IS the value
+    return DeviceColumn(dst, validity, data=lo)
+
+
+def _int_to_dec(ctx, c, src, dst: T.DecimalType, ansi):
+    data = c.data.to(torch.int64)
+    if dst.is_128:
+        from spark_rapids_tpu_torch.expr import decimal128 as D
+
+        hi, lo = D.from64(data)
+        hi, lo, validity = _dec128_rescale(ctx, hi, lo, c.validity, 0, dst,
+                                           ansi, "cast")
+        return DeviceColumn(dst, validity, data=D.pack(hi, lo))
+    data, validity = _dec_rescale(ctx, data, c.validity, 0, dst, ansi,
+                                  "cast")
+    return DeviceColumn(dst, validity, data=data)

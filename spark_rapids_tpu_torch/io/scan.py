@@ -1,0 +1,54 @@
+"""File scan exec — port of ``TpuFileSourceScanExec``
+(``spark_rapids_tpu/io/scan.py``) for Parquet in PERFILE mode: one device
+batch per file, decoded on the device (``io/parquet_device.py``).
+
+The reference's ``_try_device_decode`` catches any decoder failure and
+re-reads the file with pyarrow on the host.  The port has no such path: an
+unsupported feature or a failed kernel raises, naming the file.
+"""
+from __future__ import annotations
+
+from typing import Iterator
+
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.config import (PARQUET_COMPRESSED_TRANSFER,
+                                           PARQUET_DEVICE_DECODE,
+                                           PARQUET_READER_TYPE, TpuConf)
+from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
+from spark_rapids_tpu_torch.plan.nodes import FileSourceScan
+
+
+class TpuFileSourceScanExec(TpuExec):
+    def __init__(self, plan: FileSourceScan, conf: TpuConf, device):
+        super().__init__([])
+        if plan.fmt != "parquet":
+            raise NotOnGpu(f"{plan.fmt} scans are not ported yet")
+        self.plan = plan
+        self.conf = conf
+        self.device = device
+        self.reader_type = str(conf.get(PARQUET_READER_TYPE)).upper()
+        if self.reader_type != "PERFILE":
+            raise NotOnGpu(
+                f"parquet reader type {self.reader_type} is not ported; set "
+                f"{PARQUET_READER_TYPE.key}=PERFILE")
+        if not conf.get(PARQUET_DEVICE_DECODE):
+            raise NotOnGpu(
+                "host Parquet decode is not ported; set "
+                f"{PARQUET_DEVICE_DECODE.key}=true")
+
+    @property
+    def output(self):
+        return self.plan.output
+
+    def describe(self):
+        return (f"TpuFileSourceScan {self.plan.fmt} "
+                f"{len(self.plan.paths)} files mode={self.reader_type}")
+
+    def execute_columnar(self) -> Iterator[ColumnarBatch]:
+        from spark_rapids_tpu_torch.io.parquet_device import (
+            read_parquet_device)
+
+        compressed = bool(self.conf.get(PARQUET_COMPRESSED_TRANSFER))
+        for path in self.plan.paths:
+            yield read_parquet_device(path, self.plan.output, self.device,
+                                      compressed)

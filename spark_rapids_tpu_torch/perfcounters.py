@@ -1,0 +1,76 @@
+"""Performance accounting — the counting half of ``spark_rapids_tpu/perfcounters.py``.
+
+The counts are the portable truth about engine quality: how many host
+round trips a query costs and how many bytes cross the host<->device link.
+The reference counts syncs by patching jax's array dunders; the port instead
+routes every device->host read of the engine through :func:`sync_get`, and
+every upload through :func:`count_h2d`.  Kernel launches are counted by each
+kernel's wrapper (``pallas/decode.py::unpack_launches``).
+
+Counters are process-global, read with ``snapshot``/``since``.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+_LOCK = threading.Lock()
+
+COUNTERS: Dict[str, int] = {
+    "host_syncs": 0,
+    "bytes_d2h": 0,
+    "bytes_h2d": 0,
+    # bytes_h2d counts PHYSICAL link bytes (a compressed page counts its
+    # compressed size); bytes_h2d_logical the decoded bytes they carry
+    "bytes_h2d_logical": 0,
+    "pages_device_decompressed": 0,
+    "chunk_decode_fallbacks": 0,
+    "scan_transfer_ns": 0,
+    "snappy_gather_passes": 0,
+}
+
+
+def bump(key: str, n: int = 1) -> None:
+    """Thread-safe increment (``COUNTERS[k] += n`` is not atomic)."""
+    with _LOCK:
+        COUNTERS[key] = COUNTERS.get(key, 0) + n
+
+
+def snapshot() -> Dict[str, int]:
+    with _LOCK:
+        return dict(COUNTERS)
+
+
+def since(snap: Dict[str, int]) -> Dict[str, int]:
+    cur = snapshot()
+    return {k: cur[k] - snap.get(k, 0) for k in cur}
+
+
+def count_h2d(nbytes: int, logical: Optional[int] = None) -> None:
+    """Host->device transfer accounting (called from upload sites)."""
+    bump("bytes_h2d", int(nbytes))
+    bump("bytes_h2d_logical", int(nbytes if logical is None else logical))
+
+
+def to_device(arr: np.ndarray, device, logical: Optional[int] = None
+              ) -> torch.Tensor:
+    """Upload one numpy array, counting its bytes."""
+    count_h2d(arr.nbytes, logical)
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:      # torch.from_numpy wants a writable view
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
+
+
+def sync_get(*tensors: torch.Tensor):
+    """Fetch tensors to host numpy as ONE logical host sync."""
+    bump("host_syncs")
+    out = []
+    for t in tensors:
+        a = t.detach().cpu().numpy()
+        bump("bytes_d2h", a.nbytes)
+        out.append(a)
+    return out

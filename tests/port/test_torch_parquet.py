@@ -1,0 +1,182 @@
+"""The port's Parquet reader and writer against pyarrow.
+
+Files pyarrow writes read identically through the port, over dictionary
+or plain encoding, snappy or no codec, with or without nulls, data pages
+v1 and v2, for INT32, INT64, DATE and decimal(12,2) stored as INT64; and
+files the port writes read back identically through pyarrow and the port.
+"""
+import datetime
+import itertools
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from spark_rapids_tpu_torch import perfcounters as PC
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.column import HostColumn
+from spark_rapids_tpu_torch.io.parquet_device import read_parquet_device
+from spark_rapids_tpu_torch.io.parquet_encode import write_parquet_device
+
+CPU = torch.device("cpu")
+N = 6000
+_EPOCH = datetime.date(1970, 1, 1)
+
+
+def _column(kind: str, rng, nulls: bool):
+    """(pyarrow array, port type, storage values, validity)."""
+    import pyarrow as pa
+    from decimal import Decimal
+
+    valid = rng.random(N) > 0.15 if nulls else np.ones(N, bool)
+    if kind == "int32":
+        v = rng.integers(-500, 500, N).astype(np.int32)
+        arr, dt = pa.array(v, pa.int32(), mask=~valid), T.INT
+    elif kind == "int64":
+        v = rng.integers(-2 ** 40, 2 ** 40, N).astype(np.int64)
+        v[::7] = v[3]                            # some repeats for the dict
+        arr, dt = pa.array(v, pa.int64(), mask=~valid), T.LONG
+    elif kind == "date":
+        v = rng.integers(8035, 10440, N).astype(np.int32)
+        arr = pa.array(v.astype("datetime64[D]"), pa.date32(), mask=~valid)
+        dt = T.DATE
+    else:                                        # decimal(12,2) as INT64
+        v = rng.integers(-10 ** 6, 10 ** 6, N).astype(np.int64)
+        arr = pa.array([Decimal(int(x)).scaleb(-2) if ok else None
+                        for x, ok in zip(v, valid)], pa.decimal128(12, 2))
+        dt = T.DecimalType(12, 2)
+    return arr, dt, v, valid
+
+
+_MATRIX = list(itertools.product(
+    ["dict", "plain"], ["snappy", "none"], [True, False], ["1.0", "2.0"]))
+
+
+@pytest.mark.parametrize("enc,codec,nulls,page_version", _MATRIX,
+                         ids=["-".join(map(str, m)) for m in _MATRIX])
+def test_port_reads_pyarrow_files(tmp_path, enc, codec, nulls, page_version):
+    pa = pytest.importorskip("pyarrow")
+    pq = pytest.importorskip("pyarrow.parquet")
+    rng = np.random.default_rng(
+        _MATRIX.index((enc, codec, nulls, page_version)))
+    kinds = ["int32", "int64", "date", "decimal"]
+    cols = {k: _column(k, rng, nulls) for k in kinds}
+    path = str(tmp_path / "f.parquet")
+    pq.write_table(pa.table({k: c[0] for k, c in cols.items()}), path,
+                   compression=codec, use_dictionary=(enc == "dict"),
+                   data_page_version=page_version, data_page_size=2048,
+                   row_group_size=2500, store_decimal_as_integer=True)
+    schema = T.StructType([T.StructField(k, cols[k][1]) for k in kinds])
+    for compressed in (True, False):
+        batch = read_parquet_device(path, schema, CPU, compressed)
+        assert batch.num_rows == N
+        for k, c in zip(kinds, batch.columns):
+            _, dt, v, valid = cols[k]
+            np.testing.assert_array_equal(c.validity.numpy(), valid)
+            np.testing.assert_array_equal(c.data.numpy()[valid], v[valid])
+            assert not c.data.numpy()[~valid].any()   # null rows zero-fill
+        # every column arrives exactly as pyarrow decodes it
+        want = pq.read_table(path).to_pydict()
+        got = batch.to_pydict()
+        for k in kinds:
+            assert got[k] == want[k], k
+
+
+@pytest.mark.parametrize("codec,use_dict,nullable",
+                         list(itertools.product(["snappy", "none"],
+                                                [True, False],
+                                                [True, False])))
+def test_port_written_files_read_back(tmp_path, codec, use_dict, nullable):
+    pq = pytest.importorskip("pyarrow.parquet")
+    rng = np.random.default_rng(7)
+    n = 5001
+    schema = T.StructType([T.StructField("i", T.INT, nullable),
+                           T.StructField("l", T.LONG, nullable),
+                           T.StructField("d", T.DATE, nullable)])
+    valid = rng.random(n) > 0.2 if nullable else np.ones(n, bool)
+    data = [rng.integers(-40, 40, n).astype(np.int32),
+            rng.integers(-2 ** 50, 2 ** 50, n).astype(np.int64) // 977,
+            rng.integers(8000, 9000, n).astype(np.int32)]
+    cols = [HostColumn(f.dataType, valid, data=d)
+            for f, d in zip(schema.fields, data)]
+    path = str(tmp_path / "port.parquet")
+    write_parquet_device(path, schema, cols, n, compression=codec,
+                         use_dict=use_dict, device=CPU)
+    tbl = pq.read_table(path)
+    for f, d in zip(schema.fields, data):
+        got = tbl.column(f.name).to_pylist()
+        want = [(_EPOCH + datetime.timedelta(days=int(x))
+                 if isinstance(f.dataType, T.DateType) else int(x))
+                if ok else None for x, ok in zip(d, valid)]
+        assert got == want, f.name
+    batch = read_parquet_device(path, schema, CPU)
+    for c, d in zip(batch.columns, data):
+        np.testing.assert_array_equal(c.validity.numpy(), valid)
+        np.testing.assert_array_equal(c.data.numpy()[valid], d[valid])
+
+
+def test_writer_packs_one_run_per_page_and_reader_counts_fallbacks(tmp_path):
+    from spark_rapids_tpu_torch.io.parquet_native import (read_column_pages,
+                                                          read_footer,
+                                                          split_hybrid_runs)
+
+    rng = np.random.default_rng(2)
+    n = 4099
+    schema = T.StructType([T.StructField("q", T.LONG, False)])
+    data = rng.integers(1, 51, n).astype(np.int64) * 100
+    path = str(tmp_path / "q.parquet")
+    write_parquet_device(path, schema,
+                         [HostColumn.from_numpy(data, T.LONG)], n,
+                         device=CPU)
+    raw = open(path, "rb").read()
+    groups, names = read_footer(raw)
+    cp = read_column_pages(raw, groups[0].columns[0], n)
+    (page,) = cp.pages
+    assert page.index_bit_width == 6 and len(cp.dictionary) == 50
+    runs = split_hybrid_runs(page.value_buf, 6, n)
+    assert len(runs) == 1 and runs[0].is_packed and runs[0].count == n
+    snap = PC.snapshot()
+    batch = read_parquet_device(path, schema, CPU, compressed=True)
+    np.testing.assert_array_equal(batch.columns[0].data.numpy(), data)
+    # random 6-bit indices do not compress: the page ships decoded
+    assert PC.since(snap)["chunk_decode_fallbacks"] == 1
+
+
+@pytest.mark.parametrize("codec", ["snappy", "none"])
+def test_plain_boolean_pages_and_unsupported_encoding(tmp_path, codec):
+    pa = pytest.importorskip("pyarrow")
+    pq = pytest.importorskip("pyarrow.parquet")
+    from spark_rapids_tpu_torch.io.parquet_native import _Unsupported
+
+    rng = np.random.default_rng(12)
+    v, valid = rng.random(N) < 0.5, rng.random(N) > 0.1
+    schema = T.StructType([T.StructField("b", T.BOOLEAN)])
+    path = str(tmp_path / "b.parquet")
+    pq.write_table(pa.table({"b": pa.array(v, mask=~valid)}), path,
+                   compression=codec, data_page_size=512)
+    for compressed in (True, False):
+        col = read_parquet_device(path, schema, CPU, compressed).columns[0]
+        np.testing.assert_array_equal(col.validity.numpy(), valid)
+        np.testing.assert_array_equal(col.data.numpy()[valid], v[valid])
+    # v2 pages RLE-encode booleans, outside the subset: the port raises
+    # where the reference would re-read the file with pyarrow
+    pq.write_table(pa.table({"b": pa.array(v, mask=~valid)}), path,
+                   compression=codec, data_page_version="2.0")
+    with pytest.raises(_Unsupported, match="encoding 3"):
+        read_parquet_device(path, schema, CPU)
+
+
+def test_writer_defaults_to_cuda_and_raises_without_a_gpu(tmp_path):
+    schema = T.StructType([T.StructField("q", T.LONG, False)])
+    cols = [HostColumn.from_numpy(np.arange(8, dtype=np.int64), T.LONG)]
+    path = str(tmp_path / "default.parquet")
+    if torch.cuda.is_available():
+        write_parquet_device(path, schema, cols, 8)
+        np.testing.assert_array_equal(
+            read_parquet_device(path, schema, CPU).columns[0].data.numpy(),
+            np.arange(8))
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            write_parquet_device(path, schema, cols, 8)
+        assert not os.path.exists(path)

@@ -1,0 +1,97 @@
+"""Run JAX-package reference code in a child process.
+
+The full suite (``pytest tests/``) runs every test in one process, and that
+process is known to crash inside an XLA compile after roughly a thousand
+compiles (ROADMAP.md, fault R2).  Port tests collect first (``tests/port/``
+sorts before ``tests/test_*``), so any XLA program they compiled in-process
+would move that crash earlier.  Reference computations that compile
+(interpret-mode Pallas, jitted limb math, the JAX device session) therefore
+run in one child interpreter, started at first use and shared by every
+port test module, and hand back numpy arrays.  Numpy-only references
+(``expand_runs_host``, ``decompress_to_host``) and the CPU oracle session
+(no compiles) run in-process.
+"""
+from __future__ import annotations
+
+import atexit
+import json
+import os
+import select
+import subprocess
+import sys
+import tempfile
+import textwrap
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+_WORKER_SRC = r'''
+import json, sys, traceback
+import numpy as np
+for line in sys.stdin:
+    job = json.loads(line)
+    try:
+        inp = dict(np.load(job["inp"], allow_pickle=False))
+        out = {}
+        exec(compile(job["code"], "<jax reference>", "exec"),
+             {"np": np, "inp": inp, "out": out})
+        np.savez(job["out"], **out)
+        reply = {"ok": True}
+    except BaseException:
+        reply = {"ok": False, "error": traceback.format_exc()}
+    sys.stdout.write(json.dumps(reply) + "\n")
+    sys.stdout.flush()
+'''
+
+_worker = None
+
+
+def _stop_worker():
+    if _worker is not None and _worker.poll() is None:
+        _worker.stdin.close()
+        try:
+            _worker.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            _worker.kill()
+            _worker.wait(timeout=30)
+
+
+def _get_worker() -> subprocess.Popen:
+    global _worker
+    if _worker is None or _worker.poll() is not None:
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+        log = tempfile.TemporaryFile()   # the child's warnings, unread
+        _worker = subprocess.Popen(
+            [sys.executable, "-c", _WORKER_SRC], cwd=REPO, env=env,
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=log,
+            text=True)
+        log.close()
+        atexit.register(_stop_worker)
+    return _worker
+
+
+def run_jax(code: str, tmp_path, inputs=None, timeout: int = 300) -> dict:
+    """Execute ``code`` with ``inp`` (dict of the ``inputs`` arrays), an
+    empty dict ``out`` and ``np`` in scope; return ``out`` as numpy
+    arrays.  Raises with the child's traceback if the code fails."""
+    inp = os.path.join(str(tmp_path), "jaxref_in.npz")
+    outp = os.path.join(str(tmp_path), "jaxref_out.npz")
+    np.savez(inp, **(inputs or {}))
+    w = _get_worker()
+    w.stdin.write(json.dumps({"code": textwrap.dedent(code), "inp": inp,
+                              "out": outp}) + "\n")
+    w.stdin.flush()
+    ready, _, _ = select.select([w.stdout], [], [], timeout)
+    if not ready:
+        w.kill()
+        w.wait(timeout=30)
+        raise TimeoutError(f"JAX reference took over {timeout} s")
+    line = w.stdout.readline()
+    if not line:
+        raise RuntimeError(f"JAX reference process died (rc {w.poll()})")
+    reply = json.loads(line)
+    if not reply["ok"]:
+        raise RuntimeError(f"JAX reference failed:\n{reply['error']}")
+    return dict(np.load(outp, allow_pickle=False))
