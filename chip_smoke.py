@@ -24,8 +24,21 @@ Phases, each failing the run at its first mismatch:
    K1's device time inside the query and the card's idle share;
 5. Q6 in memory (``LocalTableScan``) on the same arrays, exact;
 6. K1 timed with CUDA events at the pages the Q6 files hold, beside its
-   bound and its plain version; the torch snappy gather checked against
-   the host decompressor on the same pages.
+   bound and its plain version: with the L2 cache cold (a 256 MB scratch
+   write before each launch, one pair of events per launch, the median)
+   and warm, back to back and one launch alone between its events; as a
+   yardstick, a ``fill_`` of the same output L2-cold; the torch snappy
+   gather checked against the host decompressor on the same pages;
+7. K1 on Spark-shaped batches at SF10 volume: for each index width of the
+   Q6 files, one file's worth of values (7,498,256) as 375 pages of
+   20,000 values in 504-value bit-packed runs, as parquet-mr and Arrow
+   write them; one batched launch timed against the same pages launched
+   one by one, both exact against the plain version, and the host's cost
+   of parsing the runs and building the batch's table;
+8. Q6 on the committed multi-page fixture (``tests/port/
+   q6_lineitem_pages.parquet``, written by pyarrow with 20,000-row pages;
+   ``tests/port/make_pages_fixture.py``): exact against numpy on arrays
+   regenerated from the seed, with one K1 launch per column chunk.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -50,6 +63,14 @@ K1_BIG_VALUES = 64 << 20           # values in the largest K1 check page
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 K1_SOURCE = "spark_rapids_tpu_torch/csrc/unpack_runs.cu"
 K1_REPLACES = "spark_rapids_tpu/pallas/decode.py:31"
+L2_FLUSH_BYTES = 256 << 20         # written before each L2-cold launch
+COLD_ITERS = 20
+FILE_VALUES = SF10_ROWS // N_FILES  # values of one SF10 file's chunk
+SPARK_PAGE_VALUES = 20_000         # parquet-mr and Arrow page row limit
+SPARK_RUN_VALUES = 504             # 63 groups, parquet-mr's packed run
+FIXTURE = os.path.join("tests", "port", "q6_lineitem_pages.parquet")
+FIXTURE_ROWS = 100_000
+FIXTURE_SEED = 20261017
 
 
 def log(*a):
@@ -81,6 +102,13 @@ def lineitem_q6(n: int, scale: float, seed: int):
             "l_extendedprice": quantity * retail,
             "l_discount": discount,
             "l_shipdate": shipdate}
+
+
+def fixture_lineitem():
+    """The Q6 arrays of the multi-page fixture, from its seed: lineitem
+    at the scale factor whose table holds ``FIXTURE_ROWS`` rows."""
+    return lineitem_q6(FIXTURE_ROWS, FIXTURE_ROWS / (SF10_ROWS / 10),
+                       FIXTURE_SEED)
 
 
 def q6_reference(li) -> Decimal:
@@ -197,11 +225,11 @@ def check_k1(device, seed: int):
     for bw, total, max_run in cases:
         buf, total = random_hybrid_stream(rng, bw, total, max_run)
         runs = split_hybrid_runs(buf, bw, total)
-        table = decode.run_table(runs, total)
+        table = decode.run_table(runs, total, bw)
         dev_buf = to_device(np.frombuffer(buf, np.uint8), device)
-        dev_tab = {k: to_device(v, device) for k, v in table.items()}
-        got = decode.unpack_runs(dev_buf, 0, dev_tab, bw, total)
-        want = decode.unpack_runs_plain(dev_buf, 0, dev_tab, bw, total)
+        dev_tab = to_device(table, device)
+        got = decode.unpack_runs(dev_buf, 0, dev_tab, total)
+        want = decode.unpack_runs_plain(dev_buf, 0, dev_tab, total)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = int((got != want).sum())
@@ -249,6 +277,7 @@ def check_decimal128(device, seed: int):
 
 
 def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``iters`` back-to-back calls (L2 warm)."""
     import torch
 
     for _ in range(warmup):
@@ -262,6 +291,39 @@ def _cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+_flush = None
+SLEEP_CYCLES = 200_000             # ~0.1 ms: the host queues the launch
+
+
+def _event_time_ms(fn, iters: int, cold: bool) -> float:
+    """Median device time of one call of ``fn``, each call between its own
+    pair of events.  Before each pair the card sleeps ~0.1 ms, touching no
+    memory, so that the host has queued the call before the first event
+    fires and the pair holds the kernel alone, not the host's launch cost.
+    ``cold``: a 256 MB scratch write before each call leaves the L2 cache
+    holding none of its inputs; else the previous call left them there."""
+    import torch
+
+    global _flush
+    if cold and _flush is None:
+        _flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                             device="cuda")
+    fn()
+    pairs = []
+    for _ in range(iters):
+        if cold:
+            _flush.fill_(1)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        pairs.append((t0, t1))
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
 
 
 def main_path_pages(path: str):
@@ -281,8 +343,9 @@ def main_path_pages(path: str):
 
 
 def time_k1_and_gather(paths, device):
-    """K1 at every index page of the first file, and the snappy gather on
-    the same stored pages against the host decompressor."""
+    """K1 at every index page of the first file, L2 cold and warm, and the
+    snappy gather on the same stored pages against the host
+    decompressor."""
     import torch
 
     from spark_rapids_tpu_torch.io.parquet_native import split_hybrid_runs
@@ -292,32 +355,43 @@ def time_k1_and_gather(paths, device):
                                                           snappy_gather)
     from spark_rapids_tpu_torch.perfcounters import to_device
 
-    totals = {"ms": 0.0, "plain_ms": 0.0, "bound_bytes": 0}
+    totals = {"ms": 0.0, "ms_cold": 0.0, "fill_ms": 0.0, "plain_ms": 0.0,
+              "bound_bytes": 0}
     max_err = 0
     for name, page in main_path_pages(paths[0]):
         bw, n = page.index_bit_width, page.num_values
         runs = split_hybrid_runs(page.value_buf, bw, n)
-        table = decode.run_table(runs, n)
+        table = decode.run_table(runs, n, bw, len(page.value_buf))
         dev_buf = to_device(np.frombuffer(page.value_buf, np.uint8), device)
-        dev_tab = {k: to_device(v, device) for k, v in table.items()}
+        dev_tab = to_device(table, device)
 
         def kernel():
-            return decode.unpack_runs(dev_buf, 0, dev_tab, bw, n)
+            return decode.unpack_runs(dev_buf, 0, dev_tab, n)
 
         def plain():
-            return decode.unpack_runs_plain(dev_buf, 0, dev_tab, bw, n)
+            return decode.unpack_runs_plain(dev_buf, 0, dev_tab, n)
 
+        ms_cold = _event_time_ms(kernel, COLD_ITERS, cold=True)
         ms = _cuda_time_ms(kernel, 20)
+        ms_alone = _event_time_ms(kernel, 20, cold=False)
         plain_ms = _cuda_time_ms(plain, 3, warmup=1)
+        # yardstick: writing the output alone, under the same protocol
+        out = torch.empty(n, dtype=torch.int32, device=device)
+        fill_ms = _event_time_ms(lambda: out.fill_(0), COLD_ITERS,
+                                 cold=True)
         err = int((kernel().to(torch.int64) - plain().to(torch.int64))
                   .abs().max())
         max_err = max(max_err, err)
-        nbytes = decode.bound_bytes(table, bw, n)
+        nbytes = decode.bound_bytes(table, n)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        log(f"K1 page {name}: bw={bw} values={n} runs={len(runs)} "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({nbytes} bytes)")
+        log(f"K1 page {name}: bw={bw} values={n} runs={len(runs)} kernel "
+            f"{ms_cold:.4f} ms L2-cold ({bound_ms / ms_cold:.2f} of bound), "
+            f"{ms:.4f} ms warm back to back, {ms_alone:.4f} ms warm alone; "
+            f"plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} "
+            f"bytes); the output alone (fill_) {fill_ms:.4f} ms L2-cold")
         totals["ms"] += ms
+        totals["ms_cold"] += ms_cold
+        totals["fill_ms"] += fill_ms
         totals["plain_ms"] += plain_ms
         totals["bound_bytes"] += nbytes
         # the torch snappy gather on the stored page, against the host
@@ -336,7 +410,134 @@ def time_k1_and_gather(paths, device):
     if max_err:
         fail(f"K1 differs from its plain version at the main-path pages "
              f"(max_abs_err {max_err})")
+    bound_ms = totals["bound_bytes"] / HBM_BYTES_PER_S * 1e3
+    log(f"K1 main-path pages: {totals['ms_cold']:.4f} ms L2-cold "
+        f"({bound_ms / totals['ms_cold']:.2f} of bound), {totals['ms']:.4f}"
+        f" ms warm back to back, bound {bound_ms:.4f} ms; the outputs alone"
+        f" (fill_) {totals['fill_ms']:.4f} ms L2-cold")
     return totals, max_err
+
+
+def spark_pages(rng, bw: int, total: int):
+    """``total`` values of width ``bw`` as parquet-mr and Arrow write a
+    column chunk: pages of ``SPARK_PAGE_VALUES`` values, each a row of
+    bit-packed runs of ``SPARK_RUN_VALUES`` values; random indices."""
+    pages = []
+    for lo in range(0, total, SPARK_PAGE_VALUES):
+        n = min(SPARK_PAGE_VALUES, total - lo)
+        groups = [SPARK_RUN_VALUES // 8] * (n // SPARK_RUN_VALUES)
+        if n % SPARK_RUN_VALUES:
+            groups.append(-(-(n % SPARK_RUN_VALUES) // 8))
+        payload = rng.integers(0, 256, sum(groups) * bw,
+                               dtype=np.uint8).tobytes()
+        parts, at = [], 0
+        for g in groups:
+            parts += [_varint((g << 1) | 1), payload[at:at + g * bw]]
+            at += g * bw
+        pages.append((b"".join(parts), n))
+    return pages
+
+
+def time_spark_batches(device, seed: int):
+    """K1 on one SF10 file's worth of Spark-shaped pages for each index
+    width of the Q6 files: one batched launch against the same pages
+    launched one by one; both exact against the plain version."""
+    import torch
+
+    from spark_rapids_tpu_torch.io.parquet_native import split_hybrid_runs
+    from spark_rapids_tpu_torch.pallas import decode
+    from spark_rapids_tpu_torch.perfcounters import to_device
+
+    rng = np.random.default_rng(seed)
+    totals = {"ms_cold": 0.0, "bound_bytes": 0}
+    for bw in (4, 6, 12, 21):
+        pages = spark_pages(rng, bw, FILE_VALUES)
+        t0 = time.perf_counter()
+        entries, base = [], 0
+        for buf, n in pages:
+            entries.append((split_hybrid_runs(buf, bw, n), n, bw, base,
+                            len(buf)))
+            base += len(buf)
+        table, total = decode.batch_run_table(entries)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        dev_buf = to_device(np.frombuffer(b"".join(b for b, _ in pages),
+                                          np.uint8), device)
+        dev_tab = to_device(table, device)
+        page_tabs = [(e[3], e[1], to_device(decode.run_table(*e[:3], e[4]),
+                                            device)) for e in entries]
+
+        def batched():
+            return decode.unpack_runs(dev_buf, 0, dev_tab, total)
+
+        def one_by_one():
+            return [decode.unpack_runs(dev_buf, b, t, n)
+                    for b, n, t in page_tabs]
+
+        want = decode.unpack_runs_plain(dev_buf, 0, dev_tab, total)
+        before = decode.unpack_launches
+        got = batched()
+        launches = decode.unpack_launches - before
+        if not torch.equal(got, want) or not torch.equal(
+                torch.cat(one_by_one()), want):
+            fail(f"K1 on the Spark-shaped batch, bw={bw}, differs from its "
+                 "plain version")
+        ms_cold = _event_time_ms(batched, COLD_ITERS, cold=True)
+        ms = _cuda_time_ms(batched, 20)
+        ms_alone = _event_time_ms(batched, 20, cold=False)
+        pages_cold = _event_time_ms(one_by_one, 5, cold=True)
+        plain_ms = _cuda_time_ms(
+            lambda: decode.unpack_runs_plain(dev_buf, 0, dev_tab, total), 3,
+            warmup=1)
+        nbytes = decode.bound_bytes(table, total)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"K1 Spark-shaped bw={bw}: {len(pages)} pages, {len(table)} "
+            f"rows, {total} values; one launch ({launches}) {ms_cold:.4f} ms "
+            f"L2-cold ({bound_ms / ms_cold:.2f} of bound), {ms:.4f} ms warm "
+            f"back to back, {ms_alone:.4f} ms warm alone; {len(pages)} "
+            f"launches one by one {pages_cold:.4f} ms L2-cold;"
+            f" plain {plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({nbytes} "
+            f"bytes); host runs + table {host_ms:.1f} ms; equal")
+        totals["ms_cold"] += ms_cold
+        totals["bound_bytes"] += nbytes
+        del dev_buf, dev_tab, page_tabs, got, want
+    return totals
+
+
+def run_fixture_q6(device):
+    """Q6 on the committed multi-page fixture, exact against numpy; the
+    launch count is read around one collect."""
+    import torch
+
+    from spark_rapids_tpu_torch.io.parquet_device import read_parquet_device
+    from spark_rapids_tpu_torch.pallas import decode
+    from spark_rapids_tpu_torch.session import TpuSession
+
+    path = os.path.join(HERE, FIXTURE)
+    if not os.path.exists(path):
+        fail(f"fixture {FIXTURE} missing")
+    li = fixture_lineitem()
+    want = q6_reference(li)
+    _, rsch = schemas()
+    batch = read_parquet_device(path, rsch, device)
+    for f, c in zip(rsch.fields, batch.columns):
+        if not np.array_equal(c.data.cpu().numpy(), li[f.name]):
+            fail(f"fixture column {f.name} differs from numpy")
+    s = TpuSession({"spark.rapids.sql.format.parquet.decode.device": True,
+                    "spark.rapids.sql.format.parquet.reader.type":
+                    "PERFILE"}, device=device)
+    q = q6_query(s.read.schema(rsch).parquet(path))
+    torch.cuda.synchronize()
+    decode.unpack_launches = 0
+    got = q.collect()
+    launches = decode.unpack_launches
+    if got != [(want,)]:
+        fail(f"Q6 on the fixture: {got} != {want}")
+    if launches != len(rsch.fields):
+        fail(f"Q6 on the fixture launched K1 {launches} times, not once "
+             "per column chunk")
+    log(f"Q6 fixture ({FIXTURE_ROWS} rows, 20,000-row pages): revenue "
+        f"{got[0][0]} == numpy reference; columns equal; "
+        f"unpack_launches={launches}")
 
 
 def check_gather_chains(device, seed: int):
@@ -569,6 +770,9 @@ def main(argv=None) -> int:
 
     # 6. K1 timing at the main path's pages, snappy gather on them
     k1, err = time_k1_and_gather(paths, device)
+    # 7. K1 on Spark-shaped batches; 8. Q6 on the multi-page fixture
+    spark = time_spark_batches(device, args.seed)
+    run_fixture_q6(device)
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
@@ -581,6 +785,9 @@ def main(argv=None) -> int:
         "bound_ms": k1["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
         "bound_by": "bytes",
         "library_ms": None,
+        "ms_l2_cold": k1["ms_cold"],
+        "spark_ms_l2_cold": spark["ms_cold"],
+        "spark_bound_ms": spark["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
     }]}
     log(json.dumps(kernels))
     log(smi)

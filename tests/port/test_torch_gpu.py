@@ -14,7 +14,7 @@ from spark_rapids_tpu_torch.io.parquet_encode import write_parquet_device
 from spark_rapids_tpu_torch.io.parquet_native import split_hybrid_runs
 from spark_rapids_tpu_torch.pallas import decode
 from spark_rapids_tpu_torch.session import TpuSession, col, lit, sum_
-from torch_port_data import hybrid_stream
+from torch_port_data import hybrid_stream, page_batch
 
 
 def _need_gpu():
@@ -30,12 +30,11 @@ def test_k1_kernel_matches_plain_on_gpu():
         buf, total = hybrid_stream(rng, bw, 100_000, 5000)
         runs = split_hybrid_runs(buf, bw, total)
         dev = torch.from_numpy(np.frombuffer(buf, np.uint8).copy()).cuda()
-        table = {k: torch.from_numpy(v).cuda()
-                 for k, v in decode.run_table(runs, total).items()}
+        table = torch.from_numpy(decode.run_table(runs, total, bw)).cuda()
         before = decode.unpack_launches
-        got = decode.unpack_runs(dev, 0, table, bw, total)
+        got = decode.unpack_runs(dev, 0, table, total)
         assert decode.unpack_launches == before + 1
-        want = decode.unpack_runs_plain(dev, 0, table, bw, total)
+        want = decode.unpack_runs_plain(dev, 0, table, total)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
 
@@ -43,11 +42,65 @@ def test_k1_kernel_matches_plain_on_gpu():
 @pytest.mark.gpu
 def test_k1_rejects_mixed_devices():
     _need_gpu()
-    table = {k: torch.zeros(1, dtype=torch.int64) for k in
-             ("out_off", "count", "is_packed", "byte_off", "nbytes", "value")}
+    table = torch.from_numpy(decode.run_table([], 8, 3))
     with pytest.raises(ValueError):
         decode.unpack_runs(torch.zeros(8, dtype=torch.uint8, device="cuda"),
-                           0, table, 3, 8)
+                           0, table, 8)
+
+
+# multi-page batches: (kind, bw, count) per page, as torch_port_data makes
+_GPU_BATCHES = [
+    [("spark", bw, 20_000) for bw in (11, 11, 12, 12, 13)],
+    [("ones", bw, 30_000) for bw in (2, 9, 24)],
+    [("cut", bw, 25_000) for bw in (1, 7, 16, 21, 24)],
+    [("one_run", 12, 100_000), ("ones", 12, 5_000), ("zero", 0, 77),
+     ("spark", 13, 40_000), ("cut", 24, 9_000), ("one_run", 1, 30_001)],
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", range(len(_GPU_BATCHES)))
+def test_k1_batches_match_plain_on_gpu(spec):
+    """One launch over a batch of pages, its stream 13 bytes into the
+    buffer, equals the plain version exactly."""
+    _need_gpu()
+    b = page_batch(np.random.default_rng(40 + spec), _GPU_BATCHES[spec])
+    dev = torch.from_numpy(np.frombuffer(bytes(13) + b["buf"],
+                                         np.uint8).copy()).cuda()
+    table = torch.from_numpy(b["table"]).cuda()
+    before = decode.unpack_launches
+    got = decode.unpack_runs(dev, 13, table, b["total"])
+    assert decode.unpack_launches == before + 1
+    want = decode.unpack_runs_plain(dev, 13, table, b["total"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_many_page_chunks_take_one_launch_each():
+    """The committed fixture (5 dictionary pages a column) decodes with one
+    K1 launch per column chunk, on both transfer paths, equal to the arrays
+    regenerated from its seed."""
+    _need_gpu()
+    import os
+    import sys
+
+    from spark_rapids_tpu_torch.io.parquet_device import read_parquet_device
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    sys.path.insert(0, root)
+    from chip_smoke import FIXTURE, fixture_lineitem, schemas
+
+    li = fixture_lineitem()
+    _, rsch = schemas()
+    for compressed in (True, False):
+        before = decode.unpack_launches
+        batch = read_parquet_device(os.path.join(root, FIXTURE), rsch,
+                                    torch.device("cuda"), compressed)
+        assert decode.unpack_launches - before == len(rsch.fields)
+        for f, c in zip(rsch.fields, batch.columns):
+            np.testing.assert_array_equal(c.data.cpu().numpy(), li[f.name])
 
 
 @pytest.mark.gpu

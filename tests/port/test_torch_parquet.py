@@ -4,6 +4,8 @@ Files pyarrow writes read identically through the port, over dictionary
 or plain encoding, snappy or no codec, with or without nulls, data pages
 v1 and v2, for INT32, INT64, DATE and decimal(12,2) stored as INT64; and
 files the port writes read back identically through pyarrow and the port.
+Files with pyarrow's 20,000-row pages decode each dictionary-encoded
+chunk with one K1 call, equal to decoding its pages one by one.
 """
 import datetime
 import itertools
@@ -180,3 +182,139 @@ def test_writer_defaults_to_cuda_and_raises_without_a_gpu(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             write_parquet_device(path, schema, cols, 8)
         assert not os.path.exists(path)
+
+
+def _per_page_chunk(info, dt, cp, compressed):
+    """Decode a chunk page by page, with one K1 call per page and per
+    definition-level stream: the first slice's per-page decode."""
+    from spark_rapids_tpu_torch.columnar.column import column_torch_dtype
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+    from spark_rapids_tpu_torch.io.parquet_native import split_hybrid_runs
+    from spark_rapids_tpu_torch.pallas import decode
+
+    dictionary = (PC.to_device(cp.dictionary, CPU)
+                  if cp.dictionary is not None else None)
+    vals, valids = [], []
+    for page in cp.pages:
+        if page.encoding == 0:                   # PLAIN
+            plain = (PD._decode_plain_page_compressed if compressed
+                     else PD._decode_plain_page)
+            v, ok = plain(page, info, dt, CPU)
+        else:
+            bw = page.index_bit_width
+            if compressed:
+                dev = PD._page_dev_region(page, CPU)
+                ok, ndef = PD._expand_defined_dev(page, dev)
+                base = page.value_off
+            else:
+                ok, ndef = PD.expand_defined(page, CPU)
+                dev = PC.to_device(np.frombuffer(page.value_buf, np.uint8),
+                                   CPU)
+                base = 0
+            runs = split_hybrid_runs(page.value_buf, bw, ndef)
+            idx = decode.expand_runs_dev(runs, dev, base, ndef, bw)
+            v = PD._dict_values(dictionary, idx).to(column_torch_dtype(dt))
+            v = PD.scatter_present(v, ok, ndef, page.num_values)
+        vals.append(v)
+        valids.append(ok)
+    return torch.cat(vals), torch.cat(valids)
+
+
+def _counted(monkeypatch):
+    """Count calls of the K1 wrapper (on the CPU: its plain version)."""
+    from spark_rapids_tpu_torch.pallas import decode
+
+    calls = [0]
+    real = decode.unpack_runs
+
+    def counting(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(decode, "unpack_runs", counting)
+    return calls
+
+
+_PAGES = list(itertools.product(["snappy", "none"], [False, True],
+                                ["1.0", "2.0"]))
+
+
+@pytest.mark.parametrize("codec,nulls,page_version", _PAGES,
+                         ids=["-".join(map(str, m)) for m in _PAGES])
+def test_pyarrow_pages_decode_with_one_call_per_chunk(tmp_path, monkeypatch,
+                                                      codec, nulls,
+                                                      page_version):
+    pa = pytest.importorskip("pyarrow")
+    pq = pytest.importorskip("pyarrow.parquet")
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+    from spark_rapids_tpu_torch.io.parquet_native import (read_column_pages,
+                                                          read_footer)
+    from spark_rapids_tpu_torch.pallas.decompress import TooFragmented
+
+    rng = np.random.default_rng(_PAGES.index((codec, nulls, page_version)))
+    n = 45_001                                   # 3 pages of <= 20,000
+    data = {
+        "q": rng.integers(1, 51, n) * 100,                  # width 6
+        "p": rng.integers(0, 30_000, n),         # width grows page by page
+        "d": rng.integers(8035, 10441, n).astype(np.int32),
+        "c": np.repeat(rng.integers(0, 40, n // 1000 + 1),   # RLE runs
+                       1000)[:n].astype(np.int32),
+    }
+    types = {"q": (pa.int64(), T.LONG), "p": (pa.int64(), T.LONG),
+             "d": (pa.date32(), T.DATE), "c": (pa.int32(), T.INT)}
+    valid = {k: rng.random(n) > 0.1 if nulls else np.ones(n, bool)
+             for k in data}
+    path = str(tmp_path / "pages.parquet")
+    pq.write_table(pa.table({k: pa.array(v, types[k][0], mask=~valid[k])
+                             for k, v in data.items()}), path,
+                   compression=codec, data_page_version=page_version)
+    schema = T.StructType([T.StructField(k, types[k][1]) for k in data])
+    raw = open(path, "rb").read()
+    groups, _ = read_footer(raw)
+    (group,) = groups
+    widths = {}
+    calls = _counted(monkeypatch)
+    for f, info in zip(schema.fields, group.columns):
+        cp = read_column_pages(raw, info, group.num_rows)
+        assert [p.num_values for p in cp.pages] == [20_000, 20_000, 5_001]
+        assert all(p.encoding in (2, 8) for p in cp.pages)
+        widths[f.name] = [p.index_bit_width for p in cp.pages]
+        for compressed in (True, False):
+            got = []
+            for decode_chunk in ("batched", "per page"):
+                calls[0] = 0
+                snap = PC.snapshot()
+                use = compressed
+                while True:
+                    try:
+                        if decode_chunk == "batched":
+                            v, ok = PD._decode_numeric_chunk(f, info, cp,
+                                                             use, CPU)
+                            v, ok = torch.cat(v), torch.cat(ok)
+                        else:
+                            v, ok = _per_page_chunk(info, f.dataType, cp,
+                                                    use)
+                        break
+                    except (PD._CompressedUnsupported, TooFragmented):
+                        assert use
+                        use = False
+                got.append((v, ok, PC.since(snap)["bytes_h2d"], calls[0],
+                            use))
+            (bv, bok, bbytes, bcalls, buse), (pv, pok, pbytes, _, _) = got
+            np.testing.assert_array_equal(bv.numpy(), pv.numpy())
+            np.testing.assert_array_equal(bok.numpy(), pok.numpy())
+            np.testing.assert_array_equal(bok.numpy(), valid[f.name])
+            np.testing.assert_array_equal(bv.numpy()[valid[f.name]],
+                                          data[f.name][valid[f.name]])
+            # the same link bytes: the tables' rows are the same rows
+            assert bbytes == pbytes, (f.name, compressed)
+            assert bcalls == 1, (f.name, compressed, buse)
+    assert widths["p"][0] < widths["p"][-1]      # per-row widths matter
+    for compressed in (True, False):
+        calls[0] = 0
+        batch = read_parquet_device(path, schema, CPU, compressed)
+        assert calls[0] == len(schema.fields)
+        assert batch.to_pydict() == {
+            k: [(_EPOCH + datetime.timedelta(days=int(x)) if k == "d"
+                 else int(x)) if ok else None
+                for x, ok in zip(v, valid[k])] for k, v in data.items()}
