@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""GPU smoke run of the PyTorch port: TPC-H Q6 from snappy Parquet at SF10.
+"""GPU smoke run of the PyTorch port: TPC-H Q6 from snappy Parquet at SF10,
+then bench qa from Parquet at TPC-DS SF10's store_sales row count.
 
     python3 chip_smoke.py [--scale 10] [--seed 20261017]
 
@@ -38,7 +39,17 @@ Phases, each failing the run at its first mismatch:
 8. Q6 on the committed multi-page fixture (``tests/port/
    q6_lineitem_pages.parquet``, written by pyarrow with 20,000-row pages;
    ``tests/port/make_pages_fixture.py``): exact against numpy on arrays
-   regenerated from the seed, with one K1 launch per column chunk.
+   regenerated from the seed, with one K1 launch per column chunk;
+9. bench qa (a broadcast join of store_sales with the quarter-1 dates of
+   date_dim, a sum grouped by year and store, TPC-DS q3's ORDER BY and
+   LIMIT 100): bench.py's store_sales generator (seed 20260730) at
+   28,800,991 rows times ``--scale``/10, written as 8 snappy files of its
+   seven columns by the port's writer, date_dim as one file; the query
+   reads three columns.  The plan must be the reference's unfused plan;
+   two collects and one from memory (``LocalTableScan``) must equal an
+   integer numpy reference.  The counts are set to 0 just before the
+   timed collect and read just after; then a breakdown by operator and
+   one collect under ``torch.profiler``.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -165,6 +176,109 @@ def write_files(li, n: int, out_dir: str, device):
         write_parquet_device(path, wsch, cols, hi - lo, device=device)
         paths.append(path)
     return paths
+
+
+# ---------------------------------------------------------------------------
+# bench qa data: store_sales and date_dim as bench.py generates them
+# ---------------------------------------------------------------------------
+
+SS_SF10_ROWS = 28_800_991          # TPC-DS SF10 store_sales
+SS_SEED = 20260730                 # bench.py's store_sales seed
+N_STORES = 40
+N_ITEMS = 100_000
+N_DATES = 2555                     # ~7 years of date_dim
+DATE_SK0 = 2_450_000               # TPC-DS-style surrogate key base
+QA_LIMIT = 100
+QA_PLAN = ["TpuTopN 100",
+           "  TpuHashAggregate(Complete) keys=[d_year, store_sk] "
+           "aggs=[sum(ext_sales) AS sum_sales]",
+           "    TpuBroadcastHashJoinExec Inner [date_sk=date_sk]",
+           "      <scan>",
+           "      TpuBroadcastExchangeExec",
+           "        TpuFilter ((d_qoy = 1))",
+           "          <scan>"]
+
+
+def make_store_sales(n: int):
+    """bench.py's seven store_sales columns (``ext_sales`` and
+    ``net_profit`` in unscaled cents of DECIMAL(7,2))."""
+    rng = np.random.default_rng(SS_SEED)
+    return {
+        "date_sk": (DATE_SK0
+                    + rng.integers(0, N_DATES, n)).astype(np.int32),
+        "store_sk": rng.integers(1, N_STORES + 1, n).astype(np.int32),
+        "item_sk": rng.integers(1, N_ITEMS + 1, n).astype(np.int32),
+        "ticket": rng.integers(0, max(n // 8, 1), n),
+        "quantity": rng.integers(1, 100, n),
+        "ext_sales": rng.integers(100, 1_000_000, n),
+        "net_profit": rng.integers(-100_000, 400_000, n),
+    }
+
+
+def make_date_dim():
+    sk = np.arange(DATE_SK0, DATE_SK0 + N_DATES, dtype=np.int32)
+    day = np.arange(N_DATES)
+    year = (1998 + day // 365).astype(np.int32)
+    doy = day % 365
+    qoy = (doy // 92 + 1).clip(1, 4).astype(np.int32)
+    moy = (doy // 31 + 1).clip(1, 12).astype(np.int32)
+    return {"date_sk": sk, "d_year": year, "d_qoy": qoy, "d_moy": moy}
+
+
+def qa_schemas(T):
+    """(store_sales as written to Parquet and as bench.py holds it in
+    memory, store_sales as the query reads it, date_dim) in the types
+    module ``T`` of either package.  The money columns are DECIMAL(7,2),
+    which the writer stores as annotated INT32, as Spark does."""
+    dec72 = T.DecimalType(7, 2)
+    names = ["date_sk", "store_sk", "item_sk", "ticket", "quantity",
+             "ext_sales", "net_profit"]
+    types = [T.INT, T.INT, T.INT, T.LONG, T.LONG, dec72, dec72]
+    table = T.StructType([T.StructField(nm, t, False)
+                          for nm, t in zip(names, types)])
+    read = T.StructType([T.StructField("date_sk", T.INT, False),
+                         T.StructField("store_sk", T.INT, False),
+                         T.StructField("ext_sales", dec72, False)])
+    dates = T.StructType([T.StructField(nm, T.INT, False)
+                          for nm in ("date_sk", "d_year", "d_qoy", "d_moy")])
+    return table, read, dates
+
+
+def qa_query(sales, dates, mod):
+    """bench.py's qa with TPC-DS q3's ORDER BY and LIMIT, from the
+    ``col``/``lit``/``sum_``/``SortSpec`` of either package's session."""
+    col, lit = mod.col, mod.lit
+    return (sales.join(dates.filter(col("d_qoy").eq(lit(1))), on="date_sk")
+            .group_by("d_year", "store_sk")
+            .agg(mod.sum_("ext_sales", "sum_sales"))
+            .order_by(col("d_year"),
+                      (col("sum_sales"),
+                       mod.SortSpec(ascending=False, nulls_first=False)),
+                      col("store_sk"))
+            .limit(QA_LIMIT))
+
+
+def qa_reference(ss, dd, limit: int = QA_LIMIT):
+    """bench.py's ``cpu_qa_vectorized`` in integers (a sort and segment
+    sums in int64), then ordered and cut as the query orders and cuts."""
+    qoy = np.zeros(DATE_SK0 + N_DATES + 1, np.int32)
+    year = np.zeros(DATE_SK0 + N_DATES + 1, np.int32)
+    qoy[dd["date_sk"]] = dd["d_qoy"]
+    year[dd["date_sk"]] = dd["d_year"]
+    f = qoy[ss["date_sk"]] == 1
+    yk = year[ss["date_sk"][f]].astype(np.int64)
+    key = (yk - 1998) * (N_STORES + 1) + ss["store_sk"][f]
+    if key.size == 0:
+        return []
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    vs = ss["ext_sales"][f].astype(np.int64)[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    sums = np.add.reduceat(vs, starts)
+    rows = [(int(1998 + k // (N_STORES + 1)), int(k % (N_STORES + 1)),
+             Decimal(int(v)).scaleb(-2)) for k, v in zip(ks[starts], sums)]
+    rows.sort(key=lambda r: (r[0], -r[2], r[1]))
+    return rows[:limit]
 
 
 # ---------------------------------------------------------------------------
@@ -614,12 +728,12 @@ def run_q6(paths, li, n: int, device):
     return {"seconds": secs, "launches": launches, "want": want, "query": q}
 
 
-def profile_collect(q, want):
-    """One more Parquet Q6 collect under ``torch.profiler``: K1's device
-    time summed over its launches inside the query, and the share of the
-    collect's wall time in which the card ran nothing (kernels and copies
-    merged into busy intervals).  The profiler's own host cost makes the
-    collect slower, so the idle share is an upper bound."""
+def profile_collect(q, want_rows, label: str):
+    """One more collect under ``torch.profiler``: K1's device time summed
+    over its launches inside the query, and the share of the collect's
+    wall time in which the card ran nothing (kernels and copies merged
+    into busy intervals).  The profiler's own host cost makes the collect
+    slower, so the idle share is an upper bound."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -631,11 +745,11 @@ def profile_collect(q, want):
         got = q.collect()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    if got != [(want,)]:
-        fail(f"Q6 from Parquet under the profiler: {got} != {want}")
+    if got != want_rows:
+        fail(f"{label} under the profiler differs from the reference")
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        log("Q6 parquet profile: the profiler saw no device activity; K1 "
+        log(f"{label} profile: the profiler saw no device activity; K1 "
             "time inside the query and the idle share not measured")
         return
     k1 = [e for e in dev if "unpack_runs" in e.name]
@@ -650,7 +764,7 @@ def profile_collect(q, want):
             busy_us += b - end
             end = b
     idle = 1.0 - busy_us / (wall_s * 1e6)
-    log(f"Q6 parquet profile: collect {wall_s:.3f} s under the profiler; "
+    log(f"{label} profile: collect {wall_s:.3f} s under the profiler; "
         f"K1 {len(k1)} launches, {k1_ms:.4f} ms device time in all; device "
         f"busy {busy_us / 1e3:.3f} ms over {len(dev)} kernels and copies; "
         f"idle share {idle:.4f}")
@@ -711,6 +825,166 @@ def run_q6_memory(li, want, device):
     log(f"Q6 in memory: revenue {got[0][0]} == numpy reference")
 
 
+QA_CONF = {"spark.rapids.sql.format.parquet.decode.device": True,
+           "spark.rapids.sql.format.parquet.reader.type": "PERFILE"}
+
+
+def write_qa_files(ss, dd, n: int, out_dir: str, device):
+    """store_sales as ``N_FILES`` snappy files of its seven columns,
+    date_dim as one file, by the port's writer."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.io.parquet_encode import write_parquet_device
+
+    wsch, _, dsch = qa_schemas(T)
+    os.makedirs(out_dir, exist_ok=True)
+    bounds = np.linspace(0, n, N_FILES + 1).astype(np.int64)
+    ss_paths = []
+    for i in range(N_FILES):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        cols = [HostColumn.from_numpy(ss[f.name][lo:hi], f.dataType)
+                for f in wsch.fields]
+        path = os.path.join(out_dir, f"store_sales-{i:02d}.parquet")
+        write_parquet_device(path, wsch, cols, hi - lo, device=device)
+        ss_paths.append(path)
+    dd_path = os.path.join(out_dir, "date_dim.parquet")
+    write_parquet_device(dd_path, dsch,
+                         [HostColumn.from_numpy(dd[f.name], f.dataType)
+                          for f in dsch.fields], N_DATES, device=device)
+    return ss_paths, dd_path
+
+
+def qa_parquet_query(ss_paths, dd_path, device):
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+
+    _, rsch, dsch = qa_schemas(T)
+    s = S.TpuSession(QA_CONF, device=device)
+    return qa_query(s.read.schema(rsch).parquet(*ss_paths),
+                    s.read.schema(dsch).parquet(dd_path), S)
+
+
+def check_qa_plan(q):
+    """The explain must be the reference's unfused qa plan, scans aside."""
+    lines = q.explain().splitlines()
+    got = [ln[:len(ln) - len(ln.lstrip())] + "<scan>"
+           if ln.lstrip().startswith(("TpuFileSourceScan",
+                                      "TpuLocalTableScan")) else ln
+           for ln in lines]
+    if got != QA_PLAN:
+        fail("unexpected qa plan:\n" + "\n".join(lines))
+
+
+def run_qa(ss_paths, dd_path, want, n: int, device):
+    """qa from Parquet, collected twice; both results exact.  The counts
+    are set to 0 just before the timed second collect and read after."""
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.pallas import decode
+
+    q = qa_parquet_query(ss_paths, dd_path, device)
+    check_qa_plan(q)
+    log("qa plan:\n" + q.explain())
+    first = q.collect()
+    if first != want:
+        fail(f"qa from Parquet, first run: {first[:3]}... != "
+             f"{want[:3]}...")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode.unpack_launches = 0
+    snap = PC.snapshot()
+    t0 = time.perf_counter()
+    second = q.collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = decode.unpack_launches
+    delta = PC.since(snap)
+    if second != want:
+        fail("qa from Parquet, second run differs from the reference")
+    if launches <= 0:
+        fail("the qa run launched K1 no time")
+    log(f"qa parquet: {len(second)} rows == integer numpy reference; first "
+        f"{second[0]}, last {second[-1]}; {n} store_sales rows in "
+        f"{secs:.3f} s = {n / secs:.0f} rows/s")
+    log(f"qa parquet counters: unpack_launches={launches} "
+        f"bytes_h2d={delta['bytes_h2d']} host_syncs={delta['host_syncs']} "
+        f"chunk_decode_fallbacks={delta['chunk_decode_fallbacks']} "
+        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    return {"seconds": secs, "launches": launches, "query": q}
+
+
+class _Replay:
+    """A leaf that yields batches already on the card."""
+
+    children = []
+
+    def __init__(self, batches, output):
+        self.batches = batches
+        self.output = output
+        self.device = batches[0].device if batches else None
+
+    def execute_columnar(self):
+        yield from self.batches
+
+
+def _timed_run(node):
+    """(seconds, batches) of running ``node`` to its end."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = list(node.execute_columnar())
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def qa_breakdown(q):
+    """Where a qa collect spends its time, operator by operator: each runs
+    alone on its input batches, already on the card from the operator
+    below (the same plan as the collect).  The join's time holds the
+    date_dim scan, filter and broadcast."""
+    topn = q._planned()
+    agg = topn.children[0]
+    join = agg.children[0]
+    scan = join.children[0]
+    t_scan, batches = _timed_run(scan)
+    join.children[0] = _Replay(batches, scan.output)
+    t_join, batches = _timed_run(join)
+    agg.children[0] = _Replay(batches, join.output)
+    t_agg, batches = _timed_run(agg)
+    topn.children[0] = _Replay(batches, agg.output)
+    t_topn, _ = _timed_run(topn)
+    log(f"qa breakdown: store_sales scan {t_scan:.4f} s, join "
+        f"{t_join:.4f} s, aggregate {t_agg:.4f} s, top-N {t_topn:.4f} s")
+
+
+def run_qa_memory(ss, dd, want, device):
+    """qa from memory (``LocalTableScan``) over bench.py's seven columns."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
+
+    msch, _, dsch = qa_schemas(T)
+    s = S.TpuSession({}, device=device)
+
+    def frame(arrays, sch):
+        return S.DataFrame(LocalTableScan(
+            [HostColumn.from_numpy(arrays[f.name], f.dataType)
+             for f in sch.fields], sch), s)
+
+    q = qa_query(frame(ss, msch), frame(dd, dsch), S)
+    check_qa_plan(q)
+    t0 = time.perf_counter()
+    got = q.collect()
+    secs = time.perf_counter() - t0
+    if got != want:
+        fail("qa in memory differs from the reference")
+    log(f"qa in memory: {len(got)} rows == integer numpy reference "
+        f"({secs:.3f} s with the upload)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -763,7 +1037,7 @@ def main(argv=None) -> int:
     q6 = run_q6(paths, li, n, device)
 
     time_breakdown(paths, device)
-    profile_collect(q6["query"], q6["want"])
+    profile_collect(q6["query"], [(q6["want"],)], "Q6 parquet")
 
     # 5. Q6 in memory
     run_q6_memory(li, q6["want"], device)
@@ -773,6 +1047,28 @@ def main(argv=None) -> int:
     # 7. K1 on Spark-shaped batches; 8. Q6 on the multi-page fixture
     spark = time_spark_batches(device, args.seed)
     run_fixture_q6(device)
+
+    # 9. bench qa from Parquet at TPC-DS SF10 store_sales rows
+    n_ss = int(round(SS_SF10_ROWS * args.scale / 10))
+    t0 = time.perf_counter()
+    ss, dd = make_store_sales(n_ss), make_date_dim()
+    want = qa_reference(ss, dd)
+    ref_s = time.perf_counter() - t0
+    qa_dir = os.path.join(HERE, "spark_rapids_tpu_torch", "build",
+                          f"qa_sf{args.scale:g}")
+    ss_paths, dd_path = write_qa_files(ss, dd, n_ss, qa_dir, device)
+    log(f"qa data: {n_ss} store_sales rows in {N_FILES} files "
+        f"({sum(os.path.getsize(p) for p in ss_paths)} bytes), date_dim "
+        f"{N_DATES} rows; generated with the numpy reference in "
+        f"{ref_s:.1f} s, written in {time.perf_counter() - t0 - ref_s:.1f} s")
+    log("qa dictionary index widths: " + str(sorted(
+        {(name, page.index_bit_width)
+         for p in ss_paths + [dd_path] for name, page in main_path_pages(p)})))
+    qa = run_qa(ss_paths, dd_path, want, n_ss, device)
+    qa_breakdown(qa["query"])
+    profile_collect(qa["query"], want, "qa parquet")
+    run_qa_memory(ss, dd, want, device)
+    del ss
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
@@ -788,6 +1084,7 @@ def main(argv=None) -> int:
         "ms_l2_cold": k1["ms_cold"],
         "spark_ms_l2_cold": spark["ms_cold"],
         "spark_bound_ms": spark["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
+        "qa_launches": qa["launches"],
     }]}
     log(json.dumps(kernels))
     log(smi)

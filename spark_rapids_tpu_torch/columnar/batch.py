@@ -11,7 +11,8 @@ from typing import List, Sequence
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn, HostColumn
+from spark_rapids_tpu_torch.columnar.column import (DeviceColumn, HostColumn,
+                                                    column_torch_dtype)
 from spark_rapids_tpu_torch.perfcounters import sync_get
 
 
@@ -63,6 +64,13 @@ class ColumnarBatch:
         cols = [c.to_pylist() for c in self.to_host_columns()]
         return list(zip(*cols)) if cols else [()] * self.num_rows
 
+    def slice_rows(self, start: int, length: int) -> "ColumnarBatch":
+        """Rows ``[start, start + length)`` as views (no copy)."""
+        end = start + length
+        return ColumnarBatch([DeviceColumn(c.dtype, c.validity[start:end],
+                                           data=c.data[start:end])
+                              for c in self.columns], length, self.schema)
+
     @staticmethod
     def concat(batches: Sequence["ColumnarBatch"]) -> "ColumnarBatch":
         first = batches[0]
@@ -74,3 +82,16 @@ class ColumnarBatch:
                 for i, c in enumerate(first.columns)]
         return ColumnarBatch(cols, sum(b.num_rows for b in batches),
                              first.schema)
+
+
+def empty_batch(schema: T.StructType, device) -> ColumnarBatch:
+    """A batch of no rows."""
+    cols = []
+    for f in schema.fields:
+        shape = ((0, 2) if isinstance(f.dataType, T.DecimalType)
+                 and f.dataType.is_128 else (0,))
+        cols.append(DeviceColumn(
+            f.dataType, torch.zeros(0, dtype=torch.bool, device=device),
+            data=torch.zeros(shape, dtype=column_torch_dtype(f.dataType),
+                             device=device)))
+    return ColumnarBatch(cols, 0, schema)

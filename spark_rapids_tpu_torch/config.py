@@ -1,9 +1,9 @@
-"""TpuConf — the typed configuration registry (the confs this slice reads).
+"""TpuConf — the typed configuration registry (the confs the port reads).
 
 Port of ``spark_rapids_tpu/config.py``: the same ``ConfEntry`` builder DSL
-and the same keys and defaults, cut to the confs that TPC-H Q6 over Parquet
-reads.  Unlike the reference there is no process-wide ambient conf: the
-session hands its ``TpuConf`` to every exec that needs one.
+and the same keys and defaults, cut to the confs that TPC-H Q6 and bench qa
+over Parquet read.  Unlike the reference there is no process-wide ambient
+conf: the session hands its ``TpuConf`` to every exec that needs one.
 """
 from __future__ import annotations
 
@@ -56,10 +56,27 @@ class _Builder:
     def string_conf(self, default: Optional[str]) -> ConfEntry:
         return self._register(lambda s: s, default, "string")
 
+    def bytes_conf(self, default: int) -> ConfEntry:
+        return self._register(_parse_bytes, default, "bytes")
+
 
 
 def conf(key: str) -> _Builder:
     return _Builder(key)
+
+
+_UNITS = {"b": 1, "k": 1 << 10, "kb": 1 << 10, "m": 1 << 20, "mb": 1 << 20,
+          "g": 1 << 30, "gb": 1 << 30, "t": 1 << 40, "tb": 1 << 40}
+
+
+def _parse_bytes(s: str) -> int:
+    s = s.strip().lower()
+    for suffix in sorted(_UNITS, key=len, reverse=True):
+        if s.endswith(suffix):
+            num = s[: -len(suffix)].strip()
+            if num:
+                return int(float(num) * _UNITS[suffix])
+    return int(s)
 
 
 SQL_ENABLED = conf("spark.rapids.sql.enabled").doc(
@@ -69,6 +86,17 @@ SQL_ENABLED = conf("spark.rapids.sql.enabled").doc(
 ANSI_ENABLED = conf("spark.sql.ansi.enabled").doc(
     "Spark ANSI mode: overflow/invalid-cast raise instead of null/wrap."
 ).boolean_conf(False)
+
+BATCH_SIZE_BYTES = conf("spark.rapids.sql.batchSizeBytes").doc(
+    "Target columnar batch size.  A broadcast join whose estimated build "
+    "side is larger needs the reference's sub-partitioned join, which the "
+    "port does not run yet: such a plan raises.").bytes_conf(1 << 30)
+
+AUTO_BROADCAST_JOIN_THRESHOLD = conf(
+    "spark.sql.autoBroadcastJoinThreshold").doc(
+    "Estimated build-side size below which joins broadcast instead of "
+    "shuffling (file scans: sizes on disk; local tables: their host "
+    "columns).  -1 disables broadcasting.").bytes_conf(10 << 20)
 
 MAX_READER_BATCH_SIZE_ROWS = conf(
     "spark.rapids.sql.reader.batchSizeRows").doc(

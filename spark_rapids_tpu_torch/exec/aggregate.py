@@ -1,28 +1,93 @@
-"""Global hash aggregation — port of the no-key COMPLETE path of
-``spark_rapids_tpu/exec/aggregate.py`` (``TpuHashAggregateExec`` with
-``_global_agg``, ``_sum_dec128`` and ``_global_agg_empty``), for sum and
-count.  The plan rewrite builds it only in COMPLETE mode.
+"""Hash aggregation — port of ``TpuHashAggregateExec``
+(``spark_rapids_tpu/exec/aggregate.py``) for ``sum``, ``count``, ``min``
+and ``max``, with and without grouping keys.
 
-It absorbs the stage below it as ``pre_ops`` (filters only narrow the
-row mask).  One input batch gives the result directly; several
-batches give one buffer row each, merged as the reference's PARTIAL twins
-merge under FINAL: sums add the valid partial sums exactly in 128 bits,
-counts add.  Grouped aggregation is a later slice.
+Group-by is sort-based, as in the reference: the key columns become key
+words (``ops/sortkeys.py``), one stable lexicographic sort orders the rows,
+equal consecutive keys form segments, and the segmented reductions of
+``ops/segment.py`` reduce each segment.  The group count is a host sync
+per aggregated batch (the reference syncs it too, to size its output).
+Sums are exact in int64, decimal sums above 18 digits exact in 128-bit
+limbs and null past their precision; float sums add in the card's order.
+
+The plan rewrite builds the exec only in COMPLETE mode.  Each input batch
+is reduced to a buffer (one row per group) as it arrives; several buffers
+are concatenated once and reduced once more, with merge semantics (counts
+add).  For these functions the buffer schema is the output schema, so no
+finalize pass follows.  The reference's PARTIAL/FINAL twins, pairwise
+merges and finalize serve its spill framework, which the port does not
+have.  It absorbs the stage below it as ``pre_ops`` (filters only narrow
+the row mask).  An empty grouped
+input yields no rows; an empty global input yields one row (counts 0,
+everything else null).  ``avg``, the moments, HLL, percentile and collect
+are not ported: the session rejects them.
 """
 from __future__ import annotations
 
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
                                                     column_torch_dtype)
-from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
+from spark_rapids_tpu_torch.exec.base import TpuExec
 from spark_rapids_tpu_torch.expr.base import EvalContext, Expression
+from spark_rapids_tpu_torch.ops import segment as SEG
+from spark_rapids_tpu_torch.ops.sortkeys import (_column_key_words,
+                                                 group_segments, lexsort)
+from spark_rapids_tpu_torch.perfcounters import sync_get
 from spark_rapids_tpu_torch.plan.nodes import (AggregateExpression,
                                                AggregateMode)
+
+_INT64_MAX = 0x7FFFFFFFFFFFFFFF
+
+
+def _is_float(dt: T.DataType) -> bool:
+    return isinstance(dt, (T.FloatType, T.DoubleType))
+
+
+class _Groups:
+    """Rows of one batch grouped by key: ``perm`` orders the rows (None
+    without keys), ``seg`` gives each sorted row its group, rows outside
+    the mask falling in the extra last segment; ``first`` is each group's
+    first sorted row."""
+
+    def __init__(self, perm, seg, num_groups: int, mask_sorted, first):
+        self.perm = perm
+        self.seg = seg
+        self.num_groups = num_groups
+        self.mask_sorted = mask_sorted
+        self.first = first
+
+    @property
+    def nseg(self) -> int:
+        return self.num_groups + (1 if self.perm is not None else 0)
+
+
+def _group(key_cols: List[DeviceColumn], mask: torch.Tensor) -> _Groups:
+    """Sort rows by their keys (nulls first, rows outside ``mask`` last)
+    and segment them.  One host sync for the group count, with keys."""
+    n = mask.shape[0]
+    if not key_cols:
+        seg = torch.zeros(n, dtype=torch.int64, device=mask.device)
+        return _Groups(None, seg, 1, mask, None)
+    pad = torch.tensor(_INT64_MAX, dtype=torch.int64, device=mask.device)
+    keys: List[torch.Tensor] = []
+    for kc in key_cols:
+        keys.append(torch.where(mask, torch.where(kc.validity, 0, -1), pad))
+        for w in _column_key_words(kc):
+            keys.append(torch.where(mask, torch.where(kc.validity, w, 0),
+                                    pad))
+    perm = lexsort(keys)
+    mask_sorted = mask[perm]
+    seg, ngroups = group_segments([k[perm] for k in keys], mask_sorted)
+    (ng,) = sync_get(ngroups)
+    ng = int(ng)
+    seg = torch.where(mask_sorted, seg, ng)
+    first = SEG.seg_first_index(seg, mask_sorted, ng + 1)[:ng]
+    return _Groups(perm, seg, ng, mask_sorted, first)
 
 
 class TpuHashAggregateExec(TpuExec):
@@ -33,12 +98,9 @@ class TpuHashAggregateExec(TpuExec):
                  output_schema: T.StructType,
                  ansi: bool = False):
         super().__init__([child])
-        if grouping:
-            raise NotOnGpu("grouped aggregation is not ported yet")
         self.grouping = grouping
         self.aggregates = aggregates
         self.mode = mode
-        self.child_schema = child_plan_output
         self._output = output_schema
         self.ansi = ansi
         # stage ops absorbed by fuse_stages, applied in row-mask mode
@@ -60,60 +122,100 @@ class TpuHashAggregateExec(TpuExec):
         return (f"TpuHashAggregate({self.mode.value}) keys=[{g}] "
                 f"aggs=[{a}]{fused}")
 
+    # ------------------------------------------------------------------
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
-        partials = [self._aggregate_batch(b)
-                    for b in self.children[0].execute_columnar()]
-        if not partials:
-            out = self._global_agg_empty()
-        elif len(partials) == 1:
-            out = partials[0]
+        """A buffer per input batch, reduced before the next batch is read;
+        several buffers merge in one pass."""
+        bufs = [self._aggregate_batch(b)
+                for b in self.children[0].execute_columnar()]
+        if not bufs:
+            out = (empty_batch(self._output, self._device()) if self.grouping
+                   else self._global_agg_empty())
+        elif len(bufs) == 1:
+            out = bufs[0]
         else:
-            out = self._merge_batch(ColumnarBatch.concat(partials))
+            out = self._merge_batch(ColumnarBatch.concat(bufs))
         yield out
 
-    # ------------------------------------------------------------------
+    def _merge_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
+        """Buffer rows -> one row per group (the reference's ``_merge_fn``):
+        counts add, sums add, min/max take min/max."""
+        k = len(self.grouping)
+        return self._reduce(batch.columns[:k], batch.columns[k:],
+                            batch.row_mask, True)
+
     def _aggregate_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
-        """Raw input rows -> one result row (the reference's ``_agg_fn``
-        with no keys: pre_ops in mask mode, then ``_global_agg``)."""
+        """Input rows -> one buffer row per group: pre_ops in mask mode,
+        then group and reduce (the reference's ``_agg_fn``)."""
         ctx = EvalContext(batch, ansi=self.ansi)
         mask = batch.row_mask
         for op in self.pre_ops:
             batch, mask = op.apply_masked(ctx, batch, mask)
         ctx.batch = batch
-        out = []
-        for a, f in zip(self.aggregates, self._output.fields):
-            if a.func == "count_star":
-                out.append(DeviceColumn(T.LONG, _ones(mask),
-                                        data=mask.sum(0, keepdim=True)))
-                continue
-            c = a.child.eval_tpu(ctx)
-            validity = c.validity & mask
-            if a.func == "count":
-                out.append(DeviceColumn(T.LONG, _ones(mask),
-                                        data=validity.sum(0, keepdim=True)))
-            else:
-                out.append(_sum_col(c, validity, f.dataType))
+        keys = [g.eval_tpu(ctx) for g in self.grouping]
+        inputs = [self._input_col(a, ctx) for a in self.aggregates]
+        out = self._reduce(keys, inputs, mask, False)
         ctx.check_errors()
-        return ColumnarBatch(out, 1, self._output)
+        return out
 
-    def _merge_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
-        """Buffer rows (one per partial) -> one row: counts add, sums add
-        the valid partial sums."""
-        out = []
-        for ci, (a, f) in enumerate(zip(self.aggregates,
-                                        self._output.fields)):
-            c = batch.columns[ci]
-            if a.func in ("count", "count_star"):
-                out.append(DeviceColumn(
-                    T.LONG, _ones(c.validity),
-                    data=torch.where(c.validity, c.data, 0).sum(
-                        0, keepdim=True)))
+    def _input_col(self, a: AggregateExpression, ctx) -> DeviceColumn:
+        if a.child is None:                      # count(*)
+            cap = ctx.batch.capacity
+            dev = ctx.batch.device
+            return DeviceColumn(T.LONG,
+                                torch.ones(cap, dtype=torch.bool, device=dev),
+                                data=torch.ones(cap, dtype=torch.int64,
+                                                device=dev))
+        return a.child.eval_tpu(ctx)
+
+    def _reduce(self, keys, inputs, mask, merge: bool) -> ColumnarBatch:
+        g = _group(keys, mask)
+        out: List[DeviceColumn] = []
+        if g.perm is not None:
+            rows = g.perm[g.first]
+            out += [DeviceColumn(kc.dtype, kc.validity[rows],
+                                 data=kc.data[rows]) for kc in keys]
+        fields = self._output.fields[len(keys):]
+        for a, c, f in zip(self.aggregates, inputs, fields):
+            col = self._eval_agg(a, f, c, g, merge)
+            out.append(DeviceColumn(col.dtype, col.validity[:g.num_groups],
+                                    data=col.data[:g.num_groups]))
+        return ColumnarBatch(out, g.num_groups, self._output)
+
+    def _eval_agg(self, a: AggregateExpression, f: T.StructField,
+                  c: DeviceColumn, g: _Groups, merge: bool) -> DeviceColumn:
+        """One aggregate over the groups.  Update semantics for raw rows;
+        with ``merge`` the input is a buffer (the reference's
+        ``_eval_merge``): a count buffer is summed."""
+        cs = c if g.perm is None else DeviceColumn(
+            c.dtype, c.validity[g.perm], data=c.data[g.perm])
+        validity = cs.validity & g.mask_sorted
+        nseg, seg = g.nseg, g.seg
+        func = "count" if a.func == "count_star" else a.func
+        if func == "count":
+            if merge:
+                cnt, _ = SEG.seg_sum(cs.data.to(torch.int64), validity, seg,
+                                     nseg)
             else:
-                out.append(_sum_col(c, c.validity, f.dataType))
-        return ColumnarBatch(out, 1, self._output)
+                cnt = SEG.seg_count(validity, seg, nseg)
+            return DeviceColumn(T.LONG, torch.ones_like(cnt, dtype=torch.bool),
+                                data=cnt)
+        dt = f.dataType
+        if func == "sum":
+            if isinstance(dt, T.DecimalType) and (dt.is_128 or cs.is_dec128):
+                return _sum_dec128(cs, validity, seg, nseg, dt)
+            s, has = SEG.seg_sum(_sum_input(cs, dt), validity, seg, nseg)
+            return DeviceColumn(dt, has, data=s.to(column_torch_dtype(dt)))
+        if func in ("min", "max"):
+            if cs.is_dec128:
+                return _minmax_dec128(cs, func, seg, validity, nseg, dt)
+            fn = SEG.seg_min if func == "min" else SEG.seg_max
+            m, has = fn(cs.data, validity, seg, nseg, _is_float(dt))
+            return DeviceColumn(dt, has, data=m)
+        raise NotImplementedError(f"aggregate {func} is not ported yet")
 
     def _global_agg_empty(self) -> ColumnarBatch:
-        """No input batch: counts are a valid 0, sums are null."""
+        """No input batch and no keys: counts are a valid 0, the rest null."""
         dev = self._device()
         cols = []
         for a, f in zip(self.aggregates, self._output.fields):
@@ -126,37 +228,45 @@ class TpuHashAggregateExec(TpuExec):
                                  device=dev)))
         return ColumnarBatch(cols, 1, self._output)
 
-    def _device(self):
-        node = self
-        while node.children:
-            node = node.children[0]
-        return node.device
+
+def _sum_input(c: DeviceColumn, out_dtype: Optional[T.DataType]):
+    """Sum operand: float64 for floats, else int64 (an integer sum wraps as
+    Spark's non-ANSI sum does; a decimal64 sum is not bounds-checked, as in
+    the reference)."""
+    if _is_float(c.dtype) or (out_dtype is not None and _is_float(out_dtype)):
+        return c.data.to(torch.float64)
+    return c.data.to(torch.int64)
 
 
-def _ones(like: torch.Tensor) -> torch.Tensor:
-    return torch.ones(1, dtype=torch.bool, device=like.device)
-
-
-def _sum_col(c: DeviceColumn, validity, dt: T.DataType) -> DeviceColumn:
-    if isinstance(dt, T.DecimalType) and (dt.is_128 or c.is_dec128):
-        return _sum_dec128(c, validity, dt)
-    if isinstance(dt, (T.FloatType, T.DoubleType)):
-        x = c.data.to(torch.float64)
-    else:
-        x = c.data.to(torch.int64)
-    s = torch.where(validity, x, torch.zeros_like(x)).sum(0, keepdim=True)
-    has = validity.any().reshape(1)
-    return DeviceColumn(dt, has, data=s.to(column_torch_dtype(dt)))
-
-
-def _sum_dec128(c: DeviceColumn, validity, dt: T.DecimalType
-                ) -> DeviceColumn:
-    """Sum of a decimal column into a >18-digit result: exact 128-bit limb
-    sums; a sum past 10^precision is null (Spark nullOnOverflow)."""
+def _sum_dec128(c: DeviceColumn, validity, seg, nseg: int,
+                dt: T.DecimalType) -> DeviceColumn:
+    """Sum of a decimal column into a result above 18 digits (or over
+    128-bit input): exact 128-bit limb sums; a sum past 10^precision is
+    null (Spark's nullOnOverflow)."""
     from spark_rapids_tpu_torch.expr import decimal128 as D
 
     hi, lo = D.column_limbs(c)
-    ok, has, sh, sl = D.sum128_global(hi, lo, validity)
+    ok, has, sh, sl = D.sum128_segments(hi, lo, validity, seg, nseg)
     ok = ok & D.in_bounds(sh, sl, dt.precision)
     data = D.pack(sh, sl) if dt.is_128 else sl
     return DeviceColumn(dt, has & ok, data=data)
+
+
+def _minmax_dec128(c: DeviceColumn, func: str, seg, validity, nseg: int,
+                   dt: T.DataType) -> DeviceColumn:
+    """min/max of decimal128: the optimum of the high word, then of the low
+    word among the rows that reach it."""
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    kh, kl = D.key_words(*D.unpack(c.data))
+    if func == "max":
+        kh, kl = ~kh, ~kl
+    big = torch.full_like(kh, _INT64_MAX)
+    kh_m = torch.where(validity, kh, big)
+    mh = SEG._seg_min_raw(kh_m, seg, nseg)
+    tie = validity & (kh_m == mh[seg])
+    ml = SEG._seg_min_raw(torch.where(tie, kl, big), seg, nseg)
+    has = SEG.seg_count(validity, seg, nseg) > 0
+    if func == "max":
+        mh, ml = ~mh, ~ml
+    return DeviceColumn(dt, has, data=D.pack(mh, ml ^ D._SIGN64))

@@ -42,3 +42,10 @@ class TpuExec:
 
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
         raise NotImplementedError
+
+    def _device(self):
+        """The device of the leftmost leaf: the scan this exec reads."""
+        node = self
+        while node.children:
+            node = node.children[0]
+        return node.device

@@ -3,7 +3,7 @@
 
 ``TpuStageExec`` runs a chain of narrow ops (project/filter) over each
 batch.  The reference traces the chain into one XLA program; the port runs
-it as eager torch ops.  A stage that feeds a global aggregate is absorbed
+it as eager torch ops.  A stage that feeds an aggregate is absorbed
 into the aggregate (``fuse_stages``): its filters then only narrow a row
 mask (``apply_masked``), so filtered rows are never compacted.
 """
@@ -11,23 +11,12 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence
 
-import torch
-
-from spark_rapids_tpu_torch import perfcounters as PC
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn, HostColumn
 from spark_rapids_tpu_torch.exec.base import TpuExec
 from spark_rapids_tpu_torch.expr.base import EvalContext, Expression
-
-
-def compact_columns(mask: torch.Tensor, cols: List[DeviceColumn]):
-    """Keep the rows where ``mask`` holds; the row count costs one sync."""
-    idx = torch.nonzero(mask).squeeze(1)
-    PC.bump("host_syncs")
-    out = [DeviceColumn(c.dtype, c.validity[idx], data=c.data[idx])
-           for c in cols]
-    return out, int(idx.shape[0])
+from spark_rapids_tpu_torch.ops.filterops import compact_columns
 
 
 class _StageOp:

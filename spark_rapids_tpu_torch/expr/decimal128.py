@@ -257,6 +257,26 @@ def sum128_global(h, l, validity):
     return ok, any_valid, hi, lo
 
 
+def sum128_segments(h, l, validity, seg_ids, num_segments: int):
+    """Masked segmented sum -> (ok, any_valid, hi, lo) per segment."""
+    if num_segments == 1:
+        return sum128_global(h, l, validity)
+
+    def seg_sum(x):
+        return torch.zeros(num_segments, dtype=torch.int64,
+                           device=h.device).index_add_(0, seg_ids, x)
+
+    ok, hi, lo = _recombine([seg_sum(torch.where(validity, x, 0))
+                             for x in _limbs32(h, l)])
+    return ok, seg_sum(validity.to(torch.int64)) > 0, hi, lo
+
+
+def key_words(h, l) -> Pair:
+    """Sort-key words: ``hi`` signed, ``lo`` rebased to signed; their
+    lexicographic signed order is the signed 128-bit order."""
+    return h, l ^ _SIGN64
+
+
 def column_limbs(c) -> Pair:
     """Any decimal column -> (hi, lo): unpack two-limb storage or
     sign-extend 64-bit storage."""

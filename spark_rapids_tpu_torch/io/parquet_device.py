@@ -296,12 +296,11 @@ def _decode_plain_page_compressed(page, info, dt: T.DataType, device):
     return scatter_present(vals, defined, ndef, n), defined
 
 
-def _decode_numeric_chunk(f, info, cp, use_compressed: bool, device):
+def _decode_numeric_chunk(f, info, cp, use_compressed: bool,
+                          dictionary_dev, device):
     """One column chunk -> (values, validity) lists in page order.  Its
-    dictionary pages decode together, with one K1 launch; PLAIN pages one
-    by one."""
-    dictionary_dev = (PC.to_device(cp.dictionary, device)
-                      if cp.dictionary is not None else None)
+    dictionary pages decode together, with one K1 launch, against the
+    chunk's dictionary already on the device; PLAIN pages one by one."""
     dict_pos = [i for i, page in enumerate(cp.pages)
                 if page.encoding in (ENC_PLAIN_DICT, ENC_RLE_DICT)]
     in_batch = set(dict_pos)
@@ -361,15 +360,18 @@ def _read_parquet_device(path: str, schema: T.StructType, device,
             use_comp = compressed and _chunk_compressed_eligible(cp)
             if compressed and not use_comp:
                 PC.bump("chunk_decode_fallbacks")
+            # uploaded once: a chunk that falls back keeps its dictionary
+            dictionary_dev = (PC.to_device(cp.dictionary, device)
+                              if cp.dictionary is not None else None)
             try:
-                vals, valids = _decode_numeric_chunk(f, info, cp, use_comp,
-                                                     device)
+                vals, valids = _decode_numeric_chunk(
+                    f, info, cp, use_comp, dictionary_dev, device)
             except (_CompressedUnsupported, TooFragmented):
                 if not use_comp:
                     raise
                 PC.bump("chunk_decode_fallbacks")
-                vals, valids = _decode_numeric_chunk(f, info, cp, False,
-                                                     device)
+                vals, valids = _decode_numeric_chunk(
+                    f, info, cp, False, dictionary_dev, device)
             per_field_vals[fi].extend(vals)
             per_field_valid[fi].extend(valids)
     cols = []

@@ -1,6 +1,8 @@
 """Parquet ENCODE — port of ``spark_rapids_tpu/io/parquet_encode.py`` for
-flat INT32 / INT64 / DATE columns (``chip_smoke.py`` writes its lineitem
-files with it; the card's machine has no pyarrow).
+flat INT32 / INT64 / DATE columns and decimals of up to 18 digits, stored
+as parquet-mr stores them: annotated INT32 up to 9 digits, INT64 above
+(``chip_smoke.py`` writes its lineitem and store_sales files with it; the
+card's machine has no pyarrow).
 
 Device (torch ops on the writer's device): the dictionary build (sorted
 uniques), the index computation (``searchsorted`` into the dictionary) and
@@ -141,10 +143,21 @@ def _hybrid_bitpacked(packed: bytes, n_values: int, bw: int) -> bytes:
 
 _PHYS = {T.IntegerType: TYPE_INT32, T.DateType: TYPE_INT32,
          T.LongType: TYPE_INT64}
+_CONVERTED_DECIMAL, _CONVERTED_DATE = 5, 6
+
+
+def _phys(dt: T.DataType) -> int:
+    """Physical type of a supported column: a decimal of up to 9 digits is
+    INT32 and one of up to 18 INT64, as parquet-mr writes them."""
+    if isinstance(dt, T.DecimalType):
+        return TYPE_INT32 if dt.precision <= 9 else TYPE_INT64
+    return _PHYS[type(dt)]
 
 
 def supported_schema(schema: T.StructType) -> bool:
-    return all(type(f.dataType) in _PHYS for f in schema.fields)
+    return all(type(f.dataType) in _PHYS
+               or (isinstance(f.dataType, T.DecimalType)
+                   and not f.dataType.is_128) for f in schema.fields)
 
 
 def _page_header(page_type: int, usize: int, csize: int, n_values: int,
@@ -189,7 +202,7 @@ def _encode_column(f: T.StructField, col, n: int, codec: int,
                    use_dict: bool, device):
     """One column chunk -> (pages bytes, _ChunkMeta).  ``col`` carries
     numpy ``validity`` and ``data``."""
-    phys = _PHYS[type(f.dataType)]
+    phys = _phys(f.dataType)
     nullable = bool(f.nullable)
     validity = np.asarray(col.validity[:n], np.bool_)
     mask = to_device(validity, device)
@@ -262,8 +275,9 @@ def write_parquet_device(path: str, schema: T.StructType, cols, n: int,
     Returns stats for tests and metrics."""
     device = resolve_device(device)
     if not supported_schema(schema):
-        raise TypeError("the port's writer takes INT32/INT64/DATE columns "
-                        f"only: {schema.simpleString}")
+        raise TypeError("the port's writer takes INT32/INT64/DATE and "
+                        "decimal(p<=18) columns only: "
+                        f"{schema.simpleString}")
     codec = CODEC_SNAPPY if compression == "snappy" \
         else CODEC_UNCOMPRESSED
     out = bytearray(b"PAR1")
@@ -289,11 +303,15 @@ def write_parquet_device(path: str, schema: T.StructType, cols, n: int,
     for f in schema.fields:
         el = _TW()
         e_last = 0
-        e_last = el.write_i(1, e_last, _PHYS[type(f.dataType)], _CT_I32)
+        e_last = el.write_i(1, e_last, _phys(f.dataType), _CT_I32)
         e_last = el.write_i(3, e_last, 1 if f.nullable else 0, _CT_I32)
         e_last = el.write_bin(4, e_last, f.name.encode())
         if isinstance(f.dataType, T.DateType):
-            e_last = el.write_i(6, e_last, 6, _CT_I32)   # DATE converted
+            e_last = el.write_i(6, e_last, _CONVERTED_DATE, _CT_I32)
+        elif isinstance(f.dataType, T.DecimalType):
+            e_last = el.write_i(6, e_last, _CONVERTED_DECIMAL, _CT_I32)
+            e_last = el.write_i(7, e_last, f.dataType.scale, _CT_I32)
+            e_last = el.write_i(8, e_last, f.dataType.precision, _CT_I32)
         tw.buf += el.buf
         tw.stop()
     last = tw.write_i(3, last, n, _CT_I64)               # num_rows

@@ -1,0 +1,113 @@
+"""Segmented reductions — port of the reductions of
+``spark_rapids_tpu/ops/segment.py`` (the group-by primitive).
+
+Rows carry a segment id in ``[0, num_segments)``; each function reduces
+every segment with Spark's null rules: aggregates skip nulls, a segment
+with no valid input is null (the second result, ``has``), and float
+min/max order NaN above every number.  Sums and counts are
+``index_add_``, min and max ``scatter_reduce_``, and plain reductions for
+a single segment: exact for integers, while CUDA adds floats in an order
+of its own.
+
+The reference's ``SegBounds``/``bounds_scope`` (a cumsum-and-gather form
+that avoids full-width scatters, which are slow on the TPU) are not ported:
+a scatter-add is a cheap primitive on the GPU.  The segmented scans
+(``seg_scan_*``) serve window frames and wait for the window slice.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+Pair = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _scatter(op: str, values, seg_ids, num_segments: int, fill):
+    out = torch.full((num_segments,), fill, dtype=values.dtype,
+                     device=values.device)
+    if num_segments == 1:
+        # one segment: a plain reduction, not a scatter into one address
+        if values.shape[0] == 0:
+            return out
+        if op == "amin":
+            return torch.minimum(out, values.amin(0, keepdim=True))
+        return torch.maximum(out, values.amax(0, keepdim=True))
+    return out.scatter_reduce_(0, seg_ids, values, op, include_self=True)
+
+
+def _seg_isum(values, seg_ids, num_segments: int) -> torch.Tensor:
+    if num_segments == 1:
+        return values.sum(0, keepdim=True, dtype=values.dtype)
+    out = torch.zeros(num_segments, dtype=values.dtype, device=values.device)
+    return out.index_add_(0, seg_ids, values)
+
+
+def seg_sum(values, validity, seg_ids, num_segments: int) -> Pair:
+    """-> (per-segment sum of the valid values, has a valid value)."""
+    contrib = torch.where(validity, values, torch.zeros_like(values))
+    return (_seg_isum(contrib, seg_ids, num_segments),
+            seg_count(validity, seg_ids, num_segments) > 0)
+
+
+def seg_count(validity, seg_ids, num_segments: int) -> torch.Tensor:
+    return _seg_isum(validity.to(torch.int64), seg_ids, num_segments)
+
+
+def _seg_min_raw(v, seg_ids, num_segments: int) -> torch.Tensor:
+    fill = (float("inf") if v.is_floating_point()
+            else torch.iinfo(v.dtype).max)
+    return _scatter("amin", v, seg_ids, num_segments, fill)
+
+
+def _seg_max_raw(v, seg_ids, num_segments: int) -> torch.Tensor:
+    fill = (float("-inf") if v.is_floating_point()
+            else torch.iinfo(v.dtype).min)
+    return _scatter("amax", v, seg_ids, num_segments, fill)
+
+
+def _seg_minmax(values, validity, seg_ids, num_segments: int,
+                is_float: bool, is_min: bool) -> Pair:
+    raw = _seg_min_raw if is_min else _seg_max_raw
+    any_valid = seg_count(validity, seg_ids, num_segments) > 0
+    if is_float:
+        nan = torch.isnan(values)
+        ok = validity & ~nan
+        edge = float("inf") if is_min else float("-inf")
+        m = raw(torch.where(ok, values, torch.full_like(values, edge)),
+                seg_ids, num_segments)
+        nan_out = torch.full_like(m, float("nan"))
+        if is_min:
+            # NaN is greatest: the min is NaN only when nothing else exists
+            has_num = seg_count(ok, seg_ids, num_segments) > 0
+            return torch.where(has_num, m, nan_out), any_valid
+        has_nan = seg_count(validity & nan, seg_ids, num_segments) > 0
+        return torch.where(has_nan, nan_out, m), any_valid
+    if values.dtype == torch.bool:
+        v = torch.where(validity, values, is_min).to(torch.int32)
+        return raw(v, seg_ids, num_segments).to(torch.bool), any_valid
+    info = torch.iinfo(values.dtype)
+    edge = info.max if is_min else info.min
+    v = torch.where(validity, values, torch.full_like(values, edge))
+    return raw(v, seg_ids, num_segments), any_valid
+
+
+def seg_min(values, validity, seg_ids, num_segments: int,
+            is_float: bool) -> Pair:
+    return _seg_minmax(values, validity, seg_ids, num_segments, is_float,
+                       True)
+
+
+def seg_max(values, validity, seg_ids, num_segments: int,
+            is_float: bool) -> Pair:
+    return _seg_minmax(values, validity, seg_ids, num_segments, is_float,
+                       False)
+
+
+def seg_first_index(seg_ids, row_mask, num_segments: int) -> torch.Tensor:
+    """Index of the first row of each segment inside ``row_mask``; the row
+    count for a segment with no such row."""
+    n = seg_ids.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=seg_ids.device)
+    return _scatter("amin", torch.where(row_mask, iota, n), seg_ids,
+                    num_segments, n)

@@ -1,24 +1,34 @@
 """Plan rewrite onto the device — the port's merge of
 ``spark_rapids_tpu/overrides/overrides.py``, ``overrides/meta.py`` and
-``overrides/transitions.py`` for the nodes of TPC-H Q6.
+``overrides/transitions.py`` for the nodes of TPC-H Q6 and bench qa.
 
 ``TpuOverrides.apply`` checks every expression against the ported subset
 (the reference's tagging, including ``_check_decimal_mult``), converts
-each CPU plan node into its exec, collapses a two-phase global aggregate
-(Final <- Exchange(SinglePartition) <- Partial) into one COMPLETE
+each CPU plan node into its exec, collapses a two-phase aggregate (Final
+<- Exchange(hash or single partition) <- Partial) into one COMPLETE
 aggregate as the reference's single-device ``_collapse_complete_agg``
-does, and runs ``fuse_stages``.  Anything outside the subset raises
-``NotOnGpu``; the port has no CPU fallback yet.
+does, turns a limit over a sort into a top-N (``_rewrite_topn``) and runs
+``fuse_stages``.  Anything outside the subset raises ``NotOnGpu``: the
+port has no CPU fallback yet.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.config import MAX_READER_BATCH_SIZE_ROWS, TpuConf
+from spark_rapids_tpu_torch.config import (BATCH_SIZE_BYTES,
+                                           MAX_READER_BATCH_SIZE_ROWS,
+                                           TpuConf)
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.exec.basic import (TpuFilterExec,
                                                TpuLocalTableScanExec,
                                                TpuProjectExec, fuse_stages)
+from spark_rapids_tpu_torch.exec.exchange import TpuBroadcastExchangeExec
+from spark_rapids_tpu_torch.exec.join import TpuBroadcastHashJoinExec
+from spark_rapids_tpu_torch.exec.limit import (TpuGlobalLimitExec,
+                                               TpuLocalLimitExec)
+from spark_rapids_tpu_torch.exec.sort import TpuSortExec, TpuTopNExec
 from spark_rapids_tpu_torch.expr import arithmetic as A
 from spark_rapids_tpu_torch.expr import predicates as P
 from spark_rapids_tpu_torch.expr.base import (Alias, BoundReference,
@@ -82,17 +92,56 @@ def check_expression(e: Expression) -> None:
         raise NotOnGpu(f"expression {e.pretty_name}")
 
 
-def _is_two_phase_global(node: PN.SparkPlan) -> bool:
-    """Final <- Exchange(SinglePartition) <- Partial with no keys."""
-    if not (isinstance(node, PN.HashAggregate)
-            and node.mode == PN.AggregateMode.FINAL and not node.grouping):
-        return False
+def _collapse_complete_agg(node: PN.HashAggregate
+                           ) -> Optional[PN.HashAggregate]:
+    """Final <- Exchange(hash or single partition) <- Partial: the Partial,
+    whose keys and aggregates one COMPLETE aggregate takes over (the
+    exchange only co-locates keys across devices); else None."""
+    if node.mode != PN.AggregateMode.FINAL:
+        return None
     ex = node.child
-    return (isinstance(ex, PN.Exchange)
-            and isinstance(ex.partitioning, PN.SinglePartitioning)
-            and isinstance(ex.child, PN.HashAggregate)
-            and ex.child.mode == PN.AggregateMode.PARTIAL
-            and not ex.child.grouping)
+    if not (isinstance(ex, PN.Exchange) and isinstance(
+            ex.partitioning, (PN.SinglePartitioning, PN.HashPartitioning))):
+        return None
+    partial = ex.child
+    if not (isinstance(partial, PN.HashAggregate)
+            and partial.mode == PN.AggregateMode.PARTIAL):
+        return None
+    return partial
+
+
+def _check_join(node: PN.SparkPlan, conf: TpuConf) -> None:
+    """The inner broadcast equi-join without a condition is ported."""
+    if isinstance(node, PN.SortMergeJoin):
+        raise NotOnGpu("shuffled join (the build side is over "
+                       "spark.sql.autoBroadcastJoinThreshold)")
+    if node.join_type != PN.JoinType.INNER:
+        raise NotOnGpu(f"join type {node.join_type.value}")
+    if node.condition is not None:
+        raise NotOnGpu("join with a residual condition")
+    if not node.left_keys:
+        raise NotOnGpu("join without equi-join keys")
+    # the reference decides on the built batch's bytes at run time; this
+    # plan-time estimate is the on-disk (compressed) size for a file scan,
+    # so a build side that decodes past batchSizeBytes still runs here, as
+    # one batch in device memory
+    est = PN.estimated_plan_bytes(node.right)
+    if est is not None and est > conf.get(BATCH_SIZE_BYTES):
+        raise NotOnGpu(f"broadcast build side of {est} bytes needs the "
+                       "sub-partitioned join")
+    for k in list(node.left_keys) + list(node.right_keys):
+        check_expression(k)
+
+
+def _rewrite_topn(node: TpuExec) -> TpuExec:
+    """Limit(Sort) -> TopN."""
+    node.children = [_rewrite_topn(c) for c in node.children]
+    if isinstance(node, TpuLocalLimitExec):
+        child = node.children[0]
+        if isinstance(child, TpuSortExec):
+            return TpuTopNExec(node.n, child.orders, child.children[0],
+                               child.ansi)
+    return node
 
 
 class TpuOverrides:
@@ -102,7 +151,7 @@ class TpuOverrides:
             raise NotOnGpu("spark.rapids.sql.enabled=false needs the CPU "
                            "oracle, which is not ported yet")
         root = TpuOverrides._convert(plan, conf, device)
-        return fuse_stages(root)
+        return fuse_stages(_rewrite_topn(root))
 
     @staticmethod
     def _convert(node: PN.SparkPlan, conf: TpuConf, device) -> TpuExec:
@@ -127,15 +176,35 @@ class TpuOverrides:
                 check_expression(e)
             return TpuProjectExec(node.exprs, conv(node.child), ansi)
         if isinstance(node, PN.HashAggregate):
-            for a in node.aggregates:
+            partial = _collapse_complete_agg(node)
+            if partial is None:
+                raise NotOnGpu(f"aggregate {node.describe()} (only a "
+                               "two-phase aggregate on one device is "
+                               "ported)")
+            for g in partial.grouping:
+                check_expression(g)
+            for a in partial.aggregates:
                 if a.child is not None:
                     check_expression(a.child)
-            if not _is_two_phase_global(node):
-                raise NotOnGpu(f"aggregate {node.describe()} (only a "
-                               "global two-phase aggregate is ported)")
-            partial = node.child.child
             return TpuHashAggregateExec(
-                [], partial.aggregates, PN.AggregateMode.COMPLETE,
-                conv(partial.child), partial.child.output, node.output,
-                ansi)
+                partial.grouping, partial.aggregates,
+                PN.AggregateMode.COMPLETE, conv(partial.child),
+                partial.child.output, node.output, ansi)
+        if isinstance(node, PN._BaseJoin):
+            _check_join(node, conf)
+            return TpuBroadcastHashJoinExec(
+                conv(node.left), conv(node.right), node.left_keys,
+                node.right_keys, node.join_type, node.condition,
+                node.output, ansi)
+        if isinstance(node, PN.BroadcastExchange):
+            return TpuBroadcastExchangeExec(conv(node.children[0]))
+        if isinstance(node, PN.Sort):
+            for e, _ in node.orders:
+                check_expression(e)
+            return TpuSortExec(node.orders, node.is_global, conv(node.child),
+                               ansi)
+        if isinstance(node, PN.GlobalLimit):
+            return TpuGlobalLimitExec(node.n, conv(node.children[0]))
+        if isinstance(node, PN.LocalLimit):
+            return TpuLocalLimitExec(node.n, conv(node.children[0]))
         raise NotOnGpu(f"plan node {node.node_name}")

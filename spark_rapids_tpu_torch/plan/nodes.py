@@ -1,5 +1,6 @@
-"""CPU physical plan nodes — port of the Q6 subset of
-``spark_rapids_tpu/plan/nodes.py``.
+"""CPU physical plan nodes — port of the subset of
+``spark_rapids_tpu/plan/nodes.py`` that TPC-H Q6 and bench qa (a broadcast
+join, a grouped sum, a sort and a limit) plan.
 
 The session builds this Catalyst-shaped plan; ``overrides/overrides.py``
 rewrites it into device execs.  The node names and ``describe`` strings
@@ -9,10 +10,12 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import List, Optional, Sequence
+import os
+from typing import List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.expr.base import Expression
+from spark_rapids_tpu_torch.ops.sortkeys import SortSpec
 
 
 class SparkPlan:
@@ -111,8 +114,8 @@ class AggregateMode(enum.Enum):
     COMPLETE = "Complete"
 
 
-#: aggregate functions this slice ports
-PORTED_AGG_FUNCS = frozenset({"sum", "count", "count_star"})
+#: aggregate functions the port runs
+PORTED_AGG_FUNCS = frozenset({"sum", "count", "count_star", "min", "max"})
 
 
 @dataclasses.dataclass
@@ -137,6 +140,8 @@ class AggregateExpression:
         if self.func in ("count", "count_star"):
             return T.LONG
         ct = self.child.dataType
+        if self.func in ("min", "max"):
+            return ct
         if isinstance(ct, T.DecimalType):
             return T.DecimalType(min(ct.precision + 10, 38), ct.scale)
         if ct.is_integral:
@@ -175,11 +180,129 @@ class HashAggregate(SparkPlan):
         return f"HashAggregate({self.mode.value}) keys=[{g}] aggs=[{a}]"
 
 
+class JoinType(enum.Enum):
+    INNER = "Inner"
+    LEFT_OUTER = "LeftOuter"
+    RIGHT_OUTER = "RightOuter"
+    FULL_OUTER = "FullOuter"
+    LEFT_SEMI = "LeftSemi"
+    LEFT_ANTI = "LeftAnti"
+    CROSS = "Cross"
+
+
+class _BaseJoin(SparkPlan):
+    def __init__(self, left: SparkPlan, right: SparkPlan,
+                 left_keys: List[Expression], right_keys: List[Expression],
+                 join_type: JoinType,
+                 condition: Optional[Expression] = None):
+        super().__init__([left, right])
+        self.left_keys = left_keys
+        self.right_keys = right_keys
+        self.join_type = join_type
+        self.condition = condition
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    @property
+    def output(self):
+        lf = list(self.left.output.fields)
+        rf = list(self.right.output.fields)
+        if self.join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            return T.StructType(lf)
+        if self.join_type in (JoinType.LEFT_OUTER, JoinType.FULL_OUTER):
+            rf = [T.StructField(f.name, f.dataType, True) for f in rf]
+        if self.join_type in (JoinType.RIGHT_OUTER, JoinType.FULL_OUTER):
+            lf = [T.StructField(f.name, f.dataType, True) for f in lf]
+        return T.StructType(lf + rf)
+
+    def describe(self):
+        keys = ", ".join(
+            f"{l.sql_string()}={r.sql_string()}"
+            for l, r in zip(self.left_keys, self.right_keys))
+        return f"{self.node_name} {self.join_type.value} [{keys}]"
+
+
+class SortMergeJoin(_BaseJoin):
+    """The shuffled join the session plans when the right side is too big
+    to broadcast; the port does not run it yet, so the session plans it
+    without the exchanges under it."""
+
+
+class BroadcastHashJoin(_BaseJoin):
+    pass
+
+
+class BroadcastExchange(SparkPlan):
+    def __init__(self, child: SparkPlan):
+        super().__init__([child])
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+
+class Sort(SparkPlan):
+    def __init__(self, orders: List[Tuple[Expression, SortSpec]],
+                 is_global: bool, child: SparkPlan):
+        super().__init__([child])
+        self.orders = orders
+        self.is_global = is_global
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def output(self):
+        return self.child.output
+
+    def describe(self):
+        o = ", ".join(
+            f"{e.sql_string()} {'ASC' if s.ascending else 'DESC'}"
+            for e, s in self.orders)
+        return f"Sort [{o}] global={self.is_global}"
+
+
+class LocalLimit(SparkPlan):
+    def __init__(self, n: int, child: SparkPlan):
+        super().__init__([child])
+        self.n = n
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def describe(self):
+        return f"LocalLimit {self.n}"
+
+
+class GlobalLimit(LocalLimit):
+    def describe(self):
+        return f"GlobalLimit {self.n}"
+
+
 class SinglePartitioning:
     num_partitions = 1
 
     def describe(self):
         return "SinglePartition"
+
+
+@dataclasses.dataclass
+class HashPartitioning:
+    """Hash partitioning on ``keys``; the partition count is not modelled,
+    since on one device the rewrite elides the exchange."""
+    keys: List[Expression]
+
+    def describe(self):
+        k = ", ".join(e.sql_string() for e in self.keys)
+        return f"hashpartitioning({k})"
 
 
 class Exchange(SparkPlan):
@@ -199,3 +322,21 @@ class Exchange(SparkPlan):
 
     def describe(self):
         return f"Exchange {self.partitioning.describe()}"
+
+
+def estimated_plan_bytes(plan: SparkPlan) -> Optional[int]:
+    """Size estimate for the broadcast decisions; None = unknown.  A local
+    table counts its host bytes; a file scan counts its files' sizes on
+    disk, which is the compressed, encoded size of every column, not the
+    decoded batch (Spark's own estimate for files); a narrow node takes its
+    child's estimate (filters and limits only shrink)."""
+    if isinstance(plan, LocalTableScan):
+        return sum(h.data.nbytes + h.num_rows for h in plan.host_columns)
+    if isinstance(plan, FileSourceScan):
+        try:
+            return sum(os.path.getsize(p) for p in plan.paths)
+        except OSError:
+            return None
+    if isinstance(plan, (Project, Filter, LocalLimit, BroadcastExchange)):
+        return estimated_plan_bytes(plan.children[0])
+    return None

@@ -1,14 +1,17 @@
-"""TpuSession / DataFrame — the port's user entry point (port of the Q6
-part of ``spark_rapids_tpu/session.py``).
+"""TpuSession / DataFrame — the port's user entry point (port of the Q6 and
+bench qa part of ``spark_rapids_tpu/session.py``).
 
 The API is call-compatible with the reference: ``TpuSession(conf)``,
 ``create_dataframe``, ``read.schema(...).parquet(...)``, ``filter``,
-``select``, ``agg``, ``explain`` and ``collect``, with ``col``, ``lit`` and
-``sum_``.  A session runs on ``cuda`` unless it is given another device
-(``TpuSession(conf, device="cpu")``); without a GPU and without a device
-argument it raises.  Aggregates are planned two-phase around a
-single-partition exchange exactly as in the reference; the plan rewrite
-(``overrides/overrides.py``) collapses them for one device.
+``select``, ``agg``, ``group_by(...).agg``, ``join``, ``order_by``,
+``limit``, ``explain`` and ``collect``, with ``col``, ``lit``, ``sum_``,
+``count_``, ``min_``, ``max_`` and ``SortSpec``.  A session runs on
+``cuda`` unless it is given another device (``TpuSession(conf,
+device="cpu")``); without a GPU and without a device argument it raises.
+Aggregates are planned two-phase around an exchange and joins broadcast
+their right side under ``spark.sql.autoBroadcastJoinThreshold``, exactly
+as in the reference; the plan rewrite (``overrides/overrides.py``)
+collapses the aggregates for one device.
 """
 from __future__ import annotations
 
@@ -16,11 +19,13 @@ from typing import Dict, List, Optional, Tuple, Union
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import HostColumn
-from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.config import (AUTO_BROADCAST_JOIN_THRESHOLD,
+                                           TpuConf)
 from spark_rapids_tpu_torch.device import DeviceLike, resolve_device
-from spark_rapids_tpu_torch.expr.base import Expression
+from spark_rapids_tpu_torch.expr.base import AttributeReference, Expression
 from spark_rapids_tpu_torch.expr.base import col as _col
 from spark_rapids_tpu_torch.expr.base import lit as _lit
+from spark_rapids_tpu_torch.ops.sortkeys import SortSpec
 from spark_rapids_tpu_torch.plan import nodes as PN
 
 ColumnLike = Union[str, Expression]
@@ -71,6 +76,21 @@ class DataFrameReader:
             self.session)
 
 
+_JOIN_TYPES = {"inner": PN.JoinType.INNER,
+               "left": PN.JoinType.LEFT_OUTER,
+               "left_outer": PN.JoinType.LEFT_OUTER,
+               "right": PN.JoinType.RIGHT_OUTER,
+               "right_outer": PN.JoinType.RIGHT_OUTER,
+               "outer": PN.JoinType.FULL_OUTER,
+               "full": PN.JoinType.FULL_OUTER,
+               "full_outer": PN.JoinType.FULL_OUTER,
+               "left_semi": PN.JoinType.LEFT_SEMI,
+               "semi": PN.JoinType.LEFT_SEMI,
+               "left_anti": PN.JoinType.LEFT_ANTI,
+               "anti": PN.JoinType.LEFT_ANTI,
+               "cross": PN.JoinType.CROSS}
+
+
 class DataFrame:
     def __init__(self, plan: PN.SparkPlan, session: TpuSession):
         self.plan = plan
@@ -88,27 +108,62 @@ class DataFrame:
         return DataFrame(PN.Filter(cond.resolve(self.schema), self.plan),
                          self.session)
 
+    def group_by(self, *cols: ColumnLike) -> "GroupedData":
+        return GroupedData(self, [_to_expr(c).resolve(self.schema)
+                                  for c in cols])
+
+    groupBy = group_by
+
     def agg(self, *aggs) -> "DataFrame":
         """Global aggregate: ``aggs`` are ``(func, column, name)`` tuples
-        (``sum_``, ``count_``) or ``AggregateExpression``s."""
-        schema = self.schema
-        aexprs = []
-        for a in aggs:
-            if isinstance(a, PN.AggregateExpression):
-                aexprs.append(a.resolve(schema))
-                continue
-            func, child, name = a
-            ce = _to_expr(child) if child is not None else None
-            aexprs.append(PN.AggregateExpression(func, ce, name)
-                          .resolve(schema))
-        partial = PN.HashAggregate([], aexprs, PN.AggregateMode.PARTIAL,
-                                   self.plan)
-        ex = PN.Exchange(PN.SinglePartitioning(), partial)
-        final_aggs = [PN.AggregateExpression(a.func, a.child, a.result_name,
-                                             a.result_type)
-                      for a in aexprs]
-        final = PN.HashAggregate([], final_aggs, PN.AggregateMode.FINAL, ex)
-        return DataFrame(final, self.session)
+        (``sum_``, ``count_``, ``min_``, ``max_``) or
+        ``AggregateExpression``s."""
+        return GroupedData(self, []).agg(*aggs)
+
+    def join(self, other: "DataFrame", on, how: str = "inner"
+             ) -> "DataFrame":
+        """Equi-join on the column names ``on``.  The right side is
+        broadcast when its estimated size is within
+        ``spark.sql.autoBroadcastJoinThreshold``; else, and for a cross
+        join, it is planned as a shuffled join, which the port does not run
+        yet."""
+        jt = _JOIN_TYPES[how.lower()]
+        if isinstance(on, Expression):
+            raise NotImplementedError(
+                "joins on a condition (nested-loop joins) are not ported yet")
+        if isinstance(on, str):
+            on = [on]
+        lkeys = [_col(k).resolve(self.schema) for k in on] if on else []
+        rkeys = [_col(k).resolve(other.schema) for k in on] if on else []
+        if jt != PN.JoinType.CROSS and _is_broadcastable(
+                other.plan, self.session.conf):
+            node = PN.BroadcastHashJoin(
+                self.plan, PN.BroadcastExchange(other.plan), lkeys, rkeys, jt)
+            return DataFrame(node, self.session)
+        return DataFrame(PN.SortMergeJoin(self.plan, other.plan, lkeys,
+                                          rkeys, jt), self.session)
+
+    def order_by(self, *cols, ascending=None) -> "DataFrame":
+        """Global sort.  Each term is a column, or an ``(expression,
+        SortSpec)`` pair; a plain column sorts ASC NULLS FIRST, or as
+        ``ascending`` says (DESC then puts nulls last)."""
+        orders = []
+        for i, c in enumerate(cols):
+            if isinstance(c, tuple):
+                e, spec = c
+            else:
+                asc = (ascending[i] if isinstance(ascending, (list, tuple))
+                       else (ascending if ascending is not None else True))
+                e = _to_expr(c)
+                spec = SortSpec(ascending=asc, nulls_first=asc)
+            orders.append((_to_expr(e).resolve(self.schema), spec))
+        return DataFrame(PN.Sort(orders, True, self.plan), self.session)
+
+    orderBy = order_by
+    sort = order_by
+
+    def limit(self, n: int) -> "DataFrame":
+        return DataFrame(PN.GlobalLimit(n, self.plan), self.session)
 
     def _planned(self):
         from spark_rapids_tpu_torch.overrides.overrides import TpuOverrides
@@ -127,12 +182,69 @@ class DataFrame:
         return self._planned().pretty()
 
 
+class GroupedData:
+    def __init__(self, df: DataFrame, keys: List[Expression]):
+        self.df = df
+        self.keys = keys
+
+    def agg(self, *aggs) -> DataFrame:
+        """``aggs``: ``(func, column-or-None, result_name)`` tuples or
+        ``AggregateExpression``s.  Planned as the reference plans it:
+        Partial, an exchange (hash on the keys, or a single partition
+        without keys), Final."""
+        schema = self.df.schema
+        aexprs: List[PN.AggregateExpression] = []
+        for a in aggs:
+            if isinstance(a, PN.AggregateExpression):
+                aexprs.append(a.resolve(schema))
+                continue
+            func, child, name = a
+            ce = _to_expr(child) if child is not None else None
+            aexprs.append(PN.AggregateExpression(func, ce, name)
+                          .resolve(schema))
+        partial = PN.HashAggregate(self.keys, aexprs,
+                                   PN.AggregateMode.PARTIAL, self.df.plan)
+        if self.keys:
+            # re-key the exchange and the final aggregate on the partial
+            # output
+            pschema = partial.output
+            fkeys = [AttributeReference(g.name).resolve(pschema)
+                     for g in self.keys]
+            ex = PN.Exchange(PN.HashPartitioning(fkeys), partial)
+        else:
+            fkeys = []
+            ex = PN.Exchange(PN.SinglePartitioning(), partial)
+        final_aggs = [PN.AggregateExpression(a.func, a.child, a.result_name,
+                                             a.result_type)
+                      for a in aexprs]
+        final = PN.HashAggregate(fkeys, final_aggs, PN.AggregateMode.FINAL,
+                                 ex)
+        return DataFrame(final, self.df.session)
+
+
+def _is_broadcastable(plan: PN.SparkPlan, conf: TpuConf) -> bool:
+    """``spark.sql.autoBroadcastJoinThreshold`` against the estimate."""
+    threshold = conf.get(AUTO_BROADCAST_JOIN_THRESHOLD)
+    if threshold < 0:
+        return False
+    est = PN.estimated_plan_bytes(plan)
+    return est is not None and est <= threshold
+
+
 def sum_(c: ColumnLike, name: str = "sum") -> Tuple[str, ColumnLike, str]:
     return ("sum", c, name)
 
 
 def count_(c: Optional[ColumnLike] = None, name: str = "count"):
     return ("count", c, name) if c is not None else ("count_star", None, name)
+
+
+def min_(c: ColumnLike, name: str = "min"):
+    return ("min", c, name)
+
+
+def max_(c: ColumnLike, name: str = "max"):
+    return ("max", c, name)
 
 
 # pyspark.sql.functions flavoured re-exports

@@ -2,6 +2,7 @@
 device).  This file imports no jax, so it also runs on a machine without
 it: ``python -m pytest tests/port/test_torch_gpu.py --noconftest``."""
 import datetime
+import sys
 from decimal import Decimal
 
 import numpy as np
@@ -15,6 +16,7 @@ from spark_rapids_tpu_torch.io.parquet_native import split_hybrid_runs
 from spark_rapids_tpu_torch.pallas import decode
 from spark_rapids_tpu_torch.session import TpuSession, col, lit, sum_
 from torch_port_data import hybrid_stream, page_batch
+from torch_port_jaxref import REPO
 
 
 def _need_gpu():
@@ -170,3 +172,93 @@ def test_decimal128_limb_math_matches_cpu_on_gpu():
         else:
             for g, w in zip(res, want):
                 np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+def _qa_files(tmp_path, n, nfiles):
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+
+    ss, dd = C.make_store_sales(n), C.make_date_dim()
+    wsch, _, dsch = C.qa_schemas(T)
+    bounds = np.linspace(0, n, nfiles + 1).astype(int)
+    paths = []
+    for i in range(nfiles):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        path = str(tmp_path / f"ss-{i}.parquet")
+        write_parquet_device(path, wsch, [
+            HostColumn.from_numpy(ss[f.name][lo:hi], f.dataType)
+            for f in wsch.fields], hi - lo, device="cuda")
+        paths.append(path)
+    dd_path = str(tmp_path / "dd.parquet")
+    write_parquet_device(dd_path, dsch, [
+        HostColumn.from_numpy(dd[f.name], f.dataType) for f in dsch.fields],
+        len(dd["date_sk"]), device="cuda")
+    return C, ss, dd, paths, dd_path
+
+
+@pytest.mark.gpu
+def test_qa_from_parquet_on_gpu_equals_cpu(tmp_path):
+    """bench qa on the card and on the CPU from the same files: equal to
+    each other and to the numpy reference; K1 launches once per column
+    chunk the query reads (3 store_sales columns a file, 4 of date_dim)."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+
+    C, ss, dd, paths, dd_path = _qa_files(tmp_path, 60_000, 3)
+    _, rsch, dsch = C.qa_schemas(T)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        s = S.TpuSession(C.QA_CONF, device=dev)
+        q = C.qa_query(s.read.schema(rsch).parquet(*paths),
+                       s.read.schema(dsch).parquet(dd_path), S)
+        before = decode.unpack_launches
+        got[dev] = q.collect()
+        if dev == "cuda":
+            assert decode.unpack_launches - before == 3 * 3 + 4
+            assert q.collect() == got[dev]
+    assert got["cuda"] == got["cpu"] == C.qa_reference(ss, dd)
+
+
+@pytest.mark.gpu
+def test_grouped_aggregates_and_two_key_join_on_gpu_equal_cpu():
+    """Sort keys, segmented reductions, the decimal128 sums and the
+    merge-rank search on the card, against the same queries on the CPU
+    (held against the JAX package in test_torch_groupby.py and
+    test_torch_join.py)."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.columnar.column import HostColumn as H
+    from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
+
+    rng = np.random.default_rng(9)
+    n = 20_000
+    dec = T.DecimalType(30, 2)
+    sch = T.StructType([T.StructField("k", T.INT), T.StructField("k2", T.LONG),
+                        T.StructField("v", T.LONG), T.StructField("h", dec),
+                        T.StructField("f", T.DOUBLE)])
+    h = np.stack([rng.integers(-2 ** 30, 2 ** 30, n),
+                  rng.integers(-2 ** 63, 2 ** 63 - 1, n)], axis=1)
+    cols = [H.from_numpy(rng.integers(0, 50, n).astype(np.int32), T.INT,
+                         rng.random(n) > 0.1),
+            H.from_numpy(rng.integers(0, 4, n), T.LONG),
+            H.from_numpy(rng.integers(-10 ** 9, 10 ** 9, n), T.LONG,
+                         rng.random(n) > 0.1),
+            H.from_numpy(h, dec, rng.random(n) > 0.1),
+            H.from_numpy(rng.choice([0.0, -0.0, np.nan, 2.5], n), T.DOUBLE)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = S.TpuSession({"spark.rapids.sql.reader.batchSizeRows": 6000},
+                         device=dev)
+        df = S.DataFrame(LocalTableScan(cols, sch), s)
+        agg = (df.group_by("k", "f")
+               .agg(S.sum_("v", "sv"), S.sum_("h", "sh"), S.min_("h", "mn"),
+                    S.max_("v", "mx"), S.count_(None, "n"))
+               .order_by("k", "f", "sv"))
+        small = df.filter(S.col("v") < S.lit(-990_000_000)).select("k", "k2")
+        joined = df.join(small, on=["k", "k2"]).agg(
+            S.sum_("v", "sv"), S.count_(None, "n"))
+        out[dev] = (agg.collect(), joined.collect())
+    assert out["cuda"][1] == out["cpu"][1]
+    assert [tuple("NaN" if x != x else x for x in r)
+            for r in out["cuda"][0]] == [
+        tuple("NaN" if x != x else x for x in r) for r in out["cpu"][0]]

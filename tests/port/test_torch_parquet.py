@@ -118,6 +118,46 @@ def test_port_written_files_read_back(tmp_path, codec, use_dict, nullable):
         np.testing.assert_array_equal(c.data.numpy()[valid], d[valid])
 
 
+@pytest.mark.parametrize("use_dict,nullable", list(itertools.product(
+    [True, False], [True, False])))
+def test_port_writes_annotated_decimals(tmp_path, use_dict, nullable):
+    """DECIMAL(7,2) as annotated INT32 and DECIMAL(12,2) as annotated
+    INT64, as Spark writes them: pyarrow reads Decimals of those types, and
+    the port reads the values back."""
+    pa = pytest.importorskip("pyarrow")
+    pq = pytest.importorskip("pyarrow.parquet")
+    from decimal import Decimal
+
+    from spark_rapids_tpu_torch.io.parquet_native import (TYPE_INT32,
+                                                          TYPE_INT64,
+                                                          read_footer)
+
+    rng = np.random.default_rng(21)
+    n = 3001
+    schema = T.StructType([T.StructField("s", T.DecimalType(7, 2), nullable),
+                           T.StructField("p", T.DecimalType(12, 2),
+                                         nullable)])
+    valid = rng.random(n) > 0.2 if nullable else np.ones(n, bool)
+    data = [rng.integers(-10 ** 7 + 1, 10 ** 7, n),
+            rng.integers(-10 ** 12 + 1, 10 ** 12, n)]
+    path = str(tmp_path / "dec.parquet")
+    write_parquet_device(path, schema, [HostColumn(f.dataType, valid, data=d)
+                                        for f, d in zip(schema.fields, data)],
+                         n, use_dict=use_dict, device=CPU)
+    groups, _ = read_footer(open(path, "rb").read())
+    assert [c.ptype for c in groups[0].columns] == [TYPE_INT32, TYPE_INT64]
+    tbl = pq.read_table(path)
+    assert tbl.schema.types == [pa.decimal128(7, 2), pa.decimal128(12, 2)]
+    for f, d in zip(schema.fields, data):
+        want = [Decimal(int(x)).scaleb(-2) if ok else None
+                for x, ok in zip(d, valid)]
+        assert tbl.column(f.name).to_pylist() == want, f.name
+    batch = read_parquet_device(path, schema, CPU)
+    for c, d in zip(batch.columns, data):
+        np.testing.assert_array_equal(c.validity.numpy(), valid)
+        np.testing.assert_array_equal(c.data.numpy()[valid], d[valid])
+
+
 def test_writer_packs_one_run_per_page_and_reader_counts_fallbacks(tmp_path):
     from spark_rapids_tpu_torch.io.parquet_native import (read_column_pages,
                                                           read_footer,
@@ -142,7 +182,13 @@ def test_writer_packs_one_run_per_page_and_reader_counts_fallbacks(tmp_path):
     batch = read_parquet_device(path, schema, CPU, compressed=True)
     np.testing.assert_array_equal(batch.columns[0].data.numpy(), data)
     # random 6-bit indices do not compress: the page ships decoded
-    assert PC.since(snap)["chunk_decode_fallbacks"] == 1
+    fell_back = PC.since(snap)
+    assert fell_back["chunk_decode_fallbacks"] == 1
+    # ... and the chunk's dictionary crosses the link once, as it does
+    # when the decoded transfer is asked for
+    snap = PC.snapshot()
+    read_parquet_device(path, schema, CPU, compressed=False)
+    assert fell_back["bytes_h2d"] == PC.since(snap)["bytes_h2d"]
 
 
 @pytest.mark.parametrize("codec", ["snappy", "none"])
@@ -288,8 +334,11 @@ def test_pyarrow_pages_decode_with_one_call_per_chunk(tmp_path, monkeypatch,
                 while True:
                     try:
                         if decode_chunk == "batched":
-                            v, ok = PD._decode_numeric_chunk(f, info, cp,
-                                                             use, CPU)
+                            dictionary = (PC.to_device(cp.dictionary, CPU)
+                                          if cp.dictionary is not None
+                                          else None)
+                            v, ok = PD._decode_numeric_chunk(
+                                f, info, cp, use, dictionary, CPU)
                             v, ok = torch.cat(v), torch.cat(ok)
                         else:
                             v, ok = _per_page_chunk(info, f.dataType, cp,

@@ -1,0 +1,45 @@
+"""Shared pieces of the port's query tests: one table, given as numpy
+arrays, made into a DataFrame of either package, and rows compared as
+``tests/asserts.py`` compares them (its ``approximate_float`` rounds
+doubles to 12 significant digits; -0.0 equals 0.0; NaN equals NaN)."""
+import math
+from decimal import Decimal
+
+import numpy as np
+
+ORACLE = {"spark.rapids.sql.enabled": False}
+
+
+def frame(mod, session, arrays, schema, validity=None):
+    """A ``LocalTableScan`` DataFrame of ``arrays`` (name -> numpy array in
+    the field's storage form; ``validity``: name -> bool array) in the
+    package whose ``session`` module is ``mod``."""
+    pkg = mod.__name__.rsplit(".", 1)[0]
+    column = __import__(pkg + ".columnar.column", fromlist=["HostColumn"])
+    nodes = __import__(pkg + ".plan.nodes", fromlist=["LocalTableScan"])
+    validity = validity or {}
+    host = [column.HostColumn.from_numpy(np.asarray(arrays[f.name]),
+                                         f.dataType,
+                                         validity.get(f.name))
+            for f in schema.fields]
+    return mod.DataFrame(nodes.LocalTableScan(host, schema), session)
+
+
+def _normalize(v, approx_float: bool):
+    if isinstance(v, float):
+        if math.isnan(v):
+            return "NaN"
+        if v == 0.0:
+            return 0.0
+        if approx_float:
+            return float(f"{v:.12g}")
+    if isinstance(v, Decimal):
+        return ("dec", str(v.normalize()))
+    return v
+
+
+def rows_key(rows, approx_float: bool = False, ordered: bool = False):
+    """Rows in a comparable form; sorted unless ``ordered``."""
+    out = [tuple(type(v).__name__ + ":" + repr(_normalize(v, approx_float))
+                 for v in r) for r in rows]
+    return out if ordered else sorted(out)
