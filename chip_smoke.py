@@ -49,16 +49,34 @@ Phases, each failing the run at its first mismatch:
    two collects and one from memory (``LocalTableScan``) must equal an
    integer numpy reference.  The counts are set to 0 just before the
    timed collect and read just after; then a breakdown by operator and
-   one collect under ``torch.profiler``.
+   one collect under ``torch.profiler``;
+10. bench qb (store_sales LEFT JOIN store_returns on (ticket, item_sk),
+    then ``ext_sales - coalesce(return_amt, 0.00)`` summed by store):
+    phase 9's store_sales files, and bench.py's store_returns (one row in
+    ten of store_sales, unique keys) written as 8 snappy files.  The
+    returns are over the broadcast threshold, so the plan is the adaptive
+    join over single-partition exchanges, and it must decide ``shuffled``
+    at run time.  Two collects, the second timed with the counts set to 0
+    just before it; both equal an integer numpy reference.  Then a
+    breakdown by operator (the two scans, the join, the aggregate, and the
+    join's probe search at qb's shapes), one collect under
+    ``torch.profiler``, and the peak device memory;
+11. bench qc (a sum grouped by store and date, then ``rank()`` over each
+    store's days by the sum, descending, kept where the rank is at most
+    5) from phase 9's files, in the same way: aggregate -> window ->
+    filter, exact against an integer numpy reference.
 
 The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
+before them.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -198,6 +216,23 @@ QA_PLAN = ["TpuTopN 100",
            "        TpuFilter ((d_qoy = 1))",
            "          <scan>"]
 
+QB_PLAN = ["TpuHashAggregate(Complete) keys=[store_sk] aggs=[sum(net) AS "
+           "net_sales] fused=[Project]",
+           "  TpuAdaptiveJoin(threshold=10485760)[TpuShuffledSymmetricHash"
+           "JoinExec LeftOuter [ticket=ticket, item_sk=item_sk]] "
+           "decided=shuffled(<bytes>)",
+           "    TpuAdaptiveShuffleReader(target=1073741824B small=4194304B)",
+           "      TpuShuffleExchange SinglePartition",
+           "        <scan>",
+           "    TpuAdaptiveShuffleReader(target=1073741824B small=4194304B)",
+           "      TpuShuffleExchange SinglePartition",
+           "        <scan>"]
+QC_PLAN = ["TpuFilter ((rk <= 5))",
+           "  TpuWindow [rank] frame=running",
+           "    TpuHashAggregate(Complete) keys=[store_sk, date_sk] "
+           "aggs=[sum(ext_sales) AS day_sales]",
+           "      <scan>"]
+
 
 def make_store_sales(n: int):
     """bench.py's seven store_sales columns (``ext_sales`` and
@@ -256,6 +291,130 @@ def qa_query(sales, dates, mod):
                        mod.SortSpec(ascending=False, nulls_first=False)),
                       col("store_sk"))
             .limit(QA_LIMIT))
+
+
+def make_store_returns(ss, n_ret: int):
+    """bench.py's store_returns: a sample of the sales rows with unique
+    (ticket, item_sk), ``return_amt`` in unscaled cents of DECIMAL(7,2)."""
+    rng = np.random.default_rng(7)
+    key = ss["ticket"] * np.int64(2 * N_ITEMS) + ss["item_sk"]
+    uniq, first_idx = np.unique(key, return_index=True)
+    take = rng.choice(len(uniq), size=min(n_ret, len(uniq)), replace=False)
+    idx = first_idx[take]
+    return {
+        "ticket": ss["ticket"][idx],
+        "item_sk": ss["item_sk"][idx],
+        "return_amt": rng.integers(50, 500_000, len(idx)),
+    }
+
+
+def qb_schemas(T):
+    """(store_sales as qb reads it, store_returns as written and read) in
+    the types module ``T`` of either package."""
+    dec72 = T.DecimalType(7, 2)
+    sales = T.StructType([T.StructField("store_sk", T.INT, False),
+                          T.StructField("item_sk", T.INT, False),
+                          T.StructField("ticket", T.LONG, False),
+                          T.StructField("ext_sales", dec72, False)])
+    returns = T.StructType([T.StructField("ticket", T.LONG, False),
+                            T.StructField("item_sk", T.INT, False),
+                            T.StructField("return_amt", dec72, False)])
+    return sales, returns
+
+
+def qb_query(sales, rets, mod):
+    """bench.py's ``build_qb`` over two DataFrames of the package whose
+    session module is ``mod``."""
+    pkg = mod.__name__.rsplit(".", 1)[0]
+    T = importlib.import_module(pkg + ".types")
+    CO = importlib.import_module(pkg + ".expr.conditional")
+    B = importlib.import_module(pkg + ".expr.base")
+    col = mod.col
+    joined = sales.join(rets, on=["ticket", "item_sk"], how="left")
+    net = (col("ext_sales")
+           - CO.Coalesce([col("return_amt"),
+                          B.Literal(Decimal("0.00"), T.DecimalType(7, 2))]))
+    return (joined.select(col("store_sk"), net.alias("net"))
+            .group_by("store_sk").agg(mod.sum_("net", "net_sales")))
+
+
+def qb_reference(ss, sr):
+    """bench.py's ``cpu_qb_vectorized`` in int64: each sale's return found
+    by a search of the sorted return keys, then net sums per store, as
+    the query's rows (store_sk, net_sales), by store."""
+    k = np.int64(2 * N_ITEMS)
+    skey = ss["ticket"] * k + ss["item_sk"]
+    rkey = sr["ticket"] * k + sr["item_sk"]
+    order = np.argsort(rkey)
+    rk_sorted = rkey[order]
+    ramt_sorted = sr["return_amt"][order]
+    pos = np.searchsorted(rk_sorted, skey)
+    pos_c = np.clip(pos, 0, max(len(rk_sorted) - 1, 0))
+    found = (len(rk_sorted) > 0) & (rk_sorted[pos_c] == skey)
+    matched = np.where(found, ramt_sorted[pos_c], 0)
+    net = ss["ext_sales"].astype(np.int64) - matched
+    sums = np.zeros(N_STORES + 1, np.int64)
+    np.add.at(sums, ss["store_sk"], net)
+    present = np.zeros(N_STORES + 1, np.bool_)
+    present[ss["store_sk"]] = True
+    return [(s, Decimal(int(sums[s])).scaleb(-2))
+            for s in range(1, N_STORES + 1) if present[s]]
+
+
+def qc_query(sales, mod):
+    """bench.py's ``build_qc`` over a DataFrame of the package whose
+    session module is ``mod``."""
+    pkg = mod.__name__.rsplit(".", 1)[0]
+    nodes = importlib.import_module(pkg + ".plan.nodes")
+    col, lit = mod.col, mod.lit
+    daily = (sales.group_by("store_sk", "date_sk")
+             .agg(mod.sum_("ext_sales", "day_sales")))
+    ranked = daily.window(
+        [nodes.WindowFunction("rank", None, "rk")],
+        partition_by=["store_sk"],
+        order_by=[(col("day_sales"), mod.SortSpec(ascending=False,
+                                                  nulls_first=False))])
+    return ranked.filter(col("rk") <= lit(5))
+
+
+def qc_reference(ss):
+    """bench.py's ``cpu_qc_vectorized`` in int64: day sums per (store,
+    date), ranked within each store by the sum, descending (ties share
+    the rank), kept to rank 5; a set of (store_sk, date_sk, cents,
+    rank)."""
+    key = ss["store_sk"].astype(np.int64) * np.int64(N_DATES + 1) \
+        + (ss["date_sk"].astype(np.int64) - DATE_SK0)
+    sums = np.zeros((N_STORES + 1) * (N_DATES + 1), np.int64)
+    np.add.at(sums, key, ss["ext_sales"].astype(np.int64))
+    nz = np.nonzero(sums)[0]
+    stores = nz // (N_DATES + 1)
+    vals = sums[nz]
+    order = np.lexsort((-vals, stores))
+    st_sorted = stores[order]
+    v_sorted = vals[order]
+    idx = np.arange(len(order))
+    starts = np.ones(len(order), np.bool_)
+    starts[1:] = st_sorted[1:] != st_sorted[:-1]
+    run_start = np.maximum.accumulate(np.where(starts, idx, -1))
+    new_val = starts.copy()
+    new_val[1:] |= v_sorted[1:] != v_sorted[:-1]
+    anchor = np.maximum.accumulate(np.where(new_val, idx, -1))
+    rank = anchor - run_start + 1
+    keep = rank <= 5
+    d_sorted = ((nz % (N_DATES + 1)) + DATE_SK0)[order]
+    return {(int(s), int(d), int(v), int(r))
+            for s, d, v, r in zip(st_sorted[keep], d_sorted[keep],
+                                  v_sorted[keep], rank[keep])}
+
+
+def qc_rows(rows):
+    """The query's rows (store_sk, date_sk, day_sales, rk) as
+    ``qc_reference``'s set; a repeated row fails."""
+    out = {(int(s), int(d), int(v.scaleb(2)), int(r))
+           for s, d, v, r in rows}
+    if len(out) != len(rows):
+        fail("qc returned a row twice")
+    return out
 
 
 def qa_reference(ss, dd, limit: int = QA_LIMIT):
@@ -728,8 +887,9 @@ def run_q6(paths, li, n: int, device):
     return {"seconds": secs, "launches": launches, "want": want, "query": q}
 
 
-def profile_collect(q, want_rows, label: str):
-    """One more collect under ``torch.profiler``: K1's device time summed
+def profile_collect(q, want_rows, label: str, key=None):
+    """One more collect under ``torch.profiler``, its rows (through
+    ``key``, if given) equal to ``want_rows``: K1's device time summed
     over its launches inside the query, and the share of the collect's
     wall time in which the card ran nothing (kernels and copies merged
     into busy intervals).  The profiler's own host cost makes the collect
@@ -745,7 +905,7 @@ def profile_collect(q, want_rows, label: str):
         got = q.collect()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    if got != want_rows:
+    if (key(got) if key else got) != want_rows:
         fail(f"{label} under the profiler differs from the reference")
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
@@ -864,54 +1024,84 @@ def qa_parquet_query(ss_paths, dd_path, device):
                     s.read.schema(dsch).parquet(dd_path), S)
 
 
-def check_qa_plan(q):
-    """The explain must be the reference's unfused qa plan, scans aside."""
+def plan_shape(q):
+    """The explain's lines with the scans as ``<scan>`` and the adaptive
+    join's measured bytes as ``<bytes>``."""
     lines = q.explain().splitlines()
-    got = [ln[:len(ln) - len(ln.lstrip())] + "<scan>"
-           if ln.lstrip().startswith(("TpuFileSourceScan",
-                                      "TpuLocalTableScan")) else ln
-           for ln in lines]
-    if got != QA_PLAN:
-        fail("unexpected qa plan:\n" + "\n".join(lines))
+    return [re.sub(r"decided=(\w+)\(\d+B\)", r"decided=\1(<bytes>)", ln)
+            if not ln.lstrip().startswith(("TpuFileSourceScan",
+                                           "TpuLocalTableScan"))
+            else ln[:len(ln) - len(ln.lstrip())] + "<scan>"
+            for ln in lines]
 
 
-def run_qa(ss_paths, dd_path, want, n: int, device):
-    """qa from Parquet, collected twice; both results exact.  The counts
-    are set to 0 just before the timed second collect and read after."""
+def check_plan(q, want, label: str):
+    """The explain must be the reference's unfused plan, scans aside."""
+    if plan_shape(q) != want:
+        fail(f"unexpected {label} plan:\n" + q.explain())
+
+
+def check_qa_plan(q):
+    check_plan(q, QA_PLAN, "qa")
+
+
+def timed_collects(q, check, label: str, n: int):
+    """Two collects of ``q``, both held by ``check`` (rows -> None or a
+    complaint).  The counts are set to 0 just before the timed second
+    collect and read after it; prints its rows/s, counters and peak
+    device memory."""
     import torch
 
     from spark_rapids_tpu_torch import perfcounters as PC
     from spark_rapids_tpu_torch.pallas import decode
 
-    q = qa_parquet_query(ss_paths, dd_path, device)
-    check_qa_plan(q)
-    log("qa plan:\n" + q.explain())
-    first = q.collect()
-    if first != want:
-        fail(f"qa from Parquet, first run: {first[:3]}... != "
-             f"{want[:3]}...")
+    bad = check(q.collect())
+    if bad:
+        fail(f"{label}, first run: {bad}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     decode.unpack_launches = 0
     snap = PC.snapshot()
     t0 = time.perf_counter()
-    second = q.collect()
+    rows = q.collect()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = decode.unpack_launches
     delta = PC.since(snap)
-    if second != want:
-        fail("qa from Parquet, second run differs from the reference")
+    peak = torch.cuda.max_memory_allocated()
+    bad = check(rows)
+    if bad:
+        fail(f"{label}, second run: {bad}")
     if launches <= 0:
-        fail("the qa run launched K1 no time")
-    log(f"qa parquet: {len(second)} rows == integer numpy reference; first "
-        f"{second[0]}, last {second[-1]}; {n} store_sales rows in "
-        f"{secs:.3f} s = {n / secs:.0f} rows/s")
-    log(f"qa parquet counters: unpack_launches={launches} "
+        fail(f"the {label} run launched K1 no time")
+    log(f"{label}: {len(rows)} rows == integer numpy reference; {n} "
+        f"store_sales rows in {secs:.3f} s = {n / secs:.0f} rows/s")
+    log(f"{label} counters: unpack_launches={launches} "
         f"bytes_h2d={delta['bytes_h2d']} host_syncs={delta['host_syncs']} "
         f"chunk_decode_fallbacks={delta['chunk_decode_fallbacks']} "
-        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
-    return {"seconds": secs, "launches": launches, "query": q}
+        f"max_memory_allocated={peak}")
+    return {"seconds": secs, "launches": launches, "query": q,
+            "rows": rows}
+
+
+def run_qa(ss_paths, dd_path, want, n: int, device):
+    """qa from Parquet, collected twice; both results exact."""
+    q = qa_parquet_query(ss_paths, dd_path, device)
+    check_qa_plan(q)
+    log("qa plan:\n" + q.explain())
+    out = timed_collects(
+        q, lambda rows: None if rows == want else
+        f"{rows[:3]}... != {want[:3]}...", "qa parquet", n)
+    log(f"qa parquet: first {out['rows'][0]}, last {out['rows'][-1]}")
+    return out
+
+
+def fresh_plan(q):
+    """A new exec tree for ``q`` (``q._planned()`` keeps one per conf,
+    which the collects run)."""
+    from spark_rapids_tpu_torch.overrides.overrides import TpuOverrides
+
+    return TpuOverrides.apply(q.plan, q.session.conf, q.session.device)
 
 
 class _Replay:
@@ -939,21 +1129,25 @@ def _timed_run(node):
     return time.perf_counter() - t0, out
 
 
+def _replay_leaf(parent, i: int):
+    """Run ``parent.children[i]`` alone, then put a leaf that replays its
+    output batches in its place: -> (seconds, batches)."""
+    secs, batches = _timed_run(parent.children[i])
+    parent.children[i] = _Replay(batches, parent.children[i].output)
+    return secs, batches
+
+
 def qa_breakdown(q):
     """Where a qa collect spends its time, operator by operator: each runs
     alone on its input batches, already on the card from the operator
     below (the same plan as the collect).  The join's time holds the
     date_dim scan, filter and broadcast."""
-    topn = q._planned()
+    topn = fresh_plan(q)
     agg = topn.children[0]
     join = agg.children[0]
-    scan = join.children[0]
-    t_scan, batches = _timed_run(scan)
-    join.children[0] = _Replay(batches, scan.output)
-    t_join, batches = _timed_run(join)
-    agg.children[0] = _Replay(batches, join.output)
-    t_agg, batches = _timed_run(agg)
-    topn.children[0] = _Replay(batches, agg.output)
+    t_scan, _ = _replay_leaf(join, 0)
+    t_join, _ = _replay_leaf(agg, 0)
+    t_agg, _ = _replay_leaf(topn, 0)
     t_topn, _ = _timed_run(topn)
     log(f"qa breakdown: store_sales scan {t_scan:.4f} s, join "
         f"{t_join:.4f} s, aggregate {t_agg:.4f} s, top-N {t_topn:.4f} s")
@@ -985,11 +1179,114 @@ def run_qa_memory(ss, dd, want, device):
         f"({secs:.3f} s with the upload)")
 
 
+def write_returns_files(sr, out_dir: str, device):
+    """store_returns as ``N_FILES`` snappy files by the port's writer."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.io.parquet_encode import write_parquet_device
+
+    _, rsch = qb_schemas(T)
+    n = len(sr["ticket"])
+    bounds = np.linspace(0, n, N_FILES + 1).astype(np.int64)
+    paths = []
+    for i in range(N_FILES):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        cols = [HostColumn.from_numpy(sr[f.name][lo:hi], f.dataType)
+                for f in rsch.fields]
+        path = os.path.join(out_dir, f"store_returns-{i:02d}.parquet")
+        write_parquet_device(path, rsch, cols, hi - lo, device=device)
+        paths.append(path)
+    return paths
+
+
+def run_qb(ss_paths, sr_paths, want, n: int, device):
+    """qb from Parquet: the plan after the first collect must be the
+    adaptive join decided ``shuffled``; both collects exact."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+
+    ssch, rsch = qb_schemas(T)
+    s = S.TpuSession(QA_CONF, device=device)
+    q = qb_query(s.read.schema(ssch).parquet(*ss_paths),
+                 s.read.schema(rsch).parquet(*sr_paths), S)
+    out = timed_collects(
+        q, lambda rows: None if sorted(rows) == want else
+        f"{sorted(rows)[:3]}... != {want[:3]}...", "qb parquet", n)
+    check_plan(q, QB_PLAN, "qb")
+    log("qb plan after the collects:\n" + q.explain())
+    return out
+
+
+def qb_breakdown(q):
+    """Where a qb collect spends its time, operator by operator, each on
+    its input batches already on the card: the store_sales and
+    store_returns scans, the adaptive join (its build side and the
+    probes), the aggregate; then the join's probe search at qb's shapes
+    (one store_sales batch against the whole build side), and the build
+    side alone (its sort, run ends and rank tables)."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+
+    agg = fresh_plan(q)
+    join = agg.children[0]
+    left_ex, right_ex = join.shuffled.children
+    t_ss, ss_batches = _replay_leaf(left_ex, 0)
+    t_sr, sr_batches = _replay_leaf(right_ex, 0)
+    t_join, batches = _timed_run(join)
+    agg.children[0] = _Replay(batches, join.output)
+    t_agg, _ = _timed_run(agg)
+    sh = join.shuffled
+    build_batch = ColumnarBatch.concat(sr_batches)
+    probe = ss_batches[0]
+    build_ms = _cuda_time_ms(
+        lambda: sh._prepare_build(build_batch, sh.right_keys), 5, warmup=1)
+    build = sh._prepare_build(build_batch, sh.right_keys)
+    probe_ms = _cuda_time_ms(lambda: sh._probe_counts(build, probe), 5,
+                             warmup=1)
+    torch.cuda.synchronize()
+    log(f"qb breakdown: store_sales scan {t_ss:.4f} s, store_returns scan "
+        f"{t_sr:.4f} s, join {t_join:.4f} s ({join.decision}), aggregate "
+        f"{t_agg:.4f} s; build side (sort, run ends, rank tables) "
+        f"{build_ms:.3f} ms over {build_batch.num_rows} rows; probe search "
+        f"{probe_ms:.3f} ms a batch of {probe.num_rows} rows "
+        f"({len(ss_batches)} batches)")
+
+
+def run_qc(ss_paths, want, n: int, device):
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+
+    _, rsch, _ = qa_schemas(T)
+    s = S.TpuSession(QA_CONF, device=device)
+    q = qc_query(s.read.schema(rsch).parquet(*ss_paths), S)
+    check_plan(q, QC_PLAN, "qc")
+    log("qc plan:\n" + q.explain())
+    return timed_collects(
+        q, lambda rows: None if qc_rows(rows) == want else
+        f"{len(rows)} rows differ from the reference", "qc parquet", n)
+
+
+def qc_breakdown(q):
+    """Where a qc collect spends its time, operator by operator, each on
+    its input batches already on the card."""
+    filt = fresh_plan(q)
+    win = filt.children[0]
+    agg = win.children[0]
+    t_scan, _ = _replay_leaf(agg, 0)
+    t_agg, _ = _replay_leaf(win, 0)
+    t_win, _ = _replay_leaf(filt, 0)
+    t_filt, _ = _timed_run(filt)
+    log(f"qc breakdown: store_sales scan {t_scan:.4f} s, aggregate "
+        f"{t_agg:.4f} s, window {t_win:.4f} s, filter {t_filt:.4f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=20261017)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
 
@@ -1068,7 +1365,33 @@ def main(argv=None) -> int:
     qa_breakdown(qa["query"])
     profile_collect(qa["query"], want, "qa parquet")
     run_qa_memory(ss, dd, want, device)
+
+    # 10. bench qb: the shuffled left outer join, then a grouped net sum
+    t0 = time.perf_counter()
+    sr = make_store_returns(ss, n_ss // 10)
+    want_qb = qb_reference(ss, sr)
+    ref_s = time.perf_counter() - t0
+    sr_paths = write_returns_files(sr, qa_dir, device)
+    log(f"qb data: {len(sr['ticket'])} store_returns rows in {N_FILES} "
+        f"files ({sum(os.path.getsize(p) for p in sr_paths)} bytes); "
+        f"generated with the numpy reference in {ref_s:.1f} s, written in "
+        f"{time.perf_counter() - t0 - ref_s:.1f} s")
+    qb_cols = {"store_sk", "item_sk", "ticket", "ext_sales", "return_amt"}
+    log("qb dictionary index widths: " + str(sorted(
+        {(os.path.basename(p).split("-")[0], name, page.index_bit_width)
+         for p in ss_paths + sr_paths for name, page in main_path_pages(p)
+         if name in qb_cols})))
+    del sr
+    qb = run_qb(ss_paths, sr_paths, want_qb, n_ss, device)
+    qb_breakdown(qb["query"])
+    profile_collect(qb["query"], want_qb, "qb parquet", key=sorted)
+
+    # 11. bench qc: a grouped sum, a rank window, rank <= 5
+    want_qc = qc_reference(ss)
     del ss
+    qc = run_qc(ss_paths, want_qc, n_ss, device)
+    qc_breakdown(qc["query"])
+    profile_collect(qc["query"], want_qc, "qc parquet", key=qc_rows)
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
@@ -1085,7 +1408,10 @@ def main(argv=None) -> int:
         "spark_ms_l2_cold": spark["ms_cold"],
         "spark_bound_ms": spark["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
         "qa_launches": qa["launches"],
+        "qb_launches": qb["launches"],
+        "qc_launches": qc["launches"],
     }]}
+    log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))
     log(smi)
     log(json.dumps({"ok": True, "device": {

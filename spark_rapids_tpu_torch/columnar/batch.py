@@ -30,6 +30,9 @@ class ColumnarBatch:
     def device(self) -> torch.device:
         return self.columns[0].device
 
+    def nbytes(self) -> int:
+        return sum(c.nbytes() for c in self.columns)
+
     @property
     def row_mask(self) -> torch.Tensor:
         """(capacity,) bool — every row of an unpadded batch is logical."""

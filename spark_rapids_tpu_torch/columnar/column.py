@@ -62,6 +62,11 @@ class DeviceColumn:
     def device(self) -> torch.device:
         return self.validity.device
 
+    def nbytes(self) -> int:
+        """Bytes of the validity (one a row) and the data."""
+        return int(self.validity.numel()
+                   + self.data.numel() * self.data.element_size())
+
     @staticmethod
     def from_host(h: "HostColumn", device) -> "DeviceColumn":
         return DeviceColumn(h.dtype, to_device(h.validity, device),

@@ -1,9 +1,10 @@
 """TpuConf — the typed configuration registry (the confs the port reads).
 
 Port of ``spark_rapids_tpu/config.py``: the same ``ConfEntry`` builder DSL
-and the same keys and defaults, cut to the confs that TPC-H Q6 and bench qa
-over Parquet read.  Unlike the reference there is no process-wide ambient
-conf: the session hands its ``TpuConf`` to every exec that needs one.
+and the same keys and defaults, cut to the confs that TPC-H Q6 and bench
+qa, qb and qc over Parquet read.  Unlike the reference there is no
+process-wide ambient conf: the session hands its ``TpuConf`` to every exec
+that needs one.
 """
 from __future__ import annotations
 
@@ -89,14 +90,30 @@ ANSI_ENABLED = conf("spark.sql.ansi.enabled").doc(
 
 BATCH_SIZE_BYTES = conf("spark.rapids.sql.batchSizeBytes").doc(
     "Target columnar batch size.  A broadcast join whose estimated build "
-    "side is larger needs the reference's sub-partitioned join, which the "
-    "port does not run yet: such a plan raises.").bytes_conf(1 << 30)
+    "side is larger, or a shuffled join whose built side is, needs the "
+    "reference's sub-partitioned join, which the port does not run yet: "
+    "such a join raises.").bytes_conf(1 << 30)
 
 AUTO_BROADCAST_JOIN_THRESHOLD = conf(
     "spark.sql.autoBroadcastJoinThreshold").doc(
     "Estimated build-side size below which joins broadcast instead of "
     "shuffling (file scans: sizes on disk; local tables: their host "
     "columns).  -1 disables broadcasting.").bytes_conf(10 << 20)
+
+ADAPTIVE_ENABLED = conf("spark.sql.adaptive.enabled").doc(
+    "AQE analog: shuffled equi-joins re-plan themselves at execution time "
+    "— the build side materializes first and, when its measured bytes sit "
+    "under spark.sql.autoBroadcastJoinThreshold, the join runs broadcast "
+    "with both planned exchanges elided (runtime stats beat static "
+    "planning).").boolean_conf(True)
+
+EXCHANGE_COALESCE_SMALL_BYTES = conf(
+    "spark.rapids.tpu.exchange.coalesceSmallPartitionBytes").doc(
+    "AQE shuffle-read coalescing threshold: adjacent reduce partitions "
+    "below this byte size merge into one read window in "
+    "TpuAdaptiveShuffleReaderExec (counted by partitions_coalesced); "
+    "partitions at or above it emit alone.  The batch-size goal still "
+    "caps each window.").bytes_conf(4 << 20)
 
 MAX_READER_BATCH_SIZE_ROWS = conf(
     "spark.rapids.sql.reader.batchSizeRows").doc(

@@ -1,22 +1,31 @@
-"""Equi-joins — port of the inner broadcast hash join of
-``spark_rapids_tpu/exec/join.py``.
+"""Equi-joins — port of the inner and left outer hash joins of
+``spark_rapids_tpu/exec/join.py``: the broadcast join, the shuffled join
+and the adaptive join that picks one of them at run time.
 
 The join is sort-based, as in the reference: the build side keeps its rows
 with valid keys, sorted by their key words (``ops/sortkeys.py``); every
-probe row finds its run of equal build keys with two searches, and the
-matched pairs are expanded into gather maps.  A build row with a null key
-never matches, and neither does a probe row with one.  The output row
-count is the one host sync per probe batch (the reference's ``sync_get``
-of the pair total).
+probe row finds its run of equal build keys, and the matched pairs are
+expanded into gather maps.  A build row with a null key never matches, and
+neither does a probe row with one.  A left outer join keeps every probe row
+without a match (a null key included) once, after the pairs, with every
+build column null.  The pair total and the unmatched count are the one
+host sync per probe batch (the reference's ``sync_get`` of both).
 
 Each probe row searches once, for its first build position: one key word
-with ``torch.searchsorted``, several through one shared sort of build and
-probe words (``_merge_rank``).  The end of its run of equal build keys
-comes from ``run_end``, computed once per build side, where the reference
-searches a second time.  Left outer,
-semi, anti, right, full and cross joins, a residual condition, the
-sub-partitioned join and the shuffled join are not ported: the plan
-rewrite raises ``NotOnGpu`` for them.
+with ``torch.searchsorted``, several word by word with ``searchsorted``
+over rank tables built once per build side (``_rank_search``), where the
+reference sorts build and probe words together for each probe batch.  The
+end of its run of equal build keys comes from ``run_end``, computed once
+per build side, where the reference searches a second time.
+
+``TpuAdaptiveJoinExec`` wraps a shuffled join whose children are
+exchanges: it runs the build side first and joins by broadcast when the
+built bytes are within ``spark.sql.autoBroadcastJoinThreshold``, else
+replays them into the shuffled join.  Semi, anti, right, full and cross
+joins, a residual condition and the sub-partitioned join (a build side
+over ``spark.rapids.sql.batchSizeBytes``) are not ported: the plan rewrite
+raises ``NotOnGpu`` for them, and the shuffled join raises at run time
+for a build side over the batch size.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.expr.base import EvalContext, Expression
 from spark_rapids_tpu_torch.ops.filterops import gather_columns
+from spark_rapids_tpu_torch.ops.segment import seg_first_rows
 from spark_rapids_tpu_torch.ops.sortkeys import _column_key_words, lexsort
 from spark_rapids_tpu_torch.perfcounters import sync_get
 from spark_rapids_tpu_torch.plan.nodes import JoinType
@@ -60,17 +70,65 @@ def _run_ends(sorted_words: List[torch.Tensor], n_valid) -> torch.Tensor:
     return torch.minimum(end[run], n_valid)
 
 
+def _rank_tables(sorted_words: List[torch.Tensor]):
+    """For each key word after the first, (that word's values sorted, the
+    rank of each sorted build row's key prefix up to that word).  A rank
+    is ``first * (n + 1) + r``: ``first`` the position of the first row
+    of the shorter prefix's run, ``r`` the word's left position among the
+    sorted values; both are at most n, so the rank fits int64 for n below
+    2**31, and it grows with the prefix."""
+    n = sorted_words[0].shape[0]
+    change = torch.zeros(n, dtype=torch.bool, device=sorted_words[0].device)
+    w0 = sorted_words[0]
+    change[1:] |= w0[1:] != w0[:-1]
+    first = seg_first_rows(change)
+    tables = []
+    for w in sorted_words[1:]:
+        vals = torch.sort(w).values
+        tables.append((vals, first * (n + 1) + torch.searchsorted(vals, w)))
+        change[1:] |= w[1:] != w[:-1]
+        first = seg_first_rows(change)
+    return tables
+
+
+def _rank_search(sorted_words: List[torch.Tensor], tables, n_valid,
+                 query_words: List[torch.Tensor]) -> torch.Tensor:
+    """searchsorted (side left) of several key words with one-word
+    searches: word by word, the query's prefix rank is searched among the
+    build's (``_rank_tables``).  Once a prefix is missing, the later words
+    count 0, so the rank still lands where the prefix would sort."""
+    n = sorted_words[0].shape[0]
+    first = torch.searchsorted(sorted_words[0], query_words[0])
+    if n == 0:
+        return first
+    hit = (first < n) & (sorted_words[0][first.clamp(max=n - 1)]
+                         == query_words[0])
+    for (vals, ranks), q in zip(tables, query_words[1:]):
+        r = torch.searchsorted(vals, q)
+        rank = first * (n + 1) + torch.where(hit, r, 0)
+        first = torch.searchsorted(ranks, rank)
+        # a missing word's left position may equal the next word's rank:
+        # the word itself must be there
+        hit &= (r < n) & (vals[r.clamp(max=n - 1)] == q) & (first < n) \
+            & (ranks[first.clamp(max=n - 1)] == rank)
+    return torch.minimum(first, n_valid)
+
+
 def _equal_range(sorted_words: List[torch.Tensor], run_end, n_valid,
-                 query_words: List[torch.Tensor]):
+                 query_words: List[torch.Tensor], tables=None):
     """-> (lo, hi): the run of valid build keys equal to each query's key,
-    as ``searchsorted`` left and right would give it."""
+    as ``searchsorted`` left and right would give it.  ``tables``: the
+    build's ``_rank_tables`` for several words (built here if not
+    given)."""
     if len(sorted_words) == 1:
         # the build tail holds the largest word, so the whole vector stays
         # sorted; clamping to n_valid drops the tail
         lo = torch.searchsorted(sorted_words[0], query_words[0])
         lo = torch.minimum(lo, n_valid)
     else:
-        lo = _merge_rank(sorted_words, n_valid, query_words)
+        if tables is None:
+            tables = _rank_tables(sorted_words)
+        lo = _rank_search(sorted_words, tables, n_valid, query_words)
     n = sorted_words[0].shape[0]
     if n == 0:
         return lo, lo
@@ -79,29 +137,6 @@ def _equal_range(sorted_words: List[torch.Tensor], run_end, n_valid,
     for sw, qw in zip(sorted_words, query_words):
         match &= sw[at] == qw
     return lo, torch.where(match, run_end[at], lo)
-
-
-def _merge_rank(sorted_words: List[torch.Tensor], n_valid,
-                query_words: List[torch.Tensor]) -> torch.Tensor:
-    """searchsorted (side left) through one shared sort: each query's rank
-    among the valid build keys.  Per row the key is (invalid,
-    word_0..word_k, tie): ``invalid`` puts the build tail after everything,
-    ``tie`` puts a query before equal build keys."""
-    n = sorted_words[0].shape[0]
-    nq = query_words[0].shape[0]
-    dev = sorted_words[0].device
-    b_inv = (torch.arange(n, device=dev) >= n_valid).to(torch.int64)
-    q_inv = torch.zeros(nq, dtype=torch.int64, device=dev)
-    words = [torch.cat([b_inv, q_inv])]
-    words += [torch.cat([sw, qw]) for sw, qw in zip(sorted_words,
-                                                    query_words)]
-    words.append(torch.cat([torch.ones_like(b_inv), q_inv]))
-    pos = lexsort(words)
-    is_build = (pos < n).to(torch.int64)
-    nb_before = torch.cumsum(is_build, 0) - is_build
-    qpos = torch.where(is_build == 1, nq, pos - n)
-    out = torch.zeros(nq + 1, dtype=torch.int64, device=dev)
-    return out.scatter_(0, qpos, nb_before)[:nq]
 
 
 def _slots_to_probe_rows(excl: torch.Tensor, counts: torch.Tensor,
@@ -127,24 +162,45 @@ class _SortedBuildSide:
         self.n_valid = n_valid        # device scalar
         self.batch = batch            # the build batch
         self.run_end = _run_ends(words, n_valid)
+        self.tables = _rank_tables(words) if len(words) > 1 else None
+
+
+_PORTED_JOIN_TYPES = (JoinType.INNER, JoinType.LEFT_OUTER)
+
+
+def _null_rows(cols: List[DeviceColumn], n: int) -> List[DeviceColumn]:
+    """``cols`` with ``n`` null rows appended."""
+    out = []
+    for c in cols:
+        tail = torch.zeros((n,) + tuple(c.data.shape[1:]),
+                           dtype=c.data.dtype, device=c.data.device)
+        out.append(DeviceColumn(
+            c.dtype, torch.cat([c.validity, torch.zeros(
+                n, dtype=torch.bool, device=c.validity.device)]),
+            data=torch.cat([c.data, tail])))
+    return out
 
 
 class _BaseTpuJoinExec(TpuExec):
     def __init__(self, left: TpuExec, right: TpuExec,
                  left_keys: List[Expression], right_keys: List[Expression],
                  join_type: JoinType, condition: Optional[Expression],
-                 output_schema: T.StructType, ansi: bool = False):
+                 output_schema: T.StructType, ansi: bool = False,
+                 sub_partition_bytes: Optional[int] = None):
         super().__init__([left, right])
-        if join_type != JoinType.INNER or condition is not None \
+        if join_type not in _PORTED_JOIN_TYPES or condition is not None \
                 or not left_keys:
-            raise NotOnGpu(f"{join_type.value} join (only the inner "
-                           "equi-join without a condition is ported)")
+            raise NotOnGpu(f"{join_type.value} join (only the inner and "
+                           "left outer equi-joins without a condition are "
+                           "ported)")
         self.left_keys = left_keys
         self.right_keys = right_keys
         self.join_type = join_type
         self.condition = condition
         self._output = output_schema
         self.ansi = ansi
+        # a built side over this many bytes needs the sub-partitioned join
+        self.sub_partition_bytes = sub_partition_bytes
 
     @property
     def output(self):
@@ -180,7 +236,8 @@ class _BaseTpuJoinExec(TpuExec):
     # -- probe ----------------------------------------------------------
     def _probe_counts(self, build: _SortedBuildSide, batch: ColumnarBatch):
         """-> (first matching build position, match count) per probe row,
-        and their device total."""
+        their device total, the probe rows without a match (a null key
+        included) and their device count."""
         ctx = EvalContext(batch, ansi=self.ansi)
         key_cols = [k.eval_tpu(ctx) for k in self.left_keys]
         valid = batch.row_mask
@@ -188,10 +245,11 @@ class _BaseTpuJoinExec(TpuExec):
             valid = valid & kc.validity
         qwords = _key_words_of(key_cols)
         lo, hi = _equal_range(build.words, build.run_end, build.n_valid,
-                              qwords)
+                              qwords, build.tables)
         counts = torch.where(valid, hi - lo, 0)
         ctx.check_errors()
-        return lo, counts, counts.sum()
+        unmatched = batch.row_mask & (counts == 0)
+        return lo, counts, counts.sum(), unmatched, unmatched.sum()
 
     @staticmethod
     def materialize_pairs(row_index, b_cols, p_cols, lo, counts,
@@ -207,21 +265,48 @@ class _BaseTpuJoinExec(TpuExec):
         return (gather_columns(probe_row, list(p_cols)),
                 gather_columns(build_row, list(b_cols)))
 
+    @staticmethod
+    def _unmatched_rows(unmatched: torch.Tensor, n_unmatched: int
+                        ) -> torch.Tensor:
+        """The indices of the unmatched probe rows, in order."""
+        n = unmatched.shape[0]
+        pos = torch.cumsum(unmatched.to(torch.int64), 0) - 1
+        to = torch.where(unmatched, pos, n_unmatched)
+        iota = torch.arange(n, dtype=torch.int64, device=unmatched.device)
+        return torch.zeros(n_unmatched + 1, dtype=torch.int64,
+                           device=unmatched.device).scatter_(
+            0, to, iota)[:n_unmatched]
+
     def _probe_one(self, build: _SortedBuildSide, probe: ColumnarBatch
                    ) -> Optional[ColumnarBatch]:
-        lo, counts, total = self._probe_counts(build, probe)
-        (total_host,) = sync_get(total)
-        total_host = int(total_host)
-        if total_host == 0:
+        lo, counts, total, unmatched, n_um = self._probe_counts(build, probe)
+        total_host, um_host = (int(x) for x in sync_get(total, n_um))
+        if self.join_type != JoinType.LEFT_OUTER:
+            um_host = 0
+        if total_host + um_host == 0:
             return None
         lcols, bcols = self.materialize_pairs(
             build.row_index, build.batch.columns, probe.columns, lo, counts,
             total_host)
-        return ColumnarBatch(lcols + bcols, total_host, self._output)
+        if um_host:
+            rows = self._unmatched_rows(unmatched, um_host)
+            um_cols = gather_columns(rows, list(probe.columns))
+            lcols = [DeviceColumn(a.dtype, torch.cat([a.validity,
+                                                      b.validity]),
+                                  data=torch.cat([a.data, b.data]))
+                     for a, b in zip(lcols, um_cols)]
+            bcols = _null_rows(bcols, um_host)
+        return ColumnarBatch(lcols + bcols, total_host + um_host,
+                             self._output)
 
     # -- execution -------------------------------------------------------
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
         batches = list(self._build_child().execute_columnar())
+        if self.sub_partition_bytes is not None:
+            nbytes = _logical_bytes(batches)
+            if nbytes > self.sub_partition_bytes:
+                raise NotOnGpu(f"build side of {nbytes} bytes needs the "
+                               "sub-partitioned join")
         bschema = self._build_child().output
         if not batches:
             build_batch = empty_batch(bschema, self._device())
@@ -238,4 +323,89 @@ class _BaseTpuJoinExec(TpuExec):
 
 class TpuBroadcastHashJoinExec(_BaseTpuJoinExec):
     """Join against a broadcast build side: the build child (a
-    ``TpuBroadcastExchangeExec``) arrives whole, as one batch."""
+    ``TpuBroadcastExchangeExec``, or the adaptive join's replay) arrives
+    whole, as one batch."""
+
+
+class TpuShuffledSymmetricHashJoinExec(_BaseTpuJoinExec):
+    """The shuffled join (after the exchanges); on one device its build
+    side is the whole right side, joined as the broadcast join joins it."""
+
+
+class _ReplayExec(TpuExec):
+    """Re-emits batches the adaptive join already built, once."""
+
+    def __init__(self, batches: List[ColumnarBatch], output_schema):
+        super().__init__([])
+        self._batches = batches
+        self._output = output_schema
+
+    @property
+    def output(self):
+        return self._output
+
+    def describe(self):
+        return f"Replay[{len(self._batches)} batches]"
+
+    def execute_columnar(self):
+        batches, self._batches = self._batches, []
+        yield from batches
+
+
+def _logical_bytes(batches) -> int:
+    """Bytes of the batches' columns (a port batch holds only its rows, so
+    the reference's row-weighting of padded capacity is the identity)."""
+    return sum(b.nbytes() for b in batches)
+
+
+class TpuAdaptiveJoinExec(TpuExec):
+    """The run-time join-strategy switch (the reference's AQE analog).
+
+    Wraps a planned shuffled join whose children are exchanges.  At run
+    time the build side below its exchange runs first; when its bytes are
+    within ``threshold`` (``spark.sql.autoBroadcastJoinThreshold``) the
+    join runs as a broadcast join with both exchanges elided, else the
+    shuffled join runs with the built batches replayed into its exchange,
+    so nothing is computed twice.  ``decision`` records which, with the
+    bytes."""
+
+    def __init__(self, shuffled: TpuShuffledSymmetricHashJoinExec,
+                 threshold: int):
+        super().__init__(list(shuffled.children))
+        self.shuffled = shuffled
+        self.threshold = threshold
+        self.decision: Optional[str] = None
+
+    @property
+    def output(self):
+        return self.shuffled.output
+
+    def describe(self):
+        d = f" decided={self.decision}" if self.decision else ""
+        return (f"TpuAdaptiveJoin(threshold={self.threshold})"
+                f"[{self.shuffled.describe()}]{d}")
+
+    def execute_columnar(self):
+        left_ex, right_ex = self.shuffled.children
+        build_inner = right_ex.children[0]
+        built = list(build_inner.execute_columnar())
+        size = _logical_bytes(built)
+        if 0 <= self.threshold and size <= self.threshold:
+            self.decision = f"broadcast({size}B)"
+            sh = self.shuffled
+            bj = TpuBroadcastHashJoinExec(
+                left_ex.children[0], _ReplayExec(built, build_inner.output),
+                sh.left_keys, sh.right_keys, sh.join_type, sh.condition,
+                sh.output, sh.ansi)
+            yield from bj.execute_columnar()
+            return
+        self.decision = f"shuffled({size}B)"
+        # the replay child is single-shot: restore the real build subtree
+        # afterwards, so a repeated run of this plan builds again instead
+        # of joining an empty replay (the reference found that a second
+        # collect joined an empty build side and dropped every match)
+        right_ex.children[0] = _ReplayExec(built, build_inner.output)
+        try:
+            yield from self.shuffled.execute_columnar()
+        finally:
+            right_ex.children[0] = build_inner

@@ -1,5 +1,6 @@
-"""Segmented reductions — port of the reductions of
-``spark_rapids_tpu/ops/segment.py`` (the group-by primitive).
+"""Segmented reductions and scans — port of the reductions of
+``spark_rapids_tpu/ops/segment.py`` (the group-by primitive) and of its
+segmented scans (``seg_scan_*``, the window's running frames).
 
 Rows carry a segment id in ``[0, num_segments)``; each function reduces
 every segment with Spark's null rules: aggregates skip nulls, a segment
@@ -11,8 +12,18 @@ of its own.
 
 The reference's ``SegBounds``/``bounds_scope`` (a cumsum-and-gather form
 that avoids full-width scatters, which are slow on the TPU) are not ported:
-a scatter-add is a cheap primitive on the GPU.  The segmented scans
-(``seg_scan_*``) serve window frames and wait for the window slice.
+a scatter-add is a cheap primitive on the GPU.
+
+The scans run over rows sorted so that each segment is a contiguous run,
+its first row flagged in ``starts``.  An integer running sum is a global
+``cumsum`` minus the segment's base, as in the reference (int64 wrap
+cancels exactly).  torch has ``cummax``/``cummin`` but no segmented form,
+and an offset that folds the segment into the value is not safe for every
+int64; so min, max and float sums use a log-step doubling scan
+(``_seg_scan``: ⌈log2 n⌉ passes of one shifted combine each), which adds
+floats in a tree order of its own, as the reference's
+``lax.associative_scan`` does in another: float running sums may differ
+from it in the last bits.
 """
 from __future__ import annotations
 
@@ -111,3 +122,98 @@ def seg_first_index(seg_ids, row_mask, num_segments: int) -> torch.Tensor:
     iota = torch.arange(n, dtype=torch.int64, device=seg_ids.device)
     return _scatter("amin", torch.where(row_mask, iota, n), seg_ids,
                     num_segments, n)
+
+
+# -- segmented scans (window running frames) --------------------------------
+
+def _seg_scan(values, starts, combine):
+    """Inclusive segmented scan that restarts at the rows where ``starts``
+    holds: log-step doubling, each pass combining every row with the row
+    ``d`` before it unless a start lies between them."""
+    v, f = values, starts
+    n = v.shape[0]
+    d = 1
+    while d < n:
+        nv = v.clone()
+        nv[d:] = torch.where(f[d:], v[d:], combine(v[:-d], v[d:]))
+        nf = f.clone()
+        nf[d:] = f[d:] | f[:-d]
+        v, f = nv, nf
+        d *= 2
+    return v
+
+
+def seg_first_rows(starts) -> torch.Tensor:
+    """Index of the first row of each row's segment (row 0 always starts
+    one): a cumsum and one scatter, which the card runs faster than
+    ``torch.cummax`` over the start indices."""
+    n = starts.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=starts.device)
+    starts = starts | (iota == 0)
+    seg = torch.cumsum(starts.to(torch.int64), 0) - 1
+    first = torch.zeros(n + 1, dtype=torch.int64, device=starts.device)
+    first.scatter_(0, torch.where(starts, seg, n), iota)
+    return first[seg]
+
+
+def _seg_csum(x, first) -> torch.Tensor:
+    cs = torch.cumsum(x, 0)
+    return cs - (cs[first] - x[first])
+
+
+def seg_scan_sum(values, validity, starts) -> Pair:
+    """-> (running sum of the valid values, running count of them) within
+    each segment.  Integers: a cumsum minus the segment base; floats: the
+    exact segmented scan (a cumsum difference would cancel against large
+    values in earlier segments)."""
+    if values.shape[0] == 0:
+        return values, torch.zeros(0, dtype=torch.int64,
+                                   device=values.device)
+    first = seg_first_rows(starts)
+    contrib = torch.where(validity, values, torch.zeros_like(values))
+    if contrib.is_floating_point():
+        total = _seg_scan(contrib, starts, torch.add)
+    else:
+        total = _seg_csum(contrib, first)
+    return total, _seg_csum(validity.to(torch.int64), first)
+
+
+def _seg_seen(flags, starts) -> torch.Tensor:
+    if flags.shape[0] == 0:
+        return flags
+    return _seg_csum(flags.to(torch.int64), seg_first_rows(starts)) > 0
+
+
+def seg_scan_min(values, validity, starts, is_float: bool) -> Pair:
+    """-> (running min of the valid values, a valid value seen); NaN is
+    the greatest float, so the min is NaN only while nothing else was
+    seen."""
+    if is_float:
+        nan = torch.isnan(values)
+        v = torch.where(validity & ~nan, values,
+                        torch.full_like(values, float("inf")))
+        m = _seg_scan(v, starts, torch.minimum)
+        m = torch.where(_seg_seen(validity & ~nan, starts), m,
+                        torch.full_like(m, float("nan")))
+        return m, _seg_seen(validity, starts)
+    ident = torch.iinfo(values.dtype).max
+    v = torch.where(validity, values, torch.full_like(values, ident))
+    return (_seg_scan(v, starts, torch.minimum),
+            _seg_seen(validity, starts))
+
+
+def seg_scan_max(values, validity, starts, is_float: bool) -> Pair:
+    """-> (running max of the valid values, a valid value seen); NaN is
+    the greatest float."""
+    if is_float:
+        nan = torch.isnan(values)
+        v = torch.where(validity & ~nan, values,
+                        torch.full_like(values, float("-inf")))
+        m = _seg_scan(v, starts, torch.maximum)
+        m = torch.where(_seg_seen(validity & nan, starts),
+                        torch.full_like(m, float("nan")), m)
+        return m, _seg_seen(validity, starts)
+    ident = torch.iinfo(values.dtype).min
+    v = torch.where(validity, values, torch.full_like(values, ident))
+    return (_seg_scan(v, starts, torch.maximum),
+            _seg_seen(validity, starts))

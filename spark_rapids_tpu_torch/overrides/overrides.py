@@ -1,22 +1,30 @@
 """Plan rewrite onto the device — the port's merge of
 ``spark_rapids_tpu/overrides/overrides.py``, ``overrides/meta.py`` and
-``overrides/transitions.py`` for the nodes of TPC-H Q6 and bench qa.
+``overrides/transitions.py`` for the nodes of TPC-H Q6 and bench qa, qb
+and qc.
 
 ``TpuOverrides.apply`` checks every expression against the ported subset
-(the reference's tagging, including ``_check_decimal_mult``), converts
-each CPU plan node into its exec, collapses a two-phase aggregate (Final
-<- Exchange(hash or single partition) <- Partial) into one COMPLETE
-aggregate as the reference's single-device ``_collapse_complete_agg``
-does, turns a limit over a sort into a top-N (``_rewrite_topn``) and runs
-``fuse_stages``.  Anything outside the subset raises ``NotOnGpu``: the
-port has no CPU fallback yet.
+(the reference's tagging, including ``_check_decimal_mult`` and
+``_window_check``), converts each CPU plan node into its exec, collapses a
+two-phase aggregate (Final <- Exchange(hash or single partition) <-
+Partial) into one COMPLETE aggregate as the reference's single-device
+``_collapse_complete_agg`` does, wraps a shuffled join over two exchanges
+in the adaptive join, puts an adaptive shuffle reader over each exchange
+(``_insert_coalesce``), turns a limit over a sort into a top-N
+(``_rewrite_topn``) and runs ``fuse_stages``.  The reference's
+join-aggregate and window-chain fusions are not ported: their operators
+run one after the other.  Anything outside the subset raises
+``NotOnGpu``: the port has no CPU fallback yet.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.config import (BATCH_SIZE_BYTES,
+from spark_rapids_tpu_torch.config import (ADAPTIVE_ENABLED,
+                                           AUTO_BROADCAST_JOIN_THRESHOLD,
+                                           BATCH_SIZE_BYTES,
+                                           EXCHANGE_COALESCE_SMALL_BYTES,
                                            MAX_READER_BATCH_SIZE_ROWS,
                                            TpuConf)
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
@@ -24,12 +32,18 @@ from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.exec.basic import (TpuFilterExec,
                                                TpuLocalTableScanExec,
                                                TpuProjectExec, fuse_stages)
-from spark_rapids_tpu_torch.exec.exchange import TpuBroadcastExchangeExec
-from spark_rapids_tpu_torch.exec.join import TpuBroadcastHashJoinExec
+from spark_rapids_tpu_torch.exec.exchange import (
+    TpuAdaptiveShuffleReaderExec, TpuBroadcastExchangeExec,
+    TpuShuffleExchangeExec)
+from spark_rapids_tpu_torch.exec.join import (
+    TpuAdaptiveJoinExec, TpuBroadcastHashJoinExec,
+    TpuShuffledSymmetricHashJoinExec)
 from spark_rapids_tpu_torch.exec.limit import (TpuGlobalLimitExec,
                                                TpuLocalLimitExec)
 from spark_rapids_tpu_torch.exec.sort import TpuSortExec, TpuTopNExec
+from spark_rapids_tpu_torch.exec.window import TpuWindowExec
 from spark_rapids_tpu_torch.expr import arithmetic as A
+from spark_rapids_tpu_torch.expr import conditional as CO
 from spark_rapids_tpu_torch.expr import predicates as P
 from spark_rapids_tpu_torch.expr.base import (Alias, BoundReference,
                                               Expression, Literal)
@@ -43,7 +57,14 @@ _FLAT_TYPES = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
 
 _PLAIN_EXPRS = (BoundReference, Literal, Alias, P.EqualTo, P.LessThan,
                 P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual,
-                P.And, P.Or, P.Not, P.IsNull, P.IsNotNull)
+                P.And, P.Or, P.Not, P.IsNull, P.IsNotNull,
+                CO.Coalesce)     # Nvl too
+
+#: window functions the port runs; the ranking ones ignore the frame
+_WINDOW_RANK_FUNCS = {"row_number", "rank", "dense_rank", "percent_rank",
+                      "cume_dist", "ntile"}
+_WINDOW_AGG_FUNCS = {"sum", "count", "min", "max"}
+_WINDOW_FRAMES = ("running", "unbounded")
 
 
 def _check_decimal_mult(e: A.Multiply):
@@ -111,26 +132,66 @@ def _collapse_complete_agg(node: PN.HashAggregate
 
 
 def _check_join(node: PN.SparkPlan, conf: TpuConf) -> None:
-    """The inner broadcast equi-join without a condition is ported."""
-    if isinstance(node, PN.SortMergeJoin):
-        raise NotOnGpu("shuffled join (the build side is over "
-                       "spark.sql.autoBroadcastJoinThreshold)")
-    if node.join_type != PN.JoinType.INNER:
+    """The inner and left outer equi-joins without a condition are
+    ported, broadcast or shuffled."""
+    if node.join_type not in (PN.JoinType.INNER, PN.JoinType.LEFT_OUTER):
         raise NotOnGpu(f"join type {node.join_type.value}")
     if node.condition is not None:
         raise NotOnGpu("join with a residual condition")
     if not node.left_keys:
         raise NotOnGpu("join without equi-join keys")
-    # the reference decides on the built batch's bytes at run time; this
-    # plan-time estimate is the on-disk (compressed) size for a file scan,
-    # so a build side that decodes past batchSizeBytes still runs here, as
-    # one batch in device memory
-    est = PN.estimated_plan_bytes(node.right)
-    if est is not None and est > conf.get(BATCH_SIZE_BYTES):
-        raise NotOnGpu(f"broadcast build side of {est} bytes needs the "
-                       "sub-partitioned join")
+    if not isinstance(node, PN.SortMergeJoin):
+        # the reference decides on the built batch's bytes at run time;
+        # this plan-time estimate is the on-disk (compressed) size for a
+        # file scan, so a build side that decodes past batchSizeBytes
+        # still runs here, as one batch in device memory
+        est = PN.estimated_plan_bytes(node.right)
+        if est is not None and est > conf.get(BATCH_SIZE_BYTES):
+            raise NotOnGpu(f"broadcast build side of {est} bytes needs the "
+                           "sub-partitioned join")
     for k in list(node.left_keys) + list(node.right_keys):
         check_expression(k)
+
+
+def _window_check(node: PN.Window) -> None:
+    """The reference's ``_window_check``, narrowed to the ported subset:
+    the ranking functions, and sum/count/min/max over the running and
+    unbounded frames on inputs of at most 18 digits."""
+    for e in list(node.partition_by) + [e for e, _ in node.order_by]:
+        check_expression(e)
+    for f in node.functions:
+        if f.func in _WINDOW_RANK_FUNCS:
+            continue
+        if f.func not in _WINDOW_AGG_FUNCS:
+            raise NotOnGpu(f"window function {f.func}")
+        if node.frame not in _WINDOW_FRAMES:
+            raise NotOnGpu(f"window frame {node.frame!r}")
+        check_expression(f.child)
+        ct = f.child.dataType
+        if isinstance(ct, T.DecimalType) and ct.is_128 \
+                and f.func != "count":
+            raise NotOnGpu(f"{f.func} over decimals above 18 digits in a "
+                           "window")
+        rt = f.result_type
+        if isinstance(rt, T.DecimalType) and rt.is_128:
+            raise NotOnGpu(f"window {f.func} with a {rt.simpleString} "
+                           "result (needs 128-bit running sums)")
+
+
+def _insert_coalesce(node: TpuExec, conf: TpuConf) -> TpuExec:
+    """An adaptive shuffle reader over each exchange, as the reference puts
+    one there when ``spark.sql.adaptive.enabled`` is on.  (Off, the
+    reference puts a ``TpuCoalesceBatchesExec`` there, which is not
+    ported: the exchange stays bare.)"""
+    node.children = [_insert_coalesce(c, conf) for c in node.children]
+    if conf.get(ADAPTIVE_ENABLED):
+        node.children = [
+            TpuAdaptiveShuffleReaderExec(
+                c, conf.get(BATCH_SIZE_BYTES),
+                small_bytes=conf.get(EXCHANGE_COALESCE_SMALL_BYTES))
+            if isinstance(c, TpuShuffleExchangeExec) else c
+            for c in node.children]
+    return node
 
 
 def _rewrite_topn(node: TpuExec) -> TpuExec:
@@ -151,7 +212,7 @@ class TpuOverrides:
             raise NotOnGpu("spark.rapids.sql.enabled=false needs the CPU "
                            "oracle, which is not ported yet")
         root = TpuOverrides._convert(plan, conf, device)
-        return fuse_stages(_rewrite_topn(root))
+        return fuse_stages(_rewrite_topn(_insert_coalesce(root, conf)))
 
     @staticmethod
     def _convert(node: PN.SparkPlan, conf: TpuConf, device) -> TpuExec:
@@ -190,6 +251,19 @@ class TpuOverrides:
                 partial.grouping, partial.aggregates,
                 PN.AggregateMode.COMPLETE, conv(partial.child),
                 partial.child.output, node.output, ansi)
+        if isinstance(node, PN.SortMergeJoin):
+            _check_join(node, conf)
+            shuffled = TpuShuffledSymmetricHashJoinExec(
+                conv(node.left), conv(node.right), node.left_keys,
+                node.right_keys, node.join_type, node.condition,
+                node.output, ansi,
+                sub_partition_bytes=conf.get(BATCH_SIZE_BYTES))
+            if conf.get(ADAPTIVE_ENABLED) and all(
+                    isinstance(c, TpuShuffleExchangeExec)
+                    for c in shuffled.children):
+                return TpuAdaptiveJoinExec(
+                    shuffled, conf.get(AUTO_BROADCAST_JOIN_THRESHOLD))
+            return shuffled
         if isinstance(node, PN._BaseJoin):
             _check_join(node, conf)
             return TpuBroadcastHashJoinExec(
@@ -198,6 +272,14 @@ class TpuOverrides:
                 node.output, ansi)
         if isinstance(node, PN.BroadcastExchange):
             return TpuBroadcastExchangeExec(conv(node.children[0]))
+        if isinstance(node, PN.Exchange):
+            return TpuShuffleExchangeExec(node.partitioning,
+                                          conv(node.child))
+        if isinstance(node, PN.Window):
+            _window_check(node)
+            return TpuWindowExec(node.functions, node.partition_by,
+                                 node.order_by, conv(node.child),
+                                 node.output, node.frame, ansi)
         if isinstance(node, PN.Sort):
             for e, _ in node.orders:
                 check_expression(e)

@@ -30,6 +30,7 @@ COUNTERS: Dict[str, int] = {
     "chunk_decode_fallbacks": 0,
     "scan_transfer_ns": 0,
     "snappy_gather_passes": 0,
+    "partitions_coalesced": 0,
 }
 
 

@@ -1,6 +1,7 @@
 """CPU physical plan nodes — port of the subset of
-``spark_rapids_tpu/plan/nodes.py`` that TPC-H Q6 and bench qa (a broadcast
-join, a grouped sum, a sort and a limit) plan.
+``spark_rapids_tpu/plan/nodes.py`` that TPC-H Q6 and bench qa, qb and qc
+plan: scans, project, filter, aggregates, broadcast and shuffled joins over
+single-partition exchanges, windows, sorts and limits.
 
 The session builds this Catalyst-shaped plan; ``overrides/overrides.py``
 rewrites it into device execs.  The node names and ``describe`` strings
@@ -229,9 +230,8 @@ class _BaseJoin(SparkPlan):
 
 
 class SortMergeJoin(_BaseJoin):
-    """The shuffled join the session plans when the right side is too big
-    to broadcast; the port does not run it yet, so the session plans it
-    without the exchanges under it."""
+    """The shuffled join the session plans, over an exchange on each side,
+    when the right side is too big to broadcast."""
 
 
 class BroadcastHashJoin(_BaseJoin):
@@ -245,6 +245,98 @@ class BroadcastExchange(SparkPlan):
     @property
     def output(self):
         return self.children[0].output
+
+
+@dataclasses.dataclass
+class WindowFunction:
+    """One window function over (partition, order, frame).  ``buckets`` is
+    ntile's; ``offset``, ``default`` and ``ignore_nulls`` are the
+    reference's lead/lag and first_value/last_value options, which the port
+    does not run yet."""
+
+    func: str                      # row_number, rank, dense_rank, sum, ...
+    child: Optional[Expression]
+    result_name: str
+    result_type: Optional[T.DataType] = None
+    offset: int = 1                # lead/lag
+    default: Optional[object] = None   # lead/lag literal default
+    buckets: int = 2               # ntile
+    ignore_nulls: bool = False     # first_value/last_value
+
+    def resolve(self, schema):
+        if self.child is not None:
+            self.child = self.child.resolve(schema)
+        if self.func in ("row_number", "rank", "dense_rank", "ntile"):
+            self.result_type = T.INT
+        elif self.func in ("percent_rank", "cume_dist"):
+            self.result_type = T.DOUBLE
+        elif self.func == "count":
+            self.result_type = T.LONG
+        elif self.func == "sum":
+            ct = self.child.dataType
+            if isinstance(ct, T.DecimalType):
+                self.result_type = T.DecimalType(min(ct.precision + 10, 38),
+                                                 ct.scale)
+            elif ct.is_integral:
+                self.result_type = T.LONG
+            else:
+                self.result_type = T.DOUBLE
+        elif self.func in ("avg", "var_pop", "var_samp",
+                           "stddev_pop", "stddev_samp"):
+            self.result_type = T.DOUBLE
+        else:
+            self.result_type = self.child.dataType
+        return self
+
+
+def normalize_frame(frame):
+    """Canonical window-frame forms, as the reference names them:
+
+      "running"        ROWS  UNBOUNDED PRECEDING .. CURRENT ROW
+      "range_running"  RANGE UNBOUNDED PRECEDING .. CURRENT ROW
+      "unbounded"      the whole partition
+      ("rows", a, b)   ROWS  BETWEEN a PRECEDING AND b FOLLOWING
+      ("range", a, b)  RANGE BETWEEN a PRECEDING AND b FOLLOWING
+
+    A bare (a, b) tuple is shorthand for ("rows", a, b).  The port runs the
+    first and the third; the plan rewrite rejects the others."""
+    if isinstance(frame, tuple):
+        if len(frame) == 2:
+            return ("rows", frame[0], frame[1])
+        if len(frame) == 3 and frame[0] in ("rows", "range"):
+            return frame
+        raise ValueError(f"bad window frame {frame!r}")
+    if frame not in ("running", "range_running", "unbounded"):
+        raise ValueError(f"bad window frame {frame!r}")
+    return frame
+
+
+class Window(SparkPlan):
+    def __init__(self, functions: List[WindowFunction],
+                 partition_by: List[Expression],
+                 order_by: List[Tuple[Expression, SortSpec]],
+                 child: SparkPlan,
+                 frame="running"):
+        super().__init__([child])
+        self.functions = functions
+        self.partition_by = partition_by
+        self.order_by = order_by
+        self.frame = normalize_frame(frame)
+
+    @property
+    def child(self):
+        return self.children[0]
+
+    @property
+    def output(self):
+        fields = list(self.child.output.fields)
+        fields += [T.StructField(f.result_name, f.result_type)
+                   for f in self.functions]
+        return T.StructType(fields)
+
+    def describe(self):
+        fns = ", ".join(f.func for f in self.functions)
+        return f"Window [{fns}] frame={self.frame}"
 
 
 class Sort(SparkPlan):
@@ -296,8 +388,9 @@ class SinglePartitioning:
 
 @dataclasses.dataclass
 class HashPartitioning:
-    """Hash partitioning on ``keys``; the partition count is not modelled,
-    since on one device the rewrite elides the exchange."""
+    """Hash partitioning on ``keys`` (between an aggregate's two phases);
+    the partition count is not modelled, since on one device the rewrite
+    elides that exchange."""
     keys: List[Expression]
 
     def describe(self):

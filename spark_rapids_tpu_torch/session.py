@@ -1,21 +1,26 @@
-"""TpuSession / DataFrame — the port's user entry point (port of the Q6 and
-bench qa part of ``spark_rapids_tpu/session.py``).
+"""TpuSession / DataFrame — the port's user entry point (port of the part
+of ``spark_rapids_tpu/session.py`` that Q6 and bench qa, qb and qc use).
 
 The API is call-compatible with the reference: ``TpuSession(conf)``,
 ``create_dataframe``, ``read.schema(...).parquet(...)``, ``filter``,
-``select``, ``agg``, ``group_by(...).agg``, ``join``, ``order_by``,
-``limit``, ``explain`` and ``collect``, with ``col``, ``lit``, ``sum_``,
-``count_``, ``min_``, ``max_`` and ``SortSpec``.  A session runs on
-``cuda`` unless it is given another device (``TpuSession(conf,
-device="cpu")``); without a GPU and without a device argument it raises.
-Aggregates are planned two-phase around an exchange and joins broadcast
-their right side under ``spark.sql.autoBroadcastJoinThreshold``, exactly
-as in the reference; the plan rewrite (``overrides/overrides.py``)
-collapses the aggregates for one device.
+``select``, ``agg``, ``group_by(...).agg``, ``join``, ``window``,
+``order_by``, ``limit``, ``explain`` and ``collect``, with ``col``,
+``lit``, ``sum_``, ``count_``, ``min_``, ``max_`` and ``SortSpec``.  A
+session runs on ``cuda`` unless it is given another device
+(``TpuSession(conf, device="cpu")``); without a GPU and without a device
+argument it raises.  Aggregates are planned two-phase around an exchange;
+a join broadcasts its right side under
+``spark.sql.autoBroadcastJoinThreshold`` and is otherwise planned as a
+shuffled join over an exchange on each side, one partition on one device,
+exactly as in the reference.  The plan rewrite (``overrides/overrides.py``)
+collapses the aggregates for one device and makes the shuffled join
+adaptive.  As in the reference, a DataFrame keeps its rewritten plan per
+conf, so a second ``collect`` runs the same exec tree and ``explain``
+after a collect shows the adaptive join's decision.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import HostColumn
@@ -124,9 +129,10 @@ class DataFrame:
              ) -> "DataFrame":
         """Equi-join on the column names ``on``.  The right side is
         broadcast when its estimated size is within
-        ``spark.sql.autoBroadcastJoinThreshold``; else, and for a cross
-        join, it is planned as a shuffled join, which the port does not run
-        yet."""
+        ``spark.sql.autoBroadcastJoinThreshold``; else the join is planned
+        as a shuffled join over an exchange on each side (one partition: a
+        single device).  A cross join is planned without exchanges, and
+        the port does not run it yet."""
         jt = _JOIN_TYPES[how.lower()]
         if isinstance(on, Expression):
             raise NotImplementedError(
@@ -135,13 +141,36 @@ class DataFrame:
             on = [on]
         lkeys = [_col(k).resolve(self.schema) for k in on] if on else []
         rkeys = [_col(k).resolve(other.schema) for k in on] if on else []
-        if jt != PN.JoinType.CROSS and _is_broadcastable(
-                other.plan, self.session.conf):
+        if jt == PN.JoinType.CROSS:
+            return DataFrame(PN.SortMergeJoin(self.plan, other.plan, [], [],
+                                              jt), self.session)
+        if _is_broadcastable(other.plan, self.session.conf):
             node = PN.BroadcastHashJoin(
                 self.plan, PN.BroadcastExchange(other.plan), lkeys, rkeys, jt)
             return DataFrame(node, self.session)
-        return DataFrame(PN.SortMergeJoin(self.plan, other.plan, lkeys,
-                                          rkeys, jt), self.session)
+        lex = PN.Exchange(PN.SinglePartitioning(), self.plan)
+        rex = PN.Exchange(PN.SinglePartitioning(), other.plan)
+        return DataFrame(PN.SortMergeJoin(lex, rex, lkeys, rkeys, jt),
+                         self.session)
+
+    def window(self, functions: List[PN.WindowFunction],
+               partition_by: Sequence[ColumnLike],
+               order_by: Sequence, frame="running") -> "DataFrame":
+        """Window functions over ``partition_by`` ordered by ``order_by``
+        (columns, or ``(expression, SortSpec)`` pairs; a plain column
+        sorts ASC NULLS FIRST) in ``frame``; the functions' results are
+        appended to the columns."""
+        pb = [_to_expr(c).resolve(self.schema) for c in partition_by]
+        ob = []
+        for c in order_by:
+            if isinstance(c, tuple):
+                e, spec = c
+            else:
+                e, spec = _to_expr(c), SortSpec()
+            ob.append((_to_expr(e).resolve(self.schema), spec))
+        fns = [f.resolve(self.schema) for f in functions]
+        return DataFrame(PN.Window(fns, pb, ob, self.plan, frame),
+                         self.session)
 
     def order_by(self, *cols, ascending=None) -> "DataFrame":
         """Global sort.  Each term is a column, or an ``(expression,
@@ -166,10 +195,18 @@ class DataFrame:
         return DataFrame(PN.GlobalLimit(n, self.plan), self.session)
 
     def _planned(self):
+        """The rewritten exec tree, kept per conf as the reference keeps
+        it, so repeated collects run the same tree."""
         from spark_rapids_tpu_torch.overrides.overrides import TpuOverrides
 
-        return TpuOverrides.apply(self.plan, self.session.conf,
-                                  self.session.device)
+        conf = self.session.conf
+        key = tuple(sorted((k, str(v)) for k, v in conf.settings.items()))
+        cached = getattr(self, "_plan_cache", None)
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        root = TpuOverrides.apply(self.plan, conf, self.session.device)
+        self._plan_cache = (key, root)
+        return root
 
     def collect(self) -> List[tuple]:
         from spark_rapids_tpu_torch.exec.transitions import (

@@ -2,6 +2,7 @@
 device).  This file imports no jax, so it also runs on a machine without
 it: ``python -m pytest tests/port/test_torch_gpu.py --noconftest``."""
 import datetime
+import os
 import sys
 from decimal import Decimal
 
@@ -262,3 +263,135 @@ def test_grouped_aggregates_and_two_key_join_on_gpu_equal_cpu():
     assert [tuple("NaN" if x != x else x for x in r)
             for r in out["cuda"][0]] == [
         tuple("NaN" if x != x else x for x in r) for r in out["cpu"][0]]
+
+
+def _returns_files(tmp_path, C, sr, nfiles):
+    _, rsch = C.qb_schemas(T)
+    n = len(sr["ticket"])
+    bounds = np.linspace(0, n, nfiles + 1).astype(int)
+    paths = []
+    for i in range(nfiles):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        path = str(tmp_path / f"sr-{i}.parquet")
+        write_parquet_device(path, rsch, [
+            HostColumn.from_numpy(sr[f.name][lo:hi], f.dataType)
+            for f in rsch.fields], hi - lo, device="cuda")
+        paths.append(path)
+    return paths
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decision", ["shuffled", "broadcast"])
+def test_qb_from_parquet_on_gpu_equals_cpu(tmp_path, decision):
+    """bench qb on the card and on the CPU from the same files, under each
+    run-time decision of the adaptive join: shuffled (6,000 returns over a
+    16 KiB threshold), broadcast (60 returns in three files, over a
+    1,500-byte threshold on disk and within it once built).  Equal to
+    each other
+    and to the numpy reference; K1 launches once per column chunk the
+    query reads (4 store_sales columns a file, 3 store_returns ones)."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+
+    C, ss, _, paths, _ = _qa_files(tmp_path, 60_000, 3)
+    sr = C.make_store_returns(ss, 6000 if decision == "shuffled" else 60)
+    sr_paths = _returns_files(tmp_path, C, sr, 3)
+    ssch, rsch = C.qb_schemas(T)
+    threshold = 16 << 10 if decision == "shuffled" else 1500
+    built = len(sr["ticket"]) * (9 + 5 + 9)
+    on_disk = sum(os.path.getsize(p) for p in sr_paths)
+    assert threshold < on_disk
+    assert (built <= threshold) == (decision == "broadcast")
+    conf = dict(C.QA_CONF, **{"spark.sql.autoBroadcastJoinThreshold":
+                              str(threshold)})
+    got = {}
+    for dev in ("cuda", "cpu"):
+        s = S.TpuSession(conf, device=dev)
+        q = C.qb_query(s.read.schema(ssch).parquet(*paths),
+                       s.read.schema(rsch).parquet(*sr_paths), S)
+        before = decode.unpack_launches
+        got[dev] = sorted(q.collect())
+        assert f"decided={decision}(" in q.explain()
+        if dev == "cuda":
+            assert decode.unpack_launches - before == 4 * 3 + 3 * 3
+            assert sorted(q.collect()) == got[dev]
+    assert got["cuda"] == got["cpu"] == C.qb_reference(ss, sr)
+
+
+@pytest.mark.gpu
+def test_qc_from_parquet_on_gpu_equals_cpu(tmp_path):
+    """bench qc on the card and on the CPU from the same files: equal to
+    each other and to the numpy reference; K1 launches once per column
+    chunk the query reads (3 store_sales columns a file)."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+
+    C, ss, _, paths, _ = _qa_files(tmp_path, 60_000, 3)
+    _, rsch, _ = C.qa_schemas(T)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        s = S.TpuSession(C.QA_CONF, device=dev)
+        q = C.qc_query(s.read.schema(rsch).parquet(*paths), S)
+        before = decode.unpack_launches
+        got[dev] = C.qc_rows(q.collect())
+        if dev == "cuda":
+            assert decode.unpack_launches - before == 3 * 3
+            assert C.qc_rows(q.collect()) == got[dev]
+    assert got["cuda"] == got["cpu"] == C.qc_reference(ss)
+
+
+@pytest.mark.gpu
+def test_windows_and_left_outer_join_on_gpu_equal_cpu():
+    """Every ported window function in both frames, and a left outer join
+    with null keys on both sides, on the card against the same queries on
+    the CPU (held against the JAX package in test_torch_window.py and
+    test_torch_join.py)."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.columnar.column import HostColumn as H
+    from spark_rapids_tpu_torch.plan.nodes import (LocalTableScan,
+                                                   WindowFunction)
+
+    rng = np.random.default_rng(12)
+    n = 30_000
+    sch = T.StructType([T.StructField("k", T.INT), T.StructField("o", T.INT),
+                        T.StructField("v", T.LONG),
+                        T.StructField("f", T.DOUBLE)])
+    cols = [H.from_numpy(rng.integers(0, 300, n).astype(np.int32), T.INT,
+                         rng.random(n) > 0.05),
+            H.from_numpy(rng.integers(0, 50, n).astype(np.int32), T.INT,
+                         rng.random(n) > 0.05),
+            H.from_numpy(rng.integers(-10 ** 9, 10 ** 9, n), T.LONG,
+                         rng.random(n) > 0.1),
+            H.from_numpy(rng.choice([0.0, -0.0, np.nan, 2.5, -7.0], n),
+                         T.DOUBLE, rng.random(n) > 0.1)]
+
+    def norm(rows):
+        return sorted((tuple("NaN" if x != x else x for x in r)
+                       for r in rows), key=repr)
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = S.TpuSession({"spark.rapids.sql.reader.batchSizeRows": 7000,
+                          "spark.sql.autoBroadcastJoinThreshold": "-1"},
+                         device=dev)
+        df = S.DataFrame(LocalTableScan(cols, sch), s)
+        res = []
+        for frame in ("running", "unbounded"):
+            fns = [WindowFunction(f, None, f) for f in (
+                "row_number", "rank", "dense_rank", "percent_rank",
+                "cume_dist")]
+            fns.append(WindowFunction("ntile", None, "nt", buckets=4))
+            fns += [WindowFunction(f, S.col(c), f"{f}_{c}")
+                    for f in ("sum", "count", "min", "max")
+                    for c in ("v", "f")]
+            w = df.window(fns, partition_by=["k"],
+                          order_by=[(S.col("o"), S.SortSpec(False, False))],
+                          frame=frame)
+            res.append(norm(w.collect()))
+        right = df.filter(S.col("v") > S.lit(900_000_000)).select(
+            "k", "o", "v")
+        res.append(norm(df.select("k", "o").join(
+            right, on=["k", "o"], how="left").collect()))
+        out[dev] = res
+    assert out["cuda"] == out["cpu"]

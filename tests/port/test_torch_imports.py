@@ -23,7 +23,12 @@ def test_import_leaves_no_jax_in_sys_modules():
     code = ("import sys, spark_rapids_tpu_torch.session, "
             "spark_rapids_tpu_torch.io.scan, "
             "spark_rapids_tpu_torch.io.parquet_encode, "
-            "spark_rapids_tpu_torch.columnar.convert\n"
+            "spark_rapids_tpu_torch.columnar.convert, "
+            "spark_rapids_tpu_torch.overrides.overrides, "
+            "spark_rapids_tpu_torch.exec.window, "
+            "spark_rapids_tpu_torch.exec.join, "
+            "spark_rapids_tpu_torch.exec.exchange, "
+            "spark_rapids_tpu_torch.expr.conditional\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n"

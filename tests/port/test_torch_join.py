@@ -1,10 +1,13 @@
-"""The inner broadcast hash join (``exec/join.py``) against the JAX package:
+"""The equi-joins (``exec/join.py``) against the JAX package:
 ``_slots_to_probe_rows`` and the build-side search against the reference's
-(child process); whole joins against the reference's CPU oracle session,
-with null keys on both sides, duplicate build keys, a two-column key,
-several probe batches, an empty build side and an empty probe side, each
-collected twice.  Every comparison is exact.  Join types, conditions and
-sizes outside the port raise ``NotOnGpu`` in the plan rewrite."""
+(child process); whole inner and left outer joins against the reference's
+CPU oracle session, broadcast and shuffled, with null keys on both sides,
+duplicate build keys, a two-column key, several probe batches, an empty
+build side and an empty probe side, each collected twice; the adaptive
+join's two run-time decisions and plans against the reference's device
+session (child process); the adaptive shuffle reader's coalescing.
+Every comparison is exact.  Join types, conditions and sizes outside the
+port raise ``NotOnGpu``."""
 import numpy as np
 import pytest
 import torch
@@ -12,6 +15,7 @@ import torch
 import spark_rapids_tpu.session as RS
 import spark_rapids_tpu_torch.session as S
 from spark_rapids_tpu import types as RT
+from spark_rapids_tpu_torch import perfcounters as PC
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec import join as J
 from spark_rapids_tpu_torch.exec.base import NotOnGpu
@@ -36,12 +40,13 @@ def test_slots_to_probe_rows_matches_reference(tmp_path):
     np.testing.assert_array_equal(got.numpy(), out["rows"])
 
 
-@pytest.mark.parametrize("nwords", [1, 2])
+@pytest.mark.parametrize("nwords", [1, 2, 3])
 def test_build_search_matches_reference(tmp_path, nwords):
-    """The equal-key runs of one key word (``torch.searchsorted``) and two
-    (``_merge_rank``), against the reference's ``_multiword_searchsorted``
-    left and right; the build tail past ``n_valid`` holds the largest word,
-    as ``_prepare_build`` leaves it."""
+    """The equal-key runs of one key word (``torch.searchsorted``) and of
+    several (``_rank_search``), against the reference's
+    ``_multiword_searchsorted`` left and right; the build tail past
+    ``n_valid`` holds the largest word, as ``_prepare_build`` leaves it,
+    and a query may hold it too."""
     rng = np.random.default_rng(6 + nwords)
     n, n_valid, nq = 200, 170, 500
     keys = np.stack([rng.integers(-5, 5, n_valid) for _ in range(nwords)])
@@ -49,6 +54,8 @@ def test_build_search_matches_reference(tmp_path, nwords):
     words = np.full((nwords, n), np.iinfo(np.int64).max)
     words[:, :n_valid] = keys
     queries = np.stack([rng.integers(-6, 6, nq) for _ in range(nwords)])
+    queries[:, :3] = np.iinfo(np.int64).max
+    queries[-1, 3] = np.iinfo(np.int64).max
     out = run_jax(f"""
         import jax.numpy as jnp
         from spark_rapids_tpu.exec.join import _multiword_searchsorted
@@ -91,7 +98,7 @@ def schemas(mod):
     return p, b
 
 
-def joined(mod, types, session, case, seed):
+def joined(mod, types, session, case, seed, how="inner"):
     probe, pvalid, build, bvalid = tables(seed)
     if case == "empty_probe":
         probe = {k: v[:0] for k, v in probe.items()}
@@ -102,7 +109,7 @@ def joined(mod, types, session, case, seed):
     on = ["k", "k2"] if case == "two_keys" else "k"
     if case == "empty_build":
         right = right.filter(mod.col("w") < mod.lit(0))
-    return left.join(right, on=on)
+    return left.join(right, on=on, how=how)
 
 
 CASES = ["one_key", "two_keys", "empty_build", "empty_probe"]
@@ -124,8 +131,8 @@ def test_inner_join_matches_oracle(case, batch_rows):
     assert lines[2] == "  TpuBroadcastExchangeExec"
 
 
-@pytest.mark.parametrize("how", ["left", "right", "full", "semi", "anti",
-                                 "cross"])
+@pytest.mark.parametrize("how", ["right_outer", "right", "full", "semi",
+                                 "anti", "cross"])
 def test_unported_join_types_raise(how):
     df = joined(S, T, S.TpuSession({}, device="cpu"), "one_key", 8)
     left, right = df.plan.children[0], df.plan.children[1].children[0]
@@ -136,14 +143,152 @@ def test_unported_join_types_raise(how):
 
 
 def test_shuffled_and_oversized_joins_raise():
-    for conf, what in (({"spark.sql.autoBroadcastJoinThreshold": "-1"},
-                        "shuffled join"),
-                       ({"spark.rapids.sql.batchSizeBytes": "1k"},
-                        "sub-partitioned join")):
-        df = joined(S, T, S.TpuSession(conf, device="cpu"), "one_key", 9)
-        with pytest.raises(NotOnGpu, match=what):
-            df.explain()
+    """A build side over ``spark.rapids.sql.batchSizeBytes`` needs the
+    sub-partitioned join: a broadcast one raises in the plan rewrite, a
+    shuffled one when its build side has been built."""
+    conf = {"spark.rapids.sql.batchSizeBytes": "1k"}
+    df = joined(S, T, S.TpuSession(conf, device="cpu"), "one_key", 9)
+    with pytest.raises(NotOnGpu, match="sub-partitioned join"):
+        df.explain()
+    conf["spark.sql.autoBroadcastJoinThreshold"] = "-1"
+    df = joined(S, T, S.TpuSession(conf, device="cpu"), "one_key", 9)
+    assert "TpuAdaptiveJoin(threshold=-1)" in df.explain()
+    with pytest.raises(NotOnGpu, match="sub-partitioned join"):
+        df.collect()
     s = S.TpuSession({}, device="cpu")
     df = joined(S, T, s, "one_key", 9)
     with pytest.raises(NotImplementedError):
         df.join(df, on=S.col("v") > S.lit(0))
+
+
+STRATEGIES = {"broadcast": {},
+              "shuffled": {"spark.sql.autoBroadcastJoinThreshold": "-1"}}
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("strategy", sorted(STRATEGIES))
+@pytest.mark.parametrize("batch_rows", [None, 250])
+def test_left_outer_join_matches_oracle(case, strategy, batch_rows):
+    """Every probe row without a match, a null key included, is kept once
+    with null build columns; the rest expand as in the inner join."""
+    conf = dict(STRATEGIES[strategy])
+    if batch_rows is not None:
+        conf["spark.rapids.sql.reader.batchSizeRows"] = batch_rows
+    df = joined(S, T, S.TpuSession(conf, device="cpu"), case, 11, "left")
+    want = joined(RS, RT, RS.TpuSession(ORACLE), case, 11, "left").collect()
+    got = df.collect()
+    assert rows_key(got) == rows_key(want)
+    n_probe = 0 if case == "empty_probe" else 900
+    assert len(got) >= n_probe
+    assert rows_key(df.collect()) == rows_key(got)     # a second run agrees
+    top = df.explain().splitlines()[0]
+    if strategy == "shuffled":
+        assert top.startswith("TpuAdaptiveJoin(threshold=-1)[TpuShuffled"
+                              "SymmetricHashJoinExec LeftOuter [k=k")
+        assert " decided=shuffled(" in top
+    else:
+        assert top.startswith("TpuBroadcastHashJoinExec LeftOuter [k=k")
+
+
+_REF_FRAMES = """
+    import spark_rapids_tpu.session as RS
+    from spark_rapids_tpu import types as T
+    from spark_rapids_tpu.columnar.column import HostColumn
+    from spark_rapids_tpu.plan.nodes import LocalTableScan
+
+    def frame(s, names, types, prefix):
+        host = [HostColumn.from_numpy(inp[prefix + n], t,
+                                      inp[prefix + n + "_valid"])
+                for n, t in zip(names, types)]
+        sch = T.StructType([T.StructField(n, t)
+                            for n, t in zip(names, types)])
+        return RS.DataFrame(LocalTableScan(host, sch), s)
+"""
+
+
+def _join_inputs(seed):
+    probe, pvalid, build, bvalid = tables(seed)
+    inp = {}
+    for prefix, data, valid in (("p_", probe, pvalid), ("b_", build, bvalid)):
+        for name, arr in data.items():
+            inp[prefix + name] = arr
+            inp[prefix + name + "_valid"] = valid.get(
+                name, np.ones(len(arr), np.bool_))
+    return inp
+
+
+def test_adaptive_join_decisions_match_reference(tmp_path):
+    """The adaptive join's decision string, plan and rows against the
+    reference's device session: ``shuffled`` when broadcasting is off;
+    ``broadcast`` when the build side's plan-time estimate (the whole
+    table) is over the threshold and its run-time bytes (after a filter)
+    are within it."""
+    inp = _join_inputs(13)
+    confs = {"shuffled": {"spark.sql.autoBroadcastJoinThreshold": "-1"},
+             "broadcast": {"spark.sql.autoBroadcastJoinThreshold": "1000"}}
+    out = run_jax(_REF_FRAMES + f"""
+    for label, conf in {confs!r}.items():
+        s = RS.TpuSession(conf)
+        left = frame(s, ["k", "k2", "v"],
+                     [T.INT, T.LONG, T.DecimalType(9, 2)], "p_")
+        right = frame(s, ["k", "k2", "w"], [T.INT, T.LONG, T.LONG], "b_")
+        right = right.filter(RS.col("w") < RS.lit(200000))
+        df = left.join(right, on=["k", "k2"], how="left")
+        rows = df.collect()
+        out[label + "_rows"] = np.array(sorted(repr(r) for r in rows))
+        out[label + "_plan"] = np.array(df.explain().splitlines())
+    """, tmp_path, inp)
+    probe, pvalid, build, bvalid = tables(13)
+    psch, bsch = schemas(T)
+    for label, conf in confs.items():
+        s = S.TpuSession(conf, device="cpu")
+        left = frame(S, s, probe, psch, pvalid)
+        right = frame(S, s, build, bsch, bvalid).filter(
+            S.col("w") < S.lit(200000))
+        df = left.join(right, on=["k", "k2"], how="left")
+        got = df.collect()
+        assert sorted(repr(r) for r in got) == list(out[label + "_rows"])
+        assert df.collect() == got
+        mine = df.explain().splitlines()
+        assert f"decided={label}(" in mine[0]
+        assert mine == list(out[label + "_plan"])
+
+
+def test_adaptive_reader_coalesces_small_partitions():
+    """Adjacent partitions under ``small_bytes`` merge up to the target;
+    a partition at or above it is emitted alone."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.exec.exchange import (
+        TpuAdaptiveShuffleReaderExec, TpuShuffleExchangeExec)
+    from spark_rapids_tpu_torch.plan.nodes import SinglePartitioning
+
+    sch = T.StructType([T.StructField("x", T.LONG)])
+
+    def batch(n, start):
+        return ColumnarBatch([DeviceColumn(
+            T.LONG, torch.ones(n, dtype=torch.bool),
+            data=torch.arange(start, start + n))], n, sch)
+
+    class Leaf:
+        children = []
+        output = sch
+        device = torch.device("cpu")
+
+        def execute_columnar(self):
+            start = 0
+            for n in (10, 20, 30, 500, 5, 5, 40):   # 9 bytes a row
+                yield batch(n, start)
+                start += n
+
+    reader = TpuAdaptiveShuffleReaderExec(
+        TpuShuffleExchangeExec(SinglePartitioning(), Leaf()),
+        target_bytes=500, small_bytes=1000)
+    snap = PC.snapshot()
+    out = list(reader.execute_columnar())
+    assert [b.num_rows for b in out] == [30, 30, 500, 50]
+    assert reader.stats[3] == (500, 4500)
+    assert reader.decision == "coalesced 7->4 partitions"
+    assert PC.since(snap)["partitions_coalesced"] == 3
+    got = torch.cat([b.columns[0].data for b in out])
+    assert torch.equal(got, torch.arange(610))

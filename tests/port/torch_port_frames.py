@@ -43,3 +43,30 @@ def rows_key(rows, approx_float: bool = False, ordered: bool = False):
     out = [tuple(type(v).__name__ + ":" + repr(_normalize(v, approx_float))
                  for v in r) for r in rows]
     return out if ordered else sorted(out)
+
+
+def write_parquet_files(tmp_path, name, arrays, schema, nfiles):
+    """``arrays`` (name -> numpy array in storage form: unscaled integers
+    for decimals) as ``nfiles`` snappy files written by pyarrow, decimals
+    with their DECIMAL annotation over integers, as Spark stores them."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    n = len(arrays[schema.fields[0].name])
+    bounds = np.linspace(0, n, nfiles + 1).astype(int)
+    paths = []
+    for i in range(nfiles):
+        cols = {}
+        for f in schema.fields:
+            v = arrays[f.name][bounds[i]:bounds[i + 1]]
+            dt = f.dataType
+            cols[f.name] = (pa.array([Decimal(int(x)).scaleb(-dt.scale)
+                                      for x in v],
+                                     pa.decimal128(dt.precision, dt.scale))
+                            if type(dt).__name__ == "DecimalType"
+                            else pa.array(v))
+        path = str(tmp_path / f"{name}-{i}.parquet")
+        pq.write_table(pa.table(cols), path, compression="snappy",
+                       store_decimal_as_integer=True)
+        paths.append(path)
+    return paths

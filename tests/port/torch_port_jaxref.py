@@ -61,7 +61,13 @@ def _stop_worker():
 def _get_worker() -> subprocess.Popen:
     global _worker
     if _worker is None or _worker.poll() is not None:
-        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO)
+        # one CPU device, as the port runs on one card: tests/conftest.py
+        # asks XLA for 8 host devices, under which the reference keeps its
+        # hash exchanges instead of collapsing them to one partition
+        flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
+                         if "host_platform_device_count" not in f)
+        env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
+                   XLA_FLAGS=flags)
         log = tempfile.TemporaryFile()   # the child's warnings, unread
         _worker = subprocess.Popen(
             [sys.executable, "-c", _WORKER_SRC], cwd=REPO, env=env,

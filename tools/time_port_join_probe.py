@@ -1,13 +1,19 @@
 """Time the port's join probe search on the card: one search per probe row
 plus the build side's run ends (``exec/join.py::_equal_range``) against
 the first version's two searches, left and right, each a shared sort of
-build and probe words for several keys (copied below as ``_two_searches``).
+build and probe words for several keys (copied below as ``_two_searches``);
+and, for several key words, the word-by-word rank search
+(``_rank_search`` over the build's ``_rank_tables``) against the second
+version, one shared sort of build and probe words for the left position
+(``_merge_rank_range``), also at bench qb's shapes: 2,880,099
+store_returns keys (ticket, item_sk) against one store_sales file's
+3,600,123 rows.
 
 Usage: ``python3 tools/time_port_join_probe.py [--build N] [--probe N]``
-on a machine with a CUDA card.  Both versions must give the same bounds;
-it prints the card's name and power limit, then one JSON line per key
-count with the device times in ms (CUDA events, mean of back-to-back
-calls after a warm-up).
+on a machine with a CUDA card.  All versions must give the same bounds;
+it prints the card's name and power limit, then one JSON line per case
+with the device times in ms (CUDA events, mean of back-to-back calls
+after a warm-up).
 """
 from __future__ import annotations
 
@@ -51,6 +57,18 @@ def _old_merge_rank(sorted_words, n_valid, query_words, side):
     return out.scatter_(0, qpos, nb_before)[:nq]
 
 
+def _merge_rank_range(sorted_words, run_end, n_valid, query_words):
+    """The second version for several words: the left rank through one
+    shared sort of build and probe words, the run's end from
+    ``run_end``."""
+    lo = _old_merge_rank(sorted_words, n_valid, query_words, "left")
+    at = lo.clamp(max=max(sorted_words[0].shape[0] - 1, 0))
+    match = lo < n_valid
+    for sw, qw in zip(sorted_words, query_words):
+        match &= sw[at] == qw
+    return lo, torch.where(match, run_end[at], lo)
+
+
 def _two_searches(sorted_words, n_valid, query_words):
     """The first version: a search for each side."""
     if len(sorted_words) == 1:
@@ -92,6 +110,10 @@ def main(argv=None) -> int:
     print(smi)
     rng = np.random.default_rng(args.seed)
     n_valid = args.build - args.build // 10         # a null-key tail
+    qb = _time_qb_shapes(rng, dev)
+    if qb is None:
+        return 1
+    print(json.dumps(dict(qb, device=smi)))
     for nkeys in (1, 2):
         # a key of ~n_valid/4 distinct values per word: duplicate build keys
         # and probe keys that miss
@@ -107,21 +129,64 @@ def main(argv=None) -> int:
         q = [torch.from_numpy(x).to(dev) for x in queries]
         nv = torch.tensor(n_valid, device=dev)
         run_end = J._run_ends(w, nv)
-        new = J._equal_range(w, run_end, nv, q)
+        tables = J._rank_tables(w) if nkeys > 1 else None
+        new = J._equal_range(w, run_end, nv, q, tables)
         old = _two_searches(w, nv, q)
         if not all(torch.equal(a, b) for a, b in zip(new, old)):
-            print(f"{nkeys} key(s): the two versions disagree",
-                  file=sys.stderr)
+            print(f"{nkeys} key(s): the versions disagree", file=sys.stderr)
             return 1
-        print(json.dumps({
+        line = {
             "keys": nkeys, "build_rows": args.build, "probe_rows": args.probe,
             "matched_pairs": int((new[1] - new[0]).sum()),
             "one_search_ms": _time_ms(lambda: J._equal_range(w, run_end, nv,
-                                                             q)),
+                                                             q, tables)),
             "run_ends_ms": _time_ms(lambda: J._run_ends(w, nv)),
-            "two_searches_ms": _time_ms(lambda: _two_searches(w, nv, q)),
-            "device": smi}))
+            "two_searches_ms": _time_ms(lambda: _two_searches(w, nv, q))}
+        if nkeys > 1:
+            line["merge_rank_search_ms"] = _time_ms(
+                lambda: _merge_rank_range(w, run_end, nv, q))
+            line["rank_tables_ms"] = _time_ms(lambda: J._rank_tables(w))
+        print(json.dumps(dict(line, device=smi)))
     return 0
+
+
+def _time_qb_shapes(rng, dev):
+    """bench qb's probe: store_returns' unique (ticket, item_sk) keys,
+    sorted as the build side sorts them, against one store_sales file,
+    a tenth of whose rows were returned."""
+    n_sales = 28_800_991
+    n_build, n_probe = n_sales // 10, n_sales // 8
+    tickets, items = n_sales // 8, 100_000
+    key = np.unique(rng.integers(0, tickets, 2 * n_build) * (2 * items)
+                    + rng.integers(1, items + 1, 2 * n_build))
+    key = np.sort(rng.choice(key, n_build, replace=False))
+    w = [torch.from_numpy(key // (2 * items)).to(dev),
+         torch.from_numpy(key % (2 * items)).to(dev)]
+    # one sale in ten was returned: a tenth of the probe rows hit a key
+    qkey = (rng.integers(0, tickets, n_probe) * (2 * items)
+            + rng.integers(1, items + 1, n_probe))
+    hits = rng.random(n_probe) < 0.1
+    qkey[hits] = rng.choice(key, int(hits.sum()))
+    q = [torch.from_numpy(qkey // (2 * items)).to(dev),
+         torch.from_numpy(qkey % (2 * items)).to(dev)]
+    nv = torch.tensor(n_build, device=dev)
+    run_end = J._run_ends(w, nv)
+    tables = J._rank_tables(w)
+    rank = J._equal_range(w, run_end, nv, q, tables)
+    merged = _merge_rank_range(w, run_end, nv, q)
+    if not all(torch.equal(a, b) for a, b in zip(rank, merged)):
+        print("qb shapes: the versions disagree", file=sys.stderr)
+        return None
+    return {
+        "case": "qb", "keys": 2, "build_rows": n_build,
+        "probe_rows": n_probe,
+        "matched_pairs": int((rank[1] - rank[0]).sum()),
+        "rank_search_ms": _time_ms(
+            lambda: J._equal_range(w, run_end, nv, q, tables)),
+        "merge_rank_search_ms": _time_ms(
+            lambda: _merge_rank_range(w, run_end, nv, q)),
+        "rank_tables_ms": _time_ms(lambda: J._rank_tables(w)),
+        "run_ends_ms": _time_ms(lambda: J._run_ends(w, nv))}
 
 
 if __name__ == "__main__":
