@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: TPC-H Q6 from snappy Parquet at SF10,
-then bench qa from Parquet at TPC-DS SF10's store_sales row count.
+bench qa, qb and qc from Parquet at TPC-DS SF10's store_sales row count,
+then bench's out-of-core rung (rung3_ooc) and qb under a capped pool.
 
     python3 chip_smoke.py [--scale 10] [--seed 20261017]
 
@@ -64,7 +65,22 @@ Phases, each failing the run at its first mismatch:
 11. bench qc (a sum grouped by store and date, then ``rank()`` over each
     store's days by the sum, descending, kept where the rank is at most
     5) from phase 9's files, in the same way: aggregate -> window ->
-    filter, exact against an integer numpy reference.
+    filter, exact against an integer numpy reference;
+12. bench rung3_ooc from memory (a fact table joined to a 5,000-row
+    dimension on k, v summed by the dimension's group), bench.py's
+    generator (seed 23) and conf, at bench's defaults (4,194,304 rows, an
+    8 MiB pool) and at 28,800,991 rows under a 48 MiB pool: the pool is
+    the spill framework's budget, the fact exchange is sized past 16
+    partitions, its slices past the queues' device budget cross to the
+    host as CRC-framed blocks (``exchange_host_blocks`` must be above 0),
+    and two collects must equal bench.py's ``cpu_ooc``; the spill and
+    exchange counters, the codec, the peak memory beside the pool, and a
+    breakdown (exchange write, exchange read, coalesce, join, aggregate);
+13. bench qb from phase 10's files under the 48 MiB pool and a 6 MiB
+    batch goal, without broadcast or adaptive execution: the built
+    store_returns side is over the goal, so the join must sub-partition
+    both sides into hash buckets; two collects exact, the bucket count,
+    spills and K1 launches printed.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
@@ -438,6 +454,124 @@ def qa_reference(ss, dd, limit: int = QA_LIMIT):
              Decimal(int(v)).scaleb(-2)) for k, v in zip(ks[starts], sums)]
     rows.sort(key=lambda r: (r[0], -r[2], r[1]))
     return rows[:limit]
+
+
+# ---------------------------------------------------------------------------
+# bench rung3_ooc data: a fact table joined to a 5,000-row dimension, out of
+# core (bench.py:1366-1472)
+# ---------------------------------------------------------------------------
+
+OOC_SEED = 23                      # bench.py's rung3_ooc seed
+OOC_DIM = 5000
+OOC_GROUPS = 25
+BENCH_OOC_POOL = 8 << 20           # bench.py's BENCH_OOC_POOL_BYTES default
+OOC_POOL = 48 << 20                # the slice's pool at SF10 rows
+OOC_ROW_BYTES = 23                 # k int + v, pad long, a validity byte each
+
+
+def bench_ooc_rows(pool: int) -> int:
+    """bench.py's default fact rows for a pool: 10x the pool at 20 flat
+    bytes a row, at least 2**20."""
+    return max((10 * pool) // 20, 1 << 20)
+
+
+def make_ooc(n: int):
+    """bench.py's rung3_ooc tables: (fact, dim) as numpy columns."""
+    rng = np.random.default_rng(OOC_SEED)
+    fact = {"k": rng.integers(0, OOC_DIM, n).astype(np.int32),
+            "v": rng.integers(-1000, 1000, n),
+            "pad": rng.integers(0, 1 << 30, n)}
+    dk = np.arange(OOC_DIM, dtype=np.int32)
+    return fact, {"k": dk, "g": (dk % OOC_GROUPS).astype(np.int32)}
+
+
+def ooc_conf(pool: int, n: int) -> dict:
+    """bench.py's rung3_ooc conf: the pool through the test override, a
+    batch goal of an eighth of it, 16 reader batches, no broadcast and no
+    adaptive execution."""
+    return {"spark.rapids.tpu.test.deviceMemoryBytes": str(pool),
+            "spark.rapids.sql.batchSizeBytes": max(pool // 8, 1 << 20),
+            "spark.rapids.sql.reader.batchSizeRows": max(n // 16, 1),
+            "spark.sql.autoBroadcastJoinThreshold": "-1",
+            "spark.sql.adaptive.enabled": False}
+
+
+def ooc_frames(mod, session, fact, dim):
+    """The two tables as ``LocalTableScan`` DataFrames of the package whose
+    session module is ``mod`` (bench.py's ``_df``: non-nullable fields)."""
+    pkg = mod.__name__.rsplit(".", 1)[0]
+    T = importlib.import_module(pkg + ".types")
+    HC = importlib.import_module(pkg + ".columnar.column").HostColumn
+    LTS = importlib.import_module(pkg + ".plan.nodes").LocalTableScan
+
+    def df(cols, types):
+        sch = T.StructType([T.StructField(k, t, False)
+                            for k, t in zip(cols, types)])
+        host = [HC.from_numpy(np.ascontiguousarray(v), t)
+                for v, t in zip(cols.values(), types)]
+        return mod.DataFrame(LTS(host, sch), session)
+
+    return (df(fact, [T.INT, T.LONG, T.LONG]), df(dim, [T.INT, T.INT]))
+
+
+def ooc_query(fact, dim, mod):
+    return (fact.join(dim, on="k", how="inner")
+            .group_by("g").agg(mod.sum_("v", "sv")))
+
+
+def ooc_reference(fact, dim):
+    """bench.py's ``cpu_ooc``: a bincount of v by the dimension's group,
+    as {g: sum} over the non-zero sums."""
+    sums = np.bincount(dim["g"][fact["k"]],
+                       weights=fact["v"].astype(np.float64),
+                       minlength=OOC_GROUPS)
+    return {int(i): int(sums[i]) for i in range(OOC_GROUPS) if sums[i]}
+
+
+def ooc_rows(rows):
+    return {int(g): int(sv) for g, sv in rows if sv}
+
+
+def ooc_plan(pool: int, n: int):
+    """The reference's plan for rung3_ooc at ``n`` fact rows and ``pool``:
+    the fact exchange sized to ceil(n * 23 / (pool / 8)) partitions."""
+    est = n * OOC_ROW_BYTES
+    parts = min(-(-est // max(pool // 8, 1 << 16)), 256)
+    goal = max(pool // 8, 1 << 20)
+    return ["TpuHashAggregate(Complete) keys=[g] aggs=[sum(v) AS sv]",
+            "  TpuShuffledSymmetricHashJoinExec Inner [k=k]",
+            f"    TpuCoalesceBatches TargetSize({goal})",
+            f"      TpuShuffleExchange hashpartitioning(k, {parts}) "
+            f"[sized 16->{parts} partitions (est {est}B)]",
+            "        <scan>",
+            f"    TpuCoalesceBatches TargetSize({goal})",
+            "      TpuShuffleExchange SinglePartition",
+            "        <scan>"]
+
+
+def ooc_qb_conf(pool: int) -> dict:
+    """Phase 13: qb from Parquet under rung3_ooc's pool and batch goal,
+    with no broadcast and no adaptive execution."""
+    return dict(QA_CONF, **{
+        "spark.rapids.tpu.test.deviceMemoryBytes": str(pool),
+        "spark.rapids.sql.batchSizeBytes": max(pool // 8, 1 << 20),
+        "spark.sql.autoBroadcastJoinThreshold": "-1",
+        "spark.sql.adaptive.enabled": False})
+
+
+def ooc_qb_plan(goal: int):
+    """qb's plan with adaptive execution off: a coalesce to ``goal`` over
+    each (single-partition) exchange, the join bare."""
+    return ["TpuHashAggregate(Complete) keys=[store_sk] aggs=[sum(net) AS "
+            "net_sales] fused=[Project]",
+            "  TpuShuffledSymmetricHashJoinExec LeftOuter [ticket=ticket, "
+            "item_sk=item_sk]",
+            f"    TpuCoalesceBatches TargetSize({goal})",
+            "      TpuShuffleExchange SinglePartition",
+            "        <scan>",
+            f"    TpuCoalesceBatches TargetSize({goal})",
+            "      TpuShuffleExchange SinglePartition",
+            "        <scan>"]
 
 
 # ---------------------------------------------------------------------------
@@ -1281,6 +1415,175 @@ def qc_breakdown(q):
         f"{t_agg:.4f} s, window {t_win:.4f} s, filter {t_filt:.4f} s")
 
 
+def _spill_line(fw) -> str:
+    m = fw.metrics()
+    return (f"spillToHostCount={m['spillToHostCount']} "
+            f"spillToHostBytes={m['spillToHostBytes']} "
+            f"spillToDiskCount={m['spillToDiskCount']} "
+            f"device_used_peak={m['deviceUsedPeakBytes']} "
+            f"pool={fw.pool_bytes}")
+
+
+def _ooc_collects(q, check, label: str, n: int, smi: str):
+    """Two collects of ``q``, both held by ``check``; the counts (K1
+    launches, perfcounters, peak memory) set to 0 just before the timed
+    second one and read after it.  The spill framework is the one the
+    second collect built."""
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.memory.spill import peek_spill_framework
+    from spark_rapids_tpu_torch.pallas import decode
+
+    bad = check(q.collect())
+    if bad:
+        fail(f"{label}, first run: {bad}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode.unpack_launches = 0
+    snap = PC.snapshot()
+    t0 = time.perf_counter()
+    rows = q.collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = decode.unpack_launches
+    d = PC.since(snap)
+    peak = torch.cuda.max_memory_allocated()
+    bad = check(rows)
+    if bad:
+        fail(f"{label}, second run: {bad}")
+    fw = peek_spill_framework()
+    log(f"{label}: {len(rows)} rows == numpy reference; {n} rows in "
+        f"{secs:.3f} s = {n / secs:.0f} rows/s [{smi}]")
+    log(f"{label} spill: {_spill_line(fw)}; max_memory_allocated={peak} "
+        f"[{smi}]")
+    log(f"{label} counters: exchange_host_blocks={d['exchange_host_blocks']} "
+        f"exchange_host_block_bytes={d['exchange_host_block_bytes']} "
+        f"exchange_partition_ns={d['exchange_partition_ns']} "
+        f"exchange_spill_ns={d['exchange_spill_ns']} "
+        f"host_syncs={d['host_syncs']} bytes_h2d={d['bytes_h2d']} "
+        f"bytes_d2h={d['bytes_d2h']} unpack_launches={launches} [{smi}]")
+    return {"seconds": secs, "launches": launches, "delta": d,
+            "metrics": fw.metrics(), "query": q}
+
+
+def run_ooc(n: int, pool: int, device, smi: str, label: str):
+    """Phase 12: bench's rung3_ooc from memory at ``n`` fact rows under
+    ``pool``: the plan must be the reference's, with the fact exchange
+    sized past 16 partitions; both collects equal ``cpu_ooc``; host
+    blocks must have crossed the exchange's host boundary."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.config import (SHUFFLE_COMPRESSION_CODEC,
+                                               TpuConf)
+    from spark_rapids_tpu_torch.shuffle.serializer import resolved_codec
+
+    t0 = time.perf_counter()
+    fact, dim = make_ooc(n)
+    want = ooc_reference(fact, dim)
+    flat = sum(a.nbytes for a in fact.values())
+    log(f"{label} data: {n} fact rows, {flat} flat bytes = "
+        f"{flat / pool:.1f}x the {pool}-byte pool; generated with the numpy "
+        f"reference in {time.perf_counter() - t0:.1f} s")
+    conf = ooc_conf(pool, n)
+    s = S.TpuSession(conf, device=device)
+    q = ooc_query(*ooc_frames(S, s, fact, dim), S)
+    plan = ooc_plan(pool, n)
+    check_plan(q, plan, label)
+    parts = int(re.search(r"hashpartitioning\(k, (\d+)\)", plan[3])[1])
+    if parts <= 16:
+        fail(f"{label}: the fact exchange was sized to {parts} partitions")
+    log(f"{label} plan:\n" + q.explain())
+    codec = resolved_codec(TpuConf(conf).get(SHUFFLE_COMPRESSION_CODEC))
+    log(f"{label} host-boundary codec: {codec}")
+    del fact
+    out = _ooc_collects(q, lambda rows: None if ooc_rows(rows) == want
+                        else f"{ooc_rows(rows)} != {want}", label, n, smi)
+    if out["delta"]["exchange_host_blocks"] <= 0:
+        fail(f"{label}: no exchange slice crossed to the host")
+    out.update(parts=parts, codec=codec)
+    return out
+
+
+def ooc_breakdown(q, label: str):
+    """Where a rung3_ooc collect spends its time, step by step, each on
+    its input already on the card: the fact scan, the exchange's write
+    (partition ids, sort and slices, then the queues: device handles or
+    host frames) and read (the drain in batch-goal chunks), the coalesce,
+    the join (its dimension side included) and the aggregate."""
+    import torch
+
+    from spark_rapids_tpu_torch.config import BATCH_SIZE_BYTES
+    from spark_rapids_tpu_torch.memory.spill import get_spill_framework
+    from spark_rapids_tpu_torch.shuffle.partition_queues import (
+        SpillBackedPartitionQueues, host_boundary_codec, queue_device_budget)
+
+    conf = q.session.conf
+    get_spill_framework(conf, q.session.device)
+    agg = fresh_plan(q)
+    join = agg.children[0]
+    coal = join.children[0]
+    ex = coal.children[0]
+    schema = ex.output
+    t_scan, batches = _replay_leaf(ex, 0)
+    ex.children[0] = None              # the scan's batches go with ``batches``
+    queues = SpillBackedPartitionQueues(
+        ex.num_partitions, schema, queue_device_budget(conf),
+        codec=host_boundary_codec(conf))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        for pid, sl in ex.partition_slices(b):
+            queues.append(pid, sl)
+    torch.cuda.synchronize()
+    t_write = time.perf_counter() - t0
+    del batches
+    goal = int(conf.get(BATCH_SIZE_BYTES))
+    t0 = time.perf_counter()
+    chunks = [c for pid in range(ex.num_partitions)
+              for c in queues.read_chunks(pid, target_bytes=goal)]
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    host_blocks = queues.host_blocks
+    queues.close()
+    coal.children[0] = _Replay(chunks, schema)
+    t_coal, _ = _replay_leaf(join, 0)
+    t_join, _ = _replay_leaf(agg, 0)
+    t_agg, _ = _timed_run(agg)
+    log(f"{label} breakdown: fact scan {t_scan:.4f} s, exchange write "
+        f"(partition + append, {host_blocks} host blocks) {t_write:.4f} s, "
+        f"exchange read {t_read:.4f} s, coalesce {t_coal:.4f} s, join "
+        f"{t_join:.4f} s, aggregate {t_agg:.4f} s")
+
+
+def run_ooc_qb(ss_paths, sr_paths, want, n: int, pool: int, device,
+               smi: str):
+    """Phase 13: bench qb from phase 10's files under the capped pool; the
+    built store_returns side is over the batch goal, so the join must
+    sub-partition both sides; both collects exact."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+
+    ssch, rsch = qb_schemas(T)
+    s = S.TpuSession(ooc_qb_conf(pool), device=device)
+    q = qb_query(s.read.schema(ssch).parquet(*ss_paths),
+                 s.read.schema(rsch).parquet(*sr_paths), S)
+    goal = ooc_qb_conf(pool)["spark.rapids.sql.batchSizeBytes"]
+    check_plan(q, ooc_qb_plan(goal), "qb out of core")
+    out = _ooc_collects(q, lambda rows: None if sorted(rows) == want else
+                        f"{sorted(rows)[:3]}... != {want[:3]}...",
+                        "qb out of core", n, smi)
+    join = q._planned().children[0]
+    if not join.sub_partitions:
+        fail("qb out of core: the join did not sub-partition")
+    if out["launches"] <= 0:
+        fail("the qb out-of-core run launched K1 no time")
+    log(f"qb out of core: the join sub-partitioned both sides into "
+        f"{join.sub_partitions} buckets; K1 launches "
+        f"{out['launches']} [{smi}]")
+    out["buckets"] = join.sub_partitions
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -1392,6 +1695,21 @@ def main(argv=None) -> int:
     qc = run_qc(ss_paths, want_qc, n_ss, device)
     qc_breakdown(qc["query"])
     profile_collect(qc["query"], want_qc, "qc parquet", key=qc_rows)
+
+    # 12. bench rung3_ooc from memory: at bench's defaults, then at SF10
+    t0 = time.perf_counter()
+    ooc_small = run_ooc(bench_ooc_rows(BENCH_OOC_POOL), BENCH_OOC_POOL,
+                        device, smi, "rung3_ooc bench defaults")
+    ooc = run_ooc(n_ss, OOC_POOL, device, smi, "rung3_ooc")
+    ooc_breakdown(ooc["query"], "rung3_ooc")
+    del ooc_small, ooc
+    log(f"phase 12 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 13. bench qb out of core: the sub-partitioned join from Parquet
+    t0 = time.perf_counter()
+    ooc_qb = run_ooc_qb(ss_paths, sr_paths, want_qb, n_ss, OOC_POOL, device,
+                        smi)
+    log(f"phase 13 wall time {time.perf_counter() - t0:.1f} s")
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
@@ -1410,6 +1728,7 @@ def main(argv=None) -> int:
         "qa_launches": qa["launches"],
         "qb_launches": qb["launches"],
         "qc_launches": qc["launches"],
+        "ooc_qb_launches": ooc_qb["launches"],
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

@@ -5,6 +5,9 @@ default (pass ``device="cpu"`` to run on the CPU).  It keeps the JAX
 package's module layout and public names so each module sits beside its
 counterpart, and it imports neither ``jax`` nor ``spark_rapids_tpu``.
 It runs TPC-H Q6 end to end (a Parquet or in-memory scan, the filter,
-the decimal product and the 128-bit sum) and bench qa (a broadcast hash
-join, a sort-based grouped sum and a top-N).
+the decimal product and the 128-bit sum), bench qa, qb and qc (broadcast,
+shuffled and adaptive joins, sort-based grouped sums, a rank window, a
+top-N), and the out-of-core path of bench's rung3_ooc: size-aware hash
+exchanges over spill-backed partition queues, the spill framework and the
+sub-partitioned join.
 """

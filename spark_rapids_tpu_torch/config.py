@@ -1,8 +1,10 @@
 """TpuConf — the typed configuration registry (the confs the port reads).
 
 Port of ``spark_rapids_tpu/config.py``: the same ``ConfEntry`` builder DSL
-and the same keys and defaults, cut to the confs that TPC-H Q6 and bench
-qa, qb and qc over Parquet read.  Unlike the reference there is no
+and the same keys and defaults, cut to the confs that TPC-H Q6, bench
+qa, qb and qc over Parquet, and the out-of-core path of bench's rung3_ooc
+(sized exchanges, spill-backed partition queues, the spill framework and
+the sub-partitioned join) read.  Unlike the reference there is no
 process-wide ambient conf: the session hands its ``TpuConf`` to every exec
 that needs one.
 """
@@ -54,6 +56,9 @@ class _Builder:
     def integer_conf(self, default: int) -> ConfEntry:
         return self._register(int, default, "integer")
 
+    def double_conf(self, default: float) -> ConfEntry:
+        return self._register(float, default, "double")
+
     def string_conf(self, default: Optional[str]) -> ConfEntry:
         return self._register(lambda s: s, default, "string")
 
@@ -89,10 +94,10 @@ ANSI_ENABLED = conf("spark.sql.ansi.enabled").doc(
 ).boolean_conf(False)
 
 BATCH_SIZE_BYTES = conf("spark.rapids.sql.batchSizeBytes").doc(
-    "Target columnar batch size.  A broadcast join whose estimated build "
-    "side is larger, or a shuffled join whose built side is, needs the "
-    "reference's sub-partitioned join, which the port does not run yet: "
-    "such a join raises.").bytes_conf(1 << 30)
+    "Target columnar batch size: the coalescing goal over an exchange, the "
+    "drain chunk of the spill-backed exchange queues, and the build-side "
+    "size past which a join sub-partitions both sides into hash buckets "
+    "at run time.").bytes_conf(1 << 30)
 
 AUTO_BROADCAST_JOIN_THRESHOLD = conf(
     "spark.sql.autoBroadcastJoinThreshold").doc(
@@ -137,6 +142,90 @@ PARQUET_COMPRESSED_TRANSFER = conf(
     "raw compressed page bytes and decompress them there; pages whose "
     "compressed form is not smaller fall back per chunk to the decoded "
     "transfer (`chunk_decode_fallbacks`).").boolean_conf(True)
+
+
+# --- memory: pool, spill ---------------------------------------------------
+
+HBM_POOL_FRACTION = conf("spark.rapids.memory.gpu.allocFraction").doc(
+    "Fraction of the card's memory the spill framework's pool may track "
+    "for batches.").double_conf(0.9)
+
+HBM_RESERVE = conf("spark.rapids.memory.gpu.reserve").doc(
+    "Device bytes kept out of the pool for torch's temporaries and "
+    "workspaces.").bytes_conf(640 << 20)
+
+HOST_SPILL_STORAGE_SIZE = conf(
+    "spark.rapids.memory.host.spillStorageSize").doc(
+    "Host memory for spilled device batches before disk.").bytes_conf(1 << 31)
+
+SPILL_DIR = conf("spark.rapids.memory.spillDir").doc(
+    "Directory for disk spill (reference: RapidsDiskStore).").string_conf(None)
+
+TEST_DEVICE_MEMORY = conf("spark.rapids.tpu.test.deviceMemoryBytes").doc(
+    "Test override for the device memory the pool is computed from; set, "
+    "it IS the pool.").bytes_conf(0)
+
+# --- exchange: partition sizing, spill-backed queues ------------------------
+
+SHUFFLE_PARTITIONS = conf("spark.sql.shuffle.partitions").doc(
+    "Number of shuffle partitions a join's or a group-by's hash exchange "
+    "is planned with.").integer_conf(16)
+
+SHUFFLE_MODE = conf("spark.rapids.shuffle.mode").doc(
+    "MULTITHREADED, ICI or CACHE_ONLY.  The port runs a multi-partition "
+    "exchange through the spill-backed partition queues; CACHE_ONLY (the "
+    "reference's shuffle-manager path) raises.").string_conf("MULTITHREADED")
+
+SHUFFLE_COMPRESSION_CODEC = conf(
+    "spark.rapids.shuffle.compression.codec").doc(
+    "Codec for serialized shuffle batches: none, lz4, zstd (lz4 and zstd "
+    "go to zstandard where it imports, else to zlib level 1).").string_conf(
+    "lz4")
+
+SINGLE_DEVICE_SHUFFLE_COALESCE = conf(
+    "spark.rapids.tpu.shuffle.singleDeviceCoalesce").doc(
+    "On one device, collapse hash and round-robin exchanges that partition "
+    "sizing left alone to ONE partition (aggregation and join results do "
+    "not depend on the partition count).").boolean_conf(True)
+
+EXCHANGE_SIZED_PARTITIONS = conf(
+    "spark.rapids.tpu.exchange.sizedPartitions.enabled").doc(
+    "Size-aware exchange partitioning: at plan time, estimate each hash or "
+    "round-robin exchange's input bytes from static row counts and GROW "
+    "its partition count so one partition fits "
+    "exchange.targetPartitionFraction of the pool; sized exchanges are "
+    "exempt from the single-device collapse.").boolean_conf(True)
+
+EXCHANGE_TARGET_PARTITION_FRACTION = conf(
+    "spark.rapids.tpu.exchange.targetPartitionFraction").doc(
+    "Fraction of the pool one exchange partition should fit "
+    "(partitions = ceil(estimated bytes / (pool * fraction)))."
+).double_conf(0.125)
+
+EXCHANGE_MAX_PARTITIONS = conf(
+    "spark.rapids.tpu.exchange.maxPartitions").doc(
+    "Upper bound on the partition count sizedPartitions may choose."
+).integer_conf(256)
+
+EXCHANGE_SPILL_ENABLED = conf(
+    "spark.rapids.tpu.exchange.spill.enabled").doc(
+    "Stream exchange partitions through spill-backed partition queues: "
+    "slices stay on the device as tracked handles up to "
+    "exchange.deviceResidentBytes, then cross to the host as CRC-framed "
+    "serializer blocks.  false (the reference's shuffle-manager path) "
+    "raises in the port.").boolean_conf(True)
+
+EXCHANGE_DEVICE_RESIDENT_BYTES = conf(
+    "spark.rapids.tpu.exchange.deviceResidentBytes").doc(
+    "Device bytes the exchange queues may keep resident before further "
+    "slices serialize to host blocks.  0 derives it from the pool: "
+    "pool * exchange.targetPartitionFraction * 2.").bytes_conf(0)
+
+ICI_HOST_BOUNDARY_CODEC = conf(
+    "spark.rapids.tpu.ici.hostBoundaryCodec").doc(
+    "Codec for the CRC-framed blocks crossing the exchange's host "
+    "boundary.  Unset defers to spark.rapids.shuffle.compression.codec."
+).string_conf(None)
 
 
 class TpuConf:

@@ -14,11 +14,12 @@ The plan rewrite builds the exec only in COMPLETE mode.  Each input batch
 is reduced to a buffer (one row per group) as it arrives; several buffers
 are concatenated once and reduced once more, with merge semantics (counts
 add).  For these functions the buffer schema is the output schema, so no
-finalize pass follows.  The reference's PARTIAL/FINAL twins, pairwise
-merges and finalize serve its spill framework, which the port does not
-have.  It absorbs the stage below it as ``pre_ops`` (filters only narrow
-the row mask).  An empty grouped
-input yields no rows; an empty global input yields one row (counts 0,
+finalize pass follows.  Each input batch is reduced under ``with_retry``
+over a spillable handle, as in the reference.  The reference's
+PARTIAL/FINAL twins, pairwise merges and finalize let it spill buffers
+between merges, which the port does not do: the buffers stay on the card
+until the one merge.  It absorbs the stage below it as ``pre_ops``
+(filters only narrow the row mask).  An empty grouped input yields no rows; an empty global input yields one row (counts 0,
 everything else null).  ``avg``, the moments, HLL, percentile and collect
 are not ported: the session rejects them.
 """
@@ -34,6 +35,8 @@ from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
                                                     column_torch_dtype)
 from spark_rapids_tpu_torch.exec.base import TpuExec
 from spark_rapids_tpu_torch.expr.base import EvalContext, Expression
+from spark_rapids_tpu_torch.memory.retry import with_retry
+from spark_rapids_tpu_torch.memory.spill import get_spill_framework
 from spark_rapids_tpu_torch.ops import segment as SEG
 from spark_rapids_tpu_torch.ops.sortkeys import (_column_key_words,
                                                  group_segments, lexsort)
@@ -124,10 +127,13 @@ class TpuHashAggregateExec(TpuExec):
 
     # ------------------------------------------------------------------
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
-        """A buffer per input batch, reduced before the next batch is read;
-        several buffers merge in one pass."""
-        bufs = [self._aggregate_batch(b)
-                for b in self.children[0].execute_columnar()]
+        """A buffer per input batch, reduced before the next batch is read
+        under ``with_retry`` over a tracked handle (a split input gives a
+        buffer per half); several buffers merge in one pass."""
+        fw = get_spill_framework()
+        bufs = []
+        for b in self.children[0].execute_columnar():
+            bufs.extend(with_retry(fw.track(b), self._aggregate_batch))
         if not bufs:
             out = (empty_batch(self._output, self._device()) if self.grouping
                    else self._global_agg_empty())

@@ -5,7 +5,7 @@ work is eager torch code on the batch's device.
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
@@ -42,6 +42,24 @@ class TpuExec:
 
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
         raise NotImplementedError
+
+    def aot_output_rows(self) -> Optional[List[int]]:
+        """Per-batch row counts this operator will emit, where the plan
+        alone gives them (the local scan and the narrow operators above
+        it); None where they depend on the data.  Partition sizing reads
+        them."""
+        return None
+
+    def aot_output_caps(self) -> Optional[List[int]]:
+        """Upper bounds of the per-batch row counts (a filter passes its
+        input's through)."""
+        return self.aot_output_rows()
+
+    def aot_input_rows(self) -> Optional[List[int]]:
+        return self.children[0].aot_output_rows() if self.children else None
+
+    def aot_input_caps(self) -> Optional[List[int]]:
+        return self.children[0].aot_output_caps() if self.children else None
 
     def _device(self):
         """The device of the leftmost leaf: the scan this exec reads."""

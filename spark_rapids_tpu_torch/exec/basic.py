@@ -141,6 +141,15 @@ class TpuStageExec(TpuExec):
         names = "+".join(type(o).__name__.replace("Op", "") for o in self.ops)
         return f"TpuStageExec[{names}]"
 
+    def aot_output_rows(self):
+        # projections keep the row count; a filter's is data-dependent
+        if any(isinstance(o, (FilterOp, FilterProjectOp)) for o in self.ops):
+            return None
+        return self.aot_input_rows()
+
+    def aot_output_caps(self):
+        return self.aot_input_caps()
+
     def execute_columnar(self):
         for batch in self.children[0].execute_columnar():
             ctx = EvalContext(batch, ansi=self.ansi)
@@ -211,6 +220,13 @@ class TpuLocalTableScanExec(TpuExec):
     @property
     def output(self):
         return self._schema
+
+    def aot_output_rows(self):
+        """The exact row count of each batch ``execute_columnar`` yields."""
+        n = self.host_columns[0].num_rows if self.host_columns else 0
+        step = self.target_batch_rows or max(n, 1)
+        return [min(start + step, n) - start if n else 0
+                for start in range(0, max(n, 1), step)]
 
     def execute_columnar(self):
         n = self.host_columns[0].num_rows if self.host_columns else 0

@@ -1,21 +1,46 @@
-"""Exchanges — port of ``TpuBroadcastExchangeExec``, of
-``TpuShuffleExchangeExec`` for one partition and of
-``TpuAdaptiveShuffleReaderExec`` (``spark_rapids_tpu/exec/exchange.py``).
+"""Exchanges — port of ``TpuBroadcastExchangeExec``,
+``TpuShuffleExchangeExec`` and ``TpuAdaptiveShuffleReaderExec``
+(``spark_rapids_tpu/exec/exchange.py``).
 
 On one device a broadcast is a materialisation: the child's batches are
 concatenated into one batch for the join's build side.  A single-partition
 shuffle is an identity over the child's batches, as in the reference: one
-reduce partition receives every map output in order.  Hash, round-robin
-and range partitioning over several partitions are not ported; the plan
-rewrite elides the single-device hash exchange between the two phases of
-an aggregate, and raises for any other.
+reduce partition receives every map output in order.
+
+A shuffle over several partitions (hash, round-robin or range) gives each
+row Spark's partition id (``ops/hashing.py`` for hash), sorts the rows of a
+batch stably by it, and reads the partitions' bounds back in one host sync
+a batch (``partition_slices``).  Its slices stream through spill-backed
+partition queues (``shuffle/partition_queues.py``): device-resident up to
+a budget, CRC-framed host blocks past it.  The reduce partitions then
+drain in partition order, in chunks of ``spark.rapids.sql.batchSizeBytes``.
+The reference's shuffle-manager path (``exchange.spill.enabled=false`` or
+``shuffle.mode=CACHE_ONLY``), its distributed path and its recovery path
+are not ported: the first raises ``NotOnGpu``.
 """
 from __future__ import annotations
 
+import copy
+import time
+from typing import Iterator, List, Tuple
+
+import torch
+
 from spark_rapids_tpu_torch import perfcounters as PC
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.config import (BATCH_SIZE_BYTES,
+                                           EXCHANGE_SPILL_ENABLED,
+                                           SHUFFLE_MODE, TpuConf)
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
-from spark_rapids_tpu_torch.plan.nodes import SinglePartitioning
+from spark_rapids_tpu_torch.expr.base import EvalContext
+from spark_rapids_tpu_torch.ops.filterops import gather_columns
+from spark_rapids_tpu_torch.ops.hashing import spark_partition_ids
+from spark_rapids_tpu_torch.ops.sortkeys import sort_permutation
+from spark_rapids_tpu_torch.perfcounters import sync_get
+from spark_rapids_tpu_torch.plan.nodes import (HashPartitioning,
+                                               RangePartitioning,
+                                               RoundRobinPartitioning,
+                                               SinglePartitioning)
 
 
 class TpuBroadcastExchangeExec(TpuExec):
@@ -34,23 +59,144 @@ class TpuBroadcastExchangeExec(TpuExec):
                else ColumnarBatch.concat(batches))
 
 
+def partition_order(ids: torch.Tensor, n_parts: int
+                    ) -> Tuple[torch.Tensor, List[int]]:
+    """(row order, bounds) of partition ids ``ids`` (int64 in
+    ``[0, n_parts)``): one stable sort, so each partition's rows keep their
+    order, and the ``n_parts + 1`` bounds of the partitions in that order,
+    read back in one host sync."""
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    bounds = torch.searchsorted(
+        sorted_ids, torch.arange(n_parts + 1, dtype=sorted_ids.dtype,
+                                 device=ids.device))
+    (b,) = sync_get(bounds)
+    return perm, b.tolist()
+
+
+def gather_slice(batch: ColumnarBatch, perm: torch.Tensor, lo: int,
+                 hi: int) -> ColumnarBatch:
+    """Rows ``perm[lo:hi]`` of ``batch`` as new tensors (a slice that stays
+    queued keeps no other partition's rows alive)."""
+    return ColumnarBatch(gather_columns(perm[lo:hi], batch.columns),
+                         hi - lo, batch.schema)
+
+
 class TpuShuffleExchangeExec(TpuExec):
-    def __init__(self, partitioning, child: TpuExec):
+    def __init__(self, partitioning, child: TpuExec, ansi: bool = False,
+                 conf: TpuConf = None):
         super().__init__([child])
-        if not isinstance(partitioning, SinglePartitioning):
-            raise NotOnGpu(f"exchange {partitioning.describe()} (only a "
-                           "single-partition shuffle is ported)")
-        self.partitioning = partitioning
+        # partition sizing grows the count in place: keep the CPU plan's
+        # partitioning as it was planned
+        self.partitioning = copy.copy(partitioning)
+        self.ansi = ansi
+        self.conf = conf if conf is not None else TpuConf()
 
     @property
     def output(self):
         return self.children[0].output
 
     def describe(self):
-        return f"TpuShuffleExchange {self.partitioning.describe()}"
+        d = getattr(self, "sized_decision", None)
+        return (f"TpuShuffleExchange {self.partitioning.describe()}"
+                + (f" [{d}]" if d else ""))
 
-    def execute_columnar(self):
-        yield from self.children[0].execute_columnar()
+    @property
+    def num_partitions(self) -> int:
+        return getattr(self.partitioning, "num_partitions", 1)
+
+    def aot_output_rows(self):
+        # one partition is an identity over the child; the slices of
+        # several depend on the data
+        if self.num_partitions == 1:
+            return self.aot_input_rows()
+        return None
+
+    def aot_output_caps(self):
+        return self.aot_input_caps() if self.num_partitions == 1 else None
+
+    def partition_slices(self, batch: ColumnarBatch
+                         ) -> Iterator[Tuple[int, ColumnarBatch]]:
+        """The non-empty partition slices of one batch, in partition order,
+        made one at a time (reference: GpuPartitioning.
+        sliceInternalGpuOrCpu, which yields the empty ones too)."""
+        p = self.partitioning
+        if isinstance(p, SinglePartitioning) or self.num_partitions == 1:
+            yield 0, batch
+            return
+        t0 = time.perf_counter_ns()
+        if isinstance(p, HashPartitioning):
+            ids = self._hash_ids(batch)
+        elif isinstance(p, RoundRobinPartitioning):
+            ids = torch.arange(batch.num_rows, dtype=torch.int64,
+                               device=batch.device) % self.num_partitions
+        elif isinstance(p, RangePartitioning):
+            ids = self._range_ids(batch)
+        else:
+            raise NotOnGpu(f"partitioning {type(p).__name__}")
+        perm, bounds = partition_order(ids, self.num_partitions)
+        PC.bump("exchange_partition_ns", time.perf_counter_ns() - t0)
+        # lazily, so each slice is queued before the next is gathered
+        for pid in range(self.num_partitions):
+            lo, hi = bounds[pid], bounds[pid + 1]
+            if hi > lo:
+                yield pid, gather_slice(batch, perm, lo, hi)
+
+    def _hash_ids(self, batch: ColumnarBatch) -> torch.Tensor:
+        ctx = EvalContext(batch, ansi=self.ansi)
+        key_cols = [k.eval_tpu(ctx) for k in self.partitioning.keys]
+        ctx.check_errors()
+        return spark_partition_ids(key_cols, self.num_partitions)
+
+    def _range_ids(self, batch: ColumnarBatch) -> torch.Tensor:
+        """Range partitioning on this batch's own order (the reference's
+        round-1 simplification of sampled bounds): a row's rank over the
+        rows a partition takes."""
+        ctx = EvalContext(batch, ansi=self.ansi)
+        orders = self.partitioning.orders
+        key_cols = [e.eval_tpu(ctx) for e, _ in orders]
+        ctx.check_errors()
+        perm = sort_permutation(key_cols, [s for _, s in orders],
+                                batch.row_mask)
+        n = batch.num_rows
+        rank = torch.empty_like(perm)
+        rank[perm] = torch.arange(n, dtype=perm.dtype, device=perm.device)
+        per = max(-(-n // self.num_partitions), 1)
+        return (rank // per).clamp(0, self.num_partitions - 1)
+
+    def execute_columnar(self) -> Iterator[ColumnarBatch]:
+        if isinstance(self.partitioning, SinglePartitioning):
+            yield from self.children[0].execute_columnar()
+            return
+        if not self.conf.get(EXCHANGE_SPILL_ENABLED) or str(
+                self.conf.get(SHUFFLE_MODE)).upper() == "CACHE_ONLY":
+            raise NotOnGpu("the shuffle-manager exchange (exchange.spill."
+                           "enabled=false or shuffle.mode=CACHE_ONLY)")
+        yield from self._execute_spill_backed()
+
+    def _execute_spill_backed(self) -> Iterator[ColumnarBatch]:
+        """Each input batch sliced once, each slice queued (on the device
+        or framed to the host) before the next is made; the reduce
+        partitions drain in partition order, in chunks of the batch-size
+        goal, released as they are read."""
+        from spark_rapids_tpu_torch.shuffle.partition_queues import (
+            SpillBackedPartitionQueues, host_boundary_codec,
+            queue_device_budget)
+
+        c = self.conf
+        queues = SpillBackedPartitionQueues(
+            self.num_partitions, self.output, queue_device_budget(c),
+            codec=host_boundary_codec(c))
+        goal = int(c.get(BATCH_SIZE_BYTES))
+        try:
+            for b in self.children[0].execute_columnar():
+                for pid, sl in self.partition_slices(b):
+                    queues.append(pid, sl)
+            for pid in range(self.num_partitions):
+                for out in queues.read_chunks(pid, target_bytes=goal):
+                    if out.num_rows > 0:
+                        yield out
+        finally:
+            queues.close()
 
 
 class TpuAdaptiveShuffleReaderExec(TpuExec):

@@ -18,14 +18,21 @@ reference sorts build and probe words together for each probe batch.  The
 end of its run of equal build keys comes from ``run_end``, computed once
 per build side, where the reference searches a second time.
 
+The build side's batches are tracked by the spill framework as they
+stream in, and each probe batch runs under ``with_retry`` over a tracked
+handle, as in the reference.  A build side over ``sub_partition_bytes``
+(``spark.rapids.sql.batchSizeBytes``; the broadcast and the shuffled join
+alike) takes the sub-partitioned join: both sides are hashed into 2**k
+spillable buckets with a seed of their own, and the buckets join one by
+one, so about 1/2**k of the build side is on the card at a time
+(reference: GpuSubPartitionHashJoin).
+
 ``TpuAdaptiveJoinExec`` wraps a shuffled join whose children are
 exchanges: it runs the build side first and joins by broadcast when the
 built bytes are within ``spark.sql.autoBroadcastJoinThreshold``, else
 replays them into the shuffled join.  Semi, anti, right, full and cross
-joins, a residual condition and the sub-partitioned join (a build side
-over ``spark.rapids.sql.batchSizeBytes``) are not ported: the plan rewrite
-raises ``NotOnGpu`` for them, and the shuffled join raises at run time
-for a build side over the batch size.
+joins and a residual condition are not ported: the plan rewrite raises
+``NotOnGpu`` for them.
 """
 from __future__ import annotations
 
@@ -37,8 +44,13 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
+from spark_rapids_tpu_torch.exec.exchange import (gather_slice,
+                                                  partition_order)
 from spark_rapids_tpu_torch.expr.base import EvalContext, Expression
+from spark_rapids_tpu_torch.memory.retry import with_retry
+from spark_rapids_tpu_torch.memory.spill import get_spill_framework
 from spark_rapids_tpu_torch.ops.filterops import gather_columns
+from spark_rapids_tpu_torch.ops.hashing import spark_partition_ids
 from spark_rapids_tpu_torch.ops.segment import seg_first_rows
 from spark_rapids_tpu_torch.ops.sortkeys import _column_key_words, lexsort
 from spark_rapids_tpu_torch.perfcounters import sync_get
@@ -167,6 +179,35 @@ class _SortedBuildSide:
 
 _PORTED_JOIN_TYPES = (JoinType.INNER, JoinType.LEFT_OUTER)
 
+_SUB_PARTITION_SEED = 100407   # decorrelated from exchange partitioning
+
+
+class _MaterializedExec(TpuExec):
+    """Leaf replaying spillable batches already made (the per-bucket
+    children of a sub-partitioned join)."""
+
+    def __init__(self, spillables, schema: T.StructType):
+        super().__init__([])
+        self._spillables = spillables
+        self._schema = schema
+
+    @property
+    def output(self):
+        return self._schema
+
+    @property
+    def device(self):
+        return self._spillables[0].device if self._spillables else None
+
+    def execute_columnar(self):
+        for s in self._spillables:
+            s.pin()
+            try:
+                b = s.get_batch()
+            finally:
+                s.unpin()
+            yield b
+
 
 def _null_rows(cols: List[DeviceColumn], n: int) -> List[DeviceColumn]:
     """``cols`` with ``n`` null rows appended."""
@@ -186,7 +227,7 @@ class _BaseTpuJoinExec(TpuExec):
                  left_keys: List[Expression], right_keys: List[Expression],
                  join_type: JoinType, condition: Optional[Expression],
                  output_schema: T.StructType, ansi: bool = False,
-                 sub_partition_bytes: Optional[int] = None):
+                 sub_partition_bytes: int = 1 << 30):
         super().__init__([left, right])
         if join_type not in _PORTED_JOIN_TYPES or condition is not None \
                 or not left_keys:
@@ -199,8 +240,9 @@ class _BaseTpuJoinExec(TpuExec):
         self.condition = condition
         self._output = output_schema
         self.ansi = ansi
-        # a built side over this many bytes needs the sub-partitioned join
+        # a built side over this many bytes takes the sub-partitioned join
         self.sub_partition_bytes = sub_partition_bytes
+        self.sub_partitions: Optional[int] = None   # buckets of the last run
 
     @property
     def output(self):
@@ -299,26 +341,122 @@ class _BaseTpuJoinExec(TpuExec):
         return ColumnarBatch(lcols + bcols, total_host + um_host,
                              self._output)
 
+    # -- sub-partitioning (GpuSubPartitionHashJoin analog) ----------------
+    def _sub_partition(self, spillables, keys, n_parts: int, schema, fw):
+        """Hash the rows of ``spillables`` into ``n_parts`` lists of
+        spillable buckets: per batch one id computation, one stable sort
+        by id and one host sync for the bounds (the reference compacts
+        once, with a sync, per bucket)."""
+        buckets = [[] for _ in range(n_parts)]
+        try:
+            for s in spillables:
+                s.pin()
+                try:
+                    b = s.get_batch()
+                    ctx = EvalContext(b, ansi=self.ansi)
+                    key_cols = [k.eval_tpu(ctx) for k in keys]
+                    ctx.check_errors()
+                    ids = spark_partition_ids(key_cols, n_parts,
+                                              seed=_SUB_PARTITION_SEED)
+                    perm, bounds = partition_order(ids, n_parts)
+                    for pid in range(n_parts):
+                        lo, hi = bounds[pid], bounds[pid + 1]
+                        if hi > lo:
+                            buckets[pid].append(
+                                fw.track(gather_slice(b, perm, lo, hi)))
+                finally:
+                    s.unpin()
+                    s.close()
+        except BaseException:
+            for bucket in buckets:
+                for h in bucket:
+                    h.close()
+            raise
+        return buckets
+
+    def _execute_sub_partitioned(self, build_spillables, total_bytes: int
+                                 ) -> Iterator[ColumnarBatch]:
+        """The build side exceeds the goal: hash both sides into buckets
+        and join bucket by bucket."""
+        fw = get_spill_framework()
+        n_parts = 1
+        while n_parts * self.sub_partition_bytes < total_bytes:
+            n_parts <<= 1
+        n_parts = max(2, n_parts)
+        self.sub_partitions = n_parts
+        bschema = self._build_child().output
+        pschema = self._probe_child().output
+        build_buckets = probe_buckets = [[] for _ in range(n_parts)]
+        try:
+            build_buckets = self._sub_partition(
+                build_spillables, self.right_keys, n_parts, bschema, fw)
+            probe_buckets = self._sub_partition(
+                (fw.track(b) for b in self._probe_child().execute_columnar()),
+                self.left_keys, n_parts, pschema, fw)
+            for pid in range(n_parts):
+                if not probe_buckets[pid]:
+                    # nothing to probe with: an inner or left outer join
+                    # of this bucket is empty
+                    continue
+                sub = TpuShuffledSymmetricHashJoinExec(
+                    _MaterializedExec(probe_buckets[pid], pschema),
+                    _MaterializedExec(build_buckets[pid], bschema),
+                    self.left_keys, self.right_keys, self.join_type,
+                    self.condition, self._output, self.ansi,
+                    sub_partition_bytes=1 << 62)  # buckets never re-split
+                yield from sub.execute_columnar()
+                for s in build_buckets[pid] + probe_buckets[pid]:
+                    s.close()
+                build_buckets[pid] = []
+                probe_buckets[pid] = []
+        finally:
+            # an abandoned generator must not leave handles tracked
+            for s in build_spillables:
+                s.close()
+            for bucket in build_buckets + probe_buckets:
+                for s in bucket:
+                    s.close()
+
     # -- execution -------------------------------------------------------
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
-        batches = list(self._build_child().execute_columnar())
-        if self.sub_partition_bytes is not None:
-            nbytes = _logical_bytes(batches)
-            if nbytes > self.sub_partition_bytes:
-                raise NotOnGpu(f"build side of {nbytes} bytes needs the "
-                               "sub-partitioned join")
-        bschema = self._build_child().output
-        if not batches:
-            build_batch = empty_batch(bschema, self._device())
-        else:
-            build_batch = (batches[0] if len(batches) == 1
+        fw = get_spill_framework()
+        # track the build batches as they stream in, so the framework can
+        # shed them while the rest arrives
+        build_spill = []
+        total_build_bytes = 0
+        try:
+            for b in self._build_child().execute_columnar():
+                total_build_bytes += b.nbytes()
+                build_spill.append(fw.track(b))
+        except BaseException:
+            for s in build_spill:
+                s.close()
+            raise
+        if total_build_bytes > self.sub_partition_bytes:
+            yield from self._execute_sub_partitioned(build_spill,
+                                                     total_build_bytes)
+            return
+        for s in build_spill:
+            s.pin()
+        try:
+            batches = [s.get_batch() for s in build_spill]
+            build_batch = (empty_batch(self._build_child().output,
+                                       self._device()) if not batches
+                           else batches[0] if len(batches) == 1
                            else ColumnarBatch.concat(batches))
-        del batches
+        finally:
+            for s in build_spill:
+                s.unpin()
+                s.close()
+        del build_spill, batches
         build = self._prepare_build(build_batch, self.right_keys)
         for probe in self._probe_child().execute_columnar():
-            out = self._probe_one(build, probe)
-            if out is not None:
-                yield out
+            # re-runnable and splittable by probe rows, as the reference's
+            outs = list(with_retry(fw.track(probe),
+                                   lambda p: self._probe_one(build, p)))
+            for out in outs:
+                if out is not None:
+                    yield out
 
 
 class TpuBroadcastHashJoinExec(_BaseTpuJoinExec):
@@ -333,23 +471,32 @@ class TpuShuffledSymmetricHashJoinExec(_BaseTpuJoinExec):
 
 
 class _ReplayExec(TpuExec):
-    """Re-emits batches the adaptive join already built, once."""
+    """Re-emits batches the adaptive join already built, once.  They come
+    as spillable handles (tracked while the decision was pending, so an
+    oversized build side can move to the host) and close as they go."""
 
-    def __init__(self, batches: List[ColumnarBatch], output_schema):
+    def __init__(self, handles, output_schema):
         super().__init__([])
-        self._batches = batches
+        self._handles = handles
         self._output = output_schema
 
     @property
     def output(self):
         return self._output
 
+    @property
+    def device(self):
+        return self._handles[0].device if self._handles else None
+
     def describe(self):
-        return f"Replay[{len(self._batches)} batches]"
+        return f"Replay[{len(self._handles)} batches]"
 
     def execute_columnar(self):
-        batches, self._batches = self._batches, []
-        yield from batches
+        handles, self._handles = self._handles, []
+        for h in handles:
+            b = h.get_batch()
+            h.close()
+            yield b
 
 
 def _logical_bytes(batches) -> int:
@@ -388,15 +535,19 @@ class TpuAdaptiveJoinExec(TpuExec):
     def execute_columnar(self):
         left_ex, right_ex = self.shuffled.children
         build_inner = right_ex.children[0]
-        built = list(build_inner.execute_columnar())
-        size = _logical_bytes(built)
+        fw = get_spill_framework()
+        handles = []
+        size = 0
+        for b in build_inner.execute_columnar():
+            size += _logical_bytes([b])
+            handles.append(fw.track(b))
         if 0 <= self.threshold and size <= self.threshold:
             self.decision = f"broadcast({size}B)"
             sh = self.shuffled
             bj = TpuBroadcastHashJoinExec(
-                left_ex.children[0], _ReplayExec(built, build_inner.output),
+                left_ex.children[0], _ReplayExec(handles, build_inner.output),
                 sh.left_keys, sh.right_keys, sh.join_type, sh.condition,
-                sh.output, sh.ansi)
+                sh.output, sh.ansi, sub_partition_bytes=sh.sub_partition_bytes)
             yield from bj.execute_columnar()
             return
         self.decision = f"shuffled({size}B)"
@@ -404,7 +555,7 @@ class TpuAdaptiveJoinExec(TpuExec):
         # afterwards, so a repeated run of this plan builds again instead
         # of joining an empty replay (the reference found that a second
         # collect joined an empty build side and dropped every match)
-        right_ex.children[0] = _ReplayExec(built, build_inner.output)
+        right_ex.children[0] = _ReplayExec(handles, build_inner.output)
         try:
             yield from self.shuffled.execute_columnar()
         finally:

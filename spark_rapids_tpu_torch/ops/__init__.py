@@ -1,2 +1,2 @@
 """Device primitives shared by the operators: sort keys, segmented
-reductions, compaction and gathers (port of ``spark_rapids_tpu/ops/``)."""
+reductions, compaction, gathers and Spark-exact murmur3 hashing (port of ``spark_rapids_tpu/ops/``)."""

@@ -1,17 +1,24 @@
 """Plan rewrite onto the device — the port's merge of
 ``spark_rapids_tpu/overrides/overrides.py``, ``overrides/meta.py`` and
-``overrides/transitions.py`` for the nodes of TPC-H Q6 and bench qa, qb
-and qc.
+``overrides/transitions.py`` for the nodes of TPC-H Q6, bench qa, qb and
+qc, and the exchanges of the out-of-core path.
 
 ``TpuOverrides.apply`` checks every expression against the ported subset
-(the reference's tagging, including ``_check_decimal_mult`` and
-``_window_check``), converts each CPU plan node into its exec, collapses a
-two-phase aggregate (Final <- Exchange(hash or single partition) <-
-Partial) into one COMPLETE aggregate as the reference's single-device
-``_collapse_complete_agg`` does, wraps a shuffled join over two exchanges
-in the adaptive join, puts an adaptive shuffle reader over each exchange
-(``_insert_coalesce``), turns a limit over a sort into a top-N
-(``_rewrite_topn``) and runs ``fuse_stages``.  The reference's
+(the reference's tagging, including ``_check_decimal_mult``,
+``_window_check`` and ``_exchange_check``), converts each CPU plan node
+into its exec, collapses a two-phase aggregate (Final <- Exchange(hash or
+single partition) <- Partial) into one COMPLETE aggregate as the
+reference's single-device ``_collapse_complete_agg`` does, and wraps a
+shuffled join over two exchanges in the adaptive join when adaptive
+execution is on.  Then it runs the steps of the reference's
+``TpuTransitionOverrides.apply`` that the port has, in its order:
+``size_exchange_partitions`` (grow an exchange whose static input
+estimate is over the per-partition budget), ``_coalesce_single_device_
+shuffle`` (collapse the other hash and round-robin exchanges to one
+partition), ``_insert_coalesce`` (an adaptive shuffle reader over each
+exchange, or a ``TpuCoalesceBatchesExec`` with adaptive execution off),
+``_rewrite_topn`` (a limit over a sort becomes a top-N) and
+``fuse_stages``.  The reference's
 join-aggregate and window-chain fusions are not ported: their operators
 run one after the other.  Anything outside the subset raises
 ``NotOnGpu``: the port has no CPU fallback yet.
@@ -26,12 +33,15 @@ from spark_rapids_tpu_torch.config import (ADAPTIVE_ENABLED,
                                            BATCH_SIZE_BYTES,
                                            EXCHANGE_COALESCE_SMALL_BYTES,
                                            MAX_READER_BATCH_SIZE_ROWS,
+                                           SINGLE_DEVICE_SHUFFLE_COALESCE,
                                            TpuConf)
 from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.exec.basic import (TpuFilterExec,
                                                TpuLocalTableScanExec,
                                                TpuProjectExec, fuse_stages)
+from spark_rapids_tpu_torch.exec.coalesce import (CoalesceGoal,
+                                                  TpuCoalesceBatchesExec)
 from spark_rapids_tpu_torch.exec.exchange import (
     TpuAdaptiveShuffleReaderExec, TpuBroadcastExchangeExec,
     TpuShuffleExchangeExec)
@@ -40,6 +50,8 @@ from spark_rapids_tpu_torch.exec.join import (
     TpuShuffledSymmetricHashJoinExec)
 from spark_rapids_tpu_torch.exec.limit import (TpuGlobalLimitExec,
                                                TpuLocalLimitExec)
+from spark_rapids_tpu_torch.exec.partition_sizing import (
+    size_exchange_partitions)
 from spark_rapids_tpu_torch.exec.sort import TpuSortExec, TpuTopNExec
 from spark_rapids_tpu_torch.exec.window import TpuWindowExec
 from spark_rapids_tpu_torch.expr import arithmetic as A
@@ -131,26 +143,34 @@ def _collapse_complete_agg(node: PN.HashAggregate
     return partial
 
 
-def _check_join(node: PN.SparkPlan, conf: TpuConf) -> None:
+def _check_join(node: PN.SparkPlan) -> None:
     """The inner and left outer equi-joins without a condition are
-    ported, broadcast or shuffled."""
+    ported, broadcast or shuffled (a build side over batchSizeBytes
+    sub-partitions at run time)."""
     if node.join_type not in (PN.JoinType.INNER, PN.JoinType.LEFT_OUTER):
         raise NotOnGpu(f"join type {node.join_type.value}")
     if node.condition is not None:
         raise NotOnGpu("join with a residual condition")
     if not node.left_keys:
         raise NotOnGpu("join without equi-join keys")
-    if not isinstance(node, PN.SortMergeJoin):
-        # the reference decides on the built batch's bytes at run time;
-        # this plan-time estimate is the on-disk (compressed) size for a
-        # file scan, so a build side that decodes past batchSizeBytes
-        # still runs here, as one batch in device memory
-        est = PN.estimated_plan_bytes(node.right)
-        if est is not None and est > conf.get(BATCH_SIZE_BYTES):
-            raise NotOnGpu(f"broadcast build side of {est} bytes needs the "
-                           "sub-partitioned join")
     for k in list(node.left_keys) + list(node.right_keys):
         check_expression(k)
+
+
+def _exchange_check(node: PN.Exchange) -> None:
+    """Partition keys must be in the subset; murmur3 of a decimal above 18
+    digits (a BigInteger's bytes) is not ported, as in the reference."""
+    p = node.partitioning
+    keys = (p.keys if isinstance(p, PN.HashPartitioning)
+            else [e for e, _ in p.orders]
+            if isinstance(p, PN.RangePartitioning) else [])
+    for k in keys:
+        check_expression(k)
+        dt = k.dataType
+        if isinstance(p, PN.HashPartitioning) and isinstance(
+                dt, T.DecimalType) and dt.is_128:
+            raise NotOnGpu("hash partitioning on decimals above 18 digits "
+                           "(murmur3 big-integer path missing)")
 
 
 def _window_check(node: PN.Window) -> None:
@@ -178,19 +198,38 @@ def _window_check(node: PN.Window) -> None:
                            "result (needs 128-bit running sums)")
 
 
+def _coalesce_single_device_shuffle(node: TpuExec, conf: TpuConf
+                                    ) -> TpuExec:
+    """On one device, hash and round-robin exchanges that partition sizing
+    left alone collapse to one partition: their partitions are parallelism
+    that one card does not have, and joins and aggregates do not depend on
+    the count.  A sized exchange keeps its partitions, which are the
+    out-of-core schedule.  (The port runs on one device.)"""
+    node.children = [_coalesce_single_device_shuffle(c, conf)
+                     for c in node.children]
+    if conf.get(SINGLE_DEVICE_SHUFFLE_COALESCE) \
+            and isinstance(node, TpuShuffleExchangeExec) \
+            and isinstance(node.partitioning, (PN.HashPartitioning,
+                                               PN.RoundRobinPartitioning)) \
+            and not getattr(node, "_ooc_sized", False):
+        node.partitioning = PN.SinglePartitioning()
+    return node
+
+
 def _insert_coalesce(node: TpuExec, conf: TpuConf) -> TpuExec:
-    """An adaptive shuffle reader over each exchange, as the reference puts
-    one there when ``spark.sql.adaptive.enabled`` is on.  (Off, the
-    reference puts a ``TpuCoalesceBatchesExec`` there, which is not
-    ported: the exchange stays bare.)"""
+    """Over each exchange: an adaptive shuffle reader when
+    ``spark.sql.adaptive.enabled`` is on, else a ``TpuCoalesceBatchesExec``
+    to the batch-size goal, as the reference puts them."""
     node.children = [_insert_coalesce(c, conf) for c in node.children]
-    if conf.get(ADAPTIVE_ENABLED):
-        node.children = [
-            TpuAdaptiveShuffleReaderExec(
-                c, conf.get(BATCH_SIZE_BYTES),
-                small_bytes=conf.get(EXCHANGE_COALESCE_SMALL_BYTES))
-            if isinstance(c, TpuShuffleExchangeExec) else c
-            for c in node.children]
+    goal_bytes = conf.get(BATCH_SIZE_BYTES)
+    adaptive = conf.get(ADAPTIVE_ENABLED)
+    node.children = [
+        c if not isinstance(c, TpuShuffleExchangeExec)
+        else TpuAdaptiveShuffleReaderExec(
+            c, goal_bytes,
+            small_bytes=conf.get(EXCHANGE_COALESCE_SMALL_BYTES))
+        if adaptive else TpuCoalesceBatchesExec(CoalesceGoal(goal_bytes), c)
+        for c in node.children]
     return node
 
 
@@ -212,7 +251,10 @@ class TpuOverrides:
             raise NotOnGpu("spark.rapids.sql.enabled=false needs the CPU "
                            "oracle, which is not ported yet")
         root = TpuOverrides._convert(plan, conf, device)
-        return fuse_stages(_rewrite_topn(_insert_coalesce(root, conf)))
+        root = size_exchange_partitions(root, conf)
+        root = _coalesce_single_device_shuffle(root, conf)
+        root = _insert_coalesce(root, conf)
+        return fuse_stages(_rewrite_topn(root))
 
     @staticmethod
     def _convert(node: PN.SparkPlan, conf: TpuConf, device) -> TpuExec:
@@ -252,7 +294,7 @@ class TpuOverrides:
                 PN.AggregateMode.COMPLETE, conv(partial.child),
                 partial.child.output, node.output, ansi)
         if isinstance(node, PN.SortMergeJoin):
-            _check_join(node, conf)
+            _check_join(node)
             shuffled = TpuShuffledSymmetricHashJoinExec(
                 conv(node.left), conv(node.right), node.left_keys,
                 node.right_keys, node.join_type, node.condition,
@@ -265,16 +307,18 @@ class TpuOverrides:
                     shuffled, conf.get(AUTO_BROADCAST_JOIN_THRESHOLD))
             return shuffled
         if isinstance(node, PN._BaseJoin):
-            _check_join(node, conf)
+            _check_join(node)
             return TpuBroadcastHashJoinExec(
                 conv(node.left), conv(node.right), node.left_keys,
                 node.right_keys, node.join_type, node.condition,
-                node.output, ansi)
+                node.output, ansi,
+                sub_partition_bytes=conf.get(BATCH_SIZE_BYTES))
         if isinstance(node, PN.BroadcastExchange):
             return TpuBroadcastExchangeExec(conv(node.children[0]))
         if isinstance(node, PN.Exchange):
+            _exchange_check(node)
             return TpuShuffleExchangeExec(node.partitioning,
-                                          conv(node.child))
+                                          conv(node.child), ansi, conf=conf)
         if isinstance(node, PN.Window):
             _window_check(node)
             return TpuWindowExec(node.functions, node.partition_by,

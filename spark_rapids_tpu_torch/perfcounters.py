@@ -31,6 +31,19 @@ COUNTERS: Dict[str, int] = {
     "scan_transfer_ns": 0,
     "snappy_gather_passes": 0,
     "partitions_coalesced": 0,
+    # out-of-core exchange: sized exchanges planned; wall inside the
+    # partition-id / slice work and inside the spill-backed queues
+    # (serialize, track, materialize); slices framed across the host
+    # boundary and their bytes
+    "exchange_partitions_planned": 0,
+    "exchange_partition_ns": 0,
+    "exchange_spill_ns": 0,
+    "exchange_host_blocks": 0,
+    "exchange_host_block_bytes": 0,
+    # OOM retry outcomes (memory/retry.py): a split of the input, and the
+    # reference's governor preemption, which the port does not run
+    "oom_retry_preempts": 0,
+    "oom_retry_splits": 0,
 }
 
 

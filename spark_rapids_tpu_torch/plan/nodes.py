@@ -1,7 +1,7 @@
 """CPU physical plan nodes — port of the subset of
 ``spark_rapids_tpu/plan/nodes.py`` that TPC-H Q6 and bench qa, qb and qc
 plan: scans, project, filter, aggregates, broadcast and shuffled joins over
-single-partition exchanges, windows, sorts and limits.
+hash exchanges, repartitioning, windows, sorts and limits.
 
 The session builds this Catalyst-shaped plan; ``overrides/overrides.py``
 rewrites it into device execs.  The node names and ``describe`` strings
@@ -388,14 +388,29 @@ class SinglePartitioning:
 
 @dataclasses.dataclass
 class HashPartitioning:
-    """Hash partitioning on ``keys`` (between an aggregate's two phases);
-    the partition count is not modelled, since on one device the rewrite
-    elides that exchange."""
     keys: List[Expression]
+    num_partitions: int
 
     def describe(self):
         k = ", ".join(e.sql_string() for e in self.keys)
-        return f"hashpartitioning({k})"
+        return f"hashpartitioning({k}, {self.num_partitions})"
+
+
+@dataclasses.dataclass
+class RangePartitioning:
+    orders: List[Tuple[Expression, SortSpec]]
+    num_partitions: int
+
+    def describe(self):
+        return f"rangepartitioning({self.num_partitions})"
+
+
+@dataclasses.dataclass
+class RoundRobinPartitioning:
+    num_partitions: int
+
+    def describe(self):
+        return f"roundrobin({self.num_partitions})"
 
 
 class Exchange(SparkPlan):

@@ -5,17 +5,21 @@ The API is call-compatible with the reference: ``TpuSession(conf)``,
 ``create_dataframe``, ``read.schema(...).parquet(...)``, ``filter``,
 ``select``, ``agg``, ``group_by(...).agg``, ``join``, ``window``,
 ``order_by``, ``limit``, ``explain`` and ``collect``, with ``col``,
-``lit``, ``sum_``, ``count_``, ``min_``, ``max_`` and ``SortSpec``.  A
-session runs on ``cuda`` unless it is given another device
-(``TpuSession(conf, device="cpu")``); without a GPU and without a device
-argument it raises.  Aggregates are planned two-phase around an exchange;
-a join broadcasts its right side under
+``lit``, ``sum_``, ``count_``, ``min_``, ``max_`` and ``SortSpec``, and
+``repartition``.  A session runs on ``cuda`` unless it is given another
+device (``TpuSession(conf, device="cpu")``); without a GPU and without a
+device argument it raises.  Aggregates are planned two-phase around a hash
+exchange on the keys; a join broadcasts its right side under
 ``spark.sql.autoBroadcastJoinThreshold`` and is otherwise planned as a
-shuffled join over an exchange on each side, one partition on one device,
-exactly as in the reference.  The plan rewrite (``overrides/overrides.py``)
-collapses the aggregates for one device and makes the shuffled join
-adaptive.  As in the reference, a DataFrame keeps its rewritten plan per
-conf, so a second ``collect`` runs the same exec tree and ``explain``
+shuffled join over a hash exchange of ``spark.sql.shuffle.partitions`` on
+each side, exactly as in the reference.  The plan rewrite
+(``overrides/overrides.py``) collapses the aggregates for one device, sizes
+the exchanges whose input is known to be large, collapses the others to
+one partition, and makes the shuffled join adaptive.  The plan is made
+with the pool of a device manager built from the session's conf, and each
+``collect`` builds the spill framework and device manager anew from it
+(``memory/``).  As in the reference, a DataFrame keeps its rewritten plan
+per conf, so a second ``collect`` runs the same exec tree and ``explain``
 after a collect shows the adaptive join's decision.
 """
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import HostColumn
 from spark_rapids_tpu_torch.config import (AUTO_BROADCAST_JOIN_THRESHOLD,
-                                           TpuConf)
+                                           SHUFFLE_PARTITIONS, TpuConf)
 from spark_rapids_tpu_torch.device import DeviceLike, resolve_device
 from spark_rapids_tpu_torch.expr.base import AttributeReference, Expression
 from spark_rapids_tpu_torch.expr.base import col as _col
@@ -60,6 +64,10 @@ class TpuSession:
     @property
     def read(self) -> "DataFrameReader":
         return DataFrameReader(self)
+
+    @property
+    def shuffle_partitions(self) -> int:
+        return self.conf.get(SHUFFLE_PARTITIONS)
 
 
 class DataFrameReader:
@@ -125,14 +133,26 @@ class DataFrame:
         ``AggregateExpression``s."""
         return GroupedData(self, []).agg(*aggs)
 
+    def repartition(self, num_partitions: int,
+                    *cols: ColumnLike) -> "DataFrame":
+        """Dataset.repartition: a hash exchange on ``cols`` (round-robin
+        when none are given)."""
+        if cols:
+            part = PN.HashPartitioning(
+                [_to_expr(c).resolve(self.schema) for c in cols],
+                num_partitions)
+        else:
+            part = PN.RoundRobinPartitioning(num_partitions)
+        return DataFrame(PN.Exchange(part, self.plan), self.session)
+
     def join(self, other: "DataFrame", on, how: str = "inner"
              ) -> "DataFrame":
         """Equi-join on the column names ``on``.  The right side is
         broadcast when its estimated size is within
         ``spark.sql.autoBroadcastJoinThreshold``; else the join is planned
-        as a shuffled join over an exchange on each side (one partition: a
-        single device).  A cross join is planned without exchanges, and
-        the port does not run it yet."""
+        as a shuffled join over a hash exchange of
+        ``spark.sql.shuffle.partitions`` on each side.  A cross join is
+        planned without exchanges, and the port does not run it yet."""
         jt = _JOIN_TYPES[how.lower()]
         if isinstance(on, Expression):
             raise NotImplementedError(
@@ -148,8 +168,9 @@ class DataFrame:
             node = PN.BroadcastHashJoin(
                 self.plan, PN.BroadcastExchange(other.plan), lkeys, rkeys, jt)
             return DataFrame(node, self.session)
-        lex = PN.Exchange(PN.SinglePartitioning(), self.plan)
-        rex = PN.Exchange(PN.SinglePartitioning(), other.plan)
+        np_ = self.session.shuffle_partitions
+        lex = PN.Exchange(PN.HashPartitioning(lkeys, np_), self.plan)
+        rex = PN.Exchange(PN.HashPartitioning(rkeys, np_), other.plan)
         return DataFrame(PN.SortMergeJoin(lex, rex, lkeys, rkeys, jt),
                          self.session)
 
@@ -196,7 +217,10 @@ class DataFrame:
 
     def _planned(self):
         """The rewritten exec tree, kept per conf as the reference keeps
-        it, so repeated collects run the same tree."""
+        it, so repeated collects run the same tree.  Partition sizing reads
+        the pool of a device manager built from the session's conf."""
+        from spark_rapids_tpu_torch.memory.device_manager import (
+            get_device_manager)
         from spark_rapids_tpu_torch.overrides.overrides import TpuOverrides
 
         conf = self.session.conf
@@ -204,15 +228,22 @@ class DataFrame:
         cached = getattr(self, "_plan_cache", None)
         if cached is not None and cached[0] == key:
             return cached[1]
+        get_device_manager(conf, self.session.device)
         root = TpuOverrides.apply(self.plan, conf, self.session.device)
         self._plan_cache = (key, root)
         return root
 
     def collect(self) -> List[tuple]:
+        """The rows; the spill framework (and its device manager) is built
+        anew from the session's conf first, as in the reference, so its
+        counters are this collect's."""
         from spark_rapids_tpu_torch.exec.transitions import (
             TpuColumnarToRowExec)
+        from spark_rapids_tpu_torch.memory.spill import get_spill_framework
 
-        return TpuColumnarToRowExec(self._planned()).collect_rows()
+        root = self._planned()
+        get_spill_framework(self.session.conf, self.session.device)
+        return TpuColumnarToRowExec(root).collect_rows()
 
     def explain(self) -> str:
         """The rewritten device plan, one operator per line."""
@@ -227,8 +258,9 @@ class GroupedData:
     def agg(self, *aggs) -> DataFrame:
         """``aggs``: ``(func, column-or-None, result_name)`` tuples or
         ``AggregateExpression``s.  Planned as the reference plans it:
-        Partial, an exchange (hash on the keys, or a single partition
-        without keys), Final."""
+        Partial, an exchange (hash on the keys over
+        ``spark.sql.shuffle.partitions``, or a single partition without
+        keys), Final."""
         schema = self.df.schema
         aexprs: List[PN.AggregateExpression] = []
         for a in aggs:
@@ -247,7 +279,8 @@ class GroupedData:
             pschema = partial.output
             fkeys = [AttributeReference(g.name).resolve(pschema)
                      for g in self.keys]
-            ex = PN.Exchange(PN.HashPartitioning(fkeys), partial)
+            ex = PN.Exchange(PN.HashPartitioning(
+                fkeys, self.df.session.shuffle_partitions), partial)
         else:
             fkeys = []
             ex = PN.Exchange(PN.SinglePartitioning(), partial)

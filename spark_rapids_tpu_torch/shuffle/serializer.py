@@ -1,0 +1,191 @@
+"""The TKU2 wire format — port of ``spark_rapids_tpu/shuffle/serializer.py``
+for flat columns.
+
+A batch crossing the exchange's host boundary becomes one frame
+(little-endian), byte-compatible with the reference's:
+
+    magic  b"TKU2"
+    u32    CRC32 of everything after this word
+    u32    header_len
+    bytes  header: utf-8 JSON {num_rows, cols: [...]}
+    buffers back to back, 8-byte aligned, in header order
+
+Per column the header records the kind ("flat"), the numpy dtype string,
+the trailing shape (``[2]`` for decimal128 limbs) and each buffer's
+(offset, length).  Validity travels bit-packed (LSB first).  The optional
+codec compresses the whole frame: lz4 and zstd go to ``zstandard`` where
+it imports, else to zlib level 1, as in the reference (both sides of a
+shuffle resolve the codec through the same gate).  A frame whose CRC, magic
+or compressed stream is wrong raises ``ShuffleCorruption``.
+
+``deserialize_concat`` assembles many frames into one batch: one host
+array per buffer across all frames, then one upload each.  String, array
+and struct columns are not ported yet.
+"""
+from __future__ import annotations
+
+import json
+import struct
+import zlib
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.device import DeviceLike, resolve_device
+from spark_rapids_tpu_torch.perfcounters import sync_get, to_device
+
+MAGIC = b"TKU2"
+
+
+class ShuffleCorruption(RuntimeError):
+    """A shuffle block failed its integrity check (CRC32 mismatch, bad
+    magic, or a codec that rejected the bytes)."""
+
+
+def resolved_codec(codec: Optional[str]) -> str:
+    """The codec that runs for ``codec``: none, zstd or zlib (lz4 and zstd
+    go to zstandard where it imports, else to zlib, as in the
+    reference)."""
+    c = (codec or "none").lower()
+    if c in ("none", "uncompressed"):
+        return "none"
+    if c in ("zstd", "lz4"):
+        try:
+            import zstandard  # noqa: F401
+        except ImportError:
+            return "zlib"
+        return "zstd"
+    if c == "zlib":
+        return "zlib"
+    raise ValueError(f"unknown shuffle codec {codec}")
+
+
+def _codec_pair(codec: Optional[str]):
+    """(compress, decompress) for ``codec``."""
+    c = resolved_codec(codec)
+    if c == "zstd":
+        import zstandard
+
+        return (zstandard.ZstdCompressor(level=1).compress,
+                zstandard.ZstdDecompressor().decompress)
+    if c == "zlib":
+        return (lambda b: zlib.compress(b, 1)), zlib.decompress
+    return (lambda b: b), (lambda b: b)
+
+
+def _align8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def serialize_batch(batch: ColumnarBatch,
+                    codec: Optional[str] = None) -> bytes:
+    """Device batch -> one frame on the host (one host sync for all its
+    buffers)."""
+    n = batch.num_rows
+    header_cols = []
+    buffers: List[bytes] = []
+    offset = 0
+
+    def add_buffer(raw: bytes) -> Tuple[int, int]:
+        nonlocal offset
+        off = offset
+        buffers.append(raw)
+        pad = _align8(len(raw)) - len(raw)
+        if pad:
+            buffers.append(b"\0" * pad)
+        offset += _align8(len(raw))
+        return off, len(raw)
+
+    flat = []
+    for c in batch.columns:
+        if c.data is None:
+            raise NotImplementedError(
+                f"serializing {c.dtype.simpleString} columns is not ported")
+        flat += [c.validity[:n], c.data[:n]]
+    host = sync_get(*flat)
+    for i in range(len(batch.columns)):
+        validity, data = host[2 * i], np.ascontiguousarray(host[2 * i + 1])
+        vbuf = add_buffer(np.packbits(validity,
+                                      bitorder="little").tobytes())
+        dbuf = add_buffer(data.tobytes())
+        header_cols.append({"kind": "flat", "dtype": data.dtype.str,
+                            "trail": list(data.shape[1:]),
+                            "validity": vbuf, "data": dbuf})
+    header = json.dumps({"num_rows": n, "cols": header_cols}).encode()
+    payload = b"".join([struct.pack("<I", len(header)), header] + buffers)
+    frame = b"".join([MAGIC, struct.pack("<I", zlib.crc32(payload)),
+                      payload])
+    comp, _ = _codec_pair(codec)
+    return comp(frame)
+
+
+def _parse(frame: bytes):
+    """(header, body) of a frame whose magic and CRC hold.  (The
+    reference also reads its checksum-less TKU1 frames, which nothing
+    writes any more.)"""
+    if frame[:4] != MAGIC:
+        raise ShuffleCorruption(f"bad shuffle frame magic {frame[:4]!r}")
+    (want,) = struct.unpack_from("<I", frame, 4)
+    got = zlib.crc32(memoryview(frame)[8:])
+    if got != want:
+        raise ShuffleCorruption(
+            f"shuffle frame CRC mismatch: wrote {want:#010x}, "
+            f"read {got:#010x} over {len(frame) - 8} bytes")
+    (hlen,) = struct.unpack_from("<I", frame, 8)
+    header = json.loads(frame[12: 12 + hlen].decode())
+    return header, memoryview(frame)[12 + hlen:]
+
+
+def _decode_frame(block: bytes, decomp) -> tuple:
+    """Decompress and parse one block; a codec that rejects the bytes
+    raises the same ``ShuffleCorruption`` as a CRC mismatch."""
+    try:
+        frame = decomp(block)
+    except Exception as e:
+        raise ShuffleCorruption(
+            f"shuffle block failed to decompress: "
+            f"{type(e).__name__}: {e}") from e
+    return _parse(frame)
+
+
+def deserialize_concat(blocks: Sequence[bytes], schema: T.StructType,
+                       codec: Optional[str] = None,
+                       device: DeviceLike = None) -> ColumnarBatch:
+    """Many frames -> ONE batch on ``device``: each buffer assembled on
+    the host across all frames, then uploaded once."""
+    device = resolve_device(device)
+    _, decomp = _codec_pair(codec)
+    parsed = [_decode_frame(b, decomp) for b in blocks]
+    total = sum(h["num_rows"] for h, _ in parsed)
+    cols: List[DeviceColumn] = []
+    for ci, f in enumerate(schema.fields):
+        if isinstance(f.dataType, (T.StringType, T.ArrayType)):
+            raise NotImplementedError(
+                f"deserializing {f.dataType.simpleString} columns is not "
+                "ported")
+        sdt = np.dtype(T.storage_dtype(f.dataType))
+        trail = tuple(parsed[0][0]["cols"][ci].get("trail", ())) \
+            if parsed else ((2,) if isinstance(f.dataType, T.DecimalType)
+                            and f.dataType.is_128 else ())
+        validity = np.empty(total, dtype=np.bool_)
+        data = np.empty((total,) + trail, dtype=sdt)
+        k = int(np.prod(trail)) if trail else 1
+        row = 0
+        for h, body in parsed:
+            n = h["num_rows"]
+            col = h["cols"][ci]
+            voff, vlen = col["validity"]
+            vbits = np.frombuffer(body, np.uint8, count=vlen, offset=voff)
+            validity[row: row + n] = np.unpackbits(
+                vbits, count=n, bitorder="little").astype(np.bool_)
+            doff, _ = col["data"]
+            data[row: row + n] = np.frombuffer(
+                body, np.dtype(col["dtype"]), count=n * k, offset=doff
+            ).reshape((n,) + trail)
+            row += n
+        cols.append(DeviceColumn(f.dataType, to_device(validity, device),
+                                 data=to_device(data, device)))
+    return ColumnarBatch(cols, total, schema)

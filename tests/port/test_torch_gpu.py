@@ -395,3 +395,172 @@ def test_windows_and_left_outer_join_on_gpu_equal_cpu():
             right, on=["k", "o"], how="left").collect()))
         out[dev] = res
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.gpu
+def test_murmur3_and_partition_slices_on_gpu_equal_cpu():
+    """Spark's partition ids and the exchange's slices of one batch, on
+    the card and on the CPU, for every hashed type with nulls."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.exec.exchange import TpuShuffleExchangeExec
+    from spark_rapids_tpu_torch.expr.base import col as ecol
+    from spark_rapids_tpu_torch.ops.hashing import spark_partition_ids
+    from spark_rapids_tpu_torch.plan.nodes import HashPartitioning
+
+    rng = np.random.default_rng(31)
+    n = 200_003
+    cols = {"i": (T.INT, rng.integers(-2 ** 31, 2 ** 31, n).astype(np.int32)),
+            "l": (T.LONG, rng.integers(-2 ** 63, 2 ** 63 - 1, n)),
+            "d": (T.DOUBLE, rng.standard_normal(n)),
+            "f": (T.FLOAT, rng.standard_normal(n).astype(np.float32)),
+            "b": (T.BOOLEAN, rng.integers(0, 2, n).astype(np.bool_)),
+            "m": (T.DecimalType(12, 2), rng.integers(-10 ** 11, 10 ** 11, n))}
+    cols["d"][1][:3] = [-0.0, np.nan, np.inf]
+    sch = T.StructType([T.StructField(k, t) for k, (t, _) in cols.items()])
+
+    def batch(device):
+        return ColumnarBatch([DeviceColumn(
+            t, torch.from_numpy(rng_valid).to(device),
+            data=torch.from_numpy(a).to(device))
+            for (t, a), rng_valid in zip(cols.values(), valids)], n, sch)
+
+    valids = [rng.random(n) > 0.1 for _ in cols]
+    cpu, gpu = batch("cpu"), batch("cuda")
+    for k in range(len(cols)):
+        want = spark_partition_ids(cpu.columns[k:k + 2], 211)
+        got = spark_partition_ids(gpu.columns[k:k + 2], 211)
+        assert torch.equal(got.cpu(), want)
+    ex = TpuShuffleExchangeExec(HashPartitioning(
+        [ecol("l").resolve(sch), ecol("i").resolve(sch)], 97), None)
+    want = list(ex.partition_slices(cpu))
+    got = list(ex.partition_slices(gpu))
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        for gc, wc in zip(g.columns, w.columns):
+            np.testing.assert_array_equal(gc.data.cpu().numpy(),
+                                          wc.data.numpy())   # NaN == NaN
+            assert torch.equal(gc.validity.cpu(), wc.validity)
+
+
+@pytest.mark.gpu
+def test_spill_round_trip_through_pinned_memory(tmp_path):
+    """Card -> pinned host -> disk -> card: the host tier is pinned, the
+    bytes come back exact, and the disk tier's CRC holds."""
+    _need_gpu()
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.memory.spill import SpillFramework
+
+    n = 3_000_000
+    sch = T.StructType([T.StructField("a", T.LONG),
+                        T.StructField("m", T.DecimalType(30, 2))])
+
+    def batch(seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        a = torch.randint(-2 ** 62, 2 ** 62, (n,), device="cuda",
+                          generator=g)
+        return ColumnarBatch([
+            DeviceColumn(T.LONG, a > 0, data=a),
+            DeviceColumn(sch.fields[1].dataType, a % 3 != 0,
+                         data=torch.stack([a, a * 7], 1))], n, sch)
+
+    nbytes = batch(0).nbytes()
+    fw = SpillFramework(pool_bytes=nbytes, host_limit=nbytes,
+                        spill_dir=str(tmp_path))
+    hs = [fw.track(batch(i)) for i in range(3)]
+    assert [h.state for h in hs] == ["DISK", "HOST", "DEVICE"]
+    assert all(t.is_pinned() for e in hs[1]._host for t in e.values())
+    for i, h in enumerate(hs):
+        got, want = h.get_batch(), batch(i)
+        assert got.device.type == "cuda"
+        for gc, wc in zip(got.columns, want.columns):
+            assert torch.equal(gc.data, wc.data)
+            assert torch.equal(gc.validity, wc.validity)
+    assert fw.spill_to_disk_count >= 1 and fw.spill_to_host_count >= 2
+    for h in hs:
+        h.close()
+    assert fw.device_used == 0
+
+
+@pytest.mark.gpu
+def test_with_retry_recovers_from_a_real_cuda_oom():
+    """An allocation larger than the card raises torch.cuda.
+    OutOfMemoryError inside the retry block: the block spills, empties the
+    allocator's cache and splits the input until the halves fit."""
+    _need_gpu()
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.memory.retry import with_retry
+    from spark_rapids_tpu_torch.memory.spill import SpillFramework
+    import spark_rapids_tpu_torch.memory.spill as SP
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    n = 1024
+    sch = T.StructType([T.StructField("a", T.LONG)])
+    b = ColumnarBatch([DeviceColumn(
+        T.LONG, torch.ones(n, dtype=torch.bool, device="cuda"),
+        data=torch.arange(n, device="cuda"))], n, sch)
+    fw = SpillFramework(pool_bytes=1 << 30, host_limit=1 << 30,
+                        spill_dir=None)
+    SP._framework = fw
+    try:
+        other = fw.track(b.slice_rows(0, 10))
+
+        def fn(batch):
+            # bytes per row such that more than 256 rows do not fit
+            per_row = total // 256
+            x = torch.empty(batch.num_rows * per_row, dtype=torch.uint8,
+                            device="cuda")
+            del x
+            return batch.columns[0].data.sum().item()
+
+        snap = PC.snapshot()
+        got = list(with_retry(fw.track(b), fn, min_split_rows=8))
+        assert sum(got) == n * (n - 1) // 2 and len(got) >= 4
+        assert PC.since(snap)["oom_retry_splits"] >= 2
+        assert other.state == "HOST"
+        other.close()
+    finally:
+        SP.reset_spill_framework()
+
+
+@pytest.mark.gpu
+def test_rung3_ooc_and_sub_partitioned_qb_on_gpu_equal_cpu(tmp_path):
+    """bench's rung3_ooc at 500,000 rows under a 1 MiB pool (sized
+    exchange, host blocks, spills) and qb from Parquet under a 256 KiB
+    batch goal (the sub-partitioned join, 4 buckets for 690,000 built
+    bytes), on the card and on the CPU: the rows of the numpy
+    references."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+    import spark_rapids_tpu_torch.session as S
+
+    n = 500_000
+    fact, dim = C.make_ooc(n)
+    want = C.ooc_reference(fact, dim)
+    conf = C.ooc_conf(1 << 20, n)
+    for device in ("cuda", "cpu"):
+        q = C.ooc_query(*C.ooc_frames(S, S.TpuSession(conf, device=device),
+                                      fact, dim), S)
+        assert C.plan_shape(q) == C.ooc_plan(1 << 20, n)
+        assert C.ooc_rows(q.collect()) == want
+        assert C.ooc_rows(q.collect()) == want
+    ss = C.make_store_sales(300_000)
+    sr = C.make_store_returns(ss, 30_000)
+    ss_paths, _ = C.write_qa_files(ss, C.make_date_dim(), len(ss["ticket"]),
+                                   str(tmp_path), "cuda")
+    sr_paths = C.write_returns_files(sr, str(tmp_path), "cuda")
+    ssch, rsch = C.qb_schemas(T)
+    wq = C.qb_reference(ss, sr)
+    for device in ("cuda", "cpu"):
+        conf = dict(C.ooc_qb_conf(1 << 20),
+                    **{"spark.rapids.sql.batchSizeBytes": "256k"})
+        s = S.TpuSession(conf, device=device)
+        q = C.qb_query(s.read.schema(ssch).parquet(*ss_paths),
+                       s.read.schema(rsch).parquet(*sr_paths), S)
+        assert sorted(q.collect()) == wq
+        assert q._planned().children[0].sub_partitions == 4

@@ -28,7 +28,11 @@ def test_import_leaves_no_jax_in_sys_modules():
             "spark_rapids_tpu_torch.exec.window, "
             "spark_rapids_tpu_torch.exec.join, "
             "spark_rapids_tpu_torch.exec.exchange, "
-            "spark_rapids_tpu_torch.expr.conditional\n"
+            "spark_rapids_tpu_torch.expr.conditional, "
+            "spark_rapids_tpu_torch.exec.coalesce, "
+            "spark_rapids_tpu_torch.exec.partition_sizing, "
+            "spark_rapids_tpu_torch.memory.retry, "
+            "spark_rapids_tpu_torch.shuffle.partition_queues\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n"

@@ -6,8 +6,8 @@ duplicate build keys, a two-column key, several probe batches, an empty
 build side and an empty probe side, each collected twice; the adaptive
 join's two run-time decisions and plans against the reference's device
 session (child process); the adaptive shuffle reader's coalescing.
-Every comparison is exact.  Join types, conditions and sizes outside the
-port raise ``NotOnGpu``."""
+Every comparison is exact.  Join types and conditions outside the port
+raise ``NotOnGpu``; a build side over the batch size sub-partitions."""
 import numpy as np
 import pytest
 import torch
@@ -143,18 +143,22 @@ def test_unported_join_types_raise(how):
 
 
 def test_shuffled_and_oversized_joins_raise():
-    """A build side over ``spark.rapids.sql.batchSizeBytes`` needs the
-    sub-partitioned join: a broadcast one raises in the plan rewrite, a
-    shuffled one when its build side has been built."""
+    """A build side over ``spark.rapids.sql.batchSizeBytes`` takes the
+    sub-partitioned join, broadcast or shuffled: both sides hash into
+    buckets at run time (2 here), with rows equal to the oracle's; a join
+    on a condition still raises."""
     conf = {"spark.rapids.sql.batchSizeBytes": "1k"}
+    want = rows_key(joined(RS, RT, RS.TpuSession(ORACLE), "one_key",
+                           9).collect())
     df = joined(S, T, S.TpuSession(conf, device="cpu"), "one_key", 9)
-    with pytest.raises(NotOnGpu, match="sub-partitioned join"):
-        df.explain()
+    assert df.explain().startswith("TpuBroadcastHashJoinExec Inner [k=k]")
+    assert rows_key(df.collect()) == want
+    assert df._planned().sub_partitions == 2
     conf["spark.sql.autoBroadcastJoinThreshold"] = "-1"
     df = joined(S, T, S.TpuSession(conf, device="cpu"), "one_key", 9)
     assert "TpuAdaptiveJoin(threshold=-1)" in df.explain()
-    with pytest.raises(NotOnGpu, match="sub-partitioned join"):
-        df.collect()
+    assert rows_key(df.collect()) == want
+    assert df._planned().shuffled.sub_partitions == 2
     s = S.TpuSession({}, device="cpu")
     df = joined(S, T, s, "one_key", 9)
     with pytest.raises(NotImplementedError):
