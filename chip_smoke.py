@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: TPC-H Q6 from snappy Parquet at SF10,
 bench qa, qb and qc from Parquet at TPC-DS SF10's store_sales row count,
-then bench's out-of-core rung (rung3_ooc) and qb under a capped pool.
+then bench's out-of-core rung (rung3_ooc), qb under a capped pool, and
+bench's rung3 (a CPU stage under the aggregate, the out-of-core sort).
 
     python3 chip_smoke.py [--scale 10] [--seed 20261017]
 
@@ -19,7 +20,8 @@ Phases, each failing the run at its first mismatch:
 4. Q6 at ``--scale`` through the session: lineitem columns generated with
    numpy from ``--seed`` (TPC-H spec 4.2.3), written as 8 snappy,
    dictionary-encoded Parquet files by the port's writer, read back under
-   the TPC-H schema (decimal(12,2), DATE) and collected twice; both
+   the TPC-H schema (decimal(12,2), DATE) under the default reader type
+   (AUTO, which must resolve to MULTITHREADED) and collected twice; both
    results must equal an exact numpy reference.  The launch counts are set
    to 0 just before the timed collect and read just after.  Then a
    stage-by-stage breakdown, and one collect under ``torch.profiler`` for
@@ -46,7 +48,8 @@ Phases, each failing the run at its first mismatch:
    LIMIT 100): bench.py's store_sales generator (seed 20260730) at
    28,800,991 rows times ``--scale``/10, written as 8 snappy files of its
    seven columns by the port's writer, date_dim as one file; the query
-   reads three columns.  The plan must be the reference's unfused plan;
+   reads three columns under the default reader type.  The plan must be
+   the reference's unfused plan;
    two collects and one from memory (``LocalTableScan``) must equal an
    integer numpy reference.  The counts are set to 0 just before the
    timed collect and read just after; then a breakdown by operator and
@@ -80,7 +83,21 @@ Phases, each failing the run at its first mismatch:
     batch goal, without broadcast or adaptive execution: the built
     store_returns side is over the goal, so the join must sub-partition
     both sides into hash buckets; two collects exact, the bucket count,
-    spills and K1 launches printed.
+    spills and K1 launches printed;
+14. bench rung3 from memory, bench.py's generator (seed 11) and conf (a
+    pool fraction under the 64 MiB floor, an 8 MiB batch goal, 8 reader
+    batches), at bench's 2,000,000 rows and at 28,800,991: the aggregate
+    (a grouped decimal(25,4) sum, min and max and a sum of a struct
+    field, the struct projection a CPU stage between the device filter
+    and the aggregate) twice, exact against numpy; the sort of a union of
+    8 scans by amt, out of core (sorted runs in the spill framework, a
+    windowed merge), counted twice and collected once as host columns:
+    amt numpy's sort, the rows the input's.  Both plans must be the
+    reference's, with its fallback reasons; the merge must take more than
+    one window, upload at most a window's rows a run each window, and at
+    SF10 spill to the host.  Counters, spills, peak memory and a breakdown
+    (device scan and filter, CPU stage, upload, aggregate; run sorts,
+    merge, count) are printed.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
@@ -575,6 +592,174 @@ def ooc_qb_plan(goal: int):
 
 
 # ---------------------------------------------------------------------------
+# bench rung3: a struct column through a CPU stage, then a grouped
+# decimal(25,4) sum/min/max; and an out-of-core sort of a union of 8 scans
+# (bench.py:1226-1352)
+# ---------------------------------------------------------------------------
+
+RUNG3_SEED = 11                    # bench.py's rung3 seed
+RUNG3_BENCH_ROWS = 2_000_000       # bench.py's rung3 size
+RUNG3_CHUNKS = 8                   # the sort input's scans
+RUNG3_SORT_ROW_BYTES = 49          # k int, amt limbs, 3 longs, 5 validity
+RUNG3_AGG_PLAN = [
+    "TpuHashAggregate(Complete) keys=[k] aggs=[sum(amt) AS sum_amt, "
+    "min(amt) AS lo, max(amt) AS hi, sum(sa) AS ssa]",
+    "  TpuRowToColumnar <- Project [k, amt, s.a AS sa]",
+    "Fallback reasons:",
+    "      !Project cannot run on TPU because expression BoundReference "
+    "produces an unsupported type: struct<a:bigint,b:int> is not supported"]
+RUNG3_SORT_PLAN = (
+    ["TpuHashAggregate(Complete) keys=[] aggs=[count_star(*) AS count]",
+     "  TpuSort [amt ASC]"]
+    + [f"    {'  ' * i}TpuUnionExec" for i in range(RUNG3_CHUNKS - 1)]
+    + [f"    {'  ' * (RUNG3_CHUNKS - 1)}<scan>"] * 2
+    + [f"    {'  ' * i}<scan>" for i in range(RUNG3_CHUNKS - 2, 0, -1)])
+
+
+def make_rung3(n: int):
+    """bench.py's rung3 columns (seed 11): k, amt (decimal(25,4)
+    unscaled), qty, and the struct's a and b."""
+    rng = np.random.default_rng(RUNG3_SEED)
+    return {"k": rng.integers(0, 1000, n).astype(np.int32),
+            "amt": rng.integers(-10 ** 12, 10 ** 12, n),
+            "qty": rng.integers(1, 100, n).astype(np.int32),
+            "sa": rng.integers(0, 10 ** 6, n),
+            "sb": rng.integers(-500, 500, n).astype(np.int32)}
+
+
+def rung3_conf(n: int) -> dict:
+    """bench.py's rung3 conf: a pool fraction under the 64 MiB floor, an
+    8 MiB batch goal, 8 reader batches."""
+    return {"spark.rapids.sql.enabled": True,
+            "spark.rapids.memory.gpu.allocFraction": 0.0001,
+            "spark.rapids.sql.batchSizeBytes": 8 << 20,
+            "spark.rapids.sql.reader.batchSizeRows": max(n // 8, 1)}
+
+
+def _amt_limbs(amt):
+    return np.stack([np.where(amt < 0, -1, 0), amt],
+                    axis=1).astype(np.int64)
+
+
+def rung3_frames(mod, session, d):
+    """bench.py's two rung3 DataFrames, in the package whose session
+    module is ``mod``: (the aggregate over the struct projection, the
+    sort of a union of 8 scans)."""
+    pkg = mod.__name__.rsplit(".", 1)[0]
+    T = importlib.import_module(pkg + ".types")
+    HC = importlib.import_module(pkg + ".columnar.column").HostColumn
+    LTS = importlib.import_module(pkg + ".plan.nodes").LocalTableScan
+    GSF = importlib.import_module(pkg + ".expr.complextypes").GetStructField
+    n = len(d["k"])
+    dec = T.DecimalType(25, 4)
+    struct_t = T.StructType([T.StructField("a", T.LONG, False),
+                             T.StructField("b", T.INT, False)])
+    ones = np.ones(n, np.bool_)
+    host = [HC.from_numpy(d["k"], T.INT),
+            HC(dec, ones, data=_amt_limbs(d["amt"])),
+            HC.from_numpy(d["qty"], T.INT),
+            HC(struct_t, ones, children=[HC.from_numpy(d["sa"], T.LONG),
+                                         HC.from_numpy(d["sb"], T.INT)])]
+    schema = T.StructType([T.StructField("k", T.INT, False),
+                           T.StructField("amt", dec, False),
+                           T.StructField("qty", T.INT, False),
+                           T.StructField("s", struct_t, False)])
+    col, lit = mod.col, mod.lit
+    agg = (mod.DataFrame(LTS(host, schema), session)
+           .filter(col("qty") > lit(5))
+           .select(col("k"), col("amt"), GSF(col("s"), "a").alias("sa"))
+           .group_by("k")
+           .agg(mod.sum_("amt", "sum_amt"), mod.min_("amt", "lo"),
+                mod.max_("amt", "hi"), mod.sum_("sa", "ssa")))
+    schema = T.StructType([T.StructField("k", T.INT, False),
+                           T.StructField("amt", dec, False),
+                           T.StructField("sa", T.LONG, False),
+                           T.StructField("sa2", T.LONG, False),
+                           T.StructField("sa3", T.LONG, False)])
+    step = -(-n // RUNG3_CHUNKS)
+    df = None
+    for c0 in range(0, n, step):
+        sl = slice(c0, min(c0 + step, n))
+        sa = d["sa"][sl]
+        part = [HC.from_numpy(d["k"][sl], T.INT),
+                HC(dec, np.ones(sl.stop - sl.start, np.bool_),
+                   data=_amt_limbs(d["amt"][sl])),
+                HC.from_numpy(sa, T.LONG), HC.from_numpy(sa * 2, T.LONG),
+                HC.from_numpy(sa + 7, T.LONG)]
+        part = mod.DataFrame(LTS(part, schema), session)
+        df = part if df is None else df.union(part)
+    return agg, df.order_by(col("amt"))
+
+
+def rung3_count_query(sort_q):
+    """What ``DataFrame.count`` collects: count(*) over the sort."""
+    return sort_q.agg(("count_star", None, "count"))
+
+
+def rung3_reference(d):
+    """bench's aggregate in numpy, exact: {k: (sum, min, max of amt
+    unscaled, sum of sa)} over the rows with qty > 5 (amt summed in two
+    int64 halves, so nothing wraps)."""
+    keep = d["qty"] > 5
+    k, amt, sa = d["k"][keep], d["amt"][keep], d["sa"][keep]
+    order = np.argsort(k, kind="stable")
+    k, amt, sa = k[order], amt[order], sa[order]
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    hi, lo = np.divmod(amt, 10 ** 6)
+    s_hi = np.add.reduceat(hi, starts)
+    s_lo = np.add.reduceat(lo, starts)
+    mins = np.minimum.reduceat(amt, starts)
+    maxs = np.maximum.reduceat(amt, starts)
+    ssa = np.add.reduceat(sa, starts)
+    return {int(k[s]): (int(s_hi[i]) * 10 ** 6 + int(s_lo[i]),
+                        int(mins[i]), int(maxs[i]), int(ssa[i]))
+            for i, s in enumerate(starts)}
+
+
+def _dec_ints(h) -> list:
+    """A decimal host column's unscaled values as Python ints (limbs read
+    as one 128-bit integer each)."""
+    if h.data.ndim == 1:
+        return [int(v) for v in h.data]
+    return [(int(a) << 64) + (int(b) & (2 ** 64 - 1)) for a, b in h.data]
+
+
+def rung3_rows(host) -> dict:
+    """The aggregate's host columns as ``rung3_reference``'s dict; every
+    value must be valid."""
+    if not all(bool(h.validity.all()) for h in host):
+        return {"null": True}
+    k, s, lo, hi, ssa = host
+    return {int(kk): t for kk, t in zip(
+        k.data, zip(_dec_ints(s), _dec_ints(lo), _dec_ints(hi),
+                    (int(v) for v in ssa.data)))}
+
+
+def rung3_sort_check(host, d):
+    """None when the sorted frame's host columns are ``d``'s rows with amt
+    non-decreasing and equal to numpy's sort, else a complaint."""
+    k, amt, sa, sa2, sa3 = host
+    n = len(d["k"])
+    if k.num_rows != n:
+        return f"{k.num_rows} rows, want {n}"
+    lo = amt.data[:, 1]
+    if not np.array_equal(amt.data[:, 0], np.where(lo < 0, -1, 0)):
+        return "amt limbs out of the int64 range"
+    if not np.array_equal(lo, np.sort(d["amt"])):
+        return "amt is not numpy's sort of amt"
+    if not (np.array_equal(sa2.data, sa.data * 2)
+            and np.array_equal(sa3.data, sa.data + 7)):
+        return "rows came apart (sa2, sa3 do not follow sa)"
+    got = np.lexsort((sa.data, lo, k.data))
+    want = np.lexsort((d["sa"], d["amt"], d["k"]))
+    if not (np.array_equal(k.data[got], d["k"][want])
+            and np.array_equal(lo[got], d["amt"][want])
+            and np.array_equal(sa.data[got], d["sa"][want])):
+        return "the multiset of (k, amt, sa) rows differs from the input"
+    return None
+
+
+# ---------------------------------------------------------------------------
 # K1 checks
 # ---------------------------------------------------------------------------
 
@@ -986,15 +1171,15 @@ def run_q6(paths, li, n: int, device):
 
     _, rsch = schemas()
     want = q6_reference(li)
-    conf = {"spark.rapids.sql.format.parquet.decode.device": True,
-            "spark.rapids.sql.format.parquet.reader.type": "PERFILE"}
+    conf = {"spark.rapids.sql.format.parquet.decode.device": True}
     s = TpuSession(conf, device=device)
     q = q6_query(s.read.schema(rsch).parquet(*paths))
-    plan_line = q.explain().splitlines()[0]
-    log(f"plan: {plan_line}")
-    if plan_line != ("TpuHashAggregate(Complete) keys=[] aggs=[sum(revenue) "
-                     "AS revenue] fused=[FilterProject]"):
-        fail(f"unexpected plan line {plan_line!r}")
+    plan = q.explain().splitlines()
+    log("plan:\n" + "\n".join(plan))
+    if plan[0] != ("TpuHashAggregate(Complete) keys=[] aggs=[sum(revenue) "
+                   "AS revenue] fused=[FilterProject]"):
+        fail(f"unexpected plan line {plan[0]!r}")
+    check_default_reader(plan, "Q6")
     first = q.collect()
     if first != [(want,)]:
         fail(f"Q6 from Parquet, first run: {first} != {want}")
@@ -1119,8 +1304,7 @@ def run_q6_memory(li, want, device):
     log(f"Q6 in memory: revenue {got[0][0]} == numpy reference")
 
 
-QA_CONF = {"spark.rapids.sql.format.parquet.decode.device": True,
-           "spark.rapids.sql.format.parquet.reader.type": "PERFILE"}
+QA_CONF = {"spark.rapids.sql.format.parquet.decode.device": True}
 
 
 def write_qa_files(ss, dd, n: int, out_dir: str, device):
@@ -1179,6 +1363,14 @@ def check_qa_plan(q):
     check_plan(q, QA_PLAN, "qa")
 
 
+def check_default_reader(plan_lines, label: str):
+    """Under the default reader type (AUTO) the scan of the 8 files must
+    resolve to MULTITHREADED, as the reference's does."""
+    if not any(ln.strip().endswith(f"{N_FILES} files mode=MULTITHREADED")
+               for ln in plan_lines):
+        fail(f"{label}: the scan did not resolve AUTO to MULTITHREADED")
+
+
 def timed_collects(q, check, label: str, n: int):
     """Two collects of ``q``, both held by ``check`` (rows -> None or a
     complaint).  The counts are set to 0 just before the timed second
@@ -1222,6 +1414,7 @@ def run_qa(ss_paths, dd_path, want, n: int, device):
     """qa from Parquet, collected twice; both results exact."""
     q = qa_parquet_query(ss_paths, dd_path, device)
     check_qa_plan(q)
+    check_default_reader(q.explain().splitlines(), "qa")
     log("qa plan:\n" + q.explain())
     out = timed_collects(
         q, lambda rows: None if rows == want else
@@ -1235,7 +1428,7 @@ def fresh_plan(q):
     which the collects run)."""
     from spark_rapids_tpu_torch.overrides.overrides import TpuOverrides
 
-    return TpuOverrides.apply(q.plan, q.session.conf, q.session.device)
+    return TpuOverrides.apply(q.plan, q.session.conf, q.session.device)[0]
 
 
 class _Replay:
@@ -1584,6 +1777,184 @@ def run_ooc_qb(ss_paths, sr_paths, want, n: int, pool: int, device,
     return out
 
 
+def _rung3_runs(fn, check, label: str, n: int, smi: str, runs: int = 2):
+    """``runs`` calls of ``fn`` (a collect), each held by ``check``; the
+    counts (perfcounters, K1 launches, peak memory) set to 0 just before
+    each and read just after.  Prints seconds, rows/s, counters, spills
+    and peak memory of each; returns the last call's."""
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.memory.spill import peek_spill_framework
+    from spark_rapids_tpu_torch.pallas import decode
+
+    for i in range(runs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decode.unpack_launches = 0
+        PC.reset_peaks()
+        snap = PC.snapshot()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        d = PC.since(snap)
+        peaks = PC.peaks()
+        launches = decode.unpack_launches
+        peak = torch.cuda.max_memory_allocated()
+        bad = check(got)
+        if bad:
+            fail(f"{label}, run {i + 1}: {bad}")
+        fw = peek_spill_framework()
+        log(f"{label} run {i + 1}: exact; {n} rows in {secs:.3f} s = "
+            f"{n / secs:.0f} rows/s [{smi}]")
+        log(f"{label} run {i + 1} counters: host_syncs={d['host_syncs']} "
+            f"bytes_h2d={d['bytes_h2d']} bytes_d2h={d['bytes_d2h']} "
+            f"ooc_sort_runs={d['ooc_sort_runs']} "
+            f"ooc_sort_merge_windows={d['ooc_sort_merge_windows']} "
+            f"ooc_sort_merge_upload_bytes="
+            f"{d['ooc_sort_merge_upload_bytes']} "
+            f"ooc_sort_merge_window_upload_bytes(max)="
+            f"{peaks['ooc_sort_merge_window_upload_bytes']} "
+            f"unpack_launches={launches} [{smi}]")
+        log(f"{label} run {i + 1} spill: {_spill_line(fw)}; "
+            f"max_memory_allocated={peak} [{smi}]")
+    return {"seconds": secs, "delta": d, "peaks": peaks,
+            "metrics": fw.metrics(), "launches": launches}
+
+
+def rung3_agg_breakdown(q, label: str, smi: str):
+    """Where a rung3 aggregate collect spends its time, step by step: the
+    device scan and filter with their download (the CPU stage's input),
+    the CPU stage (the struct projection), the upload, the aggregate on
+    the uploaded batches."""
+    import torch
+
+    from spark_rapids_tpu_torch.cpu.oracle import eval_expr
+    from spark_rapids_tpu_torch.memory.spill import get_spill_framework
+
+    get_spill_framework(q.session.conf, q.session.device)
+    agg = fresh_plan(q)
+    r2c = agg.children[0]
+    proj = r2c.cpu_plan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols, rows = proj.children[0].materialize_cpu()
+    t_scan = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [eval_expr(e, cols, rows).to_host() for e in proj.exprs]
+    t_cpu = time.perf_counter() - t0
+    del cols
+    t0 = time.perf_counter()
+    batches = list(r2c.upload(host))
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    del host
+    agg.children[0] = _Replay(batches, r2c.output)
+    t_agg, _ = _timed_run(agg)
+    log(f"{label} breakdown: device scan + filter + download "
+        f"{t_scan:.4f} s, CPU stage {t_cpu:.4f} s ({rows} rows), upload "
+        f"{t_up:.4f} s ({len(batches)} batches), aggregate {t_agg:.4f} s "
+        f"[{smi}]")
+
+
+def rung3_sort_breakdown(q, label: str, smi: str):
+    """Where a rung3 sort count spends its time: the scans, the run sorts
+    (each input batch tracked, then sorted into a spillable run), the
+    merge windows, the count on the merged batches."""
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.memory.spill import get_spill_framework
+
+    fw = get_spill_framework(q.session.conf, q.session.device)
+    agg = fresh_plan(rung3_count_query(q))
+    srt = agg.children[0]
+    t_scan, batches = _timed_run(srt.children[0])
+    spill = [fw.track(b) for b in batches]
+    del batches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runs = srt._sorted_runs(spill, fw)
+    torch.cuda.synchronize()
+    t_runs = time.perf_counter() - t0
+    snap = PC.snapshot()
+    t0 = time.perf_counter()
+    out = list(srt._merge_runs(runs))
+    torch.cuda.synchronize()
+    t_merge = time.perf_counter() - t0
+    d = PC.since(snap)
+    agg.children[0] = _Replay(out, srt.output)
+    t_agg, _ = _timed_run(agg)
+    log(f"{label} breakdown: scans {t_scan:.4f} s, run sorts {t_runs:.4f} "
+        f"s ({len(runs)} runs), merge {t_merge:.4f} s "
+        f"({d['ooc_sort_merge_windows']} windows, "
+        f"{d['ooc_sort_merge_upload_bytes']} bytes uploaded), count "
+        f"{t_agg:.4f} s [{smi}]")
+
+
+def run_rung3(n: int, device, smi: str, label: str, breakdown: bool):
+    """Phase 14: bench's rung3 from memory at ``n`` rows under bench's
+    conf (the 64 MiB pool floor): both plans the reference's; the
+    aggregate twice, exact against numpy; the sort's count twice, equal
+    to ``n``; the sorted frame collected as host columns, its amt numpy's
+    sort and its rows the input's.  Every counted run must reach the
+    kernels it needs: none (K1 stays at 0 launches)."""
+    import spark_rapids_tpu_torch.session as S
+
+    t0 = time.perf_counter()
+    d = make_rung3(n)
+    want = rung3_reference(d)
+    s = S.TpuSession(rung3_conf(n), device=device)
+    agg, srt = rung3_frames(S, s, d)
+    flat = n * RUNG3_SORT_ROW_BYTES
+    log(f"{label} data: {n} rows, sort input {flat} flat bytes = "
+        f"{flat / (64 << 20):.2f}x the 64 MiB pool; generated with the "
+        f"numpy reference in {time.perf_counter() - t0:.1f} s")
+    check_plan(agg, RUNG3_AGG_PLAN, f"{label} aggregate")
+    check_plan(rung3_count_query(srt), RUNG3_SORT_PLAN, f"{label} sort")
+    log(f"{label} aggregate plan:\n" + agg.explain())
+    out = {"agg": _rung3_runs(
+        agg.collect_host, lambda h: None if rung3_rows(h) == want
+        else "rows differ from the numpy reference", f"{label} aggregate",
+        n, smi)}
+    if breakdown:
+        rung3_agg_breakdown(agg, f"{label} aggregate", smi)
+    out["count"] = _rung3_runs(
+        srt.count, lambda c: None if c == n else f"count {c} != {n}",
+        f"{label} sort count", n, smi)
+    out["sorted"] = _rung3_runs(
+        srt.collect_host, lambda h: rung3_sort_check(h, d),
+        f"{label} sorted collect", n, smi, runs=1)
+    dc = out["count"]["delta"]
+    runs = dc["ooc_sort_runs"]
+    windows = dc["ooc_sort_merge_windows"]
+    up = dc["ooc_sort_merge_upload_bytes"]
+    if windows <= 1:
+        fail(f"{label}: the sort merged in {windows} windows")
+    # a window reads at most ooc_chunk_rows rows of each run: a window
+    # that brought a whole run back (tens of MB at SF10) moves more
+    sort_exec = fresh_plan(rung3_count_query(srt)).children[0]
+    chunk_rows = sort_exec.ooc_chunk_rows
+    cap = runs * chunk_rows * RUNG3_SORT_ROW_BYTES
+    most = {k: out[k]["peaks"]["ooc_sort_merge_window_upload_bytes"]
+            for k in ("count", "sorted")}
+    for k, m in most.items():
+        if m > cap:
+            fail(f"{label}: a merge window of the {k} run moved {m} bytes,"
+                 f" more than {runs} runs x {chunk_rows} rows x "
+                 f"{RUNG3_SORT_ROW_BYTES} B = {cap}")
+    log(f"{label} merge: {runs} runs, {windows} windows, {up} bytes "
+        f"uploaded ({up / windows:.0f} a window on average; the most in "
+        f"one window {most['count']} (count run), {most['sorted']} "
+        f"(sorted collect), against {cap} = {runs} runs x {chunk_rows} "
+        f"rows), host_syncs {dc['host_syncs']} [{smi}]")
+    if breakdown:
+        rung3_sort_breakdown(srt, f"{label} sort", smi)
+    out["launches"] = sum(out[k]["launches"] for k in ("agg", "count"))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -1710,6 +2081,15 @@ def main(argv=None) -> int:
     ooc_qb = run_ooc_qb(ss_paths, sr_paths, want_qb, n_ss, OOC_POOL, device,
                         smi)
     log(f"phase 13 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 14. bench rung3: a CPU stage under the aggregate, the out-of-core
+    # sort; at bench's size, then at SF10 rows
+    t0 = time.perf_counter()
+    run_rung3(RUNG3_BENCH_ROWS, device, smi, "rung3 bench size", False)
+    rung3 = run_rung3(n_ss, device, smi, "rung3", True)
+    if rung3["count"]["metrics"]["spillToHostCount"] <= 0:
+        fail("rung3: the sort spilled nothing to the host")
+    log(f"phase 14 wall time {time.perf_counter() - t0:.1f} s")
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
@@ -1729,6 +2109,7 @@ def main(argv=None) -> int:
         "qb_launches": qb["launches"],
         "qc_launches": qc["launches"],
         "ooc_qb_launches": ooc_qb["launches"],
+        "rung3_launches": rung3["launches"],
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

@@ -1,7 +1,8 @@
 """ColumnarBatch — port of ``spark_rapids_tpu/columnar/batch.py``.
 
-A batch is a list of flat ``DeviceColumn``s of exactly ``num_rows`` rows
-(no capacity padding, see ``column.py``) plus its schema.
+A batch is a list of ``DeviceColumn``s (flat or struct) of exactly
+``num_rows`` rows (no capacity padding, see ``column.py``) plus its
+schema.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import (DeviceColumn, HostColumn,
-                                                    column_torch_dtype)
+                                                    column_torch_dtype,
+                                                    rebuild_column)
 from spark_rapids_tpu_torch.perfcounters import sync_get
 
 
@@ -51,12 +53,10 @@ class ColumnarBatch:
     def to_host_columns(self) -> List[HostColumn]:
         """All buffers of all columns in ONE logical host sync."""
         n = self.num_rows
-        flat = []
-        for c in self.columns:
-            flat += [c.validity[:n], c.data[:n]]
-        host = sync_get(*flat)
-        return [HostColumn(c.dtype, host[2 * i], data=host[2 * i + 1])
-                for i, c in enumerate(self.columns)]
+        it = iter(sync_get(*[t[:n] for c in self.columns
+                             for t in c.tensors()]))
+        return [rebuild_column(c.dtype, it, HostColumn)
+                for c in self.columns]
 
     def to_pydict(self) -> dict:
         host = self.to_host_columns()
@@ -69,32 +69,29 @@ class ColumnarBatch:
 
     def slice_rows(self, start: int, length: int) -> "ColumnarBatch":
         """Rows ``[start, start + length)`` as views (no copy)."""
-        end = start + length
-        return ColumnarBatch([DeviceColumn(c.dtype, c.validity[start:end],
-                                           data=c.data[start:end])
+        return ColumnarBatch([c.slice(start, start + length)
                               for c in self.columns], length, self.schema)
 
     @staticmethod
     def concat(batches: Sequence["ColumnarBatch"]) -> "ColumnarBatch":
         first = batches[0]
-        cols = [DeviceColumn(c.dtype,
-                             torch.cat([b.columns[i].validity
-                                        for b in batches]),
-                             data=torch.cat([b.columns[i].data
-                                             for b in batches]))
-                for i, c in enumerate(first.columns)]
+        cols = [DeviceColumn.concat([b.columns[i] for b in batches])
+                for i in range(len(first.columns))]
         return ColumnarBatch(cols, sum(b.num_rows for b in batches),
                              first.schema)
 
 
 def empty_batch(schema: T.StructType, device) -> ColumnarBatch:
     """A batch of no rows."""
-    cols = []
-    for f in schema.fields:
-        shape = ((0, 2) if isinstance(f.dataType, T.DecimalType)
-                 and f.dataType.is_128 else (0,))
-        cols.append(DeviceColumn(
-            f.dataType, torch.zeros(0, dtype=torch.bool, device=device),
-            data=torch.zeros(shape, dtype=column_torch_dtype(f.dataType),
-                             device=device)))
-    return ColumnarBatch(cols, 0, schema)
+    return ColumnarBatch([empty_column(f.dataType, device)
+                          for f in schema.fields], 0, schema)
+
+
+def empty_column(dt: T.DataType, device) -> DeviceColumn:
+    validity = torch.zeros(0, dtype=torch.bool, device=device)
+    if isinstance(dt, T.StructType):
+        return DeviceColumn(dt, validity, children=[
+            empty_column(f.dataType, device) for f in dt.fields])
+    shape = (0, 2) if isinstance(dt, T.DecimalType) and dt.is_128 else (0,)
+    return DeviceColumn(dt, validity, data=torch.zeros(
+        shape, dtype=column_torch_dtype(dt), device=device))

@@ -1,13 +1,19 @@
 """Device/host column vectors — port of ``spark_rapids_tpu/columnar/column.py``.
 
-Flat columns only in this slice (int, long, date, bool, double, decimal64
-and the decimal128 limbs), with the reference's value semantics so results
-compare bit for bit:
+Flat columns (int, long, date, bool, double, decimal64 and the
+decimal128 limbs) and struct columns, with the reference's value
+semantics so results compare bit for bit:
 
 * validity is a bool vector (True = valid);
 * decimals of 18 digits or fewer are unscaled int64; above 18 digits a
   ``(n, 2)`` int64 ``[hi, lo]`` limb pair (see ``expr/decimal128.py``);
-* DATE is int32 days since the epoch.
+* DATE is int32 days since the epoch;
+* a struct is a validity vector over one full child column per field
+  (the reference's kind "struct", as cuDF stores STRUCT columns); its
+  ``data`` is None.  A null struct row keeps whatever its children hold.
+
+Every row operation (slice, gather, concat, host transfer, the spill
+framework's buffers) recurses into a struct's children.
 
 The reference pads every column to a power-of-two row capacity to bound XLA
 recompiles; PyTorch takes sizes at run time, so a port column holds exactly
@@ -18,7 +24,7 @@ from __future__ import annotations
 import dataclasses
 import datetime as _dt
 from decimal import Decimal
-from typing import List, Optional
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,15 +46,21 @@ def column_torch_dtype(dt: T.DataType) -> torch.dtype:
 
 @dataclasses.dataclass
 class DeviceColumn:
-    """One flat column on a torch device.
+    """One column on a torch device.
 
     data: (n,) tensor of the storage dtype, or (n, 2) int64 [hi, lo] limbs
-    for decimal(p>18).  validity: (n,) bool, True = valid.
+    for decimal(p>18); None for a struct, whose ``children`` hold one
+    column per field.  validity: (n,) bool, True = valid.
     """
 
     dtype: T.DataType
     validity: torch.Tensor
     data: Optional[torch.Tensor] = None
+    children: Optional[List["DeviceColumn"]] = None
+
+    @property
+    def is_struct(self) -> bool:
+        return self.children is not None
 
     @property
     def is_dec128(self) -> bool:
@@ -63,36 +75,93 @@ class DeviceColumn:
         return self.validity.device
 
     def nbytes(self) -> int:
-        """Bytes of the validity (one a row) and the data."""
-        return int(self.validity.numel()
-                   + self.data.numel() * self.data.element_size())
+        """Bytes of the validity (one a row) and the data, children
+        included."""
+        return sum(t.numel() * t.element_size() for t in self.tensors())
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every buffer, depth first: the validity, then the data or each
+        child's buffers."""
+        if self.is_struct:
+            return [self.validity] + [t for c in self.children
+                                      for t in c.tensors()]
+        return [self.validity, self.data]
+
+    def map_rows(self, fn) -> "DeviceColumn":
+        """``fn`` (a row slice or gather) applied to every buffer."""
+        return rebuild_column(self.dtype, iter([fn(t)
+                                                for t in self.tensors()]))
+
+    def gather(self, indices: torch.Tensor) -> "DeviceColumn":
+        return self.map_rows(lambda t: t[indices])
+
+    def slice(self, start: int, end: int) -> "DeviceColumn":
+        """Rows ``[start, end)`` as views (no copy)."""
+        return self.map_rows(lambda t: t[start:end])
+
+    @staticmethod
+    def concat(cols: Sequence["DeviceColumn"]) -> "DeviceColumn":
+        per = [c.tensors() for c in cols]
+        return rebuild_column(cols[0].dtype, iter(
+            [torch.cat([p[i] for p in per]) for i in range(len(per[0]))]))
 
     @staticmethod
     def from_host(h: "HostColumn", device) -> "DeviceColumn":
-        return DeviceColumn(h.dtype, to_device(h.validity, device),
-                            data=to_device(h.data, device))
+        return rebuild_column(h.dtype, iter([to_device(a, device)
+                                             for a in h.arrays()]))
 
     def to_host(self, num_rows: int) -> "HostColumn":
-        validity, data = sync_get(self.validity[:num_rows],
-                                  self.data[:num_rows])
-        return HostColumn(self.dtype, validity, data=data)
+        return rebuild_column(self.dtype, iter(sync_get(
+            *[t[:num_rows] for t in self.tensors()])), HostColumn)
+
+
+def rebuild_column(dtype: T.DataType, it: Iterator, cls=None):
+    """A ``cls`` column (default ``DeviceColumn``) of ``dtype`` from the
+    next buffers of ``it``, in ``tensors`` order (its inverse)."""
+    cls = cls or DeviceColumn
+    validity = next(it)
+    if isinstance(dtype, T.StructType):
+        kids = [rebuild_column(f.dataType, it, cls) for f in dtype.fields]
+        return cls(dtype, validity, children=kids)
+    return cls(dtype, validity, data=next(it))
 
 
 @dataclasses.dataclass
 class HostColumn:
-    """Host-side flat column (numpy), the interchange point with Python."""
+    """Host-side column (numpy), the interchange point with Python; a
+    struct holds one child column per field."""
 
     dtype: T.DataType
     validity: np.ndarray
     data: Optional[np.ndarray] = None
+    children: Optional[List["HostColumn"]] = None
+
+    @property
+    def is_struct(self) -> bool:
+        return self.children is not None
 
     @property
     def num_rows(self) -> int:
         return int(self.validity.shape[0])
 
+    def arrays(self) -> List[np.ndarray]:
+        """Every buffer in ``DeviceColumn.tensors`` order."""
+        if self.is_struct:
+            return [self.validity] + [a for c in self.children
+                                      for a in c.arrays()]
+        return [self.validity, self.data]
+
     def slice_rows(self, start: int, end: int) -> "HostColumn":
-        return HostColumn(self.dtype, self.validity[start:end],
-                          data=self.data[start:end])
+        return rebuild_column(self.dtype, iter([a[start:end]
+                                                for a in self.arrays()]),
+                              HostColumn)
+
+    @staticmethod
+    def concat(cols: Sequence["HostColumn"]) -> "HostColumn":
+        per = [c.arrays() for c in cols]
+        return rebuild_column(cols[0].dtype, iter(
+            [np.concatenate([p[i] for p in per])
+             for i in range(len(per[0]))]), HostColumn)
 
     @staticmethod
     def from_numpy(arr: np.ndarray, dtype: T.DataType,
@@ -106,6 +175,15 @@ class HostColumn:
 
         n = len(values)
         validity = np.array([v is not None for v in values], dtype=np.bool_)
+        if isinstance(dtype, T.StructType):
+            # rows are dicts (by field name) or sequences (by position);
+            # a null row's children are null (Spark reads null.field as
+            # null)
+            kids = [HostColumn.from_pylist(
+                [None if v is None else v.get(f.name)
+                 if isinstance(v, dict) else v[fi] for v in values],
+                f.dataType) for fi, f in enumerate(dtype.fields)]
+            return HostColumn(dtype, validity, children=kids)
         if isinstance(dtype, T.DecimalType) and dtype.is_128:
             data = np.zeros((n, 2), dtype=np.int64)
             for i, v in enumerate(values):
@@ -131,6 +209,10 @@ class HostColumn:
     def to_pylist(self) -> List:
         from spark_rapids_tpu_torch.expr.decimal128 import to_py
 
+        if self.is_struct:
+            kids = [c.to_pylist() for c in self.children]
+            return [tuple(k[i] for k in kids) if self.validity[i] else None
+                    for i in range(self.num_rows)]
         out: List = []
         for i in range(self.num_rows):
             if not self.validity[i]:

@@ -126,15 +126,18 @@ MAX_READER_BATCH_SIZE_ROWS = conf(
     "splits its rows into batches of this size).").integer_conf(2147483647)
 
 PARQUET_READER_TYPE = conf("spark.rapids.sql.format.parquet.reader.type").doc(
-    "PERFILE, COALESCING, MULTITHREADED, or AUTO.  The port reads PERFILE "
-    "only; the others raise until a later slice ports them."
+    "PERFILE, COALESCING, MULTITHREADED, or AUTO (MULTITHREADED for more "
+    "than one file, else COALESCING).  With decode.device on, every mode "
+    "decodes each file on the device, in order, as the reference does."
 ).string_conf("AUTO")
 
 PARQUET_DEVICE_DECODE = conf(
     "spark.rapids.sql.format.parquet.decode.device").doc(
     "Decode Parquet pages on the device (bit-unpack + run expansion + "
     "dictionary gather; the host parses only footers and run headers).  "
-    "The port has no host decode: false raises.").boolean_conf(False)
+    "The port has no host decode: false raises (the reference decodes on "
+    "the host with pyarrow, which the port does not depend on)."
+).boolean_conf(False)
 
 PARQUET_COMPRESSED_TRANSFER = conf(
     "spark.rapids.sql.format.parquet.transfer.compressed").doc(
@@ -244,3 +247,11 @@ class TpuConf:
     @property
     def ansi_enabled(self):
         return self.get(ANSI_ENABLED)
+
+    def is_op_enabled(self, op_name: str, kind: str = "expression") -> bool:
+        """The per-operator switch ``spark.rapids.sql.<kind>.<OpName>``
+        (reference: ``RapidsConf.isOperatorEnabled``)."""
+        raw = self.settings.get(f"spark.rapids.sql.{kind}.{op_name}")
+        if raw is None:
+            return True
+        return str(raw).strip().lower() in ("true", "1", "yes")

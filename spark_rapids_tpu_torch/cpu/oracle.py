@@ -1,0 +1,387 @@
+"""The CPU stage engine — the port's own numpy copy of the part of
+``spark_rapids_tpu/cpu/oracle.py`` that a CPU stage of a ported query
+needs.
+
+A plan node that the plan rewrite tags as unable to run on the device, by
+the reference's own rules (``overrides/meta.py``), stays on the host and
+runs here; its device children reach it through ``TpuMaterializedScan``
+(``overrides/transitions.py``), and a device parent reads its output
+through ``TpuRowToColumnarExec`` (``exec/transitions.py``).
+
+The reference's oracle holds decimals and structs as Python objects, one
+per row.  This copy keeps every column in its storage form, as the host
+columns hold it (``columnar/column.py``): unscaled int64 or ``[hi, lo]``
+limbs for decimals, one child column per struct field.  Moving a column
+through a stage, selecting rows or picking a struct field is then a numpy
+view or gather, and a CPU stage over tens of millions of rows takes
+seconds.  Arithmetic goes through Python integers where the reference's
+does (decimals, and integers where Java wraps), so values, nulls and
+errors are the reference's.
+
+The nodes it runs are ``LocalTableScan``, ``Filter``, ``Project``,
+``Union`` and ``TpuMaterializedScan``; the expressions, those the port
+runs on the card (references, literals, ``Alias``, comparisons, boolean
+logic, ``IsNull``/``IsNotNull``, ``Add``/``Subtract``/``Multiply``,
+integral and decimal ``Cast``, ``Coalesce``/``Nvl``) and the struct
+expressions.  ``check_cpu_plan`` raises ``NotOnGpu`` at plan time for
+anything else, naming it.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.column import HostColumn
+from spark_rapids_tpu_torch.exec.base import NotOnGpu
+from spark_rapids_tpu_torch.expr import arithmetic as A
+from spark_rapids_tpu_torch.expr import complextypes as CT
+from spark_rapids_tpu_torch.expr import conditional as CO
+from spark_rapids_tpu_torch.expr import predicates as P
+from spark_rapids_tpu_torch.expr.base import (Alias, BoundReference,
+                                              Expression, Literal,
+                                              SparkArithmeticException)
+from spark_rapids_tpu_torch.expr.cast import _INTEGRAL, Cast, cast_supported
+from spark_rapids_tpu_torch.overrides.meta import PORTED_EXPRS
+from spark_rapids_tpu_torch.plan import nodes as PN
+
+_U64 = 1 << 64
+
+
+@dataclasses.dataclass
+class CpuCol:
+    """One host column in storage form: ``values`` as ``HostColumn.data``
+    (None for a struct, whose ``children`` hold its fields) and a bool
+    ``validity``."""
+
+    dtype: T.DataType
+    values: Optional[np.ndarray]
+    validity: np.ndarray
+    children: Optional[List["CpuCol"]] = None
+
+    @property
+    def n(self) -> int:
+        return len(self.validity)
+
+    @staticmethod
+    def from_host(h: HostColumn) -> "CpuCol":
+        kids = (None if h.children is None
+                else [CpuCol.from_host(c) for c in h.children])
+        return CpuCol(h.dtype, h.data, h.validity, kids)
+
+    def to_host(self) -> HostColumn:
+        kids = (None if self.children is None
+                else [c.to_host() for c in self.children])
+        return HostColumn(self.dtype, self.validity, data=self.values,
+                          children=kids)
+
+    def take(self, rows) -> "CpuCol":
+        """The rows ``rows`` (a bool mask or indices) selects."""
+        kids = (None if self.children is None
+                else [c.take(rows) for c in self.children])
+        vals = None if self.values is None else self.values[rows]
+        return CpuCol(self.dtype, vals, self.validity[rows], kids)
+
+    @staticmethod
+    def concat(cols: List["CpuCol"]) -> "CpuCol":
+        first = cols[0]
+        kids = (None if first.children is None
+                else [CpuCol.concat([c.children[i] for c in cols])
+                      for i in range(len(first.children))])
+        vals = (None if first.values is None
+                else np.concatenate([c.values for c in cols]))
+        return CpuCol(first.dtype, vals,
+                      np.concatenate([c.validity for c in cols]), kids)
+
+
+CpuBatch = List[CpuCol]
+
+
+# -- storage <-> Python integers -------------------------------------------
+
+def _is_dec128(dt) -> bool:
+    return isinstance(dt, T.DecimalType) and dt.is_128
+
+
+def _py_ints(c: CpuCol) -> np.ndarray:
+    """An object array of Python ints: unscaled decimals, or integers."""
+    if _is_dec128(c.dtype):
+        hi = c.values[:, 0].astype(object)
+        lo = c.values[:, 1].view(np.uint64).astype(object)
+        return hi * _U64 + lo
+    return c.values.astype(object)
+
+
+def _from_py_ints(vals: np.ndarray, validity: np.ndarray,
+                  dt: T.DataType) -> np.ndarray:
+    """Python ints (in range where valid) -> storage values."""
+    v = np.where(validity, vals, 0)
+    if _is_dec128(dt):
+        out = np.empty((len(v), 2), np.int64)
+        out[:, 0] = (v // _U64).astype(np.int64)
+        out[:, 1] = (v % _U64).astype(np.uint64).view(np.int64)
+        return out
+    return v.astype(T.storage_dtype(dt))
+
+
+def _dec_check(vals, validity, dt: T.DecimalType, ansi: bool, op: str):
+    """Validity with results past 10^precision nulled (an error under
+    ANSI), as the reference's ``_dec_check``."""
+    bound = 10 ** dt.precision
+    safe = np.where(validity, vals, 0)
+    ok = (np.asarray(safe < bound, np.bool_)
+          & np.asarray(safe > -bound, np.bool_))
+    bad = validity & ~ok
+    if bad.any():
+        if ansi:
+            raise SparkArithmeticException(f"decimal {op} overflow (ANSI)")
+        return validity & ok
+    return validity
+
+
+_JMIN = {T.ByteType: -(2 ** 7), T.ShortType: -(2 ** 15),
+         T.IntegerType: -(2 ** 31), T.LongType: -(2 ** 63)}
+
+
+def _java_wrap(vals, validity, dt, ansi: bool, what: str) -> np.ndarray:
+    """Python ints wrapped into the Java type; an error under ANSI when a
+    valid row wraps."""
+    lo = _JMIN[type(dt)]
+    rng = -2 * lo
+    v = np.where(validity, vals, 0)
+    wrapped = (v - lo) % rng + lo
+    if ansi and bool((validity & np.asarray(wrapped != v, np.bool_)).any()):
+        raise SparkArithmeticException(f"{what} overflow (ANSI)")
+    return wrapped.astype(T.storage_dtype(dt))
+
+
+# -- expressions ------------------------------------------------------------
+
+def eval_expr(e: Expression, cols: CpuBatch, n: int,
+              ansi: bool = False) -> CpuCol:
+    h = _HANDLERS.get(type(e))
+    if h is None:
+        raise NotOnGpu(f"expression {type(e).__name__} in a CPU stage")
+    return h(e, cols, n, ansi)
+
+
+def _kids(e, cols, n, ansi):
+    return [eval_expr(c, cols, n, ansi) for c in e.children]
+
+
+def _h_bound(e, cols, n, ansi):
+    return cols[e.ordinal]
+
+
+def _h_literal(e: Literal, cols, n, ansi):
+    dt = e.dataType
+    valid = np.full(n, e.value is not None, np.bool_)
+    if isinstance(dt, T.NullType):
+        return CpuCol(dt, np.zeros(n, np.int32), valid)
+    v = e.storage_value() if e.value is not None else 0
+    if isinstance(dt, T.DecimalType):
+        return CpuCol(dt, _from_py_ints(np.full(n, int(v), object), valid,
+                                        dt), valid)
+    return CpuCol(dt, np.full(n, v, T.storage_dtype(dt)), valid)
+
+
+def _h_alias(e, cols, n, ansi):
+    return eval_expr(e.children[0], cols, n, ansi)
+
+
+def _h_binarith(e: A.BinaryArithmetic, cols, n, ansi):
+    l, r = _kids(e, cols, n, ansi)
+    validity = l.validity & r.validity
+    dt = e.dataType
+    name = type(e).__name__
+    if isinstance(dt, T.DecimalType):
+        lt, rt = e.left.dataType, e.right.dataType
+        a = np.where(validity, _py_ints(l), 0)
+        b = np.where(validity, _py_ints(r), 0)
+        if name == "Multiply":
+            out = a * b
+        else:
+            a = a * (10 ** (dt.scale - lt.scale))
+            b = b * (10 ** (dt.scale - rt.scale))
+            out = a + b if name == "Add" else a - b
+        validity = _dec_check(out, validity, dt, ansi, name.lower())
+        return CpuCol(dt, _from_py_ints(out, validity, dt), validity)
+    if dt.is_integral:
+        a, b = _py_ints(l), _py_ints(r)
+        out = a + b if name == "Add" else a - b if name == "Subtract" \
+            else a * b
+        return CpuCol(dt, _java_wrap(out, validity, dt, ansi, name),
+                      validity)
+    la = l.values.astype(np.float64)
+    ra = r.values.astype(np.float64)
+    with np.errstate(all="ignore"):
+        out = la + ra if name == "Add" else la - ra if name == "Subtract" \
+            else la * ra
+    return CpuCol(dt, out.astype(T.storage_dtype(dt)), validity)
+
+
+_CMP = {P.EqualTo: lambda a, b: a == b, P.LessThan: lambda a, b: a < b,
+        P.LessThanOrEqual: lambda a, b: a <= b,
+        P.GreaterThan: lambda a, b: a > b,
+        P.GreaterThanOrEqual: lambda a, b: a >= b}
+
+
+def _h_comparison(e, cols, n, ansi):
+    l, r = _kids(e, cols, n, ansi)
+    validity = l.validity & r.validity
+    if _is_dec128(e.left.dataType):
+        a, b = _py_ints(l), _py_ints(r)
+    else:
+        a, b = l.values, r.values
+    with np.errstate(invalid="ignore"):
+        data = np.asarray(_CMP[type(e)](a, b), np.bool_)
+    return CpuCol(T.BOOLEAN, data, validity)
+
+
+def _h_and(e, cols, n, ansi):
+    l, r = _kids(e, cols, n, ansi)
+    lv, rv = l.values.astype(bool), r.values.astype(bool)
+    lf, rf = l.validity & ~lv, r.validity & ~rv
+    return CpuCol(T.BOOLEAN, l.validity & lv & r.validity & rv,
+                  (l.validity & r.validity) | lf | rf)
+
+
+def _h_or(e, cols, n, ansi):
+    l, r = _kids(e, cols, n, ansi)
+    lt = l.validity & l.values.astype(bool)
+    rt = r.validity & r.values.astype(bool)
+    return CpuCol(T.BOOLEAN, lt | rt, (l.validity & r.validity) | lt | rt)
+
+
+def _h_not(e, cols, n, ansi):
+    (c,) = _kids(e, cols, n, ansi)
+    return CpuCol(T.BOOLEAN, ~c.values.astype(bool), c.validity)
+
+
+def _h_isnull(e, cols, n, ansi):
+    (c,) = _kids(e, cols, n, ansi)
+    return CpuCol(T.BOOLEAN, ~c.validity, np.ones(n, np.bool_))
+
+
+def _h_isnotnull(e, cols, n, ansi):
+    (c,) = _kids(e, cols, n, ansi)
+    return CpuCol(T.BOOLEAN, c.validity.copy(), np.ones(n, np.bool_))
+
+
+def _h_coalesce(e, cols, n, ansi):
+    kids = _kids(e, cols, n, ansi)
+    acc = kids[-1]
+    for c in reversed(kids[:-1]):
+        take = c.validity if acc.values.ndim == 1 else c.validity[:, None]
+        acc = CpuCol(e.dataType, np.where(take, c.values, acc.values),
+                     c.validity | acc.validity)
+    return acc
+
+
+def _h_cast(e: Cast, cols, n, ansi):
+    (c,) = _kids(e, cols, n, ansi)
+    src, dst = e.child.dataType, e.to
+    ansi = ansi or e.ansi_override
+    if src == dst:
+        return c
+    vals = np.where(c.validity, _py_ints(c), 0)
+    if isinstance(dst, _INTEGRAL):
+        return CpuCol(dst, _java_wrap(vals, c.validity, dst, ansi, "cast"),
+                      c.validity)
+    diff = dst.scale - (src.scale if isinstance(src, T.DecimalType) else 0)
+    if diff >= 0:
+        out = vals * (10 ** diff)
+    else:                              # HALF_UP, as the reference's
+        den = 10 ** (-diff)
+        mag = np.abs(vals)
+        q = mag // den
+        q = q + np.asarray(2 * (mag - q * den) >= den, np.bool_)
+        out = np.where(np.asarray(vals < 0, np.bool_), -q, q)
+    validity = _dec_check(out, c.validity, dst, ansi, "cast")
+    return CpuCol(dst, _from_py_ints(out, validity, dst), validity)
+
+
+def _h_get_struct_field(e: CT.GetStructField, cols, n, ansi):
+    (s,) = _kids(e, cols, n, ansi)
+    kid = s.children[e._field_ordinal]
+    return CpuCol(kid.dtype, kid.values, kid.validity & s.validity,
+                  kid.children)
+
+
+def _h_create_named_struct(e: CT.CreateNamedStruct, cols, n, ansi):
+    return CpuCol(e.dataType, None, np.ones(n, np.bool_),
+                  _kids(e, cols, n, ansi))
+
+
+_HANDLERS = {
+    BoundReference: _h_bound, Literal: _h_literal, Alias: _h_alias,
+    A.Add: _h_binarith, A.Subtract: _h_binarith, A.Multiply: _h_binarith,
+    P.EqualTo: _h_comparison, P.LessThan: _h_comparison,
+    P.LessThanOrEqual: _h_comparison, P.GreaterThan: _h_comparison,
+    P.GreaterThanOrEqual: _h_comparison,
+    P.And: _h_and, P.Or: _h_or, P.Not: _h_not,
+    P.IsNull: _h_isnull, P.IsNotNull: _h_isnotnull,
+    CO.Coalesce: _h_coalesce, CO.Nvl: _h_coalesce,
+    Cast: _h_cast,
+    CT.GetStructField: _h_get_struct_field,
+    CT.CreateNamedStruct: _h_create_named_struct,
+}
+
+
+# -- plans ------------------------------------------------------------------
+
+def _check_expr(e: Expression, why: str) -> None:
+    if type(e) not in PORTED_EXPRS:
+        raise NotOnGpu(f"expression {type(e).__name__} in a CPU stage "
+                       f"({why}), which the port's CPU engine does not run")
+    if isinstance(e, Cast) and not cast_supported(e.child.dataType, e.to):
+        raise NotOnGpu(f"cast {e.child.dataType.simpleString} -> "
+                       f"{e.to.simpleString} in a CPU stage ({why})")
+    if isinstance(e.dataType, (T.StringType, T.BinaryType, T.TimestampType,
+                               T.ArrayType, T.MapType)):
+        raise NotOnGpu(f"type {e.dataType.simpleString} in a CPU stage "
+                       f"({why})")
+    for c in e.children:
+        _check_expr(c, why)
+
+
+def check_cpu_plan(node: PN.SparkPlan, why: str) -> None:
+    """Raise ``NotOnGpu`` unless this engine runs ``node`` and its
+    expressions (its children are checked where they are converted);
+    ``why`` is the reason the node is not on the device."""
+    exprs = {PN.LocalTableScan: [], PN.Union: [],
+             PN.Filter: [getattr(node, "condition", None)],
+             PN.Project: list(getattr(node, "exprs", []))
+             }.get(type(node))
+    if exprs is None:
+        raise NotOnGpu(f"{node.node_name} in a CPU stage ({why}), which "
+                       "the port's CPU engine does not run")
+    for e in exprs:
+        _check_expr(e, why)
+
+
+def execute_cpu_plan(plan: PN.SparkPlan,
+                     ansi: bool = False) -> Tuple[CpuBatch, int]:
+    """Run a CPU plan; returns (columns, row count)."""
+    if hasattr(plan, "materialize_cpu"):
+        # TpuMaterializedScan: the device subtree under a CPU node
+        return plan.materialize_cpu()
+    if isinstance(plan, PN.LocalTableScan):
+        cols = [CpuCol.from_host(h) for h in plan.host_columns]
+        return cols, (cols[0].n if cols else 0)
+    if isinstance(plan, PN.Project):
+        cols, n = execute_cpu_plan(plan.child, ansi)
+        return [eval_expr(e, cols, n, ansi) for e in plan.exprs], n
+    if isinstance(plan, PN.Filter):
+        cols, n = execute_cpu_plan(plan.child, ansi)
+        pred = eval_expr(plan.condition, cols, n, ansi)
+        keep = pred.values.astype(bool) & pred.validity
+        return [c.take(keep) for c in cols], int(keep.sum())
+    if isinstance(plan, PN.Union):
+        parts = [execute_cpu_plan(c, ansi) for c in plan.children]
+        cols = [CpuCol.concat([p[0][i] for p in parts])
+                for i in range(len(parts[0][0]))]
+        return cols, sum(p[1] for p in parts)
+    raise NotOnGpu(f"plan node {plan.node_name} in a CPU stage")

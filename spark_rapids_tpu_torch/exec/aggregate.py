@@ -8,13 +8,16 @@ equal consecutive keys form segments, and the segmented reductions of
 ``ops/segment.py`` reduce each segment.  The group count is a host sync
 per aggregated batch (the reference syncs it too, to size its output).
 Sums are exact in int64, decimal sums above 18 digits exact in 128-bit
-limbs and null past their precision; float sums add in the card's order.
+limbs and null past their precision (an error under ANSI); float sums add
+in the card's order.
 
 The plan rewrite builds the exec only in COMPLETE mode.  Each input batch
 is reduced to a buffer (one row per group) as it arrives; several buffers
 are concatenated once and reduced once more, with merge semantics (counts
-add).  For these functions the buffer schema is the output schema, so no
-finalize pass follows.  Each input batch is reduced under ``with_retry``
+add).  A buffer has the output's columns plus an overflow flag for each
+decimal sum above 18 digits, so a sum that overflowed in one batch stays
+null through the merge (Spark's sum buffer keeps the same flag); the
+finish drops the flags.  Each input batch is reduced under ``with_retry``
 over a spillable handle, as in the reference.  The reference's
 PARTIAL/FINAL twins, pairwise merges and finalize let it spill buffers
 between merges, which the port does not do: the buffers stay on the card
@@ -137,18 +140,55 @@ class TpuHashAggregateExec(TpuExec):
         if not bufs:
             out = (empty_batch(self._output, self._device()) if self.grouping
                    else self._global_agg_empty())
-        elif len(bufs) == 1:
-            out = bufs[0]
         else:
-            out = self._merge_batch(ColumnarBatch.concat(bufs))
+            out = self._finish(bufs[0] if len(bufs) == 1 else
+                               self._merge_batch(ColumnarBatch.concat(bufs)))
         yield out
+
+    def _flagged(self) -> List[int]:
+        """Positions of the aggregates whose buffer carries an overflow
+        flag: the decimal sums above 18 digits."""
+        k = len(self.grouping)
+        return [i for i, (a, f) in enumerate(zip(
+            self.aggregates, self._output.fields[k:]))
+            if a.func == "sum" and isinstance(f.dataType, T.DecimalType)
+            and (f.dataType.is_128 or (a.child is not None and isinstance(
+                a.child.dataType, T.DecimalType)
+                and a.child.dataType.is_128))]
+
+    def _buffer_schema(self) -> T.StructType:
+        return T.StructType(list(self._output.fields) + [
+            T.StructField(f"_overflow{i}", T.BOOLEAN, False)
+            for i in self._flagged()])
 
     def _merge_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
         """Buffer rows -> one row per group (the reference's ``_merge_fn``):
-        counts add, sums add, min/max take min/max."""
+        counts add, sums add, min/max take min/max, overflow flags OR."""
         k = len(self.grouping)
-        return self._reduce(batch.columns[:k], batch.columns[k:],
-                            batch.row_mask, True)
+        m = len(self.aggregates)
+        return self._reduce(batch.columns[:k], batch.columns[k:k + m],
+                            batch.row_mask, True, batch.columns[k + m:])
+
+    def _finish(self, buf: ColumnarBatch) -> ColumnarBatch:
+        """A buffer -> the output: a sum whose flag is set is null, or under
+        ANSI an error (one host sync, only under ANSI)."""
+        k = len(self.grouping)
+        n_out = len(self._output.fields)
+        cols = list(buf.columns[:n_out])
+        flags = buf.columns[n_out:]
+        if self.ansi and flags:
+            from spark_rapids_tpu_torch.expr.base import (
+                SparkArithmeticException)
+
+            (hit,) = sync_get(torch.stack([f.data.any() for f in flags]))
+            if hit.any():
+                raise SparkArithmeticException(
+                    "decimal sum overflow (ANSI)")
+        for i, f in zip(self._flagged(), flags):
+            c = cols[k + i]
+            cols[k + i] = DeviceColumn(c.dtype, c.validity & ~f.data,
+                                       data=c.data)
+        return ColumnarBatch(cols, buf.num_rows, self._output)
 
     def _aggregate_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
         """Input rows -> one buffer row per group: pre_ops in mask mode,
@@ -160,7 +200,7 @@ class TpuHashAggregateExec(TpuExec):
         ctx.batch = batch
         keys = [g.eval_tpu(ctx) for g in self.grouping]
         inputs = [self._input_col(a, ctx) for a in self.aggregates]
-        out = self._reduce(keys, inputs, mask, False)
+        out = self._reduce(keys, inputs, mask, False, [])
         ctx.check_errors()
         return out
 
@@ -174,27 +214,37 @@ class TpuHashAggregateExec(TpuExec):
                                                 device=dev))
         return a.child.eval_tpu(ctx)
 
-    def _reduce(self, keys, inputs, mask, merge: bool) -> ColumnarBatch:
+    def _reduce(self, keys, inputs, mask, merge: bool,
+                flags_in) -> ColumnarBatch:
+        """Rows (or, with ``merge``, buffer rows and their overflow flags
+        ``flags_in``) -> one buffer row per group."""
         g = _group(keys, mask)
         out: List[DeviceColumn] = []
         if g.perm is not None:
             rows = g.perm[g.first]
-            out += [DeviceColumn(kc.dtype, kc.validity[rows],
-                                 data=kc.data[rows]) for kc in keys]
+            out += [kc.gather(rows) for kc in keys]
         fields = self._output.fields[len(keys):]
+        flags = []
         for a, c, f in zip(self.aggregates, inputs, fields):
-            col = self._eval_agg(a, f, c, g, merge)
-            out.append(DeviceColumn(col.dtype, col.validity[:g.num_groups],
-                                    data=col.data[:g.num_groups]))
-        return ColumnarBatch(out, g.num_groups, self._output)
+            col, flag = self._eval_agg(a, f, c, g, merge)
+            out.append(col.slice(0, g.num_groups))
+            if flag is not None:
+                flags.append(flag)
+        for j, fin in enumerate(flags_in):
+            fs = fin.data if g.perm is None else fin.data[g.perm]
+            flags[j] = flags[j] | (SEG.seg_count(fs & g.mask_sorted, g.seg,
+                                                 g.nseg) > 0)
+        out += [DeviceColumn(T.BOOLEAN, torch.ones_like(fl), data=fl)
+                .slice(0, g.num_groups) for fl in flags]
+        return ColumnarBatch(out, g.num_groups, self._buffer_schema())
 
     def _eval_agg(self, a: AggregateExpression, f: T.StructField,
-                  c: DeviceColumn, g: _Groups, merge: bool) -> DeviceColumn:
-        """One aggregate over the groups.  Update semantics for raw rows;
-        with ``merge`` the input is a buffer (the reference's
-        ``_eval_merge``): a count buffer is summed."""
-        cs = c if g.perm is None else DeviceColumn(
-            c.dtype, c.validity[g.perm], data=c.data[g.perm])
+                  c: DeviceColumn, g: _Groups, merge: bool):
+        """One aggregate over the groups -> (column, overflow flag or
+        None).  Update semantics for raw rows; with ``merge`` the input is
+        a buffer (the reference's ``_eval_merge``): a count buffer is
+        summed."""
+        cs = c if g.perm is None else c.gather(g.perm)
         validity = cs.validity & g.mask_sorted
         nseg, seg = g.nseg, g.seg
         func = "count" if a.func == "count_star" else a.func
@@ -205,19 +255,20 @@ class TpuHashAggregateExec(TpuExec):
             else:
                 cnt = SEG.seg_count(validity, seg, nseg)
             return DeviceColumn(T.LONG, torch.ones_like(cnt, dtype=torch.bool),
-                                data=cnt)
+                                data=cnt), None
         dt = f.dataType
         if func == "sum":
             if isinstance(dt, T.DecimalType) and (dt.is_128 or cs.is_dec128):
                 return _sum_dec128(cs, validity, seg, nseg, dt)
             s, has = SEG.seg_sum(_sum_input(cs, dt), validity, seg, nseg)
-            return DeviceColumn(dt, has, data=s.to(column_torch_dtype(dt)))
+            return DeviceColumn(dt, has, data=s.to(column_torch_dtype(dt))), \
+                None
         if func in ("min", "max"):
             if cs.is_dec128:
-                return _minmax_dec128(cs, func, seg, validity, nseg, dt)
+                return _minmax_dec128(cs, func, seg, validity, nseg, dt), None
             fn = SEG.seg_min if func == "min" else SEG.seg_max
             m, has = fn(cs.data, validity, seg, nseg, _is_float(dt))
-            return DeviceColumn(dt, has, data=m)
+            return DeviceColumn(dt, has, data=m), None
         raise NotImplementedError(f"aggregate {func} is not ported yet")
 
     def _global_agg_empty(self) -> ColumnarBatch:
@@ -245,17 +296,18 @@ def _sum_input(c: DeviceColumn, out_dtype: Optional[T.DataType]):
 
 
 def _sum_dec128(c: DeviceColumn, validity, seg, nseg: int,
-                dt: T.DecimalType) -> DeviceColumn:
+                dt: T.DecimalType):
     """Sum of a decimal column into a result above 18 digits (or over
-    128-bit input): exact 128-bit limb sums; a sum past 10^precision is
-    null (Spark's nullOnOverflow)."""
+    128-bit input): exact 128-bit limb sums -> (the sums, valid where a
+    group has a value; the overflow flag, set where a sum is past
+    10^precision, which the finish turns into Spark's null)."""
     from spark_rapids_tpu_torch.expr import decimal128 as D
 
     hi, lo = D.column_limbs(c)
     ok, has, sh, sl = D.sum128_segments(hi, lo, validity, seg, nseg)
     ok = ok & D.in_bounds(sh, sl, dt.precision)
     data = D.pack(sh, sl) if dt.is_128 else sl
-    return DeviceColumn(dt, has & ok, data=data)
+    return DeviceColumn(dt, has, data=data), has & ~ok
 
 
 def _minmax_dec128(c: DeviceColumn, func: str, seg, validity, nseg: int,

@@ -1,5 +1,5 @@
-"""Scan / Project / Filter and whole-stage fusion — port of the Q6 part of
-``spark_rapids_tpu/exec/basic.py``.
+"""Scan / Project / Filter / Union and whole-stage fusion — port of the
+part of ``spark_rapids_tpu/exec/basic.py`` that the port's queries use.
 
 ``TpuStageExec`` runs a chain of narrow ops (project/filter) over each
 batch.  The reference traces the chain into one XLA program; the port runs
@@ -239,3 +239,24 @@ class TpuLocalTableScanExec(TpuExec):
             yield ColumnarBatch(cols, end - start, self._schema)
             if n == 0:
                 break
+
+
+class TpuUnionExec(TpuExec):
+    """UNION ALL: each child's batches in turn."""
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def aot_output_rows(self):
+        out = []
+        for c in self.children:
+            rows = c.aot_output_rows()
+            if rows is None:
+                return None
+            out.extend(rows)
+        return out
+
+    def execute_columnar(self):
+        for c in self.children:
+            yield from c.execute_columnar()

@@ -191,8 +191,8 @@ class Multiply(BinaryArithmetic):
         lt: T.DecimalType = self.left.dataType
         rt: T.DecimalType = self.right.dataType
         if lt.is_128 or rt.is_128:
-            # 128x128 needs 256-bit intermediates; the plan rewrite rejects
-            # it first (overrides._check_decimal_mult)
+            # 128x128 needs 256-bit intermediates; the plan rewrite tags
+            # it for a CPU stage first (overrides/meta._check_decimal_mult)
             raise NotImplementedError("decimal multiply operands > 18 digits")
         if dt.is_128:
             from spark_rapids_tpu_torch.expr import decimal128 as D

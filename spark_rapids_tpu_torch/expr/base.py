@@ -162,6 +162,10 @@ class Expression:
         from spark_rapids_tpu_torch.expr.predicates import IsNull
         return IsNull(self)
 
+    def is_not_null(self):
+        from spark_rapids_tpu_torch.expr.predicates import IsNotNull
+        return IsNotNull(self)
+
     def cast(self, dt: T.DataType):
         from spark_rapids_tpu_torch.expr.cast import Cast
         return Cast(self, dt)

@@ -16,6 +16,15 @@ from spark_rapids_tpu_torch.expr.base import EvalContext, UnaryExpression
 _INTEGRAL = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
 
 
+def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
+    """The casts the port runs, on the device and in a CPU stage."""
+    return (src == dst
+            or (isinstance(src, _INTEGRAL)
+                and isinstance(dst, _INTEGRAL + (T.DecimalType,)))
+            or (isinstance(src, T.DecimalType)
+                and isinstance(dst, T.DecimalType)))
+
+
 class Cast(UnaryExpression):
     def __init__(self, child, to: T.DataType, ansi: bool = False):
         super().__init__(child)

@@ -1,6 +1,14 @@
 """File scan exec — port of ``TpuFileSourceScanExec``
-(``spark_rapids_tpu/io/scan.py``) for Parquet in PERFILE mode: one device
-batch per file, decoded on the device (``io/parquet_device.py``).
+(``spark_rapids_tpu/io/scan.py``) for Parquet with device decode: one
+device batch per file, decoded on the device (``io/parquet_device.py``).
+
+The reader type (``spark.rapids.sql.format.parquet.reader.type``) resolves
+as the reference's ``_mode`` does: AUTO is MULTITHREADED for more than one
+file and COALESCING for one.  With device decode on, the reference decodes
+every file on the device, in order, in every mode; only host-decoded files
+go to its thread pool, its batch stitch or its prefetch ring.  The port
+reads the same way in every mode.  Host decode (``decode.device=false``)
+needs pyarrow in the reference and raises here.
 
 The reference's ``_try_device_decode`` catches any decoder failure and
 re-reads the file with pyarrow on the host.  The port has no such path: an
@@ -17,6 +25,8 @@ from spark_rapids_tpu_torch.config import (PARQUET_COMPRESSED_TRANSFER,
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.plan.nodes import FileSourceScan
 
+READER_TYPES = ("AUTO", "PERFILE", "COALESCING", "MULTITHREADED")
+
 
 class TpuFileSourceScanExec(TpuExec):
     def __init__(self, plan: FileSourceScan, conf: TpuConf, device):
@@ -27,14 +37,13 @@ class TpuFileSourceScanExec(TpuExec):
         self.conf = conf
         self.device = device
         self.reader_type = str(conf.get(PARQUET_READER_TYPE)).upper()
-        if self.reader_type != "PERFILE":
-            raise NotOnGpu(
-                f"parquet reader type {self.reader_type} is not ported; set "
-                f"{PARQUET_READER_TYPE.key}=PERFILE")
+        if self.reader_type not in READER_TYPES:
+            raise NotOnGpu(f"parquet reader type {self.reader_type}")
         if not conf.get(PARQUET_DEVICE_DECODE):
             raise NotOnGpu(
-                "host Parquet decode is not ported; set "
-                f"{PARQUET_DEVICE_DECODE.key}=true")
+                "host Parquet decode is not ported (the reference decodes "
+                "on the host with pyarrow, which the port does not depend "
+                f"on); set {PARQUET_DEVICE_DECODE.key}=true")
 
     @property
     def output(self):
@@ -42,7 +51,12 @@ class TpuFileSourceScanExec(TpuExec):
 
     def describe(self):
         return (f"TpuFileSourceScan {self.plan.fmt} "
-                f"{len(self.plan.paths)} files mode={self.reader_type}")
+                f"{len(self.plan.paths)} files mode={self._mode()}")
+
+    def _mode(self) -> str:
+        if self.reader_type != "AUTO":
+            return self.reader_type
+        return "MULTITHREADED" if len(self.plan.paths) > 1 else "COALESCING"
 
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
         from spark_rapids_tpu_torch.io.parquet_device import (

@@ -29,14 +29,25 @@ import torch
 
 from spark_rapids_tpu_torch import perfcounters as PC
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.column import rebuild_column
 from spark_rapids_tpu_torch.config import (HOST_SPILL_STORAGE_SIZE, SPILL_DIR,
                                            TpuConf)
 
 STATE_DEVICE = "DEVICE"
 STATE_HOST = "HOST"
 STATE_DISK = "DISK"
-_BUFFERS = ("validity", "data")
+
+
+def buffer_names(dt: T.DataType, prefix: str = "") -> List[str]:
+    """Names of a column's buffers in ``DeviceColumn.tensors`` order:
+    ``validity`` and ``data``, and for a struct the validity and then
+    each child's buffers under ``<field index>.``."""
+    if isinstance(dt, T.StructType):
+        return [prefix + "validity"] + [
+            n for j, f in enumerate(dt.fields)
+            for n in buffer_names(f.dataType, f"{prefix}{j}.")]
+    return [prefix + "validity", prefix + "data"]
 
 
 class SpillCorruption(RuntimeError):
@@ -110,6 +121,19 @@ class SpillableColumnarBatch:
                 self._host_to_device_locked()
             return self._batch
 
+    def get_rows(self, start: int, length: int) -> ColumnarBatch:
+        """Rows ``[start, start + length)`` on the device without bringing
+        the whole batch back: views of a device-resident batch, or an
+        upload of just those rows from the host tier (a batch on disk
+        comes up to the host first).  Touches the LRU clock."""
+        with self._framework._lock:
+            self._framework._touch_locked(self)
+            if self.state == STATE_DISK:
+                self._disk_to_host_locked()
+            if self.state == STATE_DEVICE:
+                return self._batch.slice_rows(start, length)
+            return self._upload_rows(start, start + length)
+
     def pin(self) -> "SpillableColumnarBatch":
         with self._framework._lock:
             self.pinned += 1
@@ -142,30 +166,35 @@ class SpillableColumnarBatch:
     # -- tier moves (framework lock held) --------------------------------
     def _device_to_host_locked(self) -> int:
         assert self.state == STATE_DEVICE
-        flat = [getattr(c, k) for c in self._batch.columns for k in _BUFFERS]
-        host = copy_to_host(flat)
-        self._host = [dict(zip(_BUFFERS, host[2 * i: 2 * i + 2]))
-                      for i in range(len(self._batch.columns))]
+        host = iter(copy_to_host([t for c in self._batch.columns
+                                  for t in c.tensors()]))
+        self._host = [{k: next(host) for k in buffer_names(dt)}
+                      for dt in self.dtypes]
         self._batch = None
         self.state = STATE_HOST
         return self.device_bytes
 
     def _host_to_device_locked(self) -> None:
         assert self.state == STATE_HOST
-        cols = []
-        for dt, entry in zip(self.dtypes, self._host):
-            up = {}
-            for k in _BUFFERS:
-                t = entry[k]
-                PC.count_h2d(t.numel() * t.element_size())
-                up[k] = t.to(self.device, non_blocking=t.is_pinned())
-            cols.append(DeviceColumn(dt, up["validity"], data=up["data"]))
-        self._batch = ColumnarBatch(cols, self.num_rows, self.schema)
+        self._batch = self._upload_rows(0, self.num_rows)
         self._host = None
         self.state = STATE_DEVICE
         fw = self._framework
         fw._device_used += self.device_bytes
         fw._device_used_peak = max(fw._device_used_peak, fw._device_used)
+
+    def _upload_rows(self, start: int, end: int) -> ColumnarBatch:
+        """Host rows ``[start, end)`` uploaded (non-blocking from pinned
+        memory), counted in ``bytes_h2d``."""
+        cols = []
+        for dt, entry in zip(self.dtypes, self._host):
+            up = []
+            for k in buffer_names(dt):
+                t = entry[k][start:end]
+                PC.count_h2d(t.numel() * t.element_size())
+                up.append(t.to(self.device, non_blocking=t.is_pinned()))
+            cols.append(rebuild_column(dt, iter(up)))
+        return ColumnarBatch(cols, end - start, self.schema)
 
     def _host_to_disk_locked(self) -> int:
         assert self.state == STATE_HOST
@@ -189,8 +218,9 @@ class SpillableColumnarBatch:
         assert self.state == STATE_DISK
         try:
             with np.load(self._disk_path) as loaded:
-                host_np = [{k: loaded[f"c{i}_{k}"] for k in _BUFFERS}
-                           for i in range(len(self.dtypes))]
+                host_np = [{k: loaded[f"c{i}_{k}"]
+                            for k in buffer_names(dt)}
+                           for i, dt in enumerate(self.dtypes)]
         except Exception as e:
             # the zip container itself rejected the bytes (a flipped byte
             # in a compressed member): the same corruption

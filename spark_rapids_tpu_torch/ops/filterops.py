@@ -1,5 +1,6 @@
 """Stream compaction and row gathers — port of
-``spark_rapids_tpu/ops/filterops.py`` for flat columns.
+``spark_rapids_tpu/ops/filterops.py`` for flat and struct columns (a
+struct's children move with it).
 
 The reference compacts with a cumsum and a scatter into a padded batch and
 hands the kept count back on the device.  A port batch holds exactly its
@@ -30,5 +31,4 @@ def gather_columns(indices: torch.Tensor, cols: List[DeviceColumn]
     """Row gather: ``out[i] = col[indices[i]]``, indices in ``[0, rows)``.
     (The reference's ``valid_out``, which nulls the rows an outer join
     pads, waits for the outer joins.)"""
-    return [DeviceColumn(c.dtype, c.validity[indices], data=c.data[indices])
-            for c in cols]
+    return [c.gather(indices) for c in cols]

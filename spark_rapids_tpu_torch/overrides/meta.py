@@ -1,0 +1,394 @@
+"""The tagging tree over the CPU plan — port of
+``spark_rapids_tpu/overrides/meta.py`` (``ExprMeta``, ``SparkPlanMeta``)
+with the rules of ``spark_rapids_tpu/overrides/overrides.py`` for the
+expressions and plan nodes the port builds (``EXPRESSIONS``, ``EXECS``).
+
+Every plan node and expression is wrapped in a meta; ``tag_for_tpu``
+records the reference's own reasons why a node will not work on the
+device: a type its ``TypeSig`` rejects, a nested type the device layout
+lacks, ``spark.rapids.sql.exec.<Name>=false`` or
+``spark.rapids.sql.expression.<Name>=false``, and the extra checks (a
+decimal multiply above 18 digits, an add or subtract past 38 digits, a
+decimal128 cast pair, a decimal128 hash key, a disabled file format).  A
+node with a reason stays on the host as a CPU stage (``cpu/oracle.py``);
+``explain`` prints the reasons in the reference's words.  What the
+reference runs on the device but the port has not ported yet is not a
+reason here: the conversion raises ``NotOnGpu`` for it
+(``overrides/overrides.py``).  The reference's circuit breaker, profile
+advisor and host-kernel check are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Type
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.expr import arithmetic as A
+from spark_rapids_tpu_torch.expr import complextypes as CT
+from spark_rapids_tpu_torch.expr import conditional as CO
+from spark_rapids_tpu_torch.expr import predicates as P
+from spark_rapids_tpu_torch.expr.base import (Alias, AttributeReference,
+                                              BoundReference, Expression,
+                                              Literal)
+from spark_rapids_tpu_torch.expr.cast import Cast
+from spark_rapids_tpu_torch.plan import nodes as PN
+
+
+#: The expressions the port runs, on the device and in a CPU stage
+#: (``cpu/oracle.py`` has a handler for each); by exact type.
+PORTED_EXPRS = frozenset({
+    BoundReference, Literal, Alias,
+    P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
+    P.GreaterThanOrEqual, P.And, P.Or, P.Not, P.IsNull, P.IsNotNull,
+    CO.Coalesce, CO.Nvl, A.Add, A.Subtract, A.Multiply, Cast,
+    CT.GetStructField, CT.CreateNamedStruct})
+
+class BaseMeta:
+    def __init__(self, conf: TpuConf):
+        self.conf = conf
+        self.cannot_run_reasons: List[str] = []
+        self.child_metas: List[BaseMeta] = []
+
+    def will_not_work_on_tpu(self, reason: str):
+        if reason not in self.cannot_run_reasons:
+            self.cannot_run_reasons.append(reason)
+
+    @property
+    def can_this_run(self) -> bool:
+        return not self.cannot_run_reasons
+
+    @property
+    def can_run_with_children(self) -> bool:
+        return self.can_this_run and all(
+            m.can_run_with_children for m in self.child_metas)
+
+
+class ExprMeta(BaseMeta):
+    """Meta for one expression node."""
+
+    def __init__(self, expr: Expression, conf: TpuConf, rule):
+        super().__init__(conf)
+        self.expr = expr
+        self.rule = rule
+        self.child_metas = [wrap_expr(c, conf) for c in expr.children]
+
+    @property
+    def name(self) -> str:
+        return type(self.expr).__name__
+
+    def tag_for_tpu(self):
+        for m in self.child_metas:
+            m.tag_for_tpu()
+        if self.rule is None:
+            self.will_not_work_on_tpu(
+                f"expression {self.name} is not supported on TPU")
+            return
+        if not self.conf.is_op_enabled(self.name, "expression"):
+            self.will_not_work_on_tpu(
+                f"expression {self.name} has been disabled by "
+                f"spark.rapids.sql.expression.{self.name}=false")
+        sig: T.TypeSig = self.rule.type_sig
+        dt = self.expr._dataType
+        if dt is not None and not sig.supports(dt):
+            self.will_not_work_on_tpu(
+                f"expression {self.name} produces an unsupported type: "
+                + sig.reason_not_supported(dt))
+        for c in self.expr.children:
+            cdt = c._dataType
+            if cdt is not None and not sig.supports(cdt) \
+                    and not isinstance(cdt, T.NullType):
+                self.will_not_work_on_tpu(
+                    f"expression {self.name} input: "
+                    + sig.reason_not_supported(cdt))
+        for d in [dt] + [c._dataType for c in self.expr.children]:
+            reason = None if d is None else unsupported_nested_reason(d)
+            if reason:
+                self.will_not_work_on_tpu(f"expression {self.name}: {reason}")
+                break
+        if self.rule.extra_check is not None:
+            self.rule.extra_check(self)
+
+    def all_reasons(self) -> List[str]:
+        out = list(self.cannot_run_reasons)
+        for m in self.child_metas:
+            out.extend(m.all_reasons())
+        return out
+
+
+class SparkPlanMeta(BaseMeta):
+    """Meta for one plan node."""
+
+    def __init__(self, plan: PN.SparkPlan, conf: TpuConf, rule):
+        super().__init__(conf)
+        self.plan = plan
+        self.rule = rule
+        self.child_metas = [wrap_plan(c, conf) for c in plan.children]
+        self.expr_metas: List[ExprMeta] = []
+
+    @property
+    def name(self) -> str:
+        return type(self.plan).__name__
+
+    def tag_for_tpu(self):
+        for m in self.child_metas:
+            m.tag_for_tpu()
+        if self.rule is None:
+            self.will_not_work_on_tpu(
+                f"exec {self.name} is not supported on TPU")
+            return
+        if not self.conf.is_op_enabled(self.name, "exec"):
+            self.will_not_work_on_tpu(
+                f"exec {self.name} has been disabled by "
+                f"spark.rapids.sql.exec.{self.name}=false")
+        sig: T.TypeSig = self.rule.type_sig
+        for f in self.plan.output.fields:
+            if not sig.supports(f.dataType):
+                self.will_not_work_on_tpu(
+                    f"exec {self.name} output column '{f.name}': "
+                    + sig.reason_not_supported(f.dataType))
+            else:
+                reason = unsupported_nested_reason(f.dataType)
+                if reason:
+                    self.will_not_work_on_tpu(
+                        f"exec {self.name} output column '{f.name}': "
+                        + reason)
+        self.expr_metas = [wrap_expr(e, self.conf)
+                           for e in _exprs_of(self.plan) if e is not None]
+        for em in self.expr_metas:
+            em.tag_for_tpu()
+            if not em.can_run_with_children:
+                for r in em.all_reasons():
+                    self.will_not_work_on_tpu(r)
+        if self.rule.extra_check is not None:
+            self.rule.extra_check(self)
+
+    def explain(self, indent: int = 0, only_fallback: bool = True) -> str:
+        lines = []
+        pad = "  " * indent
+        if self.can_this_run:
+            if not only_fallback:
+                lines.append(f"{pad}*{self.name} will run on TPU")
+        else:
+            reasons = "; ".join(self.cannot_run_reasons)
+            lines.append(f"{pad}!{self.name} cannot run on TPU because "
+                         f"{reasons}")
+        for m in self.child_metas:
+            sub = m.explain(indent + 1, only_fallback)
+            if sub:
+                lines.append(sub)
+        return "\n".join(l for l in lines if l)
+
+
+# ---------------------------------------------------------------------------
+# Rules
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ExprRule:
+    type_sig: T.TypeSig
+    extra_check: Optional[Callable[[ExprMeta], None]] = None
+
+
+@dataclasses.dataclass
+class ExecRule:
+    type_sig: T.TypeSig
+    extra_check: Optional[Callable[[SparkPlanMeta], None]] = None
+
+
+_COMMON = (T.BOOLEAN_SIG + T.numeric + T.STRING_SIG + T.DATETIME_SIG
+           + T.NULL_SIG)
+_COMMON128 = _COMMON + T.DECIMAL_128_SIG.with_max_decimal(18)
+_DEC128_FULL = _COMMON + T.DECIMAL_128_SIG
+_NUM128 = T.numeric + T.NULL_SIG + T.DECIMAL_128_SIG
+_ARRAY_SIG = T.TypeSig(frozenset({T.ArrayType}), 18)
+_WITH_ARRAYS = _DEC128_FULL + _ARRAY_SIG
+_WITH_MAPS = (T.TypeSig(frozenset({T.MapType, T.ArrayType}))
+              + T.BOOLEAN_SIG + T.INTEGRAL_SIG + T.FP_SIG
+              + T.DATETIME_SIG + T.NULL_SIG)
+_STRUCT_SIG = (T.TypeSig(frozenset({T.StructType})) + T.BOOLEAN_SIG
+               + T.INTEGRAL_SIG + T.FP_SIG + T.STRING_SIG
+               + T.DATETIME_SIG + T.NULL_SIG)
+_WITH_NESTED = _WITH_ARRAYS + T.TypeSig(frozenset({T.StructType,
+                                                   T.MapType}))
+
+_PRIM_ELEM = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
+              T.LongType, T.FloatType, T.DoubleType, T.DateType,
+              T.TimestampType)
+
+
+def unsupported_nested_reason(dt: T.DataType) -> Optional[str]:
+    """Why a nested type cannot live in device columns, or None (the
+    reference's rule for rules that do not opt in to string arrays or
+    struct entries): array elements and map keys and values must be flat
+    primitives, struct fields must not nest."""
+    if isinstance(dt, T.ArrayType):
+        et = dt.elementType
+        if isinstance(et, T.DecimalType):
+            return None if not et.is_128 else \
+                f"{dt.simpleString}: decimal128 array elements"
+        if not isinstance(et, _PRIM_ELEM):
+            return (f"{dt.simpleString}: array elements must be flat "
+                    f"primitives on TPU (array<string> needs a rule that "
+                    f"opts in)")
+        return None
+    if isinstance(dt, T.MapType):
+        for part, name in ((dt.keyType, "key"), (dt.valueType, "value")):
+            if isinstance(part, T.DecimalType):
+                if part.is_128:
+                    return f"{dt.simpleString}: decimal128 map {name}s"
+            elif not isinstance(part, _PRIM_ELEM):
+                return (f"{dt.simpleString}: map {name}s must be flat "
+                        f"primitives on TPU")
+        return None
+    if isinstance(dt, T.StructType):
+        for f in dt.fields:
+            if isinstance(f.dataType, (T.ArrayType, T.MapType,
+                                       T.StructType)):
+                return (f"{dt.simpleString}: nested field "
+                        f"{f.name} inside a struct")
+    return None
+
+
+def _check_decimal_mult(meta: ExprMeta):
+    for side in (meta.expr.left, meta.expr.right):
+        dt = side._dataType
+        if isinstance(dt, T.DecimalType) and dt.precision > 18:
+            meta.will_not_work_on_tpu(
+                "decimal multiply with an operand above 18 digits is not "
+                "supported on TPU (needs 256-bit intermediates)")
+
+
+def _check_decimal_addsub(meta: ExprMeta):
+    lt, rt = meta.expr.left._dataType, meta.expr.right._dataType
+    if isinstance(lt, T.DecimalType) and isinstance(rt, T.DecimalType):
+        s = max(lt.scale, rt.scale)
+        p = max(lt.precision - lt.scale, rt.precision - rt.scale) + s + 1
+        if p > 38:
+            meta.will_not_work_on_tpu(
+                "decimal add/subtract result exceeds 38 digits "
+                "(precision-loss rescale not implemented on TPU)")
+
+
+def _is_dec128(dt) -> bool:
+    return isinstance(dt, T.DecimalType) and dt.precision > 18
+
+
+def _cast_kind(t) -> str:
+    if isinstance(t, T.DecimalType):
+        return "dec"
+    if isinstance(t, (T.ByteType, T.ShortType, T.IntegerType, T.LongType)):
+        return "int"
+    if isinstance(t, (T.FloatType, T.DoubleType)):
+        return "fp"
+    return "other"
+
+
+def _check_cast(meta: ExprMeta):
+    """The reference's decimal128 pairs (its ``cast_supported`` table is
+    the port's gap check: the port runs a narrower set of casts)."""
+    e = meta.expr
+    src = e.child._dataType
+    if src is None or not (_is_dec128(src) or _is_dec128(e.to)):
+        return
+    if (_cast_kind(src), _cast_kind(e.to)) not in {
+            ("dec", "dec"), ("int", "dec"), ("dec", "int"), ("dec", "fp")}:
+        meta.will_not_work_on_tpu(
+            f"cast {src.simpleString} -> {e.to.simpleString} above 18 "
+            f"decimal digits is not supported on TPU")
+
+
+EXPRESSIONS: Dict[Type, ExprRule] = {
+    Literal: ExprRule(_WITH_ARRAYS),
+    BoundReference: ExprRule(_WITH_ARRAYS + _WITH_MAPS),
+    AttributeReference: ExprRule(_WITH_ARRAYS + _WITH_MAPS),
+    Alias: ExprRule(_WITH_ARRAYS + _WITH_MAPS
+                    + T.TypeSig(frozenset({T.StructType}))),
+    A.Add: ExprRule(_NUM128, _check_decimal_addsub),
+    A.Subtract: ExprRule(_NUM128, _check_decimal_addsub),
+    A.Multiply: ExprRule(_NUM128, _check_decimal_mult),
+    P.EqualTo: ExprRule(_DEC128_FULL), P.LessThan: ExprRule(_DEC128_FULL),
+    P.LessThanOrEqual: ExprRule(_DEC128_FULL),
+    P.GreaterThan: ExprRule(_DEC128_FULL),
+    P.GreaterThanOrEqual: ExprRule(_DEC128_FULL),
+    P.And: ExprRule(T.BOOLEAN_SIG + T.NULL_SIG),
+    P.Or: ExprRule(T.BOOLEAN_SIG + T.NULL_SIG),
+    P.Not: ExprRule(T.BOOLEAN_SIG + T.NULL_SIG),
+    P.IsNull: ExprRule(_WITH_ARRAYS), P.IsNotNull: ExprRule(_WITH_ARRAYS),
+    CO.Coalesce: ExprRule(_COMMON128), CO.Nvl: ExprRule(_COMMON128),
+    Cast: ExprRule(_DEC128_FULL, _check_cast),
+    CT.GetStructField: ExprRule(_STRUCT_SIG + _DEC128_FULL),
+    CT.CreateNamedStruct: ExprRule(_STRUCT_SIG + _DEC128_FULL),
+}
+
+
+def _scan_check(meta: SparkPlanMeta):
+    fmt = meta.plan.fmt
+    key = {"parquet": "spark.rapids.sql.format.parquet.read.enabled",
+           "csv": "spark.rapids.sql.format.csv.read.enabled",
+           "json": "spark.rapids.sql.format.json.read.enabled",
+           "orc": "spark.rapids.sql.format.orc.read.enabled",
+           "avro": "spark.rapids.sql.format.avro.read.enabled"}.get(fmt)
+    if key is None:
+        meta.will_not_work_on_tpu(f"format {fmt} is not supported on TPU")
+    elif str(meta.conf.settings.get(key, "true")).lower() == "false":
+        meta.will_not_work_on_tpu(f"{fmt} reads disabled by {key}=false")
+
+
+def _exchange_check(meta: SparkPlanMeta):
+    p = meta.plan.partitioning
+    if isinstance(p, PN.HashPartitioning):
+        for k in p.keys:
+            if _is_dec128(k._dataType):
+                meta.will_not_work_on_tpu(
+                    "hash partitioning on decimals above 18 digits is not "
+                    "supported on TPU (murmur3 big-integer path missing)")
+
+
+def _exprs_of(plan: PN.SparkPlan) -> List[Expression]:
+    if isinstance(plan, PN.Project):
+        return list(plan.exprs)
+    if isinstance(plan, PN.Filter):
+        return [plan.condition]
+    if isinstance(plan, PN.HashAggregate):
+        return list(plan.grouping) + [a.child for a in plan.aggregates
+                                      if a.child is not None]
+    if isinstance(plan, PN._BaseJoin):
+        out = list(plan.left_keys) + list(plan.right_keys)
+        return out + ([plan.condition] if plan.condition is not None
+                      else [])
+    if isinstance(plan, PN.Sort):
+        return [e for e, _ in plan.orders]
+    if isinstance(plan, PN.Window):
+        out = list(plan.partition_by) + [e for e, _ in plan.order_by]
+        return out + [f.child for f in plan.functions if f.child is not None]
+    if isinstance(plan, PN.Exchange) and isinstance(
+            plan.partitioning, PN.HashPartitioning):
+        return list(plan.partitioning.keys)
+    return []
+
+
+EXECS: Dict[Type, ExecRule] = {
+    PN.LocalTableScan: ExecRule(_WITH_NESTED),
+    PN.FileSourceScan: ExecRule(_DEC128_FULL, _scan_check),
+    PN.Project: ExecRule(_WITH_NESTED),
+    PN.Filter: ExecRule(_WITH_NESTED),
+    PN.HashAggregate: ExecRule(_WITH_ARRAYS),
+    PN.SortMergeJoin: ExecRule(_WITH_ARRAYS),
+    PN.BroadcastHashJoin: ExecRule(_WITH_ARRAYS),
+    PN.Sort: ExecRule(_DEC128_FULL),
+    PN.Window: ExecRule(_COMMON128),
+    PN.Exchange: ExecRule(_DEC128_FULL, _exchange_check),
+    PN.BroadcastExchange: ExecRule(_DEC128_FULL),
+    PN.GlobalLimit: ExecRule(_WITH_ARRAYS),
+    PN.LocalLimit: ExecRule(_WITH_ARRAYS),
+    PN.Union: ExecRule(_WITH_ARRAYS),
+}
+
+
+def wrap_expr(e: Expression, conf: TpuConf) -> ExprMeta:
+    return ExprMeta(e, conf, EXPRESSIONS.get(type(e)))
+
+
+def wrap_plan(plan: PN.SparkPlan, conf: TpuConf) -> SparkPlanMeta:
+    return SparkPlanMeta(plan, conf, EXECS.get(type(plan)))

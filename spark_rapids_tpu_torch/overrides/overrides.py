@@ -1,27 +1,32 @@
-"""Plan rewrite onto the device — the port's merge of
-``spark_rapids_tpu/overrides/overrides.py``, ``overrides/meta.py`` and
-``overrides/transitions.py`` for the nodes of TPC-H Q6, bench qa, qb and
-qc, and the exchanges of the out-of-core path.
+"""Plan rewrite onto the device — the port's
+``spark_rapids_tpu/overrides/overrides.py`` for the nodes of TPC-H Q6,
+bench qa, qb, qc and rung3, and the exchanges of the out-of-core path.
 
-``TpuOverrides.apply`` checks every expression against the ported subset
-(the reference's tagging, including ``_check_decimal_mult``,
-``_window_check`` and ``_exchange_check``), converts each CPU plan node
-into its exec, collapses a two-phase aggregate (Final <- Exchange(hash or
-single partition) <- Partial) into one COMPLETE aggregate as the
-reference's single-device ``_collapse_complete_agg`` does, and wraps a
-shuffled join over two exchanges in the adaptive join when adaptive
-execution is on.  Then it runs the steps of the reference's
-``TpuTransitionOverrides.apply`` that the port has, in its order:
+``TpuOverrides.apply`` wraps the plan in metas and tags them by the
+reference's own rules (``overrides/meta.py``), then converts it bottom up
+as the reference's ``_convert`` does: a node with no reason becomes its
+exec, a CPU child under it becomes a ``TpuRowToColumnarExec``; a node
+with a reason stays a CPU plan node for the port's CPU engine
+(``cpu/oracle.py``), a device child under it becomes a
+``TpuMaterializedScan``.  The conversion keeps two reasons apart: a
+reason of the reference's makes a CPU stage, and what the reference runs
+on the device but the port has not ported yet (``check_expression``,
+``_check_join``, ``_window_check``, a CPU stage the CPU engine cannot
+run) raises ``NotOnGpu``, so a missing port never turns into a CPU stage.
+A two-phase aggregate (Final <- Exchange(hash or single partition) <-
+Partial) collapses into one COMPLETE aggregate as the reference's
+single-device ``_collapse_complete_agg`` does, and a shuffled join over
+two exchanges becomes the adaptive join when adaptive execution is on.
+On a device root the steps of the reference's
+``TpuTransitionOverrides.apply`` that the port has follow, in its order:
 ``size_exchange_partitions`` (grow an exchange whose static input
 estimate is over the per-partition budget), ``_coalesce_single_device_
 shuffle`` (collapse the other hash and round-robin exchanges to one
 partition), ``_insert_coalesce`` (an adaptive shuffle reader over each
 exchange, or a ``TpuCoalesceBatchesExec`` with adaptive execution off),
 ``_rewrite_topn`` (a limit over a sort becomes a top-N) and
-``fuse_stages``.  The reference's
-join-aggregate and window-chain fusions are not ported: their operators
-run one after the other.  Anything outside the subset raises
-``NotOnGpu``: the port has no CPU fallback yet.
+``fuse_stages``.  The reference's join-aggregate and window-chain fusions
+are not ported: their operators run one after the other.
 """
 from __future__ import annotations
 
@@ -39,7 +44,8 @@ from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.exec.basic import (TpuFilterExec,
                                                TpuLocalTableScanExec,
-                                               TpuProjectExec, fuse_stages)
+                                               TpuProjectExec, TpuUnionExec,
+                                               fuse_stages)
 from spark_rapids_tpu_torch.exec.coalesce import (CoalesceGoal,
                                                   TpuCoalesceBatchesExec)
 from spark_rapids_tpu_torch.exec.exchange import (
@@ -53,24 +59,19 @@ from spark_rapids_tpu_torch.exec.limit import (TpuGlobalLimitExec,
 from spark_rapids_tpu_torch.exec.partition_sizing import (
     size_exchange_partitions)
 from spark_rapids_tpu_torch.exec.sort import TpuSortExec, TpuTopNExec
+from spark_rapids_tpu_torch.exec.transitions import TpuRowToColumnarExec
 from spark_rapids_tpu_torch.exec.window import TpuWindowExec
-from spark_rapids_tpu_torch.expr import arithmetic as A
-from spark_rapids_tpu_torch.expr import conditional as CO
-from spark_rapids_tpu_torch.expr import predicates as P
-from spark_rapids_tpu_torch.expr.base import (Alias, BoundReference,
-                                              Expression, Literal)
-from spark_rapids_tpu_torch.expr.cast import _INTEGRAL, Cast
+from spark_rapids_tpu_torch.expr.base import Expression
+from spark_rapids_tpu_torch.expr.cast import Cast, cast_supported
 from spark_rapids_tpu_torch.io.scan import TpuFileSourceScanExec
+from spark_rapids_tpu_torch.overrides.meta import (PORTED_EXPRS,
+                                                   SparkPlanMeta, wrap_plan)
+from spark_rapids_tpu_torch.overrides.transitions import TpuMaterializedScan
 from spark_rapids_tpu_torch.plan import nodes as PN
 
 _FLAT_TYPES = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
                T.LongType, T.FloatType, T.DoubleType, T.DateType,
                T.DecimalType, T.NullType)
-
-_PLAIN_EXPRS = (BoundReference, Literal, Alias, P.EqualTo, P.LessThan,
-                P.LessThanOrEqual, P.GreaterThan, P.GreaterThanOrEqual,
-                P.And, P.Or, P.Not, P.IsNull, P.IsNotNull,
-                CO.Coalesce)     # Nvl too
 
 #: window functions the port runs; the ranking ones ignore the frame
 _WINDOW_RANK_FUNCS = {"row_number", "rank", "dense_rank", "percent_rank",
@@ -79,68 +80,46 @@ _WINDOW_AGG_FUNCS = {"sum", "count", "min", "max"}
 _WINDOW_FRAMES = ("running", "unbounded")
 
 
-def _check_decimal_mult(e: A.Multiply):
-    """128x128 multiply needs 256-bit intermediates; operands above 18
-    digits are not on the device (the reference falls back to the CPU)."""
-    for side in (e.left, e.right):
-        dt = side.dataType
-        if isinstance(dt, T.DecimalType) and dt.precision > 18:
-            raise NotOnGpu("decimal multiply with an operand above 18 "
-                           "digits (needs 256-bit intermediates)")
-
-
-def _check_decimal_addsub(e: A.Add):
-    lt, rt = e.left.dataType, e.right.dataType
-    if isinstance(lt, T.DecimalType) and isinstance(rt, T.DecimalType):
-        s = max(lt.scale, rt.scale)
-        p = max(lt.precision - lt.scale, rt.precision - rt.scale) + s + 1
-        if p > 38:
-            raise NotOnGpu("decimal add/subtract result exceeds 38 digits")
-
-
-def _check_cast(e: Cast):
-    src, dst = e.child.dataType, e.to
-    ok = (src == dst
-          or (isinstance(src, _INTEGRAL)
-              and isinstance(dst, _INTEGRAL + (T.DecimalType,)))
-          or (isinstance(src, T.DecimalType)
-              and isinstance(dst, T.DecimalType)))
-    if not ok:
-        raise NotOnGpu(f"cast {src} -> {dst}")
+def _ported_type(dt: T.DataType) -> bool:
+    if isinstance(dt, T.StructType):
+        return all(_ported_type(f.dataType) for f in dt.fields)
+    return isinstance(dt, _FLAT_TYPES)
 
 
 def check_expression(e: Expression) -> None:
-    """Raise ``NotOnGpu`` unless every node of ``e`` is in the subset."""
+    """Raise ``NotOnGpu`` unless every node of ``e`` is one the port runs
+    on the device (the gaps of the port; the reference's own reasons are
+    tagged in ``overrides/meta.py`` first)."""
     for c in e.children:
         check_expression(c)
-    if not isinstance(e.dataType, _FLAT_TYPES):
+    if not _ported_type(e.dataType):
         raise NotOnGpu(f"type {e.dataType.simpleString} in {e.sql_string()}")
-    if isinstance(e, A.Multiply):
-        _check_decimal_mult(e)
-    elif isinstance(e, A.Add):                  # Subtract too
-        _check_decimal_addsub(e)
-    elif isinstance(e, Cast):
-        _check_cast(e)
-    elif not isinstance(e, _PLAIN_EXPRS):
+    if type(e) not in PORTED_EXPRS:
         raise NotOnGpu(f"expression {e.pretty_name}")
+    if isinstance(e, Cast) and not cast_supported(e.child.dataType, e.to):
+        raise NotOnGpu(f"cast {e.child.dataType} -> {e.to}")
 
 
-def _collapse_complete_agg(node: PN.HashAggregate
-                           ) -> Optional[PN.HashAggregate]:
-    """Final <- Exchange(hash or single partition) <- Partial: the Partial,
-    whose keys and aggregates one COMPLETE aggregate takes over (the
-    exchange only co-locates keys across devices); else None."""
+def _collapse_complete_agg(meta: SparkPlanMeta) -> Optional[SparkPlanMeta]:
+    """Final <- Exchange(hash or single partition) <- Partial, all three
+    on the device: the Partial's meta, whose keys and aggregates one
+    COMPLETE aggregate takes over (the exchange only co-locates keys
+    across devices); else None."""
+    node = meta.plan
     if node.mode != PN.AggregateMode.FINAL:
         return None
-    ex = node.child
+    ex_meta = meta.child_metas[0]
+    ex = ex_meta.plan
     if not (isinstance(ex, PN.Exchange) and isinstance(
             ex.partitioning, (PN.SinglePartitioning, PN.HashPartitioning))):
         return None
-    partial = ex.child
+    partial_meta = ex_meta.child_metas[0]
+    partial = partial_meta.plan
     if not (isinstance(partial, PN.HashAggregate)
-            and partial.mode == PN.AggregateMode.PARTIAL):
+            and partial.mode == PN.AggregateMode.PARTIAL
+            and ex_meta.can_this_run and partial_meta.can_this_run):
         return None
-    return partial
+    return partial_meta
 
 
 def _check_join(node: PN.SparkPlan) -> None:
@@ -158,19 +137,15 @@ def _check_join(node: PN.SparkPlan) -> None:
 
 
 def _exchange_check(node: PN.Exchange) -> None:
-    """Partition keys must be in the subset; murmur3 of a decimal above 18
-    digits (a BigInteger's bytes) is not ported, as in the reference."""
+    """Partition keys must be in the subset (a hash key above 18 digits,
+    whose murmur3 takes a BigInteger's bytes, is tagged off the device in
+    ``overrides/meta.py`` first, as in the reference)."""
     p = node.partitioning
     keys = (p.keys if isinstance(p, PN.HashPartitioning)
             else [e for e, _ in p.orders]
             if isinstance(p, PN.RangePartitioning) else [])
     for k in keys:
         check_expression(k)
-        dt = k.dataType
-        if isinstance(p, PN.HashPartitioning) and isinstance(
-                dt, T.DecimalType) and dt.is_128:
-            raise NotOnGpu("hash partitioning on decimals above 18 digits "
-                           "(murmur3 big-integer path missing)")
 
 
 def _window_check(node: PN.Window) -> None:
@@ -244,93 +219,145 @@ def _rewrite_topn(node: TpuExec) -> TpuExec:
     return node
 
 
+def _rebuild_cpu_plan(meta: SparkPlanMeta, converted) -> PN.SparkPlan:
+    """A node the reference keeps on the host: a CPU plan node over its
+    converted children, device children through ``TpuMaterializedScan``.
+    Raises ``NotOnGpu`` when the port's CPU engine does not run it."""
+    from spark_rapids_tpu_torch.cpu.oracle import check_cpu_plan
+
+    check_cpu_plan(meta.plan, "; ".join(meta.cannot_run_reasons))
+    return meta.plan.with_new_children(
+        [TpuMaterializedScan(c) if isinstance(c, TpuExec) else c
+         for c in converted])
+
+
 class TpuOverrides:
     @staticmethod
-    def apply(plan: PN.SparkPlan, conf: TpuConf, device) -> TpuExec:
+    def apply(plan: PN.SparkPlan, conf: TpuConf, device):
+        """(root, meta): root is a device exec (possibly over CPU stages)
+        or a CPU plan (possibly over device subtrees); meta is the tagged
+        tree whose ``explain`` gives the fallback reasons."""
         if not conf.sql_enabled:
-            raise NotOnGpu("spark.rapids.sql.enabled=false needs the CPU "
-                           "oracle, which is not ported yet")
-        root = TpuOverrides._convert(plan, conf, device)
-        root = size_exchange_partitions(root, conf)
-        root = _coalesce_single_device_shuffle(root, conf)
-        root = _insert_coalesce(root, conf)
-        return fuse_stages(_rewrite_topn(root))
+            raise NotOnGpu("spark.rapids.sql.enabled=false needs the "
+                           "whole-query CPU oracle, which is not ported yet")
+        meta = wrap_plan(plan, conf)
+        meta.tag_for_tpu()
+        root = TpuOverrides._convert(meta, conf, device)
+        if isinstance(root, TpuExec):
+            root = size_exchange_partitions(root, conf)
+            root = _coalesce_single_device_shuffle(root, conf)
+            root = _insert_coalesce(root, conf)
+            root = fuse_stages(_rewrite_topn(root))
+        return root, meta
 
     @staticmethod
-    def _convert(node: PN.SparkPlan, conf: TpuConf, device) -> TpuExec:
+    def _convert(meta: SparkPlanMeta, conf: TpuConf, device):
+        """Bottom up: a device exec where ``meta`` has no reason (its CPU
+        children through ``TpuRowToColumnarExec``), else a CPU plan."""
+        node = meta.plan
+        if isinstance(node, PN.HashAggregate) and meta.can_this_run:
+            return _convert_aggregate(meta, conf, device)
+        converted = [TpuOverrides._convert(m, conf, device)
+                     for m in meta.child_metas]
+        if not meta.can_this_run:
+            return _rebuild_cpu_plan(meta, converted)
         ansi = bool(conf.ansi_enabled)
+        return _convert_node(node, [_on_device(c, device, ansi)
+                                    for c in converted],
+                             conf, device, ansi)
 
-        def conv(child):
-            return TpuOverrides._convert(child, conf, device)
 
-        if isinstance(node, PN.LocalTableScan):
-            rows_cap = conf.get(MAX_READER_BATCH_SIZE_ROWS)
-            return TpuLocalTableScanExec(
-                node.host_columns, node.output, device,
-                target_batch_rows=rows_cap if rows_cap < 2147483647
-                else None)
-        if isinstance(node, PN.FileSourceScan):
-            return TpuFileSourceScanExec(node, conf, device)
-        if isinstance(node, PN.Filter):
-            check_expression(node.condition)
-            return TpuFilterExec(node.condition, conv(node.child), ansi)
-        if isinstance(node, PN.Project):
-            for e in node.exprs:
-                check_expression(e)
-            return TpuProjectExec(node.exprs, conv(node.child), ansi)
-        if isinstance(node, PN.HashAggregate):
-            partial = _collapse_complete_agg(node)
-            if partial is None:
-                raise NotOnGpu(f"aggregate {node.describe()} (only a "
-                               "two-phase aggregate on one device is "
-                               "ported)")
-            for g in partial.grouping:
-                check_expression(g)
-            for a in partial.aggregates:
-                if a.child is not None:
-                    check_expression(a.child)
-            return TpuHashAggregateExec(
-                partial.grouping, partial.aggregates,
-                PN.AggregateMode.COMPLETE, conv(partial.child),
-                partial.child.output, node.output, ansi)
-        if isinstance(node, PN.SortMergeJoin):
-            _check_join(node)
-            shuffled = TpuShuffledSymmetricHashJoinExec(
-                conv(node.left), conv(node.right), node.left_keys,
-                node.right_keys, node.join_type, node.condition,
-                node.output, ansi,
-                sub_partition_bytes=conf.get(BATCH_SIZE_BYTES))
-            if conf.get(ADAPTIVE_ENABLED) and all(
-                    isinstance(c, TpuShuffleExchangeExec)
-                    for c in shuffled.children):
-                return TpuAdaptiveJoinExec(
-                    shuffled, conf.get(AUTO_BROADCAST_JOIN_THRESHOLD))
-            return shuffled
-        if isinstance(node, PN._BaseJoin):
-            _check_join(node)
-            return TpuBroadcastHashJoinExec(
-                conv(node.left), conv(node.right), node.left_keys,
-                node.right_keys, node.join_type, node.condition,
-                node.output, ansi,
-                sub_partition_bytes=conf.get(BATCH_SIZE_BYTES))
-        if isinstance(node, PN.BroadcastExchange):
-            return TpuBroadcastExchangeExec(conv(node.children[0]))
-        if isinstance(node, PN.Exchange):
-            _exchange_check(node)
-            return TpuShuffleExchangeExec(node.partitioning,
-                                          conv(node.child), ansi, conf=conf)
-        if isinstance(node, PN.Window):
-            _window_check(node)
-            return TpuWindowExec(node.functions, node.partition_by,
-                                 node.order_by, conv(node.child),
-                                 node.output, node.frame, ansi)
-        if isinstance(node, PN.Sort):
-            for e, _ in node.orders:
-                check_expression(e)
-            return TpuSortExec(node.orders, node.is_global, conv(node.child),
-                               ansi)
-        if isinstance(node, PN.GlobalLimit):
-            return TpuGlobalLimitExec(node.n, conv(node.children[0]))
-        if isinstance(node, PN.LocalLimit):
-            return TpuLocalLimitExec(node.n, conv(node.children[0]))
-        raise NotOnGpu(f"plan node {node.node_name}")
+def _on_device(child, device, ansi: bool) -> TpuExec:
+    """A converted child as a device exec: a CPU plan under a device
+    parent goes through ``TpuRowToColumnarExec``."""
+    return child if isinstance(child, TpuExec) \
+        else TpuRowToColumnarExec(child, device, ansi)
+
+
+def _convert_aggregate(meta: SparkPlanMeta, conf: TpuConf, device
+                       ) -> TpuExec:
+    """A Final aggregate on the device: the collapsed COMPLETE aggregate
+    over the Partial's converted child."""
+    final = meta.plan
+    partial_meta = _collapse_complete_agg(meta)
+    if partial_meta is None:
+        raise NotOnGpu(f"aggregate {final.describe()} (only a two-phase "
+                       "aggregate on one device is ported)")
+    partial = partial_meta.plan
+    ansi = bool(conf.ansi_enabled)
+    child = _on_device(TpuOverrides._convert(partial_meta.child_metas[0],
+                                             conf, device), device, ansi)
+    for g in partial.grouping:
+        check_expression(g)
+    for a in partial.aggregates:
+        if a.child is not None:
+            check_expression(a.child)
+    return TpuHashAggregateExec(
+        partial.grouping, partial.aggregates, PN.AggregateMode.COMPLETE,
+        child, partial.child.output, final.output, ansi)
+
+
+def _convert_node(node: PN.SparkPlan, children, conf: TpuConf, device,
+                  ansi: bool) -> TpuExec:
+    """The exec of one node the tagging left on the device, over its
+    converted ``children``; ``NotOnGpu`` for what the port lacks."""
+    if isinstance(node, (PN.LocalTableScan, PN.FileSourceScan)):
+        for f in node.output.fields:
+            if not _ported_type(f.dataType):
+                raise NotOnGpu(f"type {f.dataType.simpleString} of column "
+                               f"{f.name} in {node.node_name}")
+    if isinstance(node, PN.LocalTableScan):
+        rows_cap = conf.get(MAX_READER_BATCH_SIZE_ROWS)
+        return TpuLocalTableScanExec(
+            node.host_columns, node.output, device,
+            target_batch_rows=rows_cap if rows_cap < 2147483647 else None)
+    if isinstance(node, PN.FileSourceScan):
+        return TpuFileSourceScanExec(node, conf, device)
+    if isinstance(node, PN.Filter):
+        check_expression(node.condition)
+        return TpuFilterExec(node.condition, children[0], ansi)
+    if isinstance(node, PN.Project):
+        for e in node.exprs:
+            check_expression(e)
+        return TpuProjectExec(node.exprs, children[0], ansi)
+    if isinstance(node, PN.Union):
+        return TpuUnionExec(children)
+    if isinstance(node, PN.SortMergeJoin):
+        _check_join(node)
+        shuffled = TpuShuffledSymmetricHashJoinExec(
+            children[0], children[1], node.left_keys, node.right_keys,
+            node.join_type, node.condition, node.output, ansi,
+            sub_partition_bytes=conf.get(BATCH_SIZE_BYTES))
+        if conf.get(ADAPTIVE_ENABLED) and all(
+                isinstance(c, TpuShuffleExchangeExec)
+                for c in shuffled.children):
+            return TpuAdaptiveJoinExec(
+                shuffled, conf.get(AUTO_BROADCAST_JOIN_THRESHOLD))
+        return shuffled
+    if isinstance(node, PN._BaseJoin):
+        _check_join(node)
+        return TpuBroadcastHashJoinExec(
+            children[0], children[1], node.left_keys, node.right_keys,
+            node.join_type, node.condition, node.output, ansi,
+            sub_partition_bytes=conf.get(BATCH_SIZE_BYTES))
+    if isinstance(node, PN.BroadcastExchange):
+        return TpuBroadcastExchangeExec(children[0])
+    if isinstance(node, PN.Exchange):
+        _exchange_check(node)
+        return TpuShuffleExchangeExec(node.partitioning, children[0], ansi,
+                                      conf=conf)
+    if isinstance(node, PN.Window):
+        _window_check(node)
+        return TpuWindowExec(node.functions, node.partition_by,
+                             node.order_by, children[0], node.output,
+                             node.frame, ansi)
+    if isinstance(node, PN.Sort):
+        for e, _ in node.orders:
+            check_expression(e)
+        return TpuSortExec(node.orders, node.is_global, children[0], ansi,
+                           ooc_bytes=conf.get(BATCH_SIZE_BYTES))
+    if isinstance(node, PN.GlobalLimit):
+        return TpuGlobalLimitExec(node.n, children[0])
+    if isinstance(node, PN.LocalLimit):
+        return TpuLocalLimitExec(node.n, children[0])
+    raise NotOnGpu(f"plan node {node.node_name}")

@@ -44,6 +44,19 @@ COUNTERS: Dict[str, int] = {
     # reference's governor preemption, which the port does not run
     "oom_retry_preempts": 0,
     "oom_retry_splits": 0,
+    # out-of-core sort (exec/sort.py): sorted runs, merge windows, and the
+    # bytes_h2d the merge's window reads moved
+    "ooc_sort_runs": 0,
+    "ooc_sort_merge_windows": 0,
+    "ooc_sort_merge_upload_bytes": 0,
+}
+
+# High-water marks, set to 0 by ``reset_peaks`` and read by ``peaks`` (the
+# idiom of ``torch.cuda.reset_peak_memory_stats``); a difference of two
+# snapshots means nothing for a maximum, so they stay out of ``COUNTERS``.
+PEAKS: Dict[str, int] = {
+    # the most bytes_h2d one out-of-core merge window moved
+    "ooc_sort_merge_window_upload_bytes": 0,
 }
 
 
@@ -51,6 +64,27 @@ def bump(key: str, n: int = 1) -> None:
     """Thread-safe increment (``COUNTERS[k] += n`` is not atomic)."""
     with _LOCK:
         COUNTERS[key] = COUNTERS.get(key, 0) + n
+
+
+def note_peak(key: str, n: int) -> None:
+    with _LOCK:
+        PEAKS[key] = max(PEAKS.get(key, 0), n)
+
+
+def reset_peaks() -> None:
+    with _LOCK:
+        for k in PEAKS:
+            PEAKS[k] = 0
+
+
+def peaks() -> Dict[str, int]:
+    with _LOCK:
+        return dict(PEAKS)
+
+
+def read(key: str) -> int:
+    with _LOCK:
+        return COUNTERS[key]
 
 
 def snapshot() -> Dict[str, int]:

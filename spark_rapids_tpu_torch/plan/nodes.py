@@ -1,7 +1,7 @@
 """CPU physical plan nodes — port of the subset of
 ``spark_rapids_tpu/plan/nodes.py`` that TPC-H Q6 and bench qa, qb and qc
-plan: scans, project, filter, aggregates, broadcast and shuffled joins over
-hash exchanges, repartitioning, windows, sorts and limits.
+plan: scans, project, filter, union, aggregates, broadcast and shuffled
+joins over hash exchanges, repartitioning, windows, sorts and limits.
 
 The session builds this Catalyst-shaped plan; ``overrides/overrides.py``
 rewrites it into device execs.  The node names and ``describe`` strings
@@ -41,6 +41,14 @@ class SparkPlan:
 
     def describe(self) -> str:
         return self.node_name
+
+    def with_new_children(self, children: Sequence["SparkPlan"]
+                          ) -> "SparkPlan":
+        import copy
+
+        n = copy.copy(self)
+        n.children = list(children)
+        return n
 
 
 class LocalTableScan(SparkPlan):
@@ -106,7 +114,16 @@ class Filter(SparkPlan):
         return self.child.output
 
     def describe(self):
-        return f"Filter {self.condition.sql_string()}"
+        return f"Filter ({self.condition.sql_string()})"
+
+
+class Union(SparkPlan):
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def describe(self):
+        return f"Union ({len(self.children)} children)"
 
 
 class AggregateMode(enum.Enum):

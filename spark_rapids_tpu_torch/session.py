@@ -3,8 +3,9 @@ of ``spark_rapids_tpu/session.py`` that Q6 and bench qa, qb and qc use).
 
 The API is call-compatible with the reference: ``TpuSession(conf)``,
 ``create_dataframe``, ``read.schema(...).parquet(...)``, ``filter``,
-``select``, ``agg``, ``group_by(...).agg``, ``join``, ``window``,
-``order_by``, ``limit``, ``explain`` and ``collect``, with ``col``,
+``select``, ``agg``, ``group_by(...).agg``, ``join``, ``union``,
+``window``, ``order_by``, ``limit``, ``explain``, ``collect`` and
+``count``, with ``col``,
 ``lit``, ``sum_``, ``count_``, ``min_``, ``max_`` and ``SortSpec``, and
 ``repartition``.  A session runs on ``cuda`` unless it is given another
 device (``TpuSession(conf, device="cpu")``); without a GPU and without a
@@ -20,7 +21,11 @@ with the pool of a device manager built from the session's conf, and each
 ``collect`` builds the spill framework and device manager anew from it
 (``memory/``).  As in the reference, a DataFrame keeps its rewritten plan
 per conf, so a second ``collect`` runs the same exec tree and ``explain``
-after a collect shows the adaptive join's decision.
+after a collect shows the adaptive join's decision.  A plan node that the
+reference's rules keep off the device runs as a CPU stage
+(``cpu/oracle.py``); ``explain`` then ends with the reference's
+``Fallback reasons``, and a plan whose root is such a stage is collected
+on the host.
 """
 from __future__ import annotations
 
@@ -133,6 +138,10 @@ class DataFrame:
         ``AggregateExpression``s."""
         return GroupedData(self, []).agg(*aggs)
 
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """UNION ALL by position."""
+        return DataFrame(PN.Union([self.plan, other.plan]), self.session)
+
     def repartition(self, num_partitions: int,
                     *cols: ColumnLike) -> "DataFrame":
         """Dataset.repartition: a hash exchange on ``cols`` (round-robin
@@ -219,6 +228,9 @@ class DataFrame:
         """The rewritten exec tree, kept per conf as the reference keeps
         it, so repeated collects run the same tree.  Partition sizing reads
         the pool of a device manager built from the session's conf."""
+        return self._planned_with_meta()[0]
+
+    def _planned_with_meta(self):
         from spark_rapids_tpu_torch.memory.device_manager import (
             get_device_manager)
         from spark_rapids_tpu_torch.overrides.overrides import TpuOverrides
@@ -229,25 +241,46 @@ class DataFrame:
         if cached is not None and cached[0] == key:
             return cached[1]
         get_device_manager(conf, self.session.device)
-        root = TpuOverrides.apply(self.plan, conf, self.session.device)
-        self._plan_cache = (key, root)
-        return root
+        planned = TpuOverrides.apply(self.plan, conf, self.session.device)
+        self._plan_cache = (key, planned)
+        return planned
 
-    def collect(self) -> List[tuple]:
-        """The rows; the spill framework (and its device manager) is built
-        anew from the session's conf first, as in the reference, so its
-        counters are this collect's."""
+    def collect_host(self) -> List[HostColumn]:
+        """The result as host columns (one per output column); the spill
+        framework (and its device manager) is built anew from the
+        session's conf first, as in the reference, so its counters are
+        this collect's."""
+        from spark_rapids_tpu_torch.cpu.oracle import execute_cpu_plan
+        from spark_rapids_tpu_torch.exec.base import TpuExec
         from spark_rapids_tpu_torch.exec.transitions import (
             TpuColumnarToRowExec)
         from spark_rapids_tpu_torch.memory.spill import get_spill_framework
 
         root = self._planned()
         get_spill_framework(self.session.conf, self.session.device)
-        return TpuColumnarToRowExec(root).collect_rows()
+        if isinstance(root, TpuExec):
+            return TpuColumnarToRowExec(root).collect_host()
+        cols, _ = execute_cpu_plan(root, self.session.conf.ansi_enabled)
+        return [c.to_host() for c in cols]
+
+    def collect(self) -> List[tuple]:
+        return list(zip(*[c.to_pylist() for c in self.collect_host()]))
+
+    def count(self) -> int:
+        """``count(*)`` over the plan as it stands (a sort under it
+        stays, as in the reference)."""
+        rows = self.agg(("count_star", None, "count")).collect()
+        return int(rows[0][0]) if rows else 0
 
     def explain(self) -> str:
-        """The rewritten device plan, one operator per line."""
-        return self._planned().pretty()
+        """The rewritten plan, one operator per line, then the reference's
+        ``Fallback reasons`` for the nodes kept off the device."""
+        root, meta = self._planned_with_meta()
+        s = root.pretty()
+        fb = meta.explain(only_fallback=True)
+        if fb:
+            s += "\nFallback reasons:\n" + fb
+        return s
 
 
 class GroupedData:

@@ -564,3 +564,43 @@ def test_rung3_ooc_and_sub_partitioned_qb_on_gpu_equal_cpu(tmp_path):
                        s.read.schema(rsch).parquet(*sr_paths), S)
         assert sorted(q.collect()) == wq
         assert q._planned().children[0].sub_partitions == 4
+
+
+@pytest.mark.gpu
+def test_rung3_on_gpu_equals_cpu():
+    """bench's rung3 at 400,000 rows, on the card and on the CPU: the
+    reference's plans; the aggregate over the CPU stage equal to numpy;
+    the out-of-core sort (a 1 MiB goal, a 4 MiB pool so that runs spill)
+    counting every row, its sorted rows the input's, with more than one
+    merge window read from the host tier."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.memory.spill import peek_spill_framework
+
+    n = 400_000
+    d = C.make_rung3(n)
+    want = C.rung3_reference(d)
+    conf = dict(C.rung3_conf(n), **{
+        "spark.rapids.sql.batchSizeBytes": 1 << 20,
+        "spark.rapids.tpu.test.deviceMemoryBytes": 4 << 20})
+    for device in ("cuda", "cpu"):
+        agg, srt = C.rung3_frames(S, S.TpuSession(conf, device=device), d)
+        assert C.plan_shape(agg) == C.RUNG3_AGG_PLAN
+        count_q = C.rung3_count_query(srt)
+        assert C.plan_shape(count_q) == C.RUNG3_SORT_PLAN
+        assert C.rung3_rows(agg.collect_host()) == want
+        PC.reset_peaks()
+        snap = PC.snapshot()
+        assert count_q.collect() == [(n,)]
+        delta = PC.since(snap)
+        assert delta["ooc_sort_merge_windows"] > 1
+        assert delta["ooc_sort_merge_upload_bytes"] > 0
+        most = PC.peaks()["ooc_sort_merge_window_upload_bytes"]
+        chunk_rows = count_q._planned().children[0].ooc_chunk_rows
+        assert 0 < most <= (delta["ooc_sort_runs"] * chunk_rows
+                            * C.RUNG3_SORT_ROW_BYTES)
+        assert peek_spill_framework().spill_to_host_count > 0
+        assert C.rung3_sort_check(srt.collect_host(), d) is None

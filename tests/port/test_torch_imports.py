@@ -32,7 +32,11 @@ def test_import_leaves_no_jax_in_sys_modules():
             "spark_rapids_tpu_torch.exec.coalesce, "
             "spark_rapids_tpu_torch.exec.partition_sizing, "
             "spark_rapids_tpu_torch.memory.retry, "
-            "spark_rapids_tpu_torch.shuffle.partition_queues\n"
+            "spark_rapids_tpu_torch.shuffle.partition_queues, "
+            "spark_rapids_tpu_torch.cpu.oracle, "
+            "spark_rapids_tpu_torch.overrides.meta, "
+            "spark_rapids_tpu_torch.overrides.transitions, "
+            "spark_rapids_tpu_torch.expr.complextypes\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n"
