@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch port: TPC-H Q6 from snappy Parquet at SF10,
 bench qa, qb and qc from Parquet at TPC-DS SF10's store_sales row count,
-then bench's out-of-core rung (rung3_ooc), qb under a capped pool, and
-bench's rung3 (a CPU stage under the aggregate, the out-of-core sort).
+then bench's out-of-core rung (rung3_ooc), qb under a capped pool, bench's
+rung3 (a CPU stage under the aggregate, the out-of-core sort), and bench's
+rung4_dist (its exchanges over two worker processes, one killed).
 
     python3 chip_smoke.py [--scale 10] [--seed 20261017]
 
@@ -97,7 +98,23 @@ Phases, each failing the run at its first mismatch:
     one window, upload at most a window's rows a run each window, and at
     SF10 spill to the host.  Counters, spills, peak memory and a breakdown
     (device scan and filter, CPU stage, upload, aggregate; run sorts,
-    merge, count) are printed.
+    merge, count) are printed;
+15. bench rung4_dist from memory, bench.py's generator (seed 29; a
+    2,000-row dimension, 31 groups) and conf (the distributed tier on,
+    100 ms heartbeats, LOST past 600 ms), at bench's 200,000 rows and at
+    28,800,991: a coordinator in this process and two worker processes
+    (``python -m spark_rapids_tpu_torch.distributed.worker``, started
+    without the card) with stores of 5 bytes a row over 100; the plan
+    keeps both hash exchanges (16 partitions), whose slices are framed as
+    TKU2 blocks, shipped to the workers and kept in the engine process as
+    the lineage copy.  ``bench0`` is SIGKILLed at the 5th shipped block
+    inside the timed collect: its rows must equal bench.py's ``cpu_dist``, a
+    worker lost and partitions replayed.  Then, on the survivor, at
+    bench's size the trace A/B (min of 2 collects each way) and the hedge
+    A/B (3 interleaved rounds), at SF10 one healthy collect and a
+    breakdown (partition, frame and download, ship, fetch and upload,
+    join, aggregate); every collect exact, no hedge may win in a healthy
+    one, and no process but the engine may hold the card.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
@@ -515,20 +532,23 @@ def ooc_conf(pool: int, n: int) -> dict:
 
 def ooc_frames(mod, session, fact, dim):
     """The two tables as ``LocalTableScan`` DataFrames of the package whose
-    session module is ``mod`` (bench.py's ``_df``: non-nullable fields)."""
+    session module is ``mod`` (bench.py's ``_df``: non-nullable fields,
+    int32 columns as INT and int64 as LONG)."""
     pkg = mod.__name__.rsplit(".", 1)[0]
     T = importlib.import_module(pkg + ".types")
     HC = importlib.import_module(pkg + ".columnar.column").HostColumn
     LTS = importlib.import_module(pkg + ".plan.nodes").LocalTableScan
 
-    def df(cols, types):
+    def df(cols):
+        types = [T.INT if v.dtype == np.int32 else T.LONG
+                 for v in cols.values()]
         sch = T.StructType([T.StructField(k, t, False)
                             for k, t in zip(cols, types)])
         host = [HC.from_numpy(np.ascontiguousarray(v), t)
                 for v, t in zip(cols.values(), types)]
         return mod.DataFrame(LTS(host, sch), session)
 
-    return (df(fact, [T.INT, T.LONG, T.LONG]), df(dim, [T.INT, T.INT]))
+    return df(fact), df(dim)
 
 
 def ooc_query(fact, dim, mod):
@@ -757,6 +777,66 @@ def rung3_sort_check(host, d):
             and np.array_equal(sa.data[got], d["sa"][want])):
         return "the multiset of (k, amt, sa) rows differs from the input"
     return None
+
+
+# ---------------------------------------------------------------------------
+# bench rung4_dist: the fact-dimension join and grouped sum over two worker
+# processes, one of them SIGKILLed mid-shuffle (bench.py:1473-1687)
+# ---------------------------------------------------------------------------
+
+DIST_SEED = 29                     # bench.py's rung4_dist seed
+DIST_DIM = 2000
+DIST_GROUPS = 31
+DIST_BENCH_ROWS = 200_000          # bench.py's BENCH_DIST_ROWS default
+DIST_KILL_AT = 5                   # bench0 dies at the 5th shipped block
+DIST_JOIN_S = 60                   # the workers must join within this
+DIST_WORKERS = ("bench0", "bench1")
+DIST_PLAN = ["TpuHashAggregate(Complete) keys=[g] aggs=[sum(v) AS sv]",
+             "  TpuShuffledSymmetricHashJoinExec Inner [k=k]",
+             "    TpuCoalesceBatches TargetSize(262144)",
+             "      TpuShuffleExchange hashpartitioning(k, 16)",
+             "        <scan>",
+             "    TpuCoalesceBatches TargetSize(262144)",
+             "      TpuShuffleExchange hashpartitioning(k, 16)",
+             "        <scan>"]
+
+
+def make_dist(n: int):
+    """bench.py's rung4_dist tables: (fact, dim) as numpy columns."""
+    rng = np.random.default_rng(DIST_SEED)
+    fact = {"k": rng.integers(0, DIST_DIM, n).astype(np.int32),
+            "v": rng.integers(-1000, 1000, n)}
+    dk = np.arange(DIST_DIM, dtype=np.int32)
+    return fact, {"k": dk, "g": (dk % DIST_GROUPS).astype(np.int32)}
+
+
+def dist_worker_mem(n: int) -> int:
+    """bench.py's per-worker store: 5 bytes a fact row over 100, so the
+    shuffle is about 100x one store."""
+    return max((n * 5) // 100, 4096)
+
+
+def dist_conf(n: int) -> dict:
+    """bench.py's rung4_dist conf: the distributed tier on, no broadcast
+    and no adaptive execution, a 256 KiB batch goal, 16 reader batches,
+    and fast liveness (100 ms heartbeats, LOST past 600 ms)."""
+    return {"spark.rapids.sql.enabled": True,
+            "spark.rapids.tpu.distributed.enabled": True,
+            "spark.sql.autoBroadcastJoinThreshold": "-1",
+            "spark.sql.adaptive.enabled": False,
+            "spark.rapids.sql.batchSizeBytes": 256 << 10,
+            "spark.rapids.sql.reader.batchSizeRows": max(n // 16, 1),
+            "spark.rapids.tpu.distributed.heartbeatMs": 100,
+            "spark.rapids.tpu.distributed.workerLostMs": 600,
+            "spark.rapids.tpu.distributed.opTimeoutMs": 1000}
+
+
+def dist_reference(fact, dim):
+    """bench.py's ``cpu_dist``: {g: sum of v} over the non-zero sums."""
+    sums = np.bincount(dim["g"][fact["k"]],
+                       weights=fact["v"].astype(np.float64),
+                       minlength=DIST_GROUPS)
+    return {int(i): int(sums[i]) for i in range(DIST_GROUPS) if sums[i]}
 
 
 # ---------------------------------------------------------------------------
@@ -1955,6 +2035,276 @@ def run_rung3(n: int, device, smi: str, label: str, breakdown: bool):
     return out
 
 
+def _dist_collect(q, want, label: str, hook=None):
+    """One collect of ``q`` held to ``want``, timed, with the perfcounters
+    and K1's launches set to 0 just before it and read after it, and
+    ``hook`` as the exchange's ship hook during it."""
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.distributed import client as DC
+    from spark_rapids_tpu_torch.pallas import decode
+
+    torch.cuda.synchronize()
+    decode.unpack_launches = 0
+    snap = PC.snapshot()
+    DC.TEST_SHIP_HOOK = hook
+    try:
+        t0 = time.perf_counter()
+        rows = q.collect()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        DC.TEST_SHIP_HOOK = None
+    d = PC.since(snap)
+    if ooc_rows(rows) != want:
+        fail(f"{label}: {ooc_rows(rows)} != {want}")
+    return secs, d, decode.unpack_launches
+
+
+def _dist_counters(d) -> str:
+    return " ".join(f"{k}={d[k]}" for k in (
+        "dist_blocks_shipped", "dist_block_bytes", "worker_lost",
+        "partitions_replayed", "worker_heartbeat_misses", "fetch_hedges",
+        "hedges_won", "bytes_d2h", "bytes_h2d", "host_syncs"))
+
+
+def check_worker_contexts(procs, label: str):
+    """Only the engine process may hold a CUDA context: no worker pid among
+    ``nvidia-smi``'s compute apps, at most one app (the engine; a pid
+    namespace may show it under another number), and no CUDA or torch
+    library mapped into a worker process."""
+    apps = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+        check=True).stdout.split()
+    pids = {w: p.pid for w, p in procs.items() if p.poll() is None}
+    log(f"{label}: compute apps {apps}, engine pid {os.getpid()}, live "
+        f"workers {pids}")
+    if any(str(pid) in apps for pid in pids.values()) or len(apps) > 1:
+        fail(f"{label}: a process besides the engine holds the card: "
+             f"{apps}")
+    for w, pid in pids.items():
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+        if "libcuda" in maps or "libtorch" in maps:
+            fail(f"{label}: worker {w} mapped CUDA or torch")
+
+
+def run_dist(n: int, device, smi: str, label: str, ab: bool):
+    """Phase 15: bench's rung4_dist at ``n`` fact rows, as bench runs it:
+    a coordinator in this process, two worker processes with stores of
+    ``dist_worker_mem(n)`` bytes, the plan's hash exchanges kept (16
+    partitions each), and ``bench0`` SIGKILLed at the 5th shipped block
+    inside the timed collect, whose rows must equal ``cpu_dist`` with a
+    worker lost and partitions replayed.  Then healthy collects on the
+    survivor: with ``ab`` the trace A/B (the min of 2 collects with trace
+    propagation on and off) and the hedge A/B (3 interleaved rounds of
+    hedging on and off), else one collect; no hedge may win in them.
+    Every run is exact."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import distributed as D
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.resilience.breaker import reset_breaker
+
+    t0 = time.perf_counter()
+    fact, dim = make_dist(n)
+    want = dist_reference(fact, dim)
+    mem = dist_worker_mem(n)
+    conf = dist_conf(n)
+    log(f"{label} data: {n} fact rows "
+        f"({sum(a.nbytes for a in fact.values())} flat bytes), worker "
+        f"stores {mem} bytes; generated with the numpy reference in "
+        f"{time.perf_counter() - t0:.1f} s")
+    # each run starts as bench's process does, with no breaker history:
+    # the run before lost bench0, whose id would join QUARANTINED
+    reset_breaker()
+    D.reset_coordinator()
+    coord = D.get_coordinator(TpuConf(conf))
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        procs = {w: D.spawn_local_worker(coord, w, mem_bytes=mem)
+                 for w in DIST_WORKERS}
+        if not coord.wait_for_workers(len(procs), timeout_s=DIST_JOIN_S):
+            fail(f"{label}: the workers did not join in {DIST_JOIN_S} s")
+        log(f"{label}: {len(procs)} workers joined in "
+            f"{time.perf_counter() - t0:.2f} s")
+        q = ooc_query(*ooc_frames(S, S.TpuSession(conf, device=device),
+                                  fact, dim), S)
+        check_plan(q, DIST_PLAN, label)
+        log(f"{label} plan:\n" + q.explain())
+        state = {"n": 0}
+
+        def kill_bench0(exch, pid, seq):
+            state["n"] += 1
+            if state["n"] == DIST_KILL_AT \
+                    and procs["bench0"].poll() is None:
+                procs["bench0"].kill()
+
+        secs, d, launches = _dist_collect(q, want, label, kill_bench0)
+        if procs["bench0"].poll() is None:
+            fail(f"{label}: bench0 was never killed")
+        if d["worker_lost"] < 1 or d["partitions_replayed"] < 1:
+            fail(f"{label}: the kill was not recovered: "
+                 f"{_dist_counters(d)}")
+        if d["dist_blocks_shipped"] <= 0:
+            fail(f"{label}: no block was shipped to a worker")
+        log(f"{label}: {len(want)} groups == cpu_dist with bench0 killed "
+            f"at the {DIST_KILL_AT}th shipped block; {n} rows in "
+            f"{secs:.3f} s = {n / secs:.0f} rows/s [{smi}]")
+        log(f"{label} counters: {_dist_counters(d)} store ratio "
+            f"{d['dist_block_bytes'] / mem:.1f}x unpack_launches="
+            f"{launches} [{smi}]")
+        out = {"seconds": secs, "delta": d, "launches": launches,
+               "query": q, "coord": coord}
+        healthy = []
+        if ab:
+            prior = coord.trace_enabled
+            walls = {True: [], False: []}
+            for mode in (True, True, False, False):
+                coord.trace_enabled = mode
+                walls[mode].append(_dist_collect(q, want, label))
+            coord.trace_enabled = prior
+            on, off = (min(x[0] for x in walls[m]) for m in (True, False))
+            healthy += walls[True] + walls[False]
+            log(f"{label} trace A/B: on {on:.4f} s, off {off:.4f} s, "
+                f"traceOverheadPct {(on - off) * 100 / off:+.2f} [{smi}]")
+            prior = coord.hedge_enabled
+            walls = {True: [], False: []}
+            for _ in range(3):
+                for mode in (True, False):
+                    coord.hedge_enabled = mode
+                    walls[mode].append(_dist_collect(q, want, label))
+            coord.hedge_enabled = prior
+            on, off = (min(x[0] for x in walls[m]) for m in (True, False))
+            healthy += walls[True] + walls[False]
+            log(f"{label} hedge A/B: on {on:.4f} s, off {off:.4f} s, "
+                f"hedgeOverheadPct {(on - off) * 100 / off:+.2f} [{smi}]")
+        else:
+            healthy.append(_dist_collect(q, want, label))
+            secs_h, d_h, _ = healthy[-1]
+            log(f"{label} healthy: {n} rows in {secs_h:.3f} s = "
+                f"{n / secs_h:.0f} rows/s; {_dist_counters(d_h)} [{smi}]")
+        for _, dh, _ in healthy:
+            if dh["hedges_won"] or dh["worker_lost"] \
+                    or dh["dist_blocks_shipped"] <= 0:
+                fail(f"{label}: a healthy collect: {_dist_counters(dh)}")
+        log(f"{label}: {len(healthy)} healthy collects exact, no hedge "
+            f"won, no worker lost")
+        check_worker_contexts(procs, label)
+        out["healthy"] = healthy
+        if not ab:
+            dist_breakdown(q, coord, label)
+        return out
+    finally:
+        stop_dist_workers(procs.values())
+        D.reset_coordinator()
+
+
+def stop_dist_workers(procs):
+    """SIGKILL and reap worker processes, then remove the spill
+    directories they could not remove themselves (those of dead pids in
+    the temp directory, ``distributed/worker.py::reap_stale_spill_dirs``),
+    so a run leaves no spilled block behind."""
+    from spark_rapids_tpu_torch.distributed.worker import \
+        reap_stale_spill_dirs
+
+    for p in procs:
+        p.kill()
+        p.wait(timeout=10)
+    reap_stale_spill_dirs()
+
+
+def dist_breakdown(q, coord, label: str):
+    """Where a healthy rung4_dist collect spends its time, step by step on
+    a fresh plan, both exchanges summed: the partition ids, sort and
+    slices on the card; framing each slice (its download, the TKU2 frame
+    and the codec); shipping the blocks to the workers; fetching them
+    back in pages and decoding them onto the card; then the coalesce, the
+    join and the aggregate on their inputs already on the card."""
+    import torch
+
+    from spark_rapids_tpu_torch.config import BATCH_SIZE_BYTES
+    from spark_rapids_tpu_torch.distributed.client import FETCH_PAGE_BYTES
+    from spark_rapids_tpu_torch.exec.ici import ici_host_frame
+    from spark_rapids_tpu_torch.memory.spill import get_spill_framework
+    from spark_rapids_tpu_torch.shuffle.manager import get_shuffle_manager
+    from spark_rapids_tpu_torch.shuffle.partition_queues import (
+        host_boundary_codec)
+    from spark_rapids_tpu_torch.shuffle.serializer import deserialize_concat
+
+    conf = q.session.conf
+    get_spill_framework(conf, q.session.device)
+    codec = host_boundary_codec(conf)
+    goal = int(conf.get(BATCH_SIZE_BYTES))
+    mgr = get_shuffle_manager(conf)
+    agg = fresh_plan(q)
+    join = agg.children[0]
+    t = dict.fromkeys(("scan", "partition", "frame", "ship", "fetch",
+                       "coalesce"), 0.0)
+    for side in (0, 1):
+        coal = join.children[side]
+        ex = coal.children[0]
+        schema = ex.output
+        secs, batches = _replay_leaf(ex, 0)
+        t["scan"] += secs
+        ex.children[0] = None          # the batches go with ``batches``
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        slices = [ps for b in batches for ps in ex.partition_slices(b)]
+        torch.cuda.synchronize()
+        t["partition"] += time.perf_counter() - t0
+        del batches
+        t0 = time.perf_counter()
+        blobs = [(pid, ici_host_frame(sl, codec)) for pid, sl in slices]
+        t["frame"] += time.perf_counter() - t0
+        del slices
+        exch = mgr.register_shuffle()
+        try:
+            coord.place(exch, ex.num_partitions)
+            seqs = {}
+            t0 = time.perf_counter()
+            for pid, blob in blobs:
+                seqs[pid] = seqs.get(pid, -1) + 1
+                coord.put_block(exch, pid, seqs[pid], blob)
+            t["ship"] += time.perf_counter() - t0
+            del blobs
+            chunks = []
+            t0 = time.perf_counter()
+            for pid in range(ex.num_partitions):
+                nxt, group = 0, []
+                while nxt <= seqs.get(pid, -1):
+                    got, page, _ = coord.fetch_blocks(
+                        exch, pid, after_seq=nxt - 1,
+                        max_bytes=FETCH_PAGE_BYTES)
+                    nxt = got[-1] + 1
+                    group += page
+                while group:
+                    k = 1
+                    while k < len(group) and \
+                            sum(map(len, group[:k + 1])) <= goal:
+                        k += 1
+                    chunks.append(deserialize_concat(
+                        group[:k], schema, codec=codec,
+                        device=q.session.device))
+                    group = group[k:]
+            torch.cuda.synchronize()
+            t["fetch"] += time.perf_counter() - t0
+        finally:
+            mgr.unregister_shuffle(exch)
+        coal.children[0] = _Replay(chunks, schema)
+        secs, _ = _replay_leaf(join, side)
+        t["coalesce"] += secs
+    t_join, _ = _replay_leaf(agg, 0)
+    t_agg, _ = _timed_run(agg)
+    log(f"{label} breakdown: scans {t['scan']:.4f} s, partition "
+        f"{t['partition']:.4f} s, frame and download {t['frame']:.4f} s, "
+        f"ship {t['ship']:.4f} s, fetch and upload {t['fetch']:.4f} s, "
+        f"coalesce {t['coalesce']:.4f} s, join {t_join:.4f} s, aggregate "
+        f"{t_agg:.4f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -2090,6 +2440,13 @@ def main(argv=None) -> int:
     if rung3["count"]["metrics"]["spillToHostCount"] <= 0:
         fail("rung3: the sort spilled nothing to the host")
     log(f"phase 14 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 15. bench rung4_dist: two worker processes, one killed mid-shuffle;
+    # at bench's size with its A/Bs, then at SF10 rows with a breakdown
+    t0 = time.perf_counter()
+    run_dist(DIST_BENCH_ROWS, device, smi, "rung4_dist bench size", True)
+    dist = run_dist(n_ss, device, smi, "rung4_dist", False)
+    log(f"phase 15 wall time {time.perf_counter() - t0:.1f} s")
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
@@ -2110,6 +2467,7 @@ def main(argv=None) -> int:
         "qc_launches": qc["launches"],
         "ooc_qb_launches": ooc_qb["launches"],
         "rung3_launches": rung3["launches"],
+        "rung4_dist_launches": dist["launches"],
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

@@ -2,11 +2,12 @@
 
 Port of ``spark_rapids_tpu/config.py``: the same ``ConfEntry`` builder DSL
 and the same keys and defaults, cut to the confs that TPC-H Q6, bench
-qa, qb and qc over Parquet, and the out-of-core path of bench's rung3_ooc
+qa, qb and qc over Parquet, the out-of-core path of bench's rung3_ooc
 (sized exchanges, spill-backed partition queues, the spill framework and
-the sub-partitioned join) read.  Unlike the reference there is no
-process-wide ambient conf: the session hands its ``TpuConf`` to every exec
-that needs one.
+the sub-partitioned join), and bench's rung4_dist (the query lifecycle,
+the shuffle manager, the circuit breaker and the distributed tier) read.
+Unlike the reference there is no process-wide ambient conf: the session
+hands its ``TpuConf`` to every exec that needs one.
 """
 from __future__ import annotations
 
@@ -175,9 +176,10 @@ SHUFFLE_PARTITIONS = conf("spark.sql.shuffle.partitions").doc(
     "is planned with.").integer_conf(16)
 
 SHUFFLE_MODE = conf("spark.rapids.shuffle.mode").doc(
-    "MULTITHREADED, ICI or CACHE_ONLY.  The port runs a multi-partition "
-    "exchange through the spill-backed partition queues; CACHE_ONLY (the "
-    "reference's shuffle-manager path) raises.").string_conf("MULTITHREADED")
+    "MULTITHREADED, ICI or CACHE_ONLY.  CACHE_ONLY runs a multi-partition "
+    "exchange through the shuffle manager with its slices kept on the "
+    "device; the other modes go through the spill-backed partition "
+    "queues.").string_conf("MULTITHREADED")
 
 SHUFFLE_COMPRESSION_CODEC = conf(
     "spark.rapids.shuffle.compression.codec").doc(
@@ -215,8 +217,8 @@ EXCHANGE_SPILL_ENABLED = conf(
     "Stream exchange partitions through spill-backed partition queues: "
     "slices stay on the device as tracked handles up to "
     "exchange.deviceResidentBytes, then cross to the host as CRC-framed "
-    "serializer blocks.  false (the reference's shuffle-manager path) "
-    "raises in the port.").boolean_conf(True)
+    "serializer blocks.  false runs the exchange through the shuffle "
+    "manager (shuffle/manager.py).").boolean_conf(True)
 
 EXCHANGE_DEVICE_RESIDENT_BYTES = conf(
     "spark.rapids.tpu.exchange.deviceResidentBytes").doc(
@@ -229,6 +231,148 @@ ICI_HOST_BOUNDARY_CODEC = conf(
     "Codec for the CRC-framed blocks crossing the exchange's host "
     "boundary.  Unset defers to spark.rapids.shuffle.compression.codec."
 ).string_conf(None)
+
+
+SHUFFLE_MT_WRITER_THREADS = conf(
+    "spark.rapids.shuffle.multiThreaded.writer.threads").doc(
+    "Threads of the shuffle manager's writer pool (MULTITHREADED mode "
+    "serializes each map output's slices on it).").integer_conf(20)
+
+# --- query lifecycle: admission, deadlines, cancellation --------------------
+
+CONCURRENT_QUERIES = conf("spark.rapids.tpu.concurrentQueries").doc(
+    "How many queries may be admitted (planning + executing) at once; "
+    "further collects wait in a FIFO admission queue "
+    "(lifecycle/admission.py).  0 disables admission control."
+).integer_conf(4)
+
+ADMISSION_MAX_QUEUE = conf("spark.rapids.tpu.admission.maxQueueDepth").doc(
+    "Bound on queries waiting for admission; a collect arriving at a "
+    "full queue fast-rejects with QueryRejected.").integer_conf(16)
+
+ADMISSION_QUEUE_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.admission.queueTimeoutMs").doc(
+    "Max time a query waits in the admission queue before rejecting "
+    "with QueryRejected.  0 waits indefinitely (still cancellable and "
+    "deadline-trippable).").integer_conf(0)
+
+QUERY_TIMEOUT_MS = conf("spark.rapids.tpu.query.timeoutMs").doc(
+    "Per-query deadline armed at collect: the watchdog thread trips the "
+    "query's CancelToken once it passes, and the exchange's blocking "
+    "sites raise QueryDeadlineExceeded cooperatively.  0 disables."
+).integer_conf(0)
+
+QUERY_WATCHDOG_PERIOD_MS = conf(
+    "spark.rapids.tpu.query.watchdogPeriodMs").doc(
+    "Scan period of the deadline watchdog thread.").double_conf(50.0)
+
+# --- resilience: the circuit breaker ----------------------------------------
+
+RESILIENCE_ENABLED = conf("spark.rapids.tpu.resilience.enabled").doc(
+    "Let the circuit breaker hold plan nodes that failed "
+    "deterministically off the device (resilience/breaker.py "
+    "consult_plan).").boolean_conf(True)
+
+RESILIENCE_BREAKER_TTL_SEC = conf(
+    "spark.rapids.tpu.resilience.breakerTtlSec").doc(
+    "How long an open breaker entry holds its key before a half-open "
+    "probe re-admits it; the distributed coordinator quarantines a "
+    "rejoining lost worker for this long.").double_conf(300.0)
+
+# --- distributed: the coordinator and its worker processes ------------------
+
+DISTRIBUTED_ENABLED = conf("spark.rapids.tpu.distributed.enabled").doc(
+    "Route multi-partition exchanges through the worker tier "
+    "(distributed/): a coordinator places reduce partitions over worker "
+    "processes, blocks ship as CRC-framed TKU2 blocks, and the engine's "
+    "partition queues retain every shipped block until its partition is "
+    "read, so a worker lost mid-shuffle is recovered by re-placing its "
+    "partitions and re-driving the retained blocks.  With no coordinator "
+    "or no placeable worker, exchanges run in process."
+).boolean_conf(False)
+
+DISTRIBUTED_HEARTBEAT_MS = conf(
+    "spark.rapids.tpu.distributed.heartbeatMs").doc(
+    "Worker heartbeat period; the coordinator's monitor scans at the "
+    "same period and counts a worker late (worker_heartbeat_misses) past "
+    "two periods of silence.").integer_conf(200)
+
+DISTRIBUTED_WORKER_LOST_MS = conf(
+    "spark.rapids.tpu.distributed.workerLostMs").doc(
+    "Heartbeat silence after which a worker whose data port also fails a "
+    "ping is declared LOST: its partitions re-place onto survivors and "
+    "its breaker entry opens.").integer_conf(1200)
+
+DISTRIBUTED_OP_TIMEOUT_MS = conf(
+    "spark.rapids.tpu.distributed.opTimeoutMs").doc(
+    "Socket timeout of one data-plane operation (put, fetch, release) "
+    "against a worker.").integer_conf(4000)
+
+DISTRIBUTED_PUT_RETRIES = conf(
+    "spark.rapids.tpu.distributed.putRetries").doc(
+    "Transient retries (reconnect and resend) of one data-plane "
+    "operation before the worker is declared lost.").integer_conf(2)
+
+DISTRIBUTED_REDRIVE_MAX = conf(
+    "spark.rapids.tpu.distributed.redriveMaxAttempts").doc(
+    "How many times one reduce partition may be re-placed and re-driven "
+    "before WorkerLost escapes the exchange.").integer_conf(4)
+
+DISTRIBUTED_WORKER_MEM = conf(
+    "spark.rapids.tpu.distributed.workerMemoryBytes").doc(
+    "Default block-store memory of a spawned worker; blocks past it go to "
+    "the worker's spill directory.").bytes_conf(64 << 20)
+
+DISTRIBUTED_LOSS_BREAKER_THRESHOLD = conf(
+    "spark.rapids.tpu.distributed.lossBreakerThreshold").doc(
+    "Loss declarations that open a worker's breaker entry: a lost worker "
+    "that rejoins is QUARANTINED (heartbeats, gets no placements) until "
+    "the breaker TTL admits a probe.").integer_conf(1)
+
+DISTRIBUTED_TRACE_ENABLED = conf(
+    "spark.rapids.tpu.distributed.traceEnabled").doc(
+    "Stamp the query's trace id on every data-plane frame, so workers "
+    "record each put, fetch and release in their span ring attributed "
+    "to the query.").boolean_conf(True)
+
+DISTRIBUTED_TELEMETRY_RING = conf(
+    "spark.rapids.tpu.distributed.telemetryRingSize").doc(
+    "Capacity of a worker's span ring and of the coordinator's mirror of "
+    "it.  0 disables span recording (counters still travel on the "
+    "heartbeats).").integer_conf(512)
+
+DISTRIBUTED_HEDGE_ENABLED = conf(
+    "spark.rapids.tpu.distributed.hedgeEnabled").doc(
+    "Hedged fetches: a page fetch that passes its worker's soft deadline "
+    "is served from the engine's retained copy of the partition, first "
+    "answer wins (fetch_hedges, hedges_won).").boolean_conf(True)
+
+DISTRIBUTED_SOFT_DEADLINE_FACTOR = conf(
+    "spark.rapids.tpu.distributed.softDeadlineFactor").doc(
+    "Multiplier over a worker's p95-biased latency EWMA that sets its "
+    "soft deadline.").double_conf(3.0)
+
+DISTRIBUTED_SOFT_DEADLINE_MIN_MS = conf(
+    "spark.rapids.tpu.distributed.softDeadlineMinMs").doc(
+    "Floor of the per-worker soft deadline.").integer_conf(50)
+
+DISTRIBUTED_SLOW_FACTOR = conf(
+    "spark.rapids.tpu.distributed.slowFactor").doc(
+    "A worker whose latency EWMA stays past slowFactor x the fleet median "
+    "(or that misses degradeAfterMisses soft deadlines in a row) is "
+    "DEGRADED: demoted in placement, its partitions re-driven onto "
+    "healthy workers, not declared lost.").double_conf(4.0)
+
+DISTRIBUTED_DEGRADE_AFTER_MISSES = conf(
+    "spark.rapids.tpu.distributed.degradeAfterMisses").doc(
+    "Consecutive soft-deadline misses before a worker is DEGRADED."
+).integer_conf(3)
+
+DISTRIBUTED_PROMOTE_AFTER_OKS = conf(
+    "spark.rapids.tpu.distributed.promoteAfterOks").doc(
+    "Consecutive in-deadline observations a DEGRADED worker needs, its "
+    "EWMA back under slowFactor x the fleet median, to be ALIVE again."
+).integer_conf(3)
 
 
 class TpuConf:

@@ -14,9 +14,19 @@ a batch (``partition_slices``).  Its slices stream through spill-backed
 partition queues (``shuffle/partition_queues.py``): device-resident up to
 a budget, CRC-framed host blocks past it.  The reduce partitions then
 drain in partition order, in chunks of ``spark.rapids.sql.batchSizeBytes``.
-The reference's shuffle-manager path (``exchange.spill.enabled=false`` or
-``shuffle.mode=CACHE_ONLY``), its distributed path and its recovery path
-are not ported: the first raises ``NotOnGpu``.
+With ``exchange.spill.enabled=false`` or ``shuffle.mode=CACHE_ONLY`` the
+slices go through the shuffle manager (``shuffle/manager.py``) instead,
+each input batch a map task, as in the reference.
+
+With ``spark.rapids.tpu.distributed.enabled`` and a coordinator that has a
+placeable worker, the exchange runs over the worker tier
+(``_execute_distributed``): each slice is framed once, shipped to the
+worker its partition is placed on, and kept in a lineage queue in the
+engine until its partition is read back; a worker lost mid-shuffle is
+recovered by re-driving those blocks.  With no coordinator or no
+placeable worker the exchange runs in process (the reference's elastic
+membership).  The reference's recovery path (stage checkpoints) is not
+ported.
 """
 from __future__ import annotations
 
@@ -29,10 +39,13 @@ import torch
 from spark_rapids_tpu_torch import perfcounters as PC
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.config import (BATCH_SIZE_BYTES,
+                                           DISTRIBUTED_ENABLED,
+                                           DISTRIBUTED_REDRIVE_MAX,
                                            EXCHANGE_SPILL_ENABLED,
-                                           SHUFFLE_MODE, TpuConf)
+                                           SHUFFLE_MODE, SPILL_DIR, TpuConf)
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.expr.base import EvalContext
+from spark_rapids_tpu_torch.lifecycle.context import check_cancel
 from spark_rapids_tpu_torch.ops.filterops import gather_columns
 from spark_rapids_tpu_torch.ops.hashing import spark_partition_ids
 from spark_rapids_tpu_torch.ops.sortkeys import sort_permutation
@@ -167,11 +180,96 @@ class TpuShuffleExchangeExec(TpuExec):
         if isinstance(self.partitioning, SinglePartitioning):
             yield from self.children[0].execute_columnar()
             return
-        if not self.conf.get(EXCHANGE_SPILL_ENABLED) or str(
-                self.conf.get(SHUFFLE_MODE)).upper() == "CACHE_ONLY":
-            raise NotOnGpu("the shuffle-manager exchange (exchange.spill."
-                           "enabled=false or shuffle.mode=CACHE_ONLY)")
-        yield from self._execute_spill_backed()
+        c = self.conf
+        if c.get(DISTRIBUTED_ENABLED):
+            from spark_rapids_tpu_torch.distributed import peek_coordinator
+
+            coord = peek_coordinator()
+            if coord is not None and coord.placeable_workers():
+                yield from self._execute_distributed(coord)
+                return
+        if c.get(EXCHANGE_SPILL_ENABLED) \
+                and str(c.get(SHUFFLE_MODE)).upper() != "CACHE_ONLY":
+            yield from self._execute_spill_backed()
+            return
+        yield from self._execute_shuffle_manager()
+
+    def _execute_shuffle_manager(self) -> Iterator[ColumnarBatch]:
+        """Each input batch a map task whose slices the shuffle manager
+        writes (serialized on its pool, or kept on the device under
+        CACHE_ONLY); each reduce partition assembled by its reader."""
+        from spark_rapids_tpu_torch.shuffle.manager import get_shuffle_manager
+
+        mgr = get_shuffle_manager(self.conf)
+        shuffle_id = mgr.register_shuffle()
+        device = None
+        try:
+            for map_id, b in enumerate(self.children[0].execute_columnar()):
+                device = b.device
+                slices: List = [None] * self.num_partitions
+                for pid, sl in self.partition_slices(b):
+                    slices[pid] = sl
+                mgr.write_map_output(shuffle_id, map_id, slices)
+            for pid in range(self.num_partitions):
+                check_cancel()
+                out = mgr.read_partition(shuffle_id, pid, self.output,
+                                         device=device)
+                if out is not None and out.num_rows > 0:
+                    yield out
+        finally:
+            mgr.unregister_shuffle(shuffle_id)
+
+    def _execute_distributed(self, coord) -> Iterator[ColumnarBatch]:
+        """The exchange over the worker tier: each slice framed once as a
+        TKU2 block, shipped to the worker its partition is placed on, and
+        kept in a lineage queue in the engine (device budget 0, host
+        memory bounded by ``spark.rapids.shuffle.hostStoreSize``, then
+        files) until its partition is read back.  The shuffle
+        registration ties the remote copies to the query, so its cleanup
+        releases them even after a mid-batch unwind."""
+        from spark_rapids_tpu_torch.distributed.client import (
+            DistributedExchange)
+        from spark_rapids_tpu_torch.exec.partition_sizing import (
+            estimate_input_bytes)
+        from spark_rapids_tpu_torch.shuffle.manager import (
+            SHUFFLE_HOST_STORE_LIMIT, get_shuffle_manager)
+        from spark_rapids_tpu_torch.shuffle.partition_queues import (
+            SpillBackedPartitionQueues, host_boundary_codec)
+
+        c = self.conf
+        mgr = get_shuffle_manager(c)
+        exch_id = mgr.register_shuffle()
+        queues = None
+        dist = None
+        # everything fallible, placement included (it raises WorkerLost
+        # when the last placeable worker died since the check above), sits
+        # in the try, so the finally always unregisters and closes
+        try:
+            codec = host_boundary_codec(c)
+            queues = SpillBackedPartitionQueues(
+                self.num_partitions, self.output, device_budget=0,
+                codec=codec, host_budget=int(c.get(SHUFFLE_HOST_STORE_LIMIT)),
+                spill_dir=c.get(SPILL_DIR))
+            dist = DistributedExchange(
+                coord, exch_id, self.num_partitions, self.output, codec,
+                queues, est_bytes=estimate_input_bytes(self.children[0], c),
+                redrive_max_attempts=int(c.get(DISTRIBUTED_REDRIVE_MAX)))
+            for b in self.children[0].execute_columnar():
+                for pid, sl in self.partition_slices(b):
+                    dist.add_slice(pid, sl)
+            goal = int(c.get(BATCH_SIZE_BYTES))
+            for pid in range(self.num_partitions):
+                check_cancel()
+                for out in dist.read_partition_chunks(pid,
+                                                      target_bytes=goal):
+                    if out.num_rows > 0:
+                        yield out
+        finally:
+            if dist is not None:
+                dist.close()
+            elif queues is not None:
+                queues.close()
+            mgr.unregister_shuffle(exch_id)
 
     def _execute_spill_backed(self) -> Iterator[ColumnarBatch]:
         """Each input batch sliced once, each slice queued (on the device
@@ -192,6 +290,7 @@ class TpuShuffleExchangeExec(TpuExec):
                 for pid, sl in self.partition_slices(b):
                     queues.append(pid, sl)
             for pid in range(self.num_partitions):
+                check_cancel()
                 for out in queues.read_chunks(pid, target_bytes=goal):
                     if out.num_rows > 0:
                         yield out

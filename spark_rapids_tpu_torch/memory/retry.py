@@ -63,15 +63,12 @@ def _check_injection() -> None:
 
 
 def _is_device_oom(exc: BaseException) -> bool:
-    """A ``torch.cuda.OutOfMemoryError`` anywhere in the cause/context
-    chain (a layer may wrap it with ``raise X from e``)."""
-    seen = set()
-    while exc is not None and id(exc) not in seen:
-        if isinstance(exc, torch.cuda.OutOfMemoryError):
-            return True
-        seen.add(id(exc))
-        exc = exc.__cause__ or exc.__context__
-    return False
+    """A device OOM anywhere in the cause/context chain (a layer may wrap
+    it with ``raise X from e``): ``resilience/classify.py``'s one
+    predicate."""
+    from spark_rapids_tpu_torch.resilience.classify import is_device_oom
+
+    return is_device_oom(exc)
 
 
 def _release_device_memory(fw) -> None:

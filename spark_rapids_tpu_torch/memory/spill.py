@@ -13,8 +13,11 @@ The pool is a budget over tracked bytes, as in the reference; torch's
 caching allocator is not capped.  A CUDA batch goes down into pinned host
 memory with non-blocking copies and one stream synchronisation before any
 byte of it is read; the disk tier carries a CRC32 of the host columns,
-checked when the file is read back (``SpillCorruption``).  The reference's
-query accounting, lifecycle owners and leak report are not ported.
+checked when the file is read back (``SpillCorruption``).  Each handle
+records the query that tracked it, so the query lifecycle closes what a
+query left behind (``close_owned_by``) and ``leak_report`` lists what is
+still open.  The reference's query accounting and persistent (cached)
+handles are not ported.
 """
 from __future__ import annotations
 
@@ -103,6 +106,10 @@ class SpillableColumnarBatch:
         self.pinned = 0          # > 0 while an operator computes on it
         self.lru_tick = 0
         self.closed = False
+        from spark_rapids_tpu_torch.lifecycle.context import current
+
+        ctx = current()
+        self.owner_qid = ctx.query_id if ctx is not None else None
         framework._register(self)
 
     # -- public API ------------------------------------------------------
@@ -282,6 +289,32 @@ class SpillFramework:
             self._device_used -= h.device_bytes
         if h in self._handles:
             self._handles.remove(h)
+
+    def leak_report(self) -> List[str]:
+        """One line per live (unclosed) handle; empty once every handle
+        a query tracked was released."""
+        with self._lock:
+            return [f"LEAK: {h.state} handle {h.device_bytes}B"
+                    + (f" owner={h.owner_qid}" if h.owner_qid else "")
+                    for h in self._handles]
+
+    def close_owned_by(self, query_id: str) -> int:
+        """Query-end cleanup: close every handle the query tracked and
+        never closed (a mid-batch unwind leaves these); returns how many
+        were closed."""
+        with self._lock:
+            victims = [h for h in self._handles if h.owner_qid == query_id]
+        for h in victims:
+            h.close()
+        return len(victims)
+
+    def close_all(self) -> int:
+        """Close every live handle (leak recovery)."""
+        with self._lock:
+            victims = list(self._handles)
+        for h in victims:
+            h.close()
+        return len(victims)
 
     def _touch_locked(self, h: SpillableColumnarBatch) -> None:
         self._tick += 1

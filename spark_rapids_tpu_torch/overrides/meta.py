@@ -9,13 +9,14 @@ device: a type its ``TypeSig`` rejects, a nested type the device layout
 lacks, ``spark.rapids.sql.exec.<Name>=false`` or
 ``spark.rapids.sql.expression.<Name>=false``, and the extra checks (a
 decimal multiply above 18 digits, an add or subtract past 38 digits, a
-decimal128 cast pair, a decimal128 hash key, a disabled file format).  A
-node with a reason stays on the host as a CPU stage (``cpu/oracle.py``);
+decimal128 cast pair, a decimal128 hash key, a disabled file format) and
+an open circuit-breaker entry for the node's key
+(``resilience/breaker.py::consult_plan``).  A node with a reason stays on the host as a CPU stage (``cpu/oracle.py``);
 ``explain`` prints the reasons in the reference's words.  What the
 reference runs on the device but the port has not ported yet is not a
 reason here: the conversion raises ``NotOnGpu`` for it
-(``overrides/overrides.py``).  The reference's circuit breaker, profile
-advisor and host-kernel check are not ported.
+(``overrides/overrides.py``).  The reference's profile advisor and
+host-kernel check are not ported.
 """
 from __future__ import annotations
 
@@ -162,6 +163,17 @@ class SparkPlanMeta(BaseMeta):
                     self.will_not_work_on_tpu(r)
         if self.rule.extra_check is not None:
             self.rule.extra_check(self)
+        # circuit breaker (resilience/breaker.py): a plan node whose key
+        # the breaker holds open is kept off the device until its TTL
+        # admits a probe
+        from spark_rapids_tpu_torch.resilience.breaker import consult_plan
+
+        reason = consult_plan(self.plan, self.conf)
+        if reason:
+            from spark_rapids_tpu_torch import perfcounters as PC
+
+            PC.bump("breaker_plan_fallbacks")
+            self.will_not_work_on_tpu(reason)
 
     def explain(self, indent: int = 0, only_fallback: bool = True) -> str:
         lines = []

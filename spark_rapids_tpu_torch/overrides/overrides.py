@@ -36,6 +36,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.config import (ADAPTIVE_ENABLED,
                                            AUTO_BROADCAST_JOIN_THRESHOLD,
                                            BATCH_SIZE_BYTES,
+                                           DISTRIBUTED_ENABLED,
                                            EXCHANGE_COALESCE_SMALL_BYTES,
                                            MAX_READER_BATCH_SIZE_ROWS,
                                            SINGLE_DEVICE_SHUFFLE_COALESCE,
@@ -179,10 +180,14 @@ def _coalesce_single_device_shuffle(node: TpuExec, conf: TpuConf
     left alone collapse to one partition: their partitions are parallelism
     that one card does not have, and joins and aggregates do not depend on
     the count.  A sized exchange keeps its partitions, which are the
-    out-of-core schedule.  (The port runs on one device.)"""
+    out-of-core schedule, and so does every exchange when
+    ``spark.rapids.tpu.distributed.enabled`` is on: reduce partitions are
+    the unit of placement on the workers, and one partition would put the
+    whole exchange on one worker.  (The port runs on one device.)"""
     node.children = [_coalesce_single_device_shuffle(c, conf)
                      for c in node.children]
     if conf.get(SINGLE_DEVICE_SHUFFLE_COALESCE) \
+            and not conf.get(DISTRIBUTED_ENABLED) \
             and isinstance(node, TpuShuffleExchangeExec) \
             and isinstance(node.partitioning, (PN.HashPartitioning,
                                                PN.RoundRobinPartitioning)) \

@@ -49,6 +49,32 @@ COUNTERS: Dict[str, int] = {
     "ooc_sort_runs": 0,
     "ooc_sort_merge_windows": 0,
     "ooc_sort_merge_upload_bytes": 0,
+    # query lifecycle (lifecycle/): admissions, fast rejects, cancelled
+    # queries, watchdog deadline trips, and wall spent queued
+    "queries_admitted": 0,
+    "queries_rejected": 0,
+    "queries_cancelled": 0,
+    "deadline_trips": 0,
+    "admission_wait_ns": 0,
+    # distributed tier (distributed/): worker joins (quarantined rejoins
+    # included), LOST declarations, monitor scans that caught a late
+    # heartbeat, reduce partitions re-driven from the engine's retained
+    # blocks after a loss, and the blocks shipped to workers
+    "workers_joined": 0,
+    "worker_lost": 0,
+    "worker_heartbeat_misses": 0,
+    "partitions_replayed": 0,
+    "dist_blocks_shipped": 0,
+    "dist_block_bytes": 0,
+    # gray failure: hedged page fetches launched after a soft-deadline
+    # miss, hedges the retained copy won, DEGRADED declarations, and
+    # partitions re-driven off a DEGRADED worker
+    "fetch_hedges": 0,
+    "hedges_won": 0,
+    "workers_degraded": 0,
+    "speculative_redrives": 0,
+    # plan nodes the circuit breaker kept off the device at tagging
+    "breaker_plan_fallbacks": 0,
 }
 
 # High-water marks, set to 0 by ``reset_peaks`` and read by ``peaks`` (the

@@ -19,7 +19,8 @@ the exchanges whose input is known to be large, collapses the others to
 one partition, and makes the shuffled join adaptive.  The plan is made
 with the pool of a device manager built from the session's conf, and each
 ``collect`` builds the spill framework and device manager anew from it
-(``memory/``).  As in the reference, a DataFrame keeps its rewritten plan
+(``memory/``); every collect runs under the query lifecycle
+(``lifecycle/``).  As in the reference, a DataFrame keeps its rewritten plan
 per conf, so a second ``collect`` runs the same exec tree and ``explain``
 after a collect shows the adaptive join's decision.  A plan node that the
 reference's rules keep off the device runs as a CPU stage
@@ -246,22 +247,27 @@ class DataFrame:
         return planned
 
     def collect_host(self) -> List[HostColumn]:
-        """The result as host columns (one per output column); the spill
-        framework (and its device manager) is built anew from the
-        session's conf first, as in the reference, so its counters are
-        this collect's."""
+        """The result as host columns (one per output column).  The query
+        runs under the query lifecycle, as the reference's collect does:
+        admission before planning, a query id and trace id, an optional
+        deadline, and cleanup of what the query still holds however it
+        ends.  The spill framework (and its device manager) is built anew
+        from the session's conf first, so its counters are this
+        collect's."""
         from spark_rapids_tpu_torch.cpu.oracle import execute_cpu_plan
         from spark_rapids_tpu_torch.exec.base import TpuExec
         from spark_rapids_tpu_torch.exec.transitions import (
             TpuColumnarToRowExec)
+        from spark_rapids_tpu_torch.lifecycle import query_lifecycle
         from spark_rapids_tpu_torch.memory.spill import get_spill_framework
 
-        root = self._planned()
-        get_spill_framework(self.session.conf, self.session.device)
-        if isinstance(root, TpuExec):
-            return TpuColumnarToRowExec(root).collect_host()
-        cols, _ = execute_cpu_plan(root, self.session.conf.ansi_enabled)
-        return [c.to_host() for c in cols]
+        with query_lifecycle(self.session.conf):
+            root = self._planned()
+            get_spill_framework(self.session.conf, self.session.device)
+            if isinstance(root, TpuExec):
+                return TpuColumnarToRowExec(root).collect_host()
+            cols, _ = execute_cpu_plan(root, self.session.conf.ansi_enabled)
+            return [c.to_host() for c in cols]
 
     def collect(self) -> List[tuple]:
         return list(zip(*[c.to_pylist() for c in self.collect_host()]))

@@ -1,3 +1,4 @@
-"""Shuffle — port of ``spark_rapids_tpu/shuffle/`` without the shuffle
-manager: the TKU2 wire format (``serializer.py``) and the spill-backed
-partition queues of the out-of-core exchange (``partition_queues.py``)."""
+"""Shuffle — port of ``spark_rapids_tpu/shuffle/``: the TKU2 wire format
+(``serializer.py``), the spill-backed partition queues of the out-of-core
+exchange and the distributed lineage buffer (``partition_queues.py``), and
+the shuffle manager (``manager.py``)."""

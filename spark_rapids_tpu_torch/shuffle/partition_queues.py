@@ -11,9 +11,15 @@ raises ``ShuffleCorruption`` when it is read.
 
 Wall inside the queue (serialize, track, materialize) is counted in
 ``exchange_spill_ns``; host-boundary blocks in ``exchange_host_blocks`` and
-``exchange_host_block_bytes``.  The reference's distributed lineage and
-checkpoint entry points, query accounting and cancellation checks are not
-ported.
+``exchange_host_block_bytes``.  Every append and read observes the current
+query's CancelToken.
+
+Run with a device budget of 0, the queues are the distributed exchange's
+lineage buffer: ``append_framed`` keeps the very block shipped to a
+worker, ``peek_blobs`` reads a partition's blocks back for a re-drive or a
+hedged fetch without draining them, and ``release_partition`` drops them
+once the partition was read.  The reference's checkpoint entry point
+(``snapshot_framed``) and query accounting are not ported.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from spark_rapids_tpu_torch.config import (EXCHANGE_DEVICE_RESIDENT_BYTES,
                                            EXCHANGE_TARGET_PARTITION_FRACTION,
                                            ICI_HOST_BOUNDARY_CODEC,
                                            SHUFFLE_COMPRESSION_CODEC)
+from spark_rapids_tpu_torch.lifecycle.context import check_cancel
 from spark_rapids_tpu_torch.memory.device_manager import get_device_manager
 from spark_rapids_tpu_torch.memory.spill import get_spill_framework
 from spark_rapids_tpu_torch.shuffle.serializer import (deserialize_concat,
@@ -71,6 +78,7 @@ class SpillBackedPartitionQueues:
 
     def append(self, pid: int, batch: ColumnarBatch) -> None:
         """Queue one map-side slice for reduce partition ``pid``."""
+        check_cancel()
         if batch is None or batch.num_rows == 0:
             return
         t0 = time.perf_counter_ns()
@@ -80,13 +88,45 @@ class SpillBackedPartitionQueues:
             self._queues[pid].append(("dev", self._fw.track(batch)))
             self._device_bytes += nb
         else:
-            blob = serialize_batch(batch, codec=self.codec)
-            self._queues[pid].append(self._host_entry(blob))
-            self.host_blocks += 1
-            self.host_block_bytes += len(blob)
-            PC.bump("exchange_host_blocks")
-            PC.bump("exchange_host_block_bytes", len(blob))
+            self._queue_blob(pid, serialize_batch(batch, codec=self.codec))
         PC.bump("exchange_spill_ns", time.perf_counter_ns() - t0)
+
+    def append_framed(self, pid: int, blob: bytes) -> None:
+        """Queue one block framed already (the distributed exchange frames
+        each slice once and keeps the same bytes here as its lineage
+        copy), counted like any host-boundary block."""
+        check_cancel()
+        if blob:
+            self._queue_blob(pid, blob)
+
+    def _queue_blob(self, pid: int, blob: bytes) -> None:
+        self._queues[pid].append(self._host_entry(blob))
+        self.host_blocks += 1
+        self.host_block_bytes += len(blob)
+        PC.bump("exchange_host_blocks")
+        PC.bump("exchange_host_block_bytes", len(blob))
+
+    def peek_blobs(self, pid: int) -> List[bytes]:
+        """The partition's host blocks, without draining (those in files
+        read back): the source of a re-drive after a worker loss.  Device
+        entries are not wire blocks and are skipped; the distributed
+        exchange runs its queues with a device budget of 0."""
+        out: List[bytes] = []
+        for kind, x in (self._queues.get(pid) or []):
+            if kind == "host":
+                out.append(x)
+            elif kind == "hostfile":
+                with open(x, "rb") as f:
+                    out.append(f.read())
+        return out
+
+    def release_partition(self, pid: int) -> None:
+        """Drop one partition's entries: the consuming stage read all of
+        it, so its lineage copy can go."""
+        entries = self._queues.get(pid) or []
+        self._queues[pid] = []
+        for kind, x in entries:
+            self._release_entry(kind, x)
 
     def _host_entry(self, blob: bytes) -> Tuple[str, object]:
         """One host entry: in memory up to ``host_budget``, past it a file
@@ -170,6 +210,7 @@ class SpillBackedPartitionQueues:
         ``target_bytes`` each (0: one chunk).  One chunk at a time is
         materialised and released, so the drain's device working set is a
         chunk, never the whole partition."""
+        check_cancel()
         entries = self._queues.get(pid) or []
         if not entries:
             return
@@ -185,6 +226,7 @@ class SpillBackedPartitionQueues:
                     out = self._drain_group(group)
                     group, group_bytes = [], 0
                     yield out
+                    check_cancel()
                 group.append(entries.pop(0))
                 group_bytes += nb
             if group:

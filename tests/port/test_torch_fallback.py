@@ -238,3 +238,47 @@ def test_cpu_engine_runs_every_ported_expression():
     from spark_rapids_tpu_torch.overrides.meta import PORTED_EXPRS
 
     assert set(oracle._HANDLERS) == PORTED_EXPRS
+
+
+def test_open_breaker_entry_keeps_the_node_on_the_host():
+    """An OPEN circuit-breaker entry for the Filter's key
+    (``resilience/breaker.py``) places the Filter as
+    ``spark.rapids.sql.exec.Filter=false`` does, with the breaker's reason;
+    the rows stay the oracle's.  A TTL that has passed admits the node
+    again (the half-open probe), and so does
+    ``spark.rapids.tpu.resilience.enabled=false``."""
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.resilience import breaker as B
+
+    def plan_lines(conf):
+        lines = query(S, S.TpuSession(conf, device="cpu")).explain()
+        return lines.splitlines()
+
+    def head(lines):
+        return lines[:lines.index("Fallback reasons:")]
+
+    on_device = plan_lines({})
+    disabled = plan_lines({"spark.rapids.sql.exec.Filter": "false"})
+    df = query(S, S.TpuSession({}, device="cpu"))
+    node = df.plan
+    while type(node).__name__ != "Filter":
+        node = node.children[0]
+    B.reset_breaker()
+    try:
+        B.get_breaker().record_failure(B.plan_key(node), 1, "injected")
+        before = PC.snapshot()
+        lines = df.explain().splitlines()
+        assert PC.since(before)["breaker_plan_fallbacks"] == 1
+        assert head(lines) == head(disabled) != head(on_device)
+        assert any("circuit breaker open for Filter after 1 "
+                   "deterministic failure(s) (injected)" in x
+                   for x in lines)
+        want = query(RS, RS.TpuSession(ORACLE)).collect()
+        assert rows_key(df.collect()) == rows_key(want)
+        assert plan_lines({"spark.rapids.tpu.resilience.enabled":
+                           "false"}) == on_device
+        assert plan_lines({"spark.rapids.tpu.resilience.breakerTtlSec":
+                           "0"}) == on_device
+        assert B.get_breaker().state_of(B.plan_key(node)) == B.HALF_OPEN
+    finally:
+        B.reset_breaker()

@@ -604,3 +604,59 @@ def test_rung3_on_gpu_equals_cpu():
                             * C.RUNG3_SORT_ROW_BYTES)
         assert peek_spill_framework().spill_to_host_count > 0
         assert C.rung3_sort_check(srt.collect_host(), d) is None
+
+
+@pytest.mark.gpu
+def test_rung4_dist_on_gpu_equals_cpu():
+    """bench's rung4_dist at 200,000 rows over two worker processes, on the
+    card and on the CPU, ``bench0`` SIGKILLed at the 5th shipped block
+    each time: the rows of ``cpu_dist``, a worker lost, partitions
+    replayed; on the card no worker maps CUDA or torch."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import distributed as D
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.distributed import client as DC
+    from spark_rapids_tpu_torch.resilience.breaker import reset_breaker
+
+    n = C.DIST_BENCH_ROWS
+    fact, dim = C.make_dist(n)
+    want = C.dist_reference(fact, dim)
+    conf = C.dist_conf(n)
+    for device in ("cuda", "cpu"):
+        reset_breaker()
+        D.reset_coordinator()
+        coord = D.get_coordinator(TpuConf(conf))
+        procs = {w: D.spawn_local_worker(coord, w,
+                                         mem_bytes=C.dist_worker_mem(n))
+                 for w in C.DIST_WORKERS}
+        try:
+            assert coord.wait_for_workers(2, timeout_s=C.DIST_JOIN_S)
+            q = C.ooc_query(*C.ooc_frames(
+                S, S.TpuSession(conf, device=device), fact, dim), S)
+            assert C.plan_shape(q) == C.DIST_PLAN
+            shipped = {"n": 0}
+
+            def hook(exch, pid, seq):
+                shipped["n"] += 1
+                if shipped["n"] == C.DIST_KILL_AT:
+                    procs["bench0"].kill()
+
+            snap = PC.snapshot()
+            DC.TEST_SHIP_HOOK = hook
+            try:
+                assert C.ooc_rows(q.collect()) == want
+            finally:
+                DC.TEST_SHIP_HOOK = None
+            d = PC.since(snap)
+            assert d["worker_lost"] == 1 and d["partitions_replayed"] >= 1
+            assert C.ooc_rows(q.collect()) == want
+            with open(f"/proc/{procs['bench1'].pid}/maps") as f:
+                maps = f.read()
+            assert "libcuda" not in maps and "libtorch" not in maps
+        finally:
+            C.stop_dist_workers(procs.values())
+            D.reset_coordinator()

@@ -36,7 +36,15 @@ def test_import_leaves_no_jax_in_sys_modules():
             "spark_rapids_tpu_torch.cpu.oracle, "
             "spark_rapids_tpu_torch.overrides.meta, "
             "spark_rapids_tpu_torch.overrides.transitions, "
-            "spark_rapids_tpu_torch.expr.complextypes\n"
+            "spark_rapids_tpu_torch.expr.complextypes, "
+            "spark_rapids_tpu_torch.lifecycle, "
+            "spark_rapids_tpu_torch.resilience.breaker, "
+            "spark_rapids_tpu_torch.resilience.classify, "
+            "spark_rapids_tpu_torch.shuffle.manager, "
+            "spark_rapids_tpu_torch.exec.ici, "
+            "spark_rapids_tpu_torch.distributed.coordinator, "
+            "spark_rapids_tpu_torch.distributed.client, "
+            "spark_rapids_tpu_torch.distributed.worker\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n"
@@ -61,3 +69,55 @@ def test_no_jax_import_in_source(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
+
+
+def test_worker_imports_neither_torch_nor_jax():
+    """``python -m spark_rapids_tpu_torch.distributed.worker --help`` runs
+    with neither torch nor jax in ``sys.modules``: a worker starts without
+    them and can never open a CUDA context."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['worker', '--help']\n"
+            "try:\n"
+            "    runpy.run_module('spark_rapids_tpu_torch.distributed.worker',"
+            " run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert e.code == 0, e.code\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('torch', 'jax', 'jaxlib', 'spark_rapids_tpu')]\n"
+            "print('BAD', ','.join(bad))\n"
+            "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, (proc.stdout, proc.stderr)
+    assert "--coordinator" in proc.stdout
+
+
+def test_workers_are_spawned_without_the_card(monkeypatch):
+    """``spawn_local_worker`` starts a fresh interpreter (fork and exec)
+    running the port's worker module with ``CUDA_VISIBLE_DEVICES``
+    empty; its store size is the coordinator's unless the caller gives
+    one."""
+    from spark_rapids_tpu_torch import distributed as D
+
+    seen = {}
+
+    def popen(cmd, env=None, **kw):
+        seen.update(cmd=cmd, env=env)
+        return "proc"
+
+    class Coord:
+        heartbeat_s, op_timeout_s, telemetry_ring, port = 0.1, 1.0, 8, 5
+        worker_mem = 12345
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "0")
+    monkeypatch.setattr(D.subprocess, "Popen", popen)
+    assert D.spawn_local_worker(Coord(), "w0", mem_bytes=4096) == "proc"
+    assert seen["cmd"][:3] == [sys.executable, "-m",
+                               "spark_rapids_tpu_torch.distributed.worker"]
+    assert seen["env"]["CUDA_VISIBLE_DEVICES"] == ""
+    assert seen["env"]["PYTHONPATH"].split(os.pathsep)[0] == REPO
+    mem = seen["cmd"].index("--mem-bytes") + 1
+    assert seen["cmd"][mem] == "4096"
+    D.spawn_local_worker(Coord(), "w1")
+    assert seen["cmd"][mem] == "12345"

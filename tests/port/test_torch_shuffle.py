@@ -216,7 +216,9 @@ def test_partition_queues_tiers_and_chunks(framework, tmp_path):
 def test_exchange_streams_through_queues(framework):
     """A multi-partition exchange over a 1-byte device budget: every row
     comes out once, grouped by partition in partition order, and host
-    blocks flowed (``tests/test_out_of_core.py``'s last case)."""
+    blocks flowed (``tests/test_out_of_core.py``'s last case).  Through
+    the shuffle manager (spill disabled, or CACHE_ONLY) the same rows come
+    out in the same order."""
     from spark_rapids_tpu_torch.config import TpuConf
     from spark_rapids_tpu_torch.exec.basic import TpuLocalTableScanExec
     from spark_rapids_tpu_torch.exec.exchange import TpuShuffleExchangeExec
@@ -246,8 +248,13 @@ def test_exchange_streams_through_queues(framework):
     assert torch.all(pids[1:] >= pids[:-1])
     assert sorted(got.columns[1].data.tolist()) == sorted(a["l"].tolist())
     assert framework.device_used == 0
-    conf = TpuConf({"spark.rapids.tpu.exchange.spill.enabled": False})
-    ex = TpuShuffleExchangeExec(HashPartitioning(keys, 5), scan, conf=conf)
-    from spark_rapids_tpu_torch.exec.base import NotOnGpu
-    with pytest.raises(NotOnGpu, match="shuffle-manager"):
-        list(ex.execute_columnar())
+    # the shuffle manager (spill disabled, or CACHE_ONLY) gives the same
+    # rows in the same order: each partition's map outputs in batch order
+    for manager_conf in ({"spark.rapids.tpu.exchange.spill.enabled": False},
+                         {"spark.rapids.shuffle.mode": "CACHE_ONLY"}):
+        ex = TpuShuffleExchangeExec(HashPartitioning(keys, 5), scan,
+                                    conf=TpuConf(manager_conf))
+        via = ColumnarBatch.concat(list(ex.execute_columnar()))
+        for mine, theirs in zip(via.columns, got.columns):
+            assert torch.equal(mine.data, theirs.data)
+            assert torch.equal(mine.validity, theirs.validity)
