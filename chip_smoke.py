@@ -2,8 +2,11 @@
 """GPU smoke run of the PyTorch port: TPC-H Q6 from snappy Parquet at SF10,
 bench qa, qb and qc from Parquet at TPC-DS SF10's store_sales row count,
 then bench's out-of-core rung (rung3_ooc), qb under a capped pool, bench's
-rung3 (a CPU stage under the aggregate, the out-of-core sort), and bench's
-rung4_dist (its exchanges over two worker processes, one killed).
+rung3 (a CPU stage under the aggregate, the out-of-core sort), bench's
+rung4_dist (its exchanges over two worker processes, one killed), bench's
+rung5_recovery (the query journal, a query killed at a stage commit and
+resumed), the driver SIGKILLed and restarted over re-attaching workers,
+and bench's q6_parquet_hot (Q6 over the hot-table cache).
 
     python3 chip_smoke.py [--scale 10] [--seed 20261017]
 
@@ -114,7 +117,44 @@ Phases, each failing the run at its first mismatch:
     A/B (3 interleaved rounds), at SF10 one healthy collect and a
     breakdown (partition, frame and download, ship, fetch and upload,
     join, aggregate); every collect exact, no hedge may win in a healthy
-    one, and no process but the engine may hold the card.
+    one, and no process but the engine may hold the card;
+16. bench rung5_recovery from memory, bench.py's generator (seed 31; the
+    2,000-row dimension, 31 groups) and query, at bench's 200,000 rows and
+    at 28,800,991: (a) the min of 3 collects with the journal off against
+    the min of 3 with it on, each after a warm-up (``journalOverheadPct``
+    and the records written, printed, not held); (b) under bench's
+    checkpointing conf (8-partition hash exchanges, no coalesce, broadcast
+    or adaptive execution; the plan the reference's): a cold collect, a
+    collect killed by a ``BaseException`` from the journal's record hook
+    at its first ``ckpt`` record (its end record suppressed), the journal
+    closed, and the resumed collect, which must serve a stage
+    (``stages_recovered`` and ``queries_resumed`` >= 1, the query
+    ``resumable``).  Every collect exact; no leak after the kill or the
+    resume; the recovery dir empty after the purge.  Printed: the
+    checkpoint bytes on disk, the cold, killed and resumed walls;
+17. the driver killed: two worker processes (``python -m
+    spark_rapids_tpu_torch.distributed.worker --reattach-ms 120000
+    --endpoint-file <recovery dir>/coordinator.endpoint``, without the
+    card) outlive driver incarnations that run as ``chip_smoke.py
+    --driver-incarnation`` child processes on the card (an internal mode:
+    one incarnation builds the coordinator, waits for the workers, arms
+    its kill point and collects tools/run_stress.py's driver-kill query,
+    seed 7, a 500-row dimension of 13 groups, under its conf).  Per round
+    incarnation 1 is SIGKILLed at the kill point and incarnation 2 runs
+    to its end: ``plan:1``, ``ship:6`` and ``ckpt:1`` at 200,000 rows
+    with 32 MiB stores, then ``ckpt:1`` at 28,800,991 rows with
+    rung4_dist's stores and batching.  Incarnation 2 must equal numpy,
+    classify every journaled query (the crashed one not completed; after
+    ``ckpt`` resumable, a stage served), leave no block on the workers
+    and leak nothing, and no worker may map CUDA;
+18. bench q6_parquet_hot: phase 4's files read PERFILE with the hot-table
+    cache under a 4 GiB bound: the first collect misses with phase 4's K1
+    launches and ``bytes_h2d``, the second hits with no K1 launch and no
+    ``bytes_h2d``, timed beside phase 4's collect; under the 1 GiB
+    default the same scan (over the bound) never hits; bench's own cell,
+    1,000,000 rows in 4 snappy files under the default bound, hits on its
+    repeat; after each ``session.close()`` the spill framework holds no
+    handle, persistent ones included.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
@@ -228,15 +268,15 @@ def schemas():
     return write, read
 
 
-def write_files(li, n: int, out_dir: str, device):
+def write_files(li, n: int, out_dir: str, device, n_files: int = N_FILES):
     from spark_rapids_tpu_torch.columnar.column import HostColumn
     from spark_rapids_tpu_torch.io.parquet_encode import write_parquet_device
 
     wsch, _ = schemas()
     os.makedirs(out_dir, exist_ok=True)
-    bounds = np.linspace(0, n, N_FILES + 1).astype(np.int64)
+    bounds = np.linspace(0, n, n_files + 1).astype(np.int64)
     paths = []
-    for i in range(N_FILES):
+    for i in range(n_files):
         lo, hi = int(bounds[i]), int(bounds[i + 1])
         cols = [HostColumn.from_numpy(li[f.name][lo:hi], f.dataType)
                 for f in wsch.fields]
@@ -801,9 +841,10 @@ DIST_PLAN = ["TpuHashAggregate(Complete) keys=[g] aggs=[sum(v) AS sv]",
              "        <scan>"]
 
 
-def make_dist(n: int):
-    """bench.py's rung4_dist tables: (fact, dim) as numpy columns."""
-    rng = np.random.default_rng(DIST_SEED)
+def make_dist(n: int, seed: int = DIST_SEED):
+    """bench.py's rung4_dist tables (and, with its seed, rung5_recovery's):
+    (fact, dim) as numpy columns."""
+    rng = np.random.default_rng(seed)
     fact = {"k": rng.integers(0, DIST_DIM, n).astype(np.int32),
             "v": rng.integers(-1000, 1000, n)}
     dk = np.arange(DIST_DIM, dtype=np.int32)
@@ -831,12 +872,13 @@ def dist_conf(n: int) -> dict:
             "spark.rapids.tpu.distributed.opTimeoutMs": 1000}
 
 
-def dist_reference(fact, dim):
-    """bench.py's ``cpu_dist``: {g: sum of v} over the non-zero sums."""
+def dist_reference(fact, dim, n_groups: int = DIST_GROUPS):
+    """bench.py's ``cpu_dist``: {g: sum of v} over the non-zero sums of
+    ``n_groups`` groups."""
     sums = np.bincount(dim["g"][fact["k"]],
                        weights=fact["v"].astype(np.float64),
-                       minlength=DIST_GROUPS)
-    return {int(i): int(sums[i]) for i in range(DIST_GROUPS) if sums[i]}
+                       minlength=n_groups)
+    return {int(i): int(sums[i]) for i in range(n_groups) if sums[i]}
 
 
 # ---------------------------------------------------------------------------
@@ -1283,7 +1325,8 @@ def run_q6(paths, li, n: int, device):
         f"bytes_h2d={delta['bytes_h2d']} host_syncs={delta['host_syncs']} "
         f"chunk_decode_fallbacks={delta['chunk_decode_fallbacks']} "
         f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
-    return {"seconds": secs, "launches": launches, "want": want, "query": q}
+    return {"seconds": secs, "launches": launches, "want": want, "query": q,
+            "delta": delta}
 
 
 def profile_collect(q, want_rows, label: str, key=None):
@@ -2305,11 +2348,627 @@ def dist_breakdown(q, coord, label: str):
         f"{t_agg:.4f} s")
 
 
+# ---------------------------------------------------------------------------
+# bench rung5_recovery: the query journal on the hot path, and a query
+# killed at its first stage commit and resumed (bench.py:1681-1830)
+# ---------------------------------------------------------------------------
+
+REC_SEED = 31                      # bench.py's rung5_recovery seed
+REC_BENCH_ROWS = 200_000           # bench.py's BENCH_REC_ROWS default
+REC_REPEATS = 3                    # bench's min-of-repeats
+# the recovery classes of a journaled query (lifecycle/journal.py)
+COMPLETED, RESUMABLE, ABANDONED = "completed", "resumable", "abandoned"
+REC_PLAN = ["TpuHashAggregate(Complete) keys=[g] aggs=[sum(v) AS sv]",
+            "  TpuShuffledSymmetricHashJoinExec Inner [k=k]",
+            "    TpuCoalesceBatches TargetSize(1073741824)",
+            "      TpuShuffleExchange hashpartitioning(k, 8)",
+            "        <scan>",
+            "    TpuCoalesceBatches TargetSize(1073741824)",
+            "      TpuShuffleExchange hashpartitioning(k, 8)",
+            "        <scan>"]
+
+
+def rec_conf(root: str, rec_on: bool, checkpointing: bool = False) -> dict:
+    """bench.py's rung5_recovery conf: the journal under ``root`` when
+    ``rec_on``; ``checkpointing`` keeps real 8-partition exchanges on one
+    device (no coalesce, no broadcast, no adaptive execution), so stage
+    boundaries materialize and commit."""
+    c = {"spark.rapids.sql.enabled": True}
+    if rec_on:
+        c.update({"spark.rapids.tpu.recovery.enabled": True,
+                  "spark.rapids.tpu.recovery.dir": root})
+    if checkpointing:
+        c.update({"spark.rapids.tpu.shuffle.singleDeviceCoalesce": False,
+                  "spark.sql.shuffle.partitions": 8,
+                  "spark.sql.autoBroadcastJoinThreshold": "-1",
+                  "spark.sql.adaptive.enabled": False})
+    return c
+
+
+class _Die(BaseException):
+    """A driver's death inside the process: a BaseException, so the commit
+    path's ``except Exception`` cannot swallow it, as nothing swallows a
+    SIGKILL."""
+
+
+def checkpoint_bytes(root: str) -> int:
+    """Bytes of the stage checkpoint files under the recovery dir
+    ``root``."""
+    total = 0
+    for dirpath, _dirs, files in os.walk(os.path.join(root, "checkpoints")):
+        total += sum(os.path.getsize(os.path.join(dirpath, f))
+                     for f in files)
+    return total
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def run_rung5(n: int, device, smi: str, label: str) -> dict:
+    """Phase 16: bench's rung5_recovery from memory at ``n`` fact rows.
+    (a) The journal's cost on the hot path: the min of ``REC_REPEATS``
+    collects with recovery off against the min with it on, each after a
+    warm-up (printed, not held).  (b) Under the checkpointing conf: a cold
+    collect; a collect killed by a ``BaseException`` from the journal's
+    record hook at the first ``ckpt`` record, its end record suppressed as
+    a killed process writes none; the journal closed (the restart); the
+    resumed collect, which must serve at least one stage.  Every collect
+    exact against numpy; the plan the reference's; no leak after the kill
+    (journal lines aside) or after the resume; the recovery dir empty
+    after the purge."""
+    import shutil
+    import tempfile
+
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.lifecycle import journal as JM
+    from spark_rapids_tpu_torch.lifecycle import leak_report_all
+    from spark_rapids_tpu_torch.memory.spill import peek_spill_framework
+    from spark_rapids_tpu_torch.pallas import decode
+
+    t0 = time.perf_counter()
+    fact, dim = make_dist(n, REC_SEED)
+    want = dist_reference(fact, dim)
+    log(f"{label} data: {n} fact rows "
+        f"({sum(a.nbytes for a in fact.values())} flat bytes); generated "
+        f"with the numpy reference in {time.perf_counter() - t0:.1f} s")
+    root = tempfile.mkdtemp(prefix="srt_rung5_")
+
+    def build(conf):
+        return ooc_query(*ooc_frames(S, S.TpuSession(conf, device=device),
+                                     fact, dim), S)
+
+    def timed(conf, what: str) -> float:
+        _sync(device)
+        t = time.perf_counter()
+        rows = build(conf).collect()
+        _sync(device)
+        secs = time.perf_counter() - t
+        if ooc_rows(rows) != want:
+            fail(f"{label} {what}: {ooc_rows(rows)} != {want}")
+        return secs
+
+    decode.unpack_launches = 0
+    try:
+        # (a) the journal on the hot path
+        timed(rec_conf(root, False), "warm-up, recovery off")
+        off = min(timed(rec_conf(root, False), "recovery off")
+                  for _ in range(REC_REPEATS))
+        timed(rec_conf(root, True), "warm-up, recovery on")
+        snap = PC.snapshot()
+        on = min(timed(rec_conf(root, True), "recovery on")
+                 for _ in range(REC_REPEATS))
+        d_ab = PC.since(snap)
+        log(f"{label} journal A/B: off {off:.4f} s, on {on:.4f} s, "
+            f"journalOverheadPct {(on - off) * 100 / off:+.2f}, "
+            f"journal_records_written "
+            f"{d_ab['journal_records_written']} over {REC_REPEATS} "
+            f"collects [{smi}]")
+        # (b) cold, killed at the first stage commit, resumed
+        ck = rec_conf(root, True, checkpointing=True)
+        check_plan(build(ck), REC_PLAN, label)
+        on_disk = []
+
+        def measure(kind, _n):
+            if kind == "ckpt":
+                on_disk.append(checkpoint_bytes(root))
+
+        JM.TEST_RECORD_HOOK = measure
+        try:
+            cold = timed(ck, "cold")
+        finally:
+            JM.TEST_RECORD_HOOK = None
+        state = {"n": 0}
+
+        def die(kind, _n):
+            if kind == "ckpt":
+                state["n"] += 1
+                if state["n"] == 1:
+                    raise _Die()
+
+        orig_end = JM.journal_end
+        JM.TEST_RECORD_HOOK = die
+        JM.journal_end = lambda *a, **k: None
+        died = False
+        t = time.perf_counter()
+        try:
+            try:
+                build(ck).collect()
+            except _Die:
+                died = True
+        finally:
+            JM.TEST_RECORD_HOOK = None
+            JM.journal_end = orig_end
+        killed = time.perf_counter() - t
+        if not died:
+            fail(f"{label}: the kill at the first stage commit never fired")
+        kept = checkpoint_bytes(root)
+        left = [ln for ln in leak_report_all() if "recovery" not in ln]
+        if left:
+            fail(f"{label}: the killed collect leaked: {left[:3]}")
+        JM.reset_journal()                 # the restart
+        snap = PC.snapshot()
+        resume = timed(ck, "resumed")
+        d = PC.since(snap)
+        classes = JM.recovery_report()
+        if d["stages_recovered"] < 1 or d["queries_resumed"] < 1:
+            fail(f"{label}: the resume served no stage: stages_recovered="
+                 f"{d['stages_recovered']} queries_resumed="
+                 f"{d['queries_resumed']}")
+        if RESUMABLE not in classes.values():
+            fail(f"{label}: no query classified resumable: {classes}")
+        leaks = leak_report_all() + peek_spill_framework().leak_report(
+            include_persistent=True)
+        if leaks:
+            fail(f"{label}: leaks after the resume: {leaks[:3]}")
+        log(f"{label}: cold {cold:.4f} s ({len(on_disk)} stage commits, "
+            f"{on_disk[-1] if on_disk else 0} checkpoint bytes on disk at "
+            f"the last), killed at the first commit after {killed:.4f} s "
+            f"({kept} checkpoint bytes kept), resumed {resume:.4f} s = "
+            f"{resume / cold:.3f} of cold; stages_recovered="
+            f"{d['stages_recovered']} queries_resumed="
+            f"{d['queries_resumed']} journal_recovery_discards="
+            f"{d['journal_recovery_discards']} classification {classes}; "
+            f"spill leak report empty [{smi}]")
+        JM.reset_journal(purge=True)
+        left = os.listdir(root)
+        if left:
+            fail(f"{label}: the recovery dir kept {left} after the purge")
+        log(f"{label}: recovery dir empty after the purge; "
+            f"unpack_launches={decode.unpack_launches}")
+        return {"cold": cold, "killed": killed, "resume": resume,
+                "off": off, "on": on, "delta": d,
+                "launches": decode.unpack_launches}
+    finally:
+        JM.TEST_RECORD_HOOK = None
+        JM.reset_journal(purge=True)
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# the driver killed mid-query and restarted, its workers re-attaching
+# (tools/run_stress.py::run_driver_kill, :1460)
+# ---------------------------------------------------------------------------
+
+DK_SEED = 7                        # run_stress.py's --driver-kill seed
+DK_DIM = 500
+DK_GROUPS = 13
+DK_WORKERS = ("dk0", "dk1")
+DK_WORKER_MEM = 32 << 20           # run_stress.py's worker store
+DK_REATTACH_MS = 120_000
+DK_BENCH_ROWS = 200_000
+DK_KILLS = ("plan:1", "ship:6", "ckpt:1")
+
+
+def make_driver_kill(n: int, seed: int = DK_SEED):
+    """run_stress.py's driver-kill tables (``_driver_kill_query``): a fact
+    of ``n`` rows on a 500-row dimension of 13 groups, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    fact = {"k": rng.integers(0, DK_DIM, n).astype(np.int32),
+            "v": rng.integers(-100, 100, n)}
+    dk = np.arange(DK_DIM, dtype=np.int32)
+    return fact, {"k": dk, "g": (dk % DK_GROUPS).astype(np.int32)}
+
+
+def driver_kill_conf(root: str, n: int) -> dict:
+    """run_stress.py's ``_driver_kill_conf`` (the distributed tier and the
+    journal on, no broadcast, no adaptive execution, a 64 KiB batch goal,
+    4,000-row reader batches, fast liveness).  Past bench's size the
+    batching is ``dist_conf``'s (a 256 KiB goal, 16 reader batches), so
+    an SF10 fact ships as rung4_dist's does.  The reference's
+    ``compile.cacheDir`` has no counterpart: the port caches no
+    programs."""
+    c = {"spark.rapids.sql.enabled": True,
+         "spark.rapids.tpu.distributed.enabled": True,
+         "spark.rapids.tpu.recovery.enabled": True,
+         "spark.rapids.tpu.recovery.dir": root,
+         "spark.sql.autoBroadcastJoinThreshold": "-1",
+         "spark.sql.adaptive.enabled": False,
+         "spark.rapids.sql.batchSizeBytes": 64 << 10,
+         "spark.rapids.sql.reader.batchSizeRows": 4000,
+         "spark.rapids.tpu.distributed.heartbeatMs": 100,
+         "spark.rapids.tpu.distributed.workerLostMs": 600,
+         "spark.rapids.tpu.distributed.opTimeoutMs": 1000}
+    if n > DK_BENCH_ROWS:
+        d = dist_conf(n)
+        for k in ("spark.rapids.sql.batchSizeBytes",
+                  "spark.rapids.sql.reader.batchSizeRows"):
+            c[k] = d[k]
+    return c
+
+
+def driver_incarnation(args) -> int:
+    """One driver incarnation (``--driver-incarnation``, internal): build
+    the coordinator (which publishes the endpoint file under the recovery
+    dir), wait for the workers, arm the kill point, collect the
+    driver-kill query and write the result JSON (rows, counters, the
+    replay's classification, blocks left on the workers, leaks).  The
+    kill points: ``plan:N`` and ``ckpt:N`` SIGKILL this process after the
+    N-th journal record of that kind, ``ship:N`` after the N-th shipped
+    block, ``none`` runs to the end (run_stress.py's
+    ``driver_kill_child``)."""
+    import signal
+
+    import torch
+
+    if not (args.recovery_dir and args.result_out):
+        print("driver incarnation: --recovery-dir and --result-out are "
+              "required", file=sys.stderr)
+        return 2
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("driver incarnation: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import distributed as D
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.config import TpuConf
+    from spark_rapids_tpu_torch.distributed import client as DC
+    from spark_rapids_tpu_torch.lifecycle import journal as JM
+    from spark_rapids_tpu_torch.lifecycle import leak_report_all
+    from spark_rapids_tpu_torch.pallas import decode
+
+    conf = driver_kill_conf(args.recovery_dir, args.rows)
+    coord = D.get_coordinator(TpuConf(conf))
+    if not coord.wait_for_workers(args.workers, timeout_s=60):
+        print("driver incarnation: the workers never attached",
+              file=sys.stderr)
+        return 3
+    kind_at, _, n_s = (args.kill_at or "none").partition(":")
+    n_at = int(n_s) if n_s else 1
+    state = {"n": 0}
+
+    def count_and_kill():
+        state["n"] += 1
+        if state["n"] >= n_at:
+            os.kill(os.getpid(), signal.SIGKILL)
+
+    if kind_at == "ship":
+        DC.TEST_SHIP_HOOK = lambda exch, pid, seq: count_and_kill()
+    elif kind_at not in ("", "none"):
+        JM.TEST_RECORD_HOOK = (lambda kind, n: count_and_kill()
+                               if kind == kind_at else None)
+    fact, dim = make_driver_kill(args.rows)
+    q = ooc_query(*ooc_frames(S, S.TpuSession(conf, device=args.device),
+                              fact, dim), S)
+    t0 = time.perf_counter()
+    rows = q.collect()
+    _sync(args.device)
+    wall = time.perf_counter() - t0
+    d = PC.snapshot()
+    stranded = 0
+    for wid in sorted(coord.worker_inventory()):
+        stranded += int(coord.worker_stats(wid).get("blocks", 0))
+    out = {"rows": sorted([int(g), int(sv)] for g, sv in rows),
+           "wall_s": wall,
+           "counters": {k: d[k] for k in (
+               "journal_records_written", "stages_recovered",
+               "queries_resumed", "journal_recovery_discards",
+               "recovery_leases_expired", "workers_joined",
+               "dist_blocks_shipped", "partitions_replayed")},
+           "unpack_launches": decode.unpack_launches,
+           "recovery": JM.recovery_report(),
+           "stranded_blocks": stranded,
+           "leaks": leak_report_all()}
+    tmp = args.result_out + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(out, f)
+    os.replace(tmp, args.result_out)
+    D.reset_coordinator()
+    return 0
+
+
+def run_driver_kill(rounds, device: str, smi: str, label: str) -> list:
+    """Phase 17: for each (kill point, fact rows, worker store bytes) of
+    ``rounds``, driver incarnation 1 (``--driver-incarnation`` in a child
+    process on ``device``) is SIGKILLed at the kill point, and
+    incarnation 2 then runs the same query to its end over the same
+    recovery dir and the same two worker processes, which outlive both
+    (``--reattach-ms``, ``--endpoint-file``).  Incarnation 1 must die by
+    SIGKILL and incarnation 2 exit 0; its rows must equal numpy; every
+    journaled query must be classified, the crashed one not completed;
+    after a ``ckpt`` kill at least one stage must be served and the
+    crashed query classified resumable; no block may be left on a
+    worker, nothing may leak, and no worker may map CUDA.  A round whose
+    store size differs from the last starts new workers."""
+    import shutil
+    import signal
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="srt_driver_kill_")
+    endpoint = os.path.join(root, "coordinator.endpoint")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    worker_env = dict(env, CUDA_VISIBLE_DEVICES="")
+    workers, mem_now, results = {}, None, []
+
+    def spawn_driver(tag: str, kill_at: str, n: int):
+        cmd = [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+               "--driver-incarnation", "--recovery-dir", root,
+               "--kill-at", kill_at, "--workers", str(len(DK_WORKERS)),
+               "--rows", str(n), "--device", device,
+               "--result-out", os.path.join(root, f"result_{tag}.json")]
+        log_f = open(os.path.join(root, f"driver_{tag}.log"), "wb")
+        try:
+            return subprocess.Popen(cmd, env=env, stdout=log_f,
+                                    stderr=log_f)
+        finally:
+            log_f.close()
+
+    def log_tail(tag: str) -> str:
+        try:
+            with open(os.path.join(root, f"driver_{tag}.log"), "rb") as f:
+                return f.read()[-1500:].decode("utf-8", "replace")
+        except OSError:
+            return "<no log>"
+
+    def spawn_worker(wid: str, mem: int):
+        cmd = [sys.executable, "-m",
+               "spark_rapids_tpu_torch.distributed.worker",
+               "--worker-id", wid, "--mem-bytes", str(mem),
+               "--heartbeat-ms", "100", "--op-timeout-ms", "1000",
+               "--endpoint-file", endpoint,
+               "--reattach-ms", str(DK_REATTACH_MS)]
+        return subprocess.Popen(cmd, env=worker_env,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+
+    try:
+        for i, (kp, n, mem) in enumerate(rounds):
+            tag = f"{label} round {i} ({kp}, {n} rows)"
+            t0 = time.perf_counter()
+            fact, dim = make_driver_kill(n)
+            want = dist_reference(fact, dim, DK_GROUPS)
+            if mem != mem_now:
+                stop_dist_workers(workers.values())
+                workers = {}
+                try:
+                    os.unlink(endpoint)
+                except OSError:
+                    pass
+            p1 = spawn_driver(f"{i}a", kp, n)
+            if not workers:
+                # the workers dial the endpoint the first incarnation's
+                # coordinator publishes
+                deadline = time.monotonic() + 120
+                while not os.path.exists(endpoint) \
+                        and time.monotonic() < deadline \
+                        and p1.poll() is None:
+                    time.sleep(0.05)
+                if not os.path.exists(endpoint):
+                    p1.kill()
+                    p1.wait(timeout=30)
+                    fail(f"{tag}: no coordinator endpoint appeared "
+                         f"[{log_tail(f'{i}a')}]")
+                workers = {w: spawn_worker(w, mem) for w in DK_WORKERS}
+                mem_now = mem
+            rc1 = p1.wait(timeout=600)
+            t1 = time.perf_counter() - t0
+            if rc1 != -signal.SIGKILL:
+                fail(f"{tag}: incarnation 1 exited {rc1}, not by SIGKILL "
+                     f"[{log_tail(f'{i}a')}]")
+            t0 = time.perf_counter()
+            p2 = spawn_driver(f"{i}b", "none", n)
+            rc2 = p2.wait(timeout=600)
+            t2 = time.perf_counter() - t0
+            if rc2 != 0:
+                fail(f"{tag}: incarnation 2 exited {rc2} "
+                     f"[{log_tail(f'{i}b')}]")
+            with open(os.path.join(root, f"result_{i}b.json")) as f:
+                res = json.load(f)
+            got = {g: sv for g, sv in res["rows"] if sv}
+            if got != want:
+                fail(f"{tag}: incarnation 2's rows {got} != {want}")
+            classes = res["recovery"]
+            if any(c not in (COMPLETED, RESUMABLE, ABANDONED)
+                   for c in classes.values()):
+                fail(f"{tag}: an unclassified journaled query: {classes}")
+            crashed = [c for c in classes.values() if c != COMPLETED]
+            if not crashed:
+                fail(f"{tag}: the killed query was classified completed: "
+                     f"{classes}")
+            ctr = res["counters"]
+            if kp.startswith("ckpt") and (ctr["stages_recovered"] < 1
+                                          or RESUMABLE not in crashed):
+                fail(f"{tag}: the committed stage was not served: "
+                     f"stages_recovered={ctr['stages_recovered']} "
+                     f"{classes}")
+            if res["stranded_blocks"]:
+                fail(f"{tag}: {res['stranded_blocks']} blocks left on the "
+                     f"workers")
+            if res["leaks"]:
+                fail(f"{tag}: leaks: {res['leaks'][:3]}")
+            if device == "cuda":
+                check_worker_contexts(workers, tag)
+            log(f"{tag}: incarnation 1 SIGKILLed after {t1:.2f} s; "
+                f"incarnation 2 exact in {t2:.2f} s (collect "
+                f"{res['wall_s']:.3f} s), classification {classes}, "
+                f"stages_recovered={ctr['stages_recovered']} "
+                f"queries_resumed={ctr['queries_resumed']} "
+                f"journal_recovery_discards="
+                f"{ctr['journal_recovery_discards']} dist_blocks_shipped="
+                f"{ctr['dist_blocks_shipped']} stranded_blocks=0 "
+                f"unpack_launches={res['unpack_launches']} [{smi}]")
+            results.append({"kill": kp, "rows": n, "result": res,
+                            "incarnation1_s": t1, "incarnation2_s": t2})
+        return results
+    finally:
+        stop_dist_workers(workers.values())
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# bench q6_parquet_hot: Q6 over the hot-table cache (bench.py:1911-1937)
+# ---------------------------------------------------------------------------
+
+HOT_MAX_BYTES = 4 << 30            # over SF10 Q6's decoded columns
+HOT_BENCH_ROWS = 1_000_000         # bench.py's q6_parquet rows
+HOT_BENCH_FILES = 4
+
+
+def hot_conf(max_bytes=None) -> dict:
+    c = {"spark.rapids.sql.format.parquet.decode.device": True,
+         "spark.rapids.sql.format.parquet.reader.type": "PERFILE",
+         "spark.rapids.tpu.scan.hotTableCache.enabled": True}
+    if max_bytes is not None:
+        c["spark.rapids.tpu.scan.hotTableCache.maxBytes"] = max_bytes
+    return c
+
+
+def _hot_collect(q, want, label: str, device):
+    """One collect held to ``want``: (seconds, perfcounter delta, K1
+    launches), the counts set to 0 just before it."""
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.pallas import decode
+
+    _sync(device)
+    decode.unpack_launches = 0
+    snap = PC.snapshot()
+    t0 = time.perf_counter()
+    rows = q.collect()
+    _sync(device)
+    secs = time.perf_counter() - t0
+    d = PC.since(snap)
+    if rows != [(want,)]:
+        fail(f"{label}: {rows} != {want}")
+    return secs, d, decode.unpack_launches
+
+
+def _hot_line(d, launches) -> str:
+    return " ".join([f"unpack_launches={launches}"] + [
+        f"{k}={d[k]}" for k in ("hot_cache_hits", "hot_cache_misses",
+                                "hot_cache_evictions", "bytes_h2d",
+                                "host_syncs")])
+
+
+def run_q6_hot(paths, want, label: str, device, smi: str,
+               max_bytes=None, miss=None) -> dict:
+    """Two collects of Q6 over ``paths`` with the hot-table cache on (its
+    bound ``max_bytes``, the default when None), each exact; then
+    ``session.close()``.  Returns both collects' (seconds, delta,
+    launches).  With ``miss`` (phase 4's launches and bytes_h2d) the
+    first must miss with them and the second hit with no K1 launch and
+    no bytes_h2d."""
+    from spark_rapids_tpu_torch.session import TpuSession
+
+    _, rsch = schemas()
+    s = TpuSession(hot_conf(max_bytes), device=device)
+    q = q6_query(s.read.schema(rsch).parquet(*paths))
+    first = _hot_collect(q, want, f"{label} collect 1", device)
+    second = _hot_collect(q, want, f"{label} collect 2", device)
+    leaks = s.close()
+    if leaks:
+        fail(f"{label}: session.close() reported leaks: {leaks[:3]}")
+    for i, (secs, d, launches) in enumerate((first, second), 1):
+        log(f"{label} collect {i}: {secs:.4f} s, {_hot_line(d, launches)} "
+            f"[{smi}]")
+    if miss is not None:
+        launches0, h2d0 = miss
+        s1, d1, l1 = first
+        s2, d2, l2 = second
+        if d1["hot_cache_misses"] != 1 or d1["hot_cache_hits"] \
+                or l1 != launches0 or d1["bytes_h2d"] != h2d0:
+            fail(f"{label}: the first collect did not miss as phase 4 "
+                 f"reads: {_hot_line(d1, l1)}, want unpack_launches="
+                 f"{launches0} bytes_h2d={h2d0}")
+        if d2["hot_cache_hits"] != 1 or l2 or d2["bytes_h2d"]:
+            fail(f"{label}: the second collect did not hit: "
+                 f"{_hot_line(d2, l2)}")
+    return {"first": first, "second": second}
+
+
+def run_hot(paths, q6, n: int, seed: int, device,
+            smi: str):
+    """Phase 18: bench's q6_parquet_hot.  Phase 4's SF10 files under a
+    4 GiB bound (a miss with phase 4's launches and bytes_h2d, then a
+    hit); the same files under the 1 GiB default (over the bound, never
+    cached: no hit in two collects); bench's own cell, 1,000,000 rows as
+    4 snappy files under the default bound (a hit on the repeat).  After
+    each ``session.close()`` the spill framework holds no handle,
+    persistent ones included."""
+    from spark_rapids_tpu_torch.memory.spill import peek_spill_framework
+
+    def no_handles(what):
+        fw = peek_spill_framework()
+        left = fw.leak_report(include_persistent=True) if fw else []
+        if left:
+            fail(f"q6_parquet_hot {what}: handles left after close(): "
+                 f"{left[:3]}")
+
+    big = run_q6_hot(paths, q6["want"], "q6_parquet_hot SF10", device,
+                     smi, HOT_MAX_BYTES,
+                     miss=(q6["launches"], q6["delta"]["bytes_h2d"]))
+    no_handles("SF10")
+    hit_s = big["second"][0]
+    log(f"q6_parquet_hot SF10: the hit {hit_s:.4f} s against phase 4's "
+        f"collect {q6['seconds']:.4f} s and this miss "
+        f"{big['first'][0]:.4f} s; {n} rows = {n / hit_s:.0f} rows/s "
+        f"[{smi}]")
+    dflt = run_q6_hot(paths, q6["want"], "q6_parquet_hot SF10 default "
+                      "bound", device, smi)
+    if any(r[1]["hot_cache_hits"] for r in dflt.values()):
+        fail("q6_parquet_hot: an SF10 scan over the 1 GiB default bound "
+             "was cached")
+    no_handles("default bound")
+    li = lineitem_q6(HOT_BENCH_ROWS, HOT_BENCH_ROWS / (SF10_ROWS / 10),
+                     seed)
+    out_dir = os.path.join(HERE, "spark_rapids_tpu_torch", "build",
+                           f"q6_hot_{HOT_BENCH_ROWS}_seed{seed}")
+    small = write_files(li, HOT_BENCH_ROWS, out_dir, device,
+                        HOT_BENCH_FILES)
+    cell = run_q6_hot(small, q6_reference(li), "q6_parquet_hot bench "
+                      "cell", device, smi)
+    if cell["second"][1]["hot_cache_hits"] != 1 \
+            or cell["second"][2] or cell["second"][1]["bytes_h2d"]:
+        fail("q6_parquet_hot bench cell: the repeat did not hit: "
+             + _hot_line(cell["second"][1], cell["second"][2]))
+    no_handles("bench cell")
+    return {"big": big, "default": dflt, "cell": cell}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
     ap.add_argument("--seed", type=int, default=20261017)
+    # one driver incarnation of phase 17 (internal: the script starts it)
+    ap.add_argument("--driver-incarnation", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--recovery-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--kill-at", default="none", help=argparse.SUPPRESS)
+    ap.add_argument("--workers", type=int, default=len(DK_WORKERS),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rows", type=int, default=DK_BENCH_ROWS,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--result-out", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.driver_incarnation:
+        return driver_incarnation(args)
     t_start = time.perf_counter()
 
     import torch
@@ -2447,6 +3106,29 @@ def main(argv=None) -> int:
     run_dist(DIST_BENCH_ROWS, device, smi, "rung4_dist bench size", True)
     dist = run_dist(n_ss, device, smi, "rung4_dist", False)
     log(f"phase 15 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 16. bench rung5_recovery: the journal's cost, a kill at the first
+    # stage commit and the resume; at bench's size, then at SF10 rows
+    t0 = time.perf_counter()
+    rec_small = run_rung5(REC_BENCH_ROWS, device, smi,
+                          "rung5_recovery bench size")
+    rec = run_rung5(n_ss, device, smi, "rung5_recovery")
+    log(f"phase 16 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 17. the driver SIGKILLed mid-query and restarted, its two workers
+    # re-attaching; the incarnations are child processes on the card
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    dk = run_driver_kill(
+        [(kp, DK_BENCH_ROWS, DK_WORKER_MEM) for kp in DK_KILLS]
+        + [("ckpt:1", n_ss, dist_worker_mem(n_ss))], "cuda", smi,
+        "driver kill")
+    log(f"phase 17 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 18. bench q6_parquet_hot: phase 4's files over the hot-table cache
+    t0 = time.perf_counter()
+    hot = run_hot(paths, q6, n, args.seed, device, smi)
+    log(f"phase 18 wall time {time.perf_counter() - t0:.1f} s")
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
@@ -2468,6 +3150,11 @@ def main(argv=None) -> int:
         "ooc_qb_launches": ooc_qb["launches"],
         "rung3_launches": rung3["launches"],
         "rung4_dist_launches": dist["launches"],
+        "rung5_recovery_launches": rec_small["launches"] + rec["launches"],
+        "driver_kill_launches": sum(r["result"]["unpack_launches"]
+                                    for r in dk),
+        "q6_hot_miss_launches": hot["big"]["first"][2],
+        "q6_hot_hit_launches": hot["big"]["second"][2],
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

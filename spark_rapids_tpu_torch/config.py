@@ -4,8 +4,10 @@ Port of ``spark_rapids_tpu/config.py``: the same ``ConfEntry`` builder DSL
 and the same keys and defaults, cut to the confs that TPC-H Q6, bench
 qa, qb and qc over Parquet, the out-of-core path of bench's rung3_ooc
 (sized exchanges, spill-backed partition queues, the spill framework and
-the sub-partitioned join), and bench's rung4_dist (the query lifecycle,
-the shuffle manager, the circuit breaker and the distributed tier) read.
+the sub-partitioned join), bench's rung4_dist (the query lifecycle,
+the shuffle manager, the circuit breaker and the distributed tier), and
+bench's rung5_recovery and q6_parquet_hot (the query journal and the
+hot-table cache) read.
 Unlike the reference there is no process-wide ambient conf: the session
 hands its ``TpuConf`` to every exec that needs one.
 """
@@ -373,6 +375,54 @@ DISTRIBUTED_PROMOTE_AFTER_OKS = conf(
     "Consecutive in-deadline observations a DEGRADED worker needs, its "
     "EWMA back under slowFactor x the fleet median, to be ALIVE again."
 ).integer_conf(3)
+
+# --- crash-consistent driver recovery (lifecycle/journal.py) ---------------
+
+RECOVERY_ENABLED = conf("spark.rapids.tpu.recovery.enabled").doc(
+    "Crash-consistent driver recovery: every collect appends admission, "
+    "plan, stage-checkpoint and end records to a durable CRC-framed "
+    "query journal (lifecycle/journal.py); materialized exchange outputs "
+    "commit at stage boundaries (local: atomic tmp+rename checkpoint "
+    "files keyed by the plan-stage fingerprint; distributed: worker-held "
+    "partitions pinned by a journaled lease); a restarted driver replays "
+    "the journal, classifies prior queries as completed / resumable / "
+    "abandoned and serves committed stages instead of re-executing them "
+    "(stages_recovered).  Off, the journal module is never called."
+).boolean_conf(False)
+
+RECOVERY_DIR = conf("spark.rapids.tpu.recovery.dir").doc(
+    "Root directory of the query journal, the stage checkpoints and the "
+    "coordinator endpoint file workers re-attach through.  Must be stable "
+    "across driver restarts.  Unset: <tmpdir>/srt_recovery."
+).string_conf(None)
+
+RECOVERY_FSYNC = conf("spark.rapids.tpu.recovery.fsyncOnAppend").doc(
+    "fsync the journal after every appended record (and the checkpoint "
+    "files before their rename).  Off: single-write appends already keep "
+    "the journal prefix-consistent across a process crash; fsync also "
+    "covers a machine crash.").boolean_conf(False)
+
+RECOVERY_LEASE_TTL_MS = conf("spark.rapids.tpu.recovery.leaseTtlMs").doc(
+    "How long a journaled stage checkpoint (a lease on worker-held "
+    "partitions, or a local checkpoint directory) stays adoptable after "
+    "the committing driver's death; a reborn driver retires older ones "
+    "(recovery_leases_expired) and re-executes.").integer_conf(120_000)
+
+# --- hot-table cache (io/hot_cache.py) -------------------------------------
+
+SCAN_HOT_CACHE = conf("spark.rapids.tpu.scan.hotTableCache.enabled").doc(
+    "Device-resident hot-table cache: a completed file scan registers its "
+    "device batches (keyed by the files' sizes and mtimes, the columns, "
+    "the pushed filters, the options and the chunking) so a repeated scan "
+    "of the same table skips the read, the decode and the transfer "
+    "(hot_cache_hits / hot_cache_misses).  Entries are persistent "
+    "spillables; TpuSession.close() drops them.").boolean_conf(False)
+
+SCAN_HOT_CACHE_MAX_BYTES = conf(
+    "spark.rapids.tpu.scan.hotTableCache.maxBytes").doc(
+    "Device-bytes bound of the hot-table cache; inserting past it evicts "
+    "the least recently used entries (hot_cache_evictions).  A single scan "
+    "larger than the bound is not cached.").bytes_conf(1 << 30)
 
 
 class TpuConf:

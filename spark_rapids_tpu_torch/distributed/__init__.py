@@ -64,7 +64,9 @@ def reset_coordinator() -> None:
 
 
 def spawn_local_worker(coordinator, worker_id: str,
-                       mem_bytes: Optional[int] = None
+                       mem_bytes: Optional[int] = None,
+                       reattach_ms: Optional[int] = None,
+                       endpoint_file: Optional[str] = None
                        ) -> subprocess.Popen:
     """Launch one worker process against ``coordinator`` (fork and exec of
     a fresh interpreter, never a fork of this one: the engine process may
@@ -72,7 +74,10 @@ def spawn_local_worker(coordinator, worker_id: str,
     so it is started with ``CUDA_VISIBLE_DEVICES`` empty and never sees
     the card.  Its heartbeat period, op timeout and span ring are the
     coordinator's, and so is its store size unless ``mem_bytes`` is given
-    (``spark.rapids.tpu.distributed.workerMemoryBytes``)."""
+    (``spark.rapids.tpu.distributed.workerMemoryBytes``).  ``reattach_ms``
+    and ``endpoint_file`` arm crash recovery: the worker survives this
+    driver's death and re-dials whatever endpoint its successor
+    publishes."""
     if mem_bytes is None:
         mem_bytes = coordinator.worker_mem
     cmd = [sys.executable, "-m", "spark_rapids_tpu_torch.distributed.worker",
@@ -82,6 +87,10 @@ def spawn_local_worker(coordinator, worker_id: str,
            "--heartbeat-ms", str(int(coordinator.heartbeat_s * 1000)),
            "--op-timeout-ms", str(int(coordinator.op_timeout_s * 1000)),
            "--telemetry-ring", str(int(coordinator.telemetry_ring))]
+    if reattach_ms:
+        cmd += ["--reattach-ms", str(int(reattach_ms))]
+    if endpoint_file:
+        cmd += ["--endpoint-file", endpoint_file]
     env = dict(os.environ)
     env["CUDA_VISIBLE_DEVICES"] = ""
     repo_root = os.path.dirname(os.path.dirname(

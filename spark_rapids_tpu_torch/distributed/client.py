@@ -64,6 +64,13 @@ class DistributedExchange:
         self._lock = threading.Lock()
         self.placement = coordinator.place(exch_id, n_parts, est_bytes)
 
+    def block_counts(self) -> Dict[int, int]:
+        """Per-partition shipped-block counts (sequences run from 0, so a
+        count is the completeness bar a consumer, or a recovery lease,
+        checks against)."""
+        with self._lock:
+            return dict(self._counts)
+
     # -- produce ---------------------------------------------------------
     def add_slice(self, pid: int, batch) -> None:
         """Frame one partition slice, retain it in the lineage queue, and

@@ -31,9 +31,18 @@ The coordinator runs in the engine process and never holds partition data:
 
 The wire id of an exchange (in put, fetch and release headers) is minted
 here and never reused.  Heartbeats carry each worker's counters and span
-ring (``collect_trace``).  The reference's diagnostics events, flight
-recorder post-mortems, live telemetry pulls and crash-recovery adoption
-are not ported.
+ring (``collect_trace``).
+
+Crash recovery: with ``spark.rapids.tpu.recovery.enabled`` the coordinator
+publishes its endpoint under the recovery root, and workers that outlived
+a dead driver re-attach to it with the inventory of what they hold.  Such
+a re-HELLO clears the dead incarnation's breaker entry for the worker and
+raises the wire-id counter above every held wire id, so no new exchange
+can collide with a stale (CRC-valid) block.  ``adopt_exchange`` rebuilds a
+journaled lease's placement under its original wire id, and
+``release_orphan_holdings`` drops what no lease will adopt.  The
+reference's diagnostics events, flight recorder post-mortems and live
+telemetry pulls are not ported.
 """
 from __future__ import annotations
 
@@ -73,7 +82,7 @@ class WorkerInfo:
                  "state", "last_hb", "control", "hb_missed", "probe_failed",
                  "counters", "store_stats", "mirror", "mirror_last_n",
                  "clock_offset_s", "lat_ewma_s", "lat_samples",
-                 "miss_streak", "ok_streak", "slow_ticks")
+                 "miss_streak", "ok_streak", "slow_ticks", "held")
 
     def __init__(self, worker_id: str, host: str, data_port: int,
                  pid: int, mem_bytes: int, control: socket.socket,
@@ -105,6 +114,9 @@ class WorkerInfo:
         self.miss_streak = 0
         self.ok_streak = 0
         self.slow_ticks = 0
+        # a re-attaching worker's inventory: [(wire, pid, n_blocks,
+        # max_seq)]
+        self.held: List[Tuple[int, int, int, int]] = []
 
 
 class Coordinator:
@@ -175,6 +187,20 @@ class Coordinator:
         self._listener.bind(("127.0.0.1", 0))
         self._listener.listen(32)
         self.port = self._listener.getsockname()[1]
+        # crash recovery: publish this incarnation's endpoint so workers
+        # that outlived a dead driver re-dial its successor
+        from spark_rapids_tpu_torch.config import RECOVERY_ENABLED
+
+        if bool(c.get(RECOVERY_ENABLED)):
+            from spark_rapids_tpu_torch.lifecycle import journal as _journal
+
+            try:
+                _journal.write_endpoint(_journal.resolve_root(c),
+                                        "127.0.0.1", self.port)
+            except OSError:
+                # an unwritable endpoint file costs re-attach, not the
+                # coordinator
+                pass
         self._threads: List[threading.Thread] = []
         for target, name in ((self._accept_loop, "accept"),
                              (self._monitor_loop, "monitor")):
@@ -249,12 +275,28 @@ class Coordinator:
                           mirror_capacity=self.telemetry_ring)
         if "t_wall" in header:
             info.clock_offset_s = time.time() - float(header["t_wall"])
+        inventory = header.get("held") or []
+        if inventory:
+            # a re-attach after a driver's death: the loss that left a
+            # breaker entry was the crash, not this worker, and
+            # quarantining the process that holds the checkpointed blocks
+            # would turn a resumable query into a full re-execution
+            info.held = [(int(e), int(p), int(n), int(mx))
+                         for e, p, n, mx in inventory]
+            get_breaker().clear_key((BREAKER_OP, wid))
         # a worker id whose loss history holds its breaker entry OPEN
         # joins QUARANTINED (heartbeats, never placed) until the TTL probe
         if get_breaker().consult((BREAKER_OP, wid),
                                  self.breaker_ttl_s) is not None:
             info.state = QUARANTINED
         with self._lock:
+            if info.held:
+                # the worker keys its blocks by the dead incarnation's
+                # wire ids, and this counter restarted at 1: mint above
+                # every held id before any place() can run
+                top = max(e for e, _p, _n, _mx in info.held) + 1
+                self._wire_ids = itertools.count(
+                    max(next(self._wire_ids), top))
             old = self._workers.get(wid)
             self._workers[wid] = info
             self._conn_locks.setdefault(wid, threading.Lock())
@@ -674,6 +716,74 @@ class Coordinator:
                 out[pid] = wid
                 self._placement[(exch, pid)] = wid
         return out
+
+    def wire_of(self, exch: int) -> int:
+        """The wire id a stage lease journals: worker stores key blocks by
+        it, so it survives a driver restart."""
+        return self._wire(exch)
+
+    def placement_of(self, exch: int) -> Dict[int, str]:
+        with self._lock:
+            return {p: w for (e, p), w in self._placement.items()
+                    if e == exch}
+
+    def worker_inventory(self) -> Dict[str, List[Tuple[int, int, int,
+                                                       int]]]:
+        """Each ALIVE worker's re-attach inventory: worker id -> [(wire,
+        pid, n_blocks, max_seq)] (empty for a worker that joined fresh).
+        A journaled lease adopts only what this covers."""
+        with self._lock:
+            return {wid: list(w.held)
+                    for wid, w in self._workers.items()
+                    if w.state == ALIVE}
+
+    def adopt_exchange(self, wire: int, placement: Dict[int, str],
+                       counts: Optional[Dict[int, int]] = None) -> None:
+        """Rebuild one journaled exchange's placement from re-attached
+        workers: registered under its original wire id (the key the
+        stores hold), holdings restored for the leak report, and the
+        wire-id counter raised past it."""
+        with self._lock:
+            self._wire_of[wire] = wire
+            for pid, wid in placement.items():
+                self._placement[(wire, pid)] = wid
+                if counts:
+                    self._holdings[(wire, pid)] = int(counts.get(pid, 0))
+            self._wire_ids = itertools.count(
+                max(next(self._wire_ids), wire + 1))
+
+    def release_orphan_holdings(self, keep: Set[int]) -> int:
+        """Release every re-attach-held wire id that is neither in
+        ``keep`` (adoptable leases) nor placed now (an adoption being
+        served): blocks a dead incarnation shipped but never committed
+        must not outlive its journal.  Returns the releases sent."""
+        with self._lock:
+            placed = set(self._wire_of.values())
+            victims: Dict[str, Set[int]] = {}
+            for wid, w in self._workers.items():
+                if w.state != ALIVE or not w.held:
+                    continue
+                drop = {e for (e, _p, _n, _mx) in w.held
+                        if e not in keep and e not in placed}
+                if drop:
+                    victims[wid] = drop
+                    w.held = [h for h in w.held if h[0] not in drop]
+        n = 0
+        for wid, wires in sorted(victims.items()):
+            for wire in sorted(wires):
+                try:
+                    self._request(wid, {"op": "release", "exch": wire},
+                                  cancellable=False)
+                    n += 1
+                except (WorkerLost, RuntimeError, OSError):
+                    # a dead worker's store dies with its process
+                    pass
+        return n
+
+    def worker_stats(self, wid: str) -> Dict:
+        """One worker's store stats, asked over the data plane."""
+        rep, _ = self._request(wid, {"op": "stats"})
+        return rep
 
     def _wire(self, exch: int) -> int:
         """The never-reused wire id of an exchange (the raw id for an

@@ -12,6 +12,7 @@ coordinator carries only HELLO and heartbeats):
   put     {exch, pid, seq}+blob -> {ok}     store one partition block
   fetch   {exch, pid} -> {seqs}+blobs       one page of a partition
   release {exch} -> {ok}                    drop one exchange's blocks
+  stats   {} -> {ok, blocks, bytes, ...}    the store's stats
   ping    {} -> {ok}
 
 Every op bumps worker-local counters (:data:`WORKER_COUNTER_KEYS`), and an
@@ -19,17 +20,25 @@ op whose header carries ``trace``/``span`` records a span in a bounded
 ring.  Heartbeats carry the counter snapshot, the ring entries since the
 last beat and the store's stats.
 
+With a re-attach window (``--reattach-ms``) the worker outlives a dead
+driver: when its heartbeats find the control socket dead it re-dials for
+up to that long, re-reading the endpoint file (``--endpoint-file``, which
+the successor coordinator publishes under the recovery root), and its
+HELLO then carries the inventory of what it holds, so a journaled lease
+on those blocks can be adopted.  Without it, membership ends with the
+control socket.
+
 Run as a process:
 
     python -m spark_rapids_tpu_torch.distributed.worker \
-        --coordinator 127.0.0.1:<port> [--worker-id w0] \
+        (--coordinator 127.0.0.1:<port> | --endpoint-file FILE) \
+        [--reattach-ms 120000] [--worker-id w0] \
         [--mem-bytes 67108864] [--heartbeat-ms 200] [--spill-dir DIR]
 
 It imports neither torch nor anything of the engine but ``protocol``, so
 it starts in well under a second and never opens a CUDA context.  The
 reference's compile-cache warm (``--warm-compile-dir``, accepted and
-ignored here), its ``stats`` and ``dump`` ops and its crash-recovery
-re-attach are not ported.
+ignored here) and its ``dump`` op are not ported.
 """
 from __future__ import annotations
 
@@ -236,6 +245,14 @@ class PartitionStore:
                             pass
             return dropped
 
+    def inventory(self) -> List[Tuple[int, int, int, int]]:
+        """Every held partition as (exch, pid, n_blocks, max_seq): what a
+        re-attaching HELLO enumerates, so a reborn coordinator can adopt
+        journaled leases on them."""
+        with self._lock:
+            return [(e, p, len(d), max(d) if d else -1)
+                    for (e, p), d in sorted(self._parts.items())]
+
     def stats(self) -> Dict:
         with self._lock:
             return {"blocks": self.blocks, "bytes": self.bytes,
@@ -285,15 +302,23 @@ class WorkerServer:
     """The in-process server object (``main`` runs one; tests drive it
     directly)."""
 
-    def __init__(self, coordinator: Tuple[str, int], worker_id: str,
+    def __init__(self, coordinator: Optional[Tuple[str, int]],
+                 worker_id: str,
                  mem_bytes: int = 64 << 20, heartbeat_ms: int = 200,
                  spill_dir: Optional[str] = None,
                  op_timeout_ms: int = 4000,
-                 telemetry_ring: int = 512):
+                 telemetry_ring: int = 512,
+                 reattach_ms: int = 0,
+                 endpoint_file: Optional[str] = None):
         self.coordinator = coordinator
         self.worker_id = worker_id
         self.heartbeat_s = max(heartbeat_ms, 10) / 1000.0
         self.op_timeout_s = max(op_timeout_ms, 100) / 1000.0
+        # with a re-attach window the worker outlives a dead driver and
+        # re-dials its successor; 0 ends membership with the control
+        # socket
+        self.reattach_ms = max(int(reattach_ms), 0)
+        self.endpoint_file = endpoint_file
         if spill_dir is None:
             reap_stale_spill_dirs()
         self.telemetry = WorkerTelemetry(telemetry_ring)
@@ -301,26 +326,38 @@ class WorkerServer:
                                     telemetry=self.telemetry)
         self.mem_bytes = mem_bytes
         self._stop = threading.Event()
+        self._reattaching = threading.Event()
         self._listener: Optional[socket.socket] = None
         self._control: Optional[socket.socket] = None
         self._threads: List[threading.Thread] = []
         self.data_port: Optional[int] = None
 
     # -- lifecycle -------------------------------------------------------
-    def start(self) -> None:
-        """Open the data listener, then join: HELLO and the coordinator's
-        welcome on one control socket."""
-        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._listener.bind(("127.0.0.1", 0))
-        self._listener.listen(32)
-        self.data_port = self._listener.getsockname()[1]
-        c = P.connect(self.coordinator[0], self.coordinator[1],
-                      self.op_timeout_s)
+    def _resolve_endpoint(self) -> Optional[Tuple[str, int]]:
+        """The coordinator to dial: the endpoint file (re-read at every
+        attempt, since a reborn coordinator listens on a new port) when
+        one is given and readable, else ``--coordinator``."""
+        if self.endpoint_file:
+            try:
+                with open(self.endpoint_file) as f:
+                    host, port = f.read().strip().rsplit(":", 1)
+                return host, int(port)
+            except (OSError, ValueError):
+                pass
+        return self.coordinator
+
+    def _join(self, endpoint: Tuple[str, int],
+              reattach: bool) -> socket.socket:
+        """Dial, HELLO and the coordinator's welcome on one control
+        socket.  A re-attaching HELLO carries the held inventory."""
+        c = P.connect(endpoint[0], endpoint[1], self.op_timeout_s)
         try:
             P.send_msg(c, {"op": "hello", "worker_id": self.worker_id,
                            "data_port": self.data_port, "pid": os.getpid(),
                            "mem_bytes": self.mem_bytes,
+                           "reattach": bool(reattach),
+                           "held": (self.store.inventory() if reattach
+                                    else []),
                            "t_wall": time.time()})
             rep, _ = P.recv_msg(c)
             if rep.get("op") != "welcome":
@@ -328,7 +365,27 @@ class WorkerServer:
         except BaseException:
             c.close()
             raise
-        self._control = c
+        return c
+
+    def start(self) -> None:
+        """Open the data listener, then join."""
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listener.bind(("127.0.0.1", 0))
+        self._listener.listen(32)
+        self.data_port = self._listener.getsockname()[1]
+        endpoint = self._resolve_endpoint()
+        if endpoint is None and self.endpoint_file:
+            # the worker may start before the coordinator publishes
+            deadline = time.monotonic() + self.op_timeout_s * 4
+            while endpoint is None and time.monotonic() < deadline:
+                time.sleep(0.05)
+                endpoint = self._resolve_endpoint()
+        if endpoint is None:
+            raise ConnectionError("no coordinator endpoint (neither "
+                                  "--coordinator nor a readable endpoint "
+                                  "file)")
+        self._control = self._join(endpoint, reattach=False)
         for target, name in ((self._serve_loop, "accept"),
                              (self._heartbeat_loop, "heartbeat")):
             t = threading.Thread(
@@ -356,9 +413,11 @@ class WorkerServer:
 
     def run_forever(self) -> None:
         """Block until the control socket dies (the coordinator is gone or
-        evicted this worker) or ``stop()`` is called."""
+        evicted this worker) or ``stop()`` is called.  A re-attach in
+        progress is not a dead control socket: the process stays up
+        through the window, or its blocks would die with it."""
         while not self._stop.wait(self.heartbeat_s):
-            if self._control is None:
+            if self._control is None and not self._reattaching.is_set():
                 break
 
     # -- heartbeats ------------------------------------------------------
@@ -377,10 +436,44 @@ class WorkerServer:
                                **self.store.stats()})
             except OSError:
                 # the coordinator hung up: a LOST declaration closed our
-                # socket, or the coordinator itself is gone
+                # socket, or the coordinator itself is gone.  With a
+                # re-attach window the driver's death is survivable
+                if self._try_reattach():
+                    continue
                 self._stop.set()
                 self._control = None
                 return
+
+    def _try_reattach(self) -> bool:
+        """Re-dial for up to ``reattach_ms``: resolve the endpoint anew,
+        HELLO with the held inventory, and resume heartbeating.  False
+        when the window is 0, ``stop()`` raced, or the window ran out."""
+        if self.reattach_ms <= 0 or self._stop.is_set():
+            return False
+        self._reattaching.set()
+        try:
+            old, self._control = self._control, None
+            if old is not None:
+                try:
+                    old.close()
+                except OSError:
+                    pass
+            deadline = time.monotonic() + self.reattach_ms / 1000.0
+            while not self._stop.is_set() \
+                    and time.monotonic() < deadline:
+                endpoint = self._resolve_endpoint()
+                if endpoint is not None:
+                    try:
+                        self._control = self._join(endpoint, reattach=True)
+                        return True
+                    except (OSError, ConnectionError,
+                            P.ProtocolCorruption):
+                        pass
+                if self._stop.wait(min(self.heartbeat_s, 0.2)):
+                    return False
+            return False
+        finally:
+            self._reattaching.clear()
 
     # -- data plane ------------------------------------------------------
     def _serve_loop(self) -> None:
@@ -473,6 +566,8 @@ class WorkerServer:
                 tel.span("release", trace, span, int(h["exch"]), -1, -1,
                          0, t_wall, time.perf_counter_ns() - t0)
             return {"ok": True, "dropped": dropped}, []
+        if op == "stats":
+            return {"ok": True, **self.store.stats()}, []
         if op == "ping":
             return {"ok": True, "worker_id": self.worker_id}, []
         return {"error": f"unknown op {op!r}"}, []
@@ -480,8 +575,16 @@ class WorkerServer:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--coordinator", required=True,
-                    help="host:port of the coordinator's listener")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of the coordinator's listener (or "
+                         "--endpoint-file)")
+    ap.add_argument("--endpoint-file", default=None,
+                    help="the coordinator.endpoint file under the "
+                         "recovery root, re-read at every (re-)attach so "
+                         "a reborn coordinator's new port is found")
+    ap.add_argument("--reattach-ms", type=int, default=0,
+                    help="on heartbeat loss, re-dial the coordinator for "
+                         "up to this many ms instead of exiting (0: exit)")
     ap.add_argument("--worker-id", default=f"w-{os.getpid()}")
     ap.add_argument("--mem-bytes", type=int, default=64 << 20)
     ap.add_argument("--heartbeat-ms", type=int, default=200)
@@ -494,12 +597,16 @@ def main(argv=None) -> int:
                     help="span ring capacity (0 disables span recording; "
                          "counters still travel on the heartbeats)")
     args = ap.parse_args(argv)
+    if not args.coordinator and not args.endpoint_file:
+        ap.error("one of --coordinator and --endpoint-file is required")
 
     srv = WorkerServer(
-        P.parse_endpoint(args.coordinator), args.worker_id,
+        (P.parse_endpoint(args.coordinator) if args.coordinator
+         else None), args.worker_id,
         mem_bytes=args.mem_bytes, heartbeat_ms=args.heartbeat_ms,
         spill_dir=args.spill_dir, op_timeout_ms=args.op_timeout_ms,
-        telemetry_ring=args.telemetry_ring)
+        telemetry_ring=args.telemetry_ring,
+        reattach_ms=args.reattach_ms, endpoint_file=args.endpoint_file)
     try:
         srv.start()
     except OSError as e:

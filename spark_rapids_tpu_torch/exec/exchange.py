@@ -25,8 +25,16 @@ worker its partition is placed on, and kept in a lineage queue in the
 engine until its partition is read back; a worker lost mid-shuffle is
 recovered by re-driving those blocks.  With no coordinator or no
 placeable worker the exchange runs in process (the reference's elastic
-membership).  The reference's recovery path (stage checkpoints) is not
-ported.
+membership).
+
+With ``spark.rapids.tpu.recovery.enabled`` the stage boundary is a durable
+checkpoint (``lifecycle/journal.py``): an exchange first looks up a dead
+incarnation's committed output under its plan-stage fingerprint and serves
+it instead of executing its child; otherwise, once its write phase has
+landed, the spill-backed path commits its partitions as checkpoint files
+and the distributed path journals a lease on the worker-held blocks.  A
+commit that fails leaves the stage uncheckpointed and never fails the
+query.
 """
 from __future__ import annotations
 
@@ -42,10 +50,12 @@ from spark_rapids_tpu_torch.config import (BATCH_SIZE_BYTES,
                                            DISTRIBUTED_ENABLED,
                                            DISTRIBUTED_REDRIVE_MAX,
                                            EXCHANGE_SPILL_ENABLED,
-                                           SHUFFLE_MODE, SPILL_DIR, TpuConf)
+                                           RECOVERY_ENABLED, SHUFFLE_MODE,
+                                           SPILL_DIR, TpuConf)
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.expr.base import EvalContext
-from spark_rapids_tpu_torch.lifecycle.context import check_cancel
+from spark_rapids_tpu_torch.lifecycle.context import (QueryCancelled,
+                                                      check_cancel, current)
 from spark_rapids_tpu_torch.ops.filterops import gather_columns
 from spark_rapids_tpu_torch.ops.hashing import spark_partition_ids
 from spark_rapids_tpu_torch.ops.sortkeys import sort_permutation
@@ -181,18 +191,152 @@ class TpuShuffleExchangeExec(TpuExec):
             yield from self.children[0].execute_columnar()
             return
         c = self.conf
+        # recovery off: one conf read and no journal call
+        ckpt = None
+        if bool(c.get(RECOVERY_ENABLED)):
+            ckpt = self._recovery_ckpt()
+            if ckpt is not None:
+                served = self._serve_recovered(*ckpt)
+                if served is not None:
+                    yield from served
+                    return
         if c.get(DISTRIBUTED_ENABLED):
             from spark_rapids_tpu_torch.distributed import peek_coordinator
 
             coord = peek_coordinator()
             if coord is not None and coord.placeable_workers():
-                yield from self._execute_distributed(coord)
+                yield from self._execute_distributed(coord, ckpt)
                 return
         if c.get(EXCHANGE_SPILL_ENABLED) \
                 and str(c.get(SHUFFLE_MODE)).upper() != "CACHE_ONLY":
-            yield from self._execute_spill_backed()
+            yield from self._execute_spill_backed(ckpt)
             return
         yield from self._execute_shuffle_manager()
+
+    # -- crash-consistent recovery ---------------------------------------
+    def _registry_scope(self, kind: str):
+        """The exchange's identity: partitioning, its expressions, the
+        partition count, the output schema, ANSI mode and the conf; None
+        when an expression has no stable fingerprint."""
+        from spark_rapids_tpu_torch.compilecache.keys import (conf_fp,
+                                                              exprs_fp,
+                                                              schema_fp)
+
+        p = self.partitioning
+        if isinstance(p, HashPartitioning):
+            efp = exprs_fp(p.keys)
+        elif isinstance(p, RangePartitioning):
+            efp = exprs_fp([e for e, _ in p.orders])
+            if efp is not None:
+                efp = efp + tuple((s.ascending, s.nulls_first)
+                                  for _, s in p.orders)
+        else:
+            efp = ()
+        if efp is None:
+            return None
+        return ("exchange", kind, type(p).__name__, efp,
+                self.num_partitions, schema_fp(self.output),
+                bool(self.ansi), conf_fp(self.conf))
+
+    def _recovery_ckpt(self):
+        """(journal, plan-stage fingerprint), or None when recovery cannot
+        apply: partitioning without a stable fingerprint, or a journal
+        that cannot open.  The fingerprint adds the child subtree's plan
+        identity to the exchange's, so two exchanges of one partitioning
+        and schema over different children never trade checkpoints."""
+        from spark_rapids_tpu_torch.compilecache.keys import fingerprint
+        from spark_rapids_tpu_torch.lifecycle import journal as _jn
+
+        scope = self._registry_scope("ckpt")
+        if scope is None:
+            return None
+        fp = fingerprint(scope, _jn.plan_tree_fp(self.children[0]))
+        try:
+            return _jn.get_journal(self.conf), fp
+        except Exception:
+            # a journal that cannot open disables recovery for this
+            # query, never fails it
+            return None
+
+    def _serve_recovered(self, jn, fp):
+        """A generator over a dead incarnation's committed output for this
+        stage, or None (nothing adoptable: execute as usual).  A local
+        checkpoint is CRC-checked whole before the first batch; a lease
+        streams from the re-attached workers."""
+        from spark_rapids_tpu_torch.shuffle.partition_queues import (
+            host_boundary_codec)
+
+        hit = jn.lookup_stage(fp)
+        if hit is None:
+            return None
+        ctx = current()
+        qid = ctx.query_id if ctx is not None else "-"
+        codec = host_boundary_codec(self.conf)
+        if hit[0] == "local":
+            return self._gen_recovered_local(jn, fp, qid, codec, hit[1])
+        _, wire, _placement, counts = hit
+        return self._gen_recovered_lease(jn, fp, qid, codec, wire, counts)
+
+    def _gen_recovered_local(self, jn, fp, qid, codec, parts):
+        from spark_rapids_tpu_torch.shuffle.serializer import (
+            deserialize_concat)
+
+        device = self._device()
+        for pid in range(self.num_partitions):
+            blobs = parts.get(pid) or []
+            if not blobs:
+                continue
+            out = deserialize_concat(blobs, self.output, codec=codec,
+                                     device=device)
+            if out.num_rows > 0:
+                yield out
+        jn.mark_recovered(fp, qid, len(parts))
+
+    def _gen_recovered_lease(self, jn, fp, qid, codec, wire, counts):
+        from spark_rapids_tpu_torch.distributed import (ProtocolCorruption,
+                                                        peek_coordinator)
+        from spark_rapids_tpu_torch.shuffle.serializer import (
+            deserialize_concat)
+
+        coord = peek_coordinator()
+        goal = int(self.conf.get(BATCH_SIZE_BYTES))
+        device = self._device()
+        try:
+            for pid in sorted(counts):
+                check_cancel()
+                expected = counts[pid]
+                next_seq = 0
+                while next_seq < expected:
+                    seqs, blobs, _n = coord.fetch_blocks(
+                        wire, pid, after_seq=next_seq - 1, max_bytes=goal)
+                    if not seqs:
+                        raise ProtocolCorruption(
+                            f"recovered stage {fp}: worker returned no "
+                            f"blocks for pid {pid} at seq "
+                            f"{next_seq}/{expected}")
+                    next_seq = seqs[-1] + 1
+                    out = deserialize_concat(blobs, self.output,
+                                             codec=codec, device=device)
+                    if out.num_rows > 0:
+                        yield out
+        finally:
+            # the adopted placement ends with the serve, on success and on
+            # unwind (a failed serve re-executes; the workers' copies are
+            # no longer adoptable either way)
+            coord.release_exchange(wire)
+        jn.mark_recovered(fp, qid, len(counts))
+
+    @staticmethod
+    def _commit_stage(commit_fn) -> None:
+        """Run one checkpoint commit; a failure leaves the stage not
+        recoverable and never fails the query.  Cancellation and any
+        BaseException (a kill) pass through."""
+        try:
+            commit_fn()
+        except QueryCancelled:
+            raise
+        except Exception:
+            pass
 
     def _execute_shuffle_manager(self) -> Iterator[ColumnarBatch]:
         """Each input batch a map task whose slices the shuffle manager
@@ -219,7 +363,8 @@ class TpuShuffleExchangeExec(TpuExec):
         finally:
             mgr.unregister_shuffle(shuffle_id)
 
-    def _execute_distributed(self, coord) -> Iterator[ColumnarBatch]:
+    def _execute_distributed(self, coord,
+                             ckpt=None) -> Iterator[ColumnarBatch]:
         """The exchange over the worker tier: each slice framed once as a
         TKU2 block, shipped to the worker its partition is placed on, and
         kept in a lineage queue in the engine (device budget 0, host
@@ -257,6 +402,17 @@ class TpuShuffleExchangeExec(TpuExec):
             for b in self.children[0].execute_columnar():
                 for pid, sl in self.partition_slices(b):
                     dist.add_slice(pid, sl)
+            if ckpt is not None:
+                # the stage boundary: the worker-held partitions are the
+                # checkpoint, and a lease pins them past the driver's
+                # death (the read phase below releases no worker copy;
+                # only dist.close() does)
+                jn, fp = ckpt
+                ctx = current()
+                self._commit_stage(lambda: jn.commit_lease(
+                    fp, ctx.query_id if ctx is not None else "-",
+                    coord.wire_of(exch_id), coord.placement_of(exch_id),
+                    dist.block_counts()))
             goal = int(c.get(BATCH_SIZE_BYTES))
             for pid in range(self.num_partitions):
                 check_cancel()
@@ -271,7 +427,7 @@ class TpuShuffleExchangeExec(TpuExec):
                 queues.close()
             mgr.unregister_shuffle(exch_id)
 
-    def _execute_spill_backed(self) -> Iterator[ColumnarBatch]:
+    def _execute_spill_backed(self, ckpt=None) -> Iterator[ColumnarBatch]:
         """Each input batch sliced once, each slice queued (on the device
         or framed to the host) before the next is made; the reduce
         partitions drain in partition order, in chunks of the batch-size
@@ -289,6 +445,16 @@ class TpuShuffleExchangeExec(TpuExec):
             for b in self.children[0].execute_columnar():
                 for pid, sl in self.partition_slices(b):
                     queues.append(pid, sl)
+            if ckpt is not None:
+                # the stage boundary: every partition framed and committed
+                # durably before the read phase drains the queues, so a
+                # driver killed past this point serves the checkpoint
+                jn, fp = ckpt
+                ctx = current()
+                self._commit_stage(lambda: jn.commit_local_stage(
+                    fp, ctx.query_id if ctx is not None else "-",
+                    {pid: queues.snapshot_framed(pid)
+                     for pid in range(self.num_partitions)}))
             for pid in range(self.num_partitions):
                 check_cancel()
                 for out in queues.read_chunks(pid, target_bytes=goal):

@@ -13,15 +13,26 @@ needs pyarrow in the reference and raises here.
 The reference's ``_try_device_decode`` catches any decoder failure and
 re-reads the file with pyarrow on the host.  The port has no such path: an
 unsupported feature or a failed kernel raises, naming the file.
+
+With ``spark.rapids.tpu.scan.hotTableCache.enabled`` a scan first looks up
+the hot-table cache (``io/hot_cache.py``): a hit yields the cached device
+batches, with no file read, no decode and no upload.  A miss scans as
+usual and publishes its batches only when it runs to its end, so a
+generator abandoned under a ``limit``, or one that raised, publishes
+nothing.
 """
 from __future__ import annotations
 
 from typing import Iterator
 
+from spark_rapids_tpu_torch import perfcounters as PC
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.config import (PARQUET_COMPRESSED_TRANSFER,
+from spark_rapids_tpu_torch.config import (MAX_READER_BATCH_SIZE_ROWS,
+                                           PARQUET_COMPRESSED_TRANSFER,
                                            PARQUET_DEVICE_DECODE,
-                                           PARQUET_READER_TYPE, TpuConf)
+                                           PARQUET_READER_TYPE,
+                                           SCAN_HOT_CACHE,
+                                           SCAN_HOT_CACHE_MAX_BYTES, TpuConf)
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.plan.nodes import FileSourceScan
 
@@ -58,7 +69,42 @@ class TpuFileSourceScanExec(TpuExec):
             return self.reader_type
         return "MULTITHREADED" if len(self.plan.paths) > 1 else "COALESCING"
 
+    def _hot_cache_key(self):
+        """The scan's cache key; the chunking is the reader's row cap."""
+        from spark_rapids_tpu_torch.io.hot_cache import HotTableCache
+
+        return HotTableCache.scan_key(
+            self.plan.fmt, self.plan.paths,
+            [f.name for f in self.plan.output.fields],
+            int(self.conf.get(MAX_READER_BATCH_SIZE_ROWS)))
+
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
+        cache = key = collected = None
+        if self.conf.get(SCAN_HOT_CACHE):
+            from spark_rapids_tpu_torch.io.hot_cache import get_hot_cache
+
+            key = self._hot_cache_key()
+            if key is not None:
+                cache = get_hot_cache()
+                hit = cache.get(key)
+                if hit is not None:
+                    PC.bump("hot_cache_hits")
+                    yield from hit
+                    return
+                PC.bump("hot_cache_misses")
+                collected = []
+        for b in self._scan():
+            if collected is not None:
+                collected.append(b)
+            yield b
+        # reached only when the scan ran to its end: an abandoned
+        # generator or a raised fault publishes nothing
+        if collected is not None:
+            cache.put(key, collected,
+                      int(self.conf.get(SCAN_HOT_CACHE_MAX_BYTES)))
+
+    def _scan(self) -> Iterator[ColumnarBatch]:
+        """One device batch per file, decoded on the device."""
         from spark_rapids_tpu_torch.io.parquet_device import (
             read_parquet_device)
 

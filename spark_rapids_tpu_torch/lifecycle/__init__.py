@@ -13,9 +13,11 @@ and ``count`` run through) ties them together: admission before planning,
 the deadline armed at entry, and on exit — success, error or a mid-batch
 unwind — guaranteed cleanup: the query's tracked spillables closed, its
 shuffle registrations dropped (which releases what it placed on
-distributed workers), and the admission slot returned.  The reference's
-semaphore, accounting, journal, writer, serving and telemetry branches and
-its per-query cleanup hooks (the writer's) are not ported.
+distributed workers), and the admission slot returned.  With
+``spark.rapids.tpu.recovery.enabled`` the admission and the end are
+journaled (``journal.py``); off, no call reaches the journal module.  The
+reference's semaphore, accounting, writer, serving and telemetry branches
+and its per-query cleanup hooks (the writer's) are not ported.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ class query_lifecycle:
         self._ctx: Optional[QueryContext] = None
         self._ctl: Optional[AdmissionController] = None
         self._cv_token = None
+        self._journaled = False
 
     def __enter__(self) -> Optional[QueryContext]:
         from spark_rapids_tpu_torch.config import (ADMISSION_MAX_QUEUE,
@@ -81,6 +84,21 @@ class query_lifecycle:
             self._ctl = ctl
         self._cv_token = CURRENT.set(ctx)
         self._ctx = ctx
+        # crash-consistent recovery: journal the admission so a dead
+        # driver's successor can classify this query (one conf read when
+        # recovery is off, and no journal call)
+        from spark_rapids_tpu_torch.config import RECOVERY_ENABLED
+
+        if bool(conf.get(RECOVERY_ENABLED)):
+            from spark_rapids_tpu_torch.lifecycle import journal as _journal
+
+            try:
+                _journal.journal_admit(ctx, conf)
+                self._journaled = True
+            except Exception:
+                # a journal that cannot append voids this query's
+                # recovery guarantee, never its admission
+                pass
         return ctx
 
     def __exit__(self, exc_type, exc, tb):
@@ -95,6 +113,19 @@ class query_lifecycle:
             if exc is not None and isinstance(exc, QueryCancelled):
                 PC.bump("queries_cancelled")
             _cleanup_query(ctx)
+            if self._journaled:
+                from spark_rapids_tpu_torch.lifecycle import (
+                    journal as _journal)
+
+                status = ("ok" if exc_type is None else
+                          "cancelled" if isinstance(exc, QueryCancelled)
+                          else getattr(exc_type, "__name__", "error"))
+                try:
+                    _journal.journal_end(ctx, status)
+                except Exception:
+                    # the end record only lets the checkpoints go; a
+                    # missing one replays as a crash, the safe default
+                    pass
         finally:
             if self._ctl is not None:
                 self._ctl.release()
@@ -121,9 +152,11 @@ def _cleanup_query(ctx: QueryContext) -> None:
 
 
 def leak_report_all() -> List[str]:
-    """Leaks across the process's singletons: unclosed spillables, live
-    shuffle registrations, and exchanges still placed on remote workers.
-    Empty after a well-behaved query."""
+    """Leaks across the process's singletons: unclosed spillables (the
+    hot-table cache's persistent ones aside), live shuffle registrations,
+    exchanges still placed on remote workers, and the recovery journal's
+    un-ended queries and leftover checkpoints.  Empty after a well-behaved
+    query."""
     out: List[str] = []
     from spark_rapids_tpu_torch.memory import spill as _spill
 
@@ -139,6 +172,11 @@ def leak_report_all() -> List[str]:
     from spark_rapids_tpu_torch import distributed as _dist
 
     out.extend(_dist.leak_report())
+    # a journaled query that never ended, a pending checkpoint or a
+    # checkpoint dir left on disk would mis-classify at the next restart
+    from spark_rapids_tpu_torch.lifecycle import journal as _journal
+
+    out.extend(_journal.journal_leak_report())
     return out
 
 
@@ -151,7 +189,9 @@ def reset_leaked_state() -> None:
 
     fw = _spill.peek_spill_framework()
     if fw is not None:
-        fw.close_all()
+        # persistent handles (the hot-table cache's) are not a query's
+        # leak: the cache owns them and closes them itself
+        fw.close_all(include_persistent=False)
     mgr = _shuffle.peek_shuffle_manager()
     if mgr is not None:
         for sid in mgr.active_shuffles():
@@ -167,6 +207,11 @@ def reset_leaked_state() -> None:
             coord.release_all()
         except Exception:
             pass
+    # purge every recovery root this process touched, so one leaky
+    # query's WAL cannot seed a false "resumable" in the next replay
+    from spark_rapids_tpu_torch.lifecycle import journal as _journal
+
+    _journal.reset_journal(purge=True)
 
 
 __all__ = [

@@ -16,8 +16,11 @@ byte of it is read; the disk tier carries a CRC32 of the host columns,
 checked when the file is read back (``SpillCorruption``).  Each handle
 records the query that tracked it, so the query lifecycle closes what a
 query left behind (``close_owned_by``) and ``leak_report`` lists what is
-still open.  The reference's query accounting and persistent (cached)
-handles are not ported.
+still open.  A handle tracked ``persistent`` (the hot-table cache's,
+``io/hot_cache.py``) outlives its query: the query-end cleanup and the leak
+report leave it out, it spills down the tiers under pressure like any
+other, and a framework built anew for the next collect takes it over.  The
+reference's query accounting is not ported.
 """
 from __future__ import annotations
 
@@ -91,7 +94,8 @@ class SpillableColumnarBatch:
     """A batch handle that can move between the card, host RAM and disk
     (reference: SpillableColumnarBatch)."""
 
-    def __init__(self, batch: ColumnarBatch, framework: "SpillFramework"):
+    def __init__(self, batch: ColumnarBatch, framework: "SpillFramework",
+                 persistent: bool = False):
         self._framework = framework
         self._batch: Optional[ColumnarBatch] = batch
         self._host: Optional[List[Dict[str, torch.Tensor]]] = None
@@ -106,6 +110,9 @@ class SpillableColumnarBatch:
         self.pinned = 0          # > 0 while an operator computes on it
         self.lru_tick = 0
         self.closed = False
+        # a persistent handle intentionally outlives the query that
+        # tracked it (a cached table)
+        self.persistent = persistent
         from spark_rapids_tpu_torch.lifecycle.context import current
 
         ctx = current()
@@ -290,38 +297,66 @@ class SpillFramework:
         if h in self._handles:
             self._handles.remove(h)
 
-    def leak_report(self) -> List[str]:
+    def leak_report(self, include_persistent: bool = False) -> List[str]:
         """One line per live (unclosed) handle; empty once every handle
-        a query tracked was released."""
+        a query tracked was released.  Persistent handles are left out
+        unless ``include_persistent``."""
         with self._lock:
             return [f"LEAK: {h.state} handle {h.device_bytes}B"
+                    + (" persistent" if h.persistent else "")
                     + (f" owner={h.owner_qid}" if h.owner_qid else "")
-                    for h in self._handles]
+                    for h in self._handles
+                    if include_persistent or not h.persistent]
 
     def close_owned_by(self, query_id: str) -> int:
-        """Query-end cleanup: close every handle the query tracked and
-        never closed (a mid-batch unwind leaves these); returns how many
-        were closed."""
+        """Query-end cleanup: close every non-persistent handle the query
+        tracked and never closed (a mid-batch unwind leaves these);
+        returns how many were closed."""
         with self._lock:
-            victims = [h for h in self._handles if h.owner_qid == query_id]
+            victims = [h for h in self._handles
+                       if h.owner_qid == query_id and not h.persistent]
         for h in victims:
             h.close()
         return len(victims)
 
-    def close_all(self) -> int:
-        """Close every live handle (leak recovery)."""
+    def close_all(self, include_persistent: bool = True) -> int:
+        """Close every live handle (leak recovery), the persistent ones
+        only with ``include_persistent``."""
         with self._lock:
-            victims = list(self._handles)
+            victims = [h for h in self._handles
+                       if include_persistent or not h.persistent]
         for h in victims:
             h.close()
         return len(victims)
+
+    def adopt(self, handles: List[SpillableColumnarBatch]) -> None:
+        """Take over live persistent handles from the framework this one
+        replaces: they move here with their tier and keep counting
+        against this pool."""
+        for h in handles:
+            old = h._framework
+            with old._lock:
+                if h.closed:
+                    continue
+                old._unregister_locked(h)
+            h._framework = self
+            if h.state == STATE_DEVICE:
+                self.ensure_room(h.device_bytes, exclude=h)
+            with self._lock:
+                self._touch_locked(h)
+                self._handles.append(h)
+                if h.state == STATE_DEVICE:
+                    self._device_used += h.device_bytes
+                    self._device_used_peak = max(self._device_used_peak,
+                                                 self._device_used)
 
     def _touch_locked(self, h: SpillableColumnarBatch) -> None:
         self._tick += 1
         h.lru_tick = self._tick
 
-    def track(self, batch: ColumnarBatch) -> SpillableColumnarBatch:
-        return SpillableColumnarBatch(batch, self)
+    def track(self, batch: ColumnarBatch,
+              persistent: bool = False) -> SpillableColumnarBatch:
+        return SpillableColumnarBatch(batch, self, persistent=persistent)
 
     # -- pressure --------------------------------------------------------
     @property
@@ -412,10 +447,17 @@ def get_spill_framework(tpu_conf: Optional[TpuConf] = None,
 
             c = tpu_conf or TpuConf()
             dm = get_device_manager(tpu_conf, device)
+            old = _framework
             _framework = SpillFramework(
                 pool_bytes=dm.pool_bytes,
                 host_limit=c.get(HOST_SPILL_STORAGE_SIZE),
                 spill_dir=c.get(SPILL_DIR))
+            if old is not None:
+                # persistent handles outlive the framework they were
+                # tracked in (a cached table across collects)
+                with old._lock:
+                    keep = [h for h in old._handles if h.persistent]
+                _framework.adopt(keep)
         return _framework
 
 

@@ -75,6 +75,20 @@ COUNTERS: Dict[str, int] = {
     "speculative_redrives": 0,
     # plan nodes the circuit breaker kept off the device at tagging
     "breaker_plan_fallbacks": 0,
+    # crash-consistent recovery (lifecycle/journal.py): journal records
+    # appended, stages served from a checkpoint, queries that served at
+    # least one, checkpoints or journal files discarded as damaged or
+    # orphaned, and checkpoints retired past their lease
+    "journal_records_written": 0,
+    "stages_recovered": 0,
+    "queries_resumed": 0,
+    "journal_recovery_discards": 0,
+    "recovery_leases_expired": 0,
+    # hot-table cache (io/hot_cache.py): scans served from the cache,
+    # scans that missed, and entries evicted past its bound
+    "hot_cache_hits": 0,
+    "hot_cache_misses": 0,
+    "hot_cache_evictions": 0,
 }
 
 # High-water marks, set to 0 by ``reset_peaks`` and read by ``peaks`` (the

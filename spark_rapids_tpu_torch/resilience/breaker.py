@@ -101,6 +101,13 @@ class CircuitBreakerRegistry:
                     f"{e.failures} deterministic failure(s){why}; "
                     f"re-probing in {max(remaining, 0):.0f}s")
 
+    def clear_key(self, key: Key) -> bool:
+        """Drop one entry whatever its state (a worker re-attaching after
+        a driver restart must not inherit the dead incarnation's
+        quarantine).  True when an entry existed."""
+        with self._lock:
+            return self._entries.pop(key, None) is not None
+
     def has_entries(self) -> bool:
         return bool(self._entries)
 

@@ -20,13 +20,15 @@ one partition, and makes the shuffled join adaptive.  The plan is made
 with the pool of a device manager built from the session's conf, and each
 ``collect`` builds the spill framework and device manager anew from it
 (``memory/``); every collect runs under the query lifecycle
-(``lifecycle/``).  As in the reference, a DataFrame keeps its rewritten plan
-per conf, so a second ``collect`` runs the same exec tree and ``explain``
-after a collect shows the adaptive join's decision.  A plan node that the
-reference's rules keep off the device runs as a CPU stage
-(``cpu/oracle.py``); ``explain`` then ends with the reference's
-``Fallback reasons``, and a plan whose root is such a stage is collected
-on the host.
+(``lifecycle/``), journaled when ``spark.rapids.tpu.recovery.enabled``
+is on (``lifecycle/journal.py``); ``close`` drops the hot-table cache and
+releases what the process still holds.  As in the reference, a DataFrame
+keeps its rewritten plan per conf, so a second ``collect`` runs the same
+exec tree and ``explain`` after a collect shows the adaptive join's
+decision.  A plan node that the reference's rules keep off the device
+runs as a CPU stage (``cpu/oracle.py``); ``explain`` then ends with the
+reference's ``Fallback reasons``, and a plan whose root is such a stage is
+collected on the host.
 """
 from __future__ import annotations
 
@@ -74,6 +76,25 @@ class TpuSession:
     @property
     def shuffle_partitions(self) -> int:
         return self.conf.get(SHUFFLE_PARTITIONS)
+
+    def close(self, check_leaks: bool = True,
+              drop_hot_cache: bool = True) -> List[str]:
+        """Session shutdown: report, then release, what the process's
+        singletons still hold (unclosed spillables, live shuffle
+        registrations, remote placements, the recovery journal).  Returns
+        the leak report, empty for a well-behaved session.  The hot-table
+        cache is a process singleton too: it is dropped first, unless
+        ``drop_hot_cache`` is false (one of several live sessions
+        closing keeps the others' warm tables)."""
+        from spark_rapids_tpu_torch.io.hot_cache import clear_hot_cache
+        from spark_rapids_tpu_torch.lifecycle import (leak_report_all,
+                                                      reset_leaked_state)
+
+        if drop_hot_cache:
+            clear_hot_cache()
+        leaks = leak_report_all() if check_leaks else []
+        reset_leaked_state()
+        return leaks
 
 
 class DataFrameReader:
@@ -261,12 +282,28 @@ class DataFrame:
         from spark_rapids_tpu_torch.lifecycle import query_lifecycle
         from spark_rapids_tpu_torch.memory.spill import get_spill_framework
 
-        with query_lifecycle(self.session.conf):
+        conf = self.session.conf
+        with query_lifecycle(conf) as qctx:
             root = self._planned()
-            get_spill_framework(self.session.conf, self.session.device)
+            if qctx is not None:
+                # journal the planned tree's identity (recovery off: one
+                # conf read and no journal call)
+                from spark_rapids_tpu_torch.config import RECOVERY_ENABLED
+
+                if bool(conf.get(RECOVERY_ENABLED)):
+                    from spark_rapids_tpu_torch.lifecycle import (
+                        journal as _jn)
+
+                    try:
+                        _jn.journal_plan(qctx, root, conf)
+                    except Exception:
+                        # the plan record is advisory: losing it never
+                        # fails the query
+                        pass
+            get_spill_framework(conf, self.session.device)
             if isinstance(root, TpuExec):
                 return TpuColumnarToRowExec(root).collect_host()
-            cols, _ = execute_cpu_plan(root, self.session.conf.ansi_enabled)
+            cols, _ = execute_cpu_plan(root, conf.ansi_enabled)
             return [c.to_host() for c in cols]
 
     def collect(self) -> List[tuple]:

@@ -18,8 +18,10 @@ Run with a device budget of 0, the queues are the distributed exchange's
 lineage buffer: ``append_framed`` keeps the very block shipped to a
 worker, ``peek_blobs`` reads a partition's blocks back for a re-drive or a
 hedged fetch without draining them, and ``release_partition`` drops them
-once the partition was read.  The reference's checkpoint entry point
-(``snapshot_framed``) and query accounting are not ported.
+once the partition was read.  ``snapshot_framed`` copies a partition as
+framed blocks without draining it: the source of a stage checkpoint
+(``lifecycle/journal.py``).  The reference's query accounting is not
+ported.
 """
 from __future__ import annotations
 
@@ -118,6 +120,27 @@ class SpillBackedPartitionQueues:
             elif kind == "hostfile":
                 with open(x, "rb") as f:
                     out.append(f.read())
+        return out
+
+    def snapshot_framed(self, pid: int) -> List[bytes]:
+        """Every queued entry of one partition as a CRC-framed block,
+        without draining: a device-resident slice is pinned, framed and
+        unpinned with its entry still queued (the checkpoint is a copy;
+        the read phase drains the queue as usual afterwards)."""
+        out: List[bytes] = []
+        for kind, x in (self._queues.get(pid) or []):
+            if kind == "host":
+                out.append(x)
+            elif kind == "hostfile":
+                with open(x, "rb") as f:
+                    out.append(f.read())
+            else:
+                x.pin()
+                try:
+                    out.append(serialize_batch(x.get_batch(),
+                                               codec=self.codec))
+                finally:
+                    x.unpin()
         return out
 
     def release_partition(self, pid: int) -> None:

@@ -660,3 +660,59 @@ def test_rung4_dist_on_gpu_equals_cpu():
         finally:
             C.stop_dist_workers(procs.values())
             D.reset_coordinator()
+
+
+@pytest.mark.gpu
+def test_rung5_recovery_on_gpu_equals_cpu():
+    """bench's rung5_recovery at 200,000 rows on the card and on the CPU
+    (``chip_smoke.run_rung5`` holds every collect to numpy, the plan to the
+    reference's, and the kill at the first stage commit to a resume that
+    serves it, with no leak and an empty recovery dir after the purge)."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+
+    for device in ("cuda", "cpu"):
+        r = C.run_rung5(C.REC_BENCH_ROWS, torch.device(device), "card test",
+                        f"rung5_recovery {device}")
+        assert r["delta"]["stages_recovered"] >= 1
+        assert r["delta"]["queries_resumed"] >= 1
+        assert r["launches"] == 0
+
+
+@pytest.mark.gpu
+def test_driver_kill_on_gpu():
+    """A driver incarnation on the card SIGKILLed at its first stage
+    commit; the next one, on the card, serves the committed stage from the
+    re-attached workers, exact, with nothing left on them and no worker
+    holding the card (``chip_smoke.run_driver_kill``)."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+
+    torch.cuda.empty_cache()
+    (res,) = C.run_driver_kill([("ckpt:1", C.DK_BENCH_ROWS,
+                                 C.DK_WORKER_MEM)], "cuda", "card test",
+                               "driver kill card test")
+    assert res["result"]["counters"]["stages_recovered"] >= 1
+    assert res["result"]["stranded_blocks"] == 0
+
+
+@pytest.mark.gpu
+def test_q6_hot_cache_on_gpu(tmp_path):
+    """Q6 over four snappy files with the hot-table cache on the card: the
+    miss decodes with K1 (one launch per column chunk), the hit launches
+    nothing and uploads nothing, both exact; ``close`` leaves no handle."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+
+    n = 200_000
+    li = C.lineitem_q6(n, n / (C.SF10_ROWS / 10), 5)
+    paths = C.write_files(li, n, str(tmp_path), torch.device("cuda"),
+                          n_files=4)
+    r = C.run_q6_hot(paths, C.q6_reference(li), "q6_parquet_hot card test",
+                     torch.device("cuda"), "card test")
+    (_, d1, l1), (_, d2, l2) = r["first"], r["second"]
+    assert d1["hot_cache_misses"] == 1 and l1 == 16 and d1["bytes_h2d"] > 0
+    assert d2["hot_cache_hits"] == 1 and l2 == 0 and d2["bytes_h2d"] == 0

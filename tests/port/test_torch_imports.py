@@ -44,7 +44,10 @@ def test_import_leaves_no_jax_in_sys_modules():
             "spark_rapids_tpu_torch.exec.ici, "
             "spark_rapids_tpu_torch.distributed.coordinator, "
             "spark_rapids_tpu_torch.distributed.client, "
-            "spark_rapids_tpu_torch.distributed.worker\n"
+            "spark_rapids_tpu_torch.distributed.worker, "
+            "spark_rapids_tpu_torch.lifecycle.journal, "
+            "spark_rapids_tpu_torch.io.hot_cache, "
+            "spark_rapids_tpu_torch.compilecache.keys\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n"
@@ -121,3 +124,8 @@ def test_workers_are_spawned_without_the_card(monkeypatch):
     assert seen["cmd"][mem] == "4096"
     D.spawn_local_worker(Coord(), "w1")
     assert seen["cmd"][mem] == "12345"
+    assert "--reattach-ms" not in seen["cmd"]
+    D.spawn_local_worker(Coord(), "w2", reattach_ms=5000,
+                         endpoint_file="/r/coordinator.endpoint")
+    assert seen["cmd"][-4:] == ["--reattach-ms", "5000", "--endpoint-file",
+                                "/r/coordinator.endpoint"]
