@@ -6,7 +6,8 @@ rung3 (a CPU stage under the aggregate, the out-of-core sort), bench's
 rung4_dist (its exchanges over two worker processes, one killed), bench's
 rung5_recovery (the query journal, a query killed at a stage commit and
 resumed), the driver SIGKILLed and restarted over re-attaching workers,
-and bench's q6_parquet_hot (Q6 over the hot-table cache).
+bench's q6_parquet_hot (Q6 over the hot-table cache), and TPC-H Q12 at
+SF10 (string columns end to end), from Parquet and out of core.
 
     python3 chip_smoke.py [--scale 10] [--seed 20261017]
 
@@ -154,7 +155,27 @@ Phases, each failing the run at its first mismatch:
     default the same scan (over the bound) never hits; bench's own cell,
     1,000,000 rows in 4 snappy files under the default bound, hits on its
     repeat; after each ``session.close()`` the spill framework holds no
-    handle, persistent ones included.
+    handle, persistent ones included;
+19. TPC-H Q12 (spec 2.4.12) at ``--scale``: orders (15,000,000 at SF10)
+    and lineitem (1-7 lines an order) from ``--seed`` per spec 4.2.3,
+    written as 8 + 8 snappy files, one row group each, the numeric
+    columns by the port's writer, l_shipmode and o_orderpriority
+    dictionary-encoded as parquet-mr writes them
+    (``encode_dict_strings``: a PLAIN dictionary page, 20,000-value
+    RLE_DICTIONARY pages of width 3), and orders' first file again with
+    PLAIN strings by the port's writer.  Under the default reader type,
+    two collects equal to numpy (``('MAIL', ...), ('SHIP', ...)``); the
+    plan the reference's (``q12_plan``), its adaptive join deciding on
+    22 bytes a filtered line; K1 launched once for each dictionary column
+    chunk in the timed collect; a breakdown by operator, one collect
+    under ``torch.profiler``, and the PLAIN-string file read alone,
+    every row equal;
+20. Q12 from memory under phase 12's conf (the 48 MiB pool, a batch goal
+    of an eighth of it, no broadcast, no adaptive execution): both
+    exchanges sized, their slices past the queues' device budget framed
+    to the host as TKU2 blocks carrying the strings (at least one), two
+    collects exact, no leak; then the orders exchange's write and read
+    alone.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
@@ -2950,6 +2971,565 @@ def run_hot(paths, q6, n: int, seed: int, device,
     return {"big": big, "default": dflt, "cell": cell}
 
 
+# ---------------------------------------------------------------------------
+# TPC-H Q12 (spec 2.4.12): string columns end to end, from Parquet at SF10
+# ---------------------------------------------------------------------------
+
+Q12_ORDERS_SF10 = 15_000_000       # TPC-H SF10 orders
+Q12_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                  "5-LOW")
+Q12_SHIPMODES = ("REG AIR", "AIR", "RAIL", "SHIP", "TRUCK", "MAIL", "FOB")
+Q12_VALUES = {"o_orderpriority": Q12_PRIORITIES,
+              "l_shipmode": Q12_SHIPMODES}
+Q12_MODES = ("MAIL", "SHIP")
+Q12_RECEIPT = (8766, 9131)         # [1994-01-01, 1995-01-01) in epoch days
+Q12_CONF = dict(QA_CONF)           # device decode on, default reader type
+
+
+def make_q12(n_orders: int, seed: int):
+    """orders and lineitem as TPC-H 4.2.3 draws the columns Q12 reads, from
+    ``seed``: sparse order keys (the first 8 of each 32), o_orderdate
+    uniform in 1992-01-01..1998-08-02, O_ORDERPRIORITY uniform over its 5
+    values, 1-7 lines an order, L_SHIPMODE uniform over its 7 values,
+    L_SHIPDATE = orderdate + [1, 121], L_COMMITDATE = orderdate + [30, 90],
+    L_RECEIPTDATE = shipdate + [1, 30].  Strings are held as codes into
+    ``Q12_PRIORITIES`` and ``Q12_SHIPMODES``."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n_orders, dtype=np.int64)
+    okey = (i // 8) * 32 + (i % 8) + 1
+    odate = rng.integers(8035, 10440 + 1, n_orders).astype(np.int32)
+    prio = rng.integers(0, len(Q12_PRIORITIES), n_orders).astype(np.int8)
+    lines = rng.integers(1, 8, n_orders)
+    n = int(lines.sum())
+    od = np.repeat(odate, lines)
+    ship = od + rng.integers(1, 122, n).astype(np.int32)
+    orders = {"o_orderkey": okey, "o_orderdate": odate,
+              "o_orderpriority": prio}
+    lineitem = {"l_orderkey": np.repeat(okey, lines),
+                "l_shipdate": ship,
+                "l_commitdate": od + rng.integers(30, 91, n).astype(np.int32),
+                "l_receiptdate": ship + rng.integers(1, 31, n).astype(
+                    np.int32),
+                "l_shipmode": rng.integers(0, len(Q12_SHIPMODES), n).astype(
+                    np.int8),
+                "order_row": np.repeat(i, lines)}
+    return orders, lineitem
+
+
+def q12_schemas(T):
+    """(orders as written, lineitem as written, orders as Q12 reads it,
+    lineitem as Q12 reads it) in the package whose ``types`` is ``T``;
+    TPC-H's columns are NOT NULL."""
+    def sch(fields):
+        return T.StructType([T.StructField(nm, t, False)
+                             for nm, t in fields])
+    o = [("o_orderkey", T.LONG), ("o_orderdate", T.DATE),
+         ("o_orderpriority", T.STRING)]
+    li = [("l_orderkey", T.LONG), ("l_shipdate", T.DATE),
+          ("l_commitdate", T.DATE), ("l_receiptdate", T.DATE),
+          ("l_shipmode", T.STRING)]
+    return sch(o), sch(li), sch([o[0], o[2]]), sch(li)
+
+
+def q12_strings(codes, values):
+    """Codes -> an object array of the values' strings."""
+    return np.asarray(values, dtype=object)[codes]
+
+
+def q12_query(orders, lineitem, mod):
+    """TPC-H Q12 over two DataFrames of the package whose session module
+    is ``mod``: lineitem filtered (the IN, the date order and the receipt
+    year) joined to orders on the order key as the build side, the two
+    CASE WHEN sums grouped by l_shipmode, ordered by it."""
+    import datetime as dt
+
+    pkg = mod.__name__.rsplit(".", 1)[0]
+    CaseWhen = importlib.import_module(pkg + ".expr.conditional").CaseWhen
+    col, lit = mod.col, mod.lit
+    li = (lineitem
+          .filter(col("l_shipmode").isin(*Q12_MODES)
+                  & (col("l_commitdate") < col("l_receiptdate"))
+                  & (col("l_shipdate") < col("l_commitdate"))
+                  & (col("l_receiptdate") >= lit(dt.date(1994, 1, 1)))
+                  & (col("l_receiptdate") < lit(dt.date(1995, 1, 1))))
+          .select(col("l_orderkey").alias("orderkey"), "l_shipmode"))
+    o = orders.select(col("o_orderkey").alias("orderkey"), "o_orderpriority")
+    pr = col("o_orderpriority")
+    high = pr.eq("1-URGENT") | pr.eq("2-HIGH")
+    low = ~pr.eq("1-URGENT") & ~pr.eq("2-HIGH")
+    return (o.join(li, "orderkey")
+            .group_by("l_shipmode")
+            .agg(mod.sum_(CaseWhen([(high, lit(1))], lit(0)),
+                          "high_line_count"),
+                 mod.sum_(CaseWhen([(low, lit(1))], lit(0)),
+                          "low_line_count"))
+            .order_by("l_shipmode"))
+
+
+def q12_selected(lineitem):
+    """The lines Q12's filter keeps (bool mask)."""
+    modes = [Q12_SHIPMODES.index(m) for m in Q12_MODES]
+    rec = lineitem["l_receiptdate"]
+    com = lineitem["l_commitdate"]
+    return (np.isin(lineitem["l_shipmode"], modes) & (com < rec)
+            & (lineitem["l_shipdate"] < com)
+            & (rec >= Q12_RECEIPT[0]) & (rec < Q12_RECEIPT[1]))
+
+
+def q12_reference(orders, lineitem):
+    """Q12 in numpy: the lines that pass the filter, each with its order's
+    priority, counted by ship mode (the join is the generator's
+    line -> order row map)."""
+    mode = lineitem["l_shipmode"]
+    sel = q12_selected(lineitem)
+    high = orders["o_orderpriority"][lineitem["order_row"][sel]] <= 1
+    m = mode[sel]
+    out = []
+    for name in sorted(Q12_MODES):
+        k = m == Q12_SHIPMODES.index(name)
+        if k.any():
+            out.append((name, int((high & k).sum()), int((~high & k).sum())))
+    return out
+
+
+def q12_string_column(codes, values):
+    """A NOT NULL string ``HostColumn`` of the port whose rows are
+    ``values[codes]``, built by one gather from the values' matrix."""
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+
+    table = HostColumn.strings(list(values), np.ones(len(values), np.bool_))
+    return HostColumn(table.dtype, np.ones(len(codes), np.bool_),
+                      chars=table.chars[codes], lengths=table.lengths[codes])
+
+
+def q12_host_columns(table, schema, lo: int, hi: int):
+    """Rows ``[lo, hi)`` of a Q12 table as the port's host columns of
+    ``schema`` (strings from their codes)."""
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+
+    return [q12_string_column(table[f.name][lo:hi], Q12_VALUES[f.name])
+            if f.name in Q12_VALUES else
+            HostColumn.from_numpy(table[f.name][lo:hi], f.dataType)
+            for f in schema.fields]
+
+
+def encode_dict_strings(f, codes, values, device, codec: int):
+    """A NOT NULL string column chunk, rows ``values[codes]``, dictionary-
+    encoded as parquet-mr writes one (the port's writer has no dictionary
+    for strings): a PLAIN dictionary page of the values that occur, in
+    first-seen order, then RLE_DICTIONARY data pages of
+    ``SPARK_PAGE_VALUES`` values, each one bit-packed run of the indices
+    at the dictionary's bit width.  -> (pages bytes, ``ChunkMeta``) for
+    ``parquet_encode.write_chunks``."""
+    from spark_rapids_tpu_torch.io import parquet_encode as PE
+    from spark_rapids_tpu_torch.io.parquet_native import (ENC_PLAIN, ENC_RLE,
+                                                          ENC_RLE_DICT,
+                                                          PAGE_DATA,
+                                                          PAGE_DICT,
+                                                          TYPE_BYTE_ARRAY)
+    from spark_rapids_tpu_torch.perfcounters import sync_get, to_device
+
+    n = len(codes)
+    hit = [(int(np.argmax(codes == c)), c) for c in range(len(values))
+           if (codes == c).any()]
+    order = [c for _, c in sorted(hit)]
+    rank = np.zeros(len(values), np.int64)
+    rank[order] = np.arange(len(order))
+    table = q12_string_column(np.asarray(order), values)
+    payload = PE.plain_byte_array(table.chars, table.lengths)
+    cdict = PE._compress(codec, payload)
+    dict_header = PE._page_header(PAGE_DICT, len(payload), len(cdict),
+                                  len(order), ENC_PLAIN)
+    pages = bytearray(dict_header) + cdict
+    meta = PE.ChunkMeta()
+    meta.name, meta.phys, meta.n, meta.codec = f.name, TYPE_BYTE_ARRAY, n, \
+        codec
+    meta.encodings = [ENC_RLE_DICT, ENC_PLAIN, ENC_RLE]
+    meta.dict_off = True
+    meta.data_off = len(pages)
+    usize = len(dict_header) + len(payload)
+    bw = max((len(order) - 1).bit_length(), 1)
+    (packed,) = sync_get(PE.device_bitpack(to_device(rank[codes], device),
+                                           bw))
+    packed = packed.tobytes()
+    for lo in range(0, n, SPARK_PAGE_VALUES):
+        cnt = min(SPARK_PAGE_VALUES, n - lo)
+        body = bytes([bw]) + PE._hybrid_bitpacked(
+            packed[lo * bw // 8: -(-(lo + cnt) * bw // 8)], cnt, bw)
+        cbody = PE._compress(codec, body)
+        header = PE._page_header(PAGE_DATA, len(body), len(cbody), cnt,
+                                 ENC_RLE_DICT)
+        pages += header
+        pages += cbody
+        usize += len(header) + len(body)
+    meta.usize, meta.csize = usize, len(pages)
+    return bytes(pages), meta
+
+
+def write_q12_files(orders, lineitem, out_dir: str, device,
+                    n_files: int = N_FILES):
+    """orders and lineitem as ``n_files`` snappy files each, one row group
+    a file: numeric columns dictionary-encoded by the port's writer,
+    strings by ``encode_dict_strings``; and orders' first file again with
+    PLAIN strings, by the port's writer.  -> (orders paths, lineitem
+    paths, the PLAIN file's path)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import parquet_encode as PE
+    from spark_rapids_tpu_torch.io.parquet_native import CODEC_SNAPPY
+
+    ow, lw, _, _ = q12_schemas(T)
+    os.makedirs(out_dir, exist_ok=True)
+    paths = {}
+    for name, table, sch in (("orders", orders, ow),
+                             ("lineitem", lineitem, lw)):
+        n = len(table[sch.fields[0].name])
+        bounds = np.linspace(0, n, n_files + 1).astype(np.int64)
+        paths[name] = []
+        for i in range(n_files):
+            lo, hi = int(bounds[i]), int(bounds[i + 1])
+            chunks = [encode_dict_strings(
+                f, table[f.name][lo:hi], Q12_VALUES[f.name], device,
+                CODEC_SNAPPY)
+                if isinstance(f.dataType, T.StringType) else
+                PE.encode_column(f, c, hi - lo, CODEC_SNAPPY, True, device)
+                for f, c in zip(sch.fields, q12_host_columns(
+                    table, sch, lo, hi))]
+            path = os.path.join(out_dir, f"{name}-{i:02d}.parquet")
+            PE.write_chunks(path, sch, chunks, hi - lo)
+            paths[name].append(path)
+    hi = int(np.linspace(0, len(orders["o_orderkey"]), n_files + 1)[1])
+    plain = os.path.join(out_dir, "orders-plain.parquet")
+    PE.write_parquet_device(plain, ow, q12_host_columns(orders, ow, 0, hi),
+                            hi, device=device)
+    return paths["orders"], paths["lineitem"], plain
+
+
+def dict_chunks(paths, schema) -> int:
+    """The column chunks of ``schema``'s columns in ``paths`` that hold
+    dictionary pages: the K1 launches a scan of them makes."""
+    from spark_rapids_tpu_torch.io.parquet_native import (ENC_PLAIN_DICT,
+                                                          ENC_RLE_DICT,
+                                                          read_column_pages,
+                                                          read_footer)
+
+    count = 0
+    want = set(schema.field_names())
+    for p in paths:
+        with open(p, "rb") as fh:
+            data = fh.read()
+        groups, _ = read_footer(data)
+        for g in groups:
+            for info in g.columns:
+                if info.name in want and any(
+                        pg.encoding in (ENC_PLAIN_DICT, ENC_RLE_DICT)
+                        for pg in read_column_pages(data, info,
+                                                    g.num_rows).pages):
+                    count += 1
+    return count
+
+
+def check_q12_k1(paths, device, smi: str) -> int:
+    """K1 on the run tables phase 19's scan builds for the string columns
+    of ``paths`` (one orders and one lineitem file): each file's string
+    fields are read as the scan reads them (compressed transfer on), the
+    inputs of every K1 launch are kept, and each is run again through the
+    kernel and its plain version.  -> the largest difference; a
+    difference fails."""
+    import torch
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+    from spark_rapids_tpu_torch.pallas import decode
+    from spark_rapids_tpu_torch.perfcounters import to_device
+
+    calls = []
+    real = PD.expand_table_dev
+
+    def keep(buf, base, table, total):
+        calls.append((buf, base, table, total))
+        return real(buf, base, table, total)
+
+    max_err = 0
+    for path in paths:
+        _, _, ro, rl = q12_schemas(T)
+        sch = T.StructType([f for f in (ro if "orders" in
+                                        os.path.basename(path) else rl).fields
+                            if isinstance(f.dataType, T.StringType)])
+        widths = sorted({page.index_bit_width for name, page in
+                         main_path_pages(path) if name in sch.field_names()
+                         and page.index_bit_width})
+        PD.expand_table_dev = keep
+        try:
+            PD.read_parquet_device(path, sch, device)
+        finally:
+            PD.expand_table_dev = real
+        rows = values = 0
+        for buf, base, table, total in calls:
+            tab = to_device(table, device)
+            got = decode.unpack_runs(buf, base, tab, total)
+            want = decode.unpack_runs_plain(buf, base, tab, total)
+            max_err = max(max_err, int((got.to(torch.int64)
+                                        - want.to(torch.int64))
+                                       .abs().max()) if total else 0)
+            rows += len(table)
+            values += total
+        log(f"K1 on {os.path.basename(path)}'s string index tables "
+            f"({sch.field_names()}, widths {widths}): {len(calls)} "
+            f"launches, {rows} run rows, {values} values; max_abs_err "
+            f"{max_err} against the plain version; {smi}")
+        calls.clear()
+    if max_err:
+        fail(f"K1 differs from its plain version on Q12's string index "
+             f"tables (max_abs_err {max_err})")
+    return max_err
+
+
+def q12_plan(threshold: int = 10 << 20, decided: str = "shuffled",
+             goal: int = 1 << 30, broadcast_planned: bool = False):
+    """The reference's plan for Q12 after a collect (the reference's
+    explain on the CPU, scans as ``<scan>``, the bytes as ``<bytes>``):
+    the join broadcast at planning when the lineitem files are within
+    ``threshold``, else adaptive, decided ``decided`` at run time."""
+    head = [
+        "TpuSort [l_shipmode ASC]",
+        "  TpuHashAggregate(Complete) keys=[l_shipmode] aggs=[sum(CASE WHEN "
+        "((o_orderpriority = '1-URGENT') OR (o_orderpriority = '2-HIGH')) "
+        "THEN 1 ELSE 0 END) AS high_line_count, sum(CASE WHEN ((NOT "
+        "(o_orderpriority = '1-URGENT')) AND (NOT (o_orderpriority = "
+        "'2-HIGH'))) THEN 1 ELSE 0 END) AS low_line_count]"]
+    orders = ["TpuProject [o_orderkey AS orderkey, o_orderpriority]",
+              "  <scan>"]
+    lines = ["TpuStageExec[FilterProject]", "  <scan>"]
+    if broadcast_planned:
+        return head + ["    TpuBroadcastHashJoinExec Inner "
+                       "[orderkey=orderkey]"] + [
+            "      " + ln for ln in orders] + [
+            "      TpuBroadcastExchangeExec"] + [
+            "        " + ln for ln in lines]
+    reader = f"TpuAdaptiveShuffleReader(target={goal}B small=4194304B)"
+    side = ["      " + reader, "        TpuShuffleExchange SinglePartition"]
+    return head + [
+        f"    TpuAdaptiveJoin(threshold={threshold})[TpuShuffledSymmetricHash"
+        f"JoinExec Inner [orderkey=orderkey]] decided={decided}(<bytes>)"
+    ] + side + ["          " + ln for ln in orders] + side + [
+        "          " + ln for ln in lines]
+
+
+def q12_build_bytes(lineitem) -> int:
+    """The adaptive join's measured build side at Q12: 22 bytes a filtered
+    line (the key and its validity, l_shipmode's 8 chars, length and
+    validity), as the reference counts a row."""
+    return 22 * int(q12_selected(lineitem).sum())
+
+
+def _q12_collects(q, want, label: str, n: int, smi: str):
+    """Two collects of ``q``, both equal to ``want``; the counts (K1
+    launches, perfcounters, peak memory) set to 0 just before the timed
+    second one and read just after it."""
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.pallas import decode
+
+    first = q.collect()
+    if first != want:
+        fail(f"{label}, first run: {first} != {want}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode.unpack_launches = 0
+    snap = PC.snapshot()
+    t0 = time.perf_counter()
+    rows = q.collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = decode.unpack_launches
+    d = PC.since(snap)
+    peak = torch.cuda.max_memory_allocated()
+    if rows != want:
+        fail(f"{label}, second run: {rows} != {want}")
+    log(f"{label}: {rows} == numpy reference; {n} lineitem rows in "
+        f"{secs:.3f} s = {n / secs:.0f} rows/s [{smi}]")
+    log(f"{label} counters: unpack_launches={launches} bytes_h2d="
+        f"{d['bytes_h2d']} bytes_d2h={d['bytes_d2h']} host_syncs="
+        f"{d['host_syncs']} chunk_decode_fallbacks="
+        f"{d['chunk_decode_fallbacks']} exchange_host_blocks="
+        f"{d['exchange_host_blocks']} exchange_spill_ns="
+        f"{d['exchange_spill_ns']} max_memory_allocated={peak} [{smi}]")
+    return {"seconds": secs, "launches": launches, "delta": d,
+            "peak": peak, "query": q}
+
+
+def run_q12(o_paths, l_paths, want, build_bytes: int, n: int, device,
+            smi: str):
+    """Phase 19: Q12 from the Parquet files, collected twice; the plan
+    the reference's (its adaptive join decided by ``build_bytes``
+    against the default threshold), K1 launched once per dictionary
+    column chunk in the timed collect."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.config import (AUTO_BROADCAST_JOIN_THRESHOLD,
+                                               TpuConf)
+
+    _, _, ors, lrs = q12_schemas(T)
+    s = S.TpuSession(Q12_CONF, device=device)
+    q = q12_query(s.read.schema(ors).parquet(*o_paths),
+                  s.read.schema(lrs).parquet(*l_paths), S)
+    chunks = dict_chunks(o_paths, ors) + dict_chunks(l_paths, lrs)
+    check_default_reader(q.explain().splitlines(), "Q12")
+    out = _q12_collects(q, want, "Q12 parquet", n, smi)
+    threshold = TpuConf(Q12_CONF).get(AUTO_BROADCAST_JOIN_THRESHOLD)
+    planned = sum(os.path.getsize(p) for p in l_paths) <= threshold
+    decided = "broadcast" if build_bytes <= threshold else "shuffled"
+    check_plan(q, q12_plan(threshold, decided,
+                           broadcast_planned=planned), "Q12")
+    join = "broadcast at planning"
+    if not planned:
+        join = [ln for ln in q.explain().splitlines()
+                if "decided=" in ln][0].split("decided=")[1]
+        if join != f"{decided}({build_bytes}B)":
+            fail(f"Q12: the adaptive join decided {join}, not {decided} "
+                 f"over the {build_bytes} B of the filtered lines")
+    if out["launches"] != chunks:
+        fail(f"Q12: K1 launched {out['launches']} times, not once for each "
+             f"of the {chunks} dictionary column chunks")
+    log("Q12 plan after the collects:\n" + q.explain())
+    log(f"Q12 parquet: join {join}; K1 launches {out['launches']} == "
+        f"{chunks} dictionary chunks [{smi}]")
+    return out
+
+
+def q12_breakdown(q, smi: str):
+    """Where a Q12 collect spends its time, operator by operator, each on
+    its input batches already on the card: the orders scan (with its
+    projection), the lineitem scan with its fused filter, the join (the
+    adaptive one: its build side and the probes), the aggregate, the
+    sort."""
+    sort = fresh_plan(q)
+    agg = sort.children[0]
+    join = agg.children[0]
+    if hasattr(join, "shuffled"):          # the adaptive join
+        left, right = join.shuffled.children
+    else:                                  # broadcast at planning
+        left, right = join, join.children[1]
+    t_o, _ = _replay_leaf(left, 0)
+    t_l, _ = _replay_leaf(right, 0)
+    t_join, batches = _timed_run(join)
+    agg.children[0] = _Replay(batches, join.output)
+    t_agg, out = _timed_run(agg)
+    sort.children[0] = _Replay(out, agg.output)
+    t_sort, _ = _timed_run(sort)
+    log(f"Q12 breakdown: orders scan {t_o:.4f} s, lineitem scan + filter "
+        f"{t_l:.4f} s, join {t_join:.4f} s "
+        f"({getattr(join, 'decision', 'broadcast')}), aggregate "
+        f"{t_agg:.4f} s, sort {t_sort:.4f} s [{smi}]")
+
+
+def read_q12_plain(path, orders, device, smi: str):
+    """The orders file with PLAIN string pages (the host length walk),
+    read alone: every o_orderpriority row equal to the generator's."""
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.io.parquet_device import read_parquet_device
+
+    _, _, ors, _ = q12_schemas(T)
+    snap = PC.snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = read_parquet_device(path, ors, device)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    d = PC.since(snap)
+    n = b.num_rows
+    want = q12_string_column(orders["o_orderpriority"][:n], Q12_PRIORITIES)
+    col = b.columns[1]
+    if not (np.array_equal(col.chars[:, :want.width].cpu().numpy(),
+                           want.chars)
+            and np.array_equal(col.lengths.cpu().numpy(), want.lengths)
+            and not col.chars[:, want.width:].any()
+            and np.array_equal(b.columns[0].data.cpu().numpy(),
+                               orders["o_orderkey"][:n])):
+        fail("Q12: the PLAIN-string orders file differs from the generator")
+    log(f"Q12 PLAIN strings: {n} orders rows read alone in {secs:.3f} s, "
+        f"every row equal; width {col.width}, bytes_h2d={d['bytes_h2d']}, "
+        f"chunk_decode_fallbacks={d['chunk_decode_fallbacks']} [{smi}]")
+
+
+def run_q12_ooc(orders, lineitem, want, pool: int, device, smi: str):
+    """Phase 20: Q12 from memory under phase 12's conf (the capped pool, a
+    batch goal of an eighth of it, no broadcast, no adaptive execution):
+    both sides through sized hash exchanges on the order key, whose
+    slices past the queues' device budget cross to the host as TKU2
+    frames carrying the string columns; rows exact twice, host blocks
+    written, no leak; then the orders exchange's write and read alone."""
+    import torch
+
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.config import BATCH_SIZE_BYTES
+    from spark_rapids_tpu_torch.memory.spill import (get_spill_framework,
+                                                     peek_spill_framework)
+    from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
+    from spark_rapids_tpu_torch.shuffle.partition_queues import (
+        SpillBackedPartitionQueues, host_boundary_codec, queue_device_budget)
+
+    _, _, ors, lrs = q12_schemas(T)
+    n = len(lineitem["l_orderkey"])
+    conf = ooc_conf(pool, n)
+    s = S.TpuSession(conf, device=device)
+
+    def frame(table, sch):
+        return S.DataFrame(LocalTableScan(q12_host_columns(
+            table, sch, 0, len(table[sch.fields[0].name])), sch), s)
+
+    q = q12_query(frame(orders, ors), frame(lineitem, lrs), S)
+    log("Q12 out of core plan:\n" + q.explain())
+    if sum("sized" in ln for ln in q.explain().splitlines()) != 2:
+        fail("Q12 out of core: both exchanges must be sized")
+    out = _ooc_collects(q, lambda rows: None if rows == want else
+                        f"{rows} != {want}", "Q12 out of core", n, smi)
+    if out["delta"]["exchange_host_blocks"] <= 0:
+        fail("Q12 out of core: no exchange slice crossed to the host")
+    fw = peek_spill_framework()
+    leaks = fw.leak_report() if fw is not None else []
+    leaks += s.close()
+    if leaks:
+        fail(f"Q12 out of core: leaks {leaks[:3]}")
+    # the orders exchange alone: its slices carry o_orderpriority
+    get_spill_framework(s.conf, device)
+    sort = fresh_plan(q)
+    ex = sort.children[0].children[0].children[0].children[0]
+    t_scan, batches = _replay_leaf(ex, 0)
+    queues = SpillBackedPartitionQueues(
+        ex.num_partitions, ex.output, queue_device_budget(s.conf),
+        codec=host_boundary_codec(s.conf))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        for pid, sl in ex.partition_slices(b):
+            queues.append(pid, sl)
+    torch.cuda.synchronize()
+    t_write = time.perf_counter() - t0
+    del batches
+    goal = int(s.conf.get(BATCH_SIZE_BYTES))
+    t0 = time.perf_counter()
+    rows = sum(c.num_rows for pid in range(ex.num_partitions)
+               for c in queues.read_chunks(pid, target_bytes=goal))
+    torch.cuda.synchronize()
+    t_read = time.perf_counter() - t0
+    blocks = queues.host_blocks
+    queues.close()
+    if blocks <= 0 or rows != len(orders["o_orderkey"]):
+        fail(f"Q12 out of core: the orders exchange framed {blocks} host "
+             f"blocks and read back {rows} rows")
+    log(f"Q12 out of core orders exchange ({ex.num_partitions} partitions,"
+        f" o_orderpriority in its frames): project + scan {t_scan:.4f} s, "
+        f"write {t_write:.4f} s ({blocks} host blocks), read {t_read:.4f} "
+        f"s, {rows} rows [{smi}]")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -3129,13 +3709,51 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     hot = run_hot(paths, q6, n, args.seed, device, smi)
     log(f"phase 18 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 19. TPC-H Q12 from Parquet: string columns end to end
+    t0 = time.perf_counter()
+    n_orders = int(round(Q12_ORDERS_SF10 * args.scale / 10))
+    orders, lineitem = make_q12(n_orders, args.seed)
+    want_q12 = q12_reference(orders, lineitem)
+    if [r[0] for r in want_q12] != sorted(Q12_MODES):
+        fail(f"Q12 reference: {want_q12}")
+    n_li = len(lineitem["l_orderkey"])
+    ref_s = time.perf_counter() - t0
+    q12_dir = os.path.join(HERE, "spark_rapids_tpu_torch", "build",
+                           f"q12_sf{args.scale:g}_seed{args.seed}")
+    o_paths, l_paths, plain = write_q12_files(orders, lineitem, q12_dir,
+                                              device)
+    o_bytes = sum(os.path.getsize(p) for p in o_paths)
+    l_bytes = sum(os.path.getsize(p) for p in l_paths)
+    log(f"Q12 data: {n_orders} orders ({o_bytes} bytes) and {n_li} "
+        f"lineitem rows ({l_bytes} bytes) in {N_FILES} + {N_FILES} files; "
+        f"generated with the numpy reference in {ref_s:.1f} s, written in "
+        f"{time.perf_counter() - t0 - ref_s:.1f} s")
+    log("Q12 dictionary index widths: " + str(sorted(
+        {(name, page.index_bit_width) for p in o_paths + l_paths
+         for name, page in main_path_pages(p)})))
+    q12_k1_err = check_q12_k1([o_paths[0], l_paths[0]], device, smi)
+    q12 = run_q12(o_paths, l_paths, want_q12, q12_build_bytes(lineitem),
+                  n_li, device, smi)
+    q12_breakdown(q12["query"], smi)
+    profile_collect(q12["query"], want_q12, "Q12 parquet")
+    read_q12_plain(plain, orders, device, smi)
+    del q12["query"]
+    log(f"phase 19 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 20. Q12 through the out-of-core exchange, strings in its host frames
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    q12_ooc = run_q12_ooc(orders, lineitem, want_q12, OOC_POOL, device, smi)
+    del orders, lineitem
+    log(f"phase 20 wall time {time.perf_counter() - t0:.1f} s")
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": q6["launches"],
-        "max_abs_err": err,
+        "max_abs_err": max(err, q12_k1_err),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -3155,6 +3773,8 @@ def main(argv=None) -> int:
                                     for r in dk),
         "q6_hot_miss_launches": hot["big"]["first"][2],
         "q6_hot_hit_launches": hot["big"]["second"][2],
+        "q12_launches": q12["launches"],
+        "q12_ooc_launches": q12_ooc["launches"],
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

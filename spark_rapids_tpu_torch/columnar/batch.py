@@ -1,8 +1,9 @@
 """ColumnarBatch — port of ``spark_rapids_tpu/columnar/batch.py``.
 
-A batch is a list of ``DeviceColumn``s (flat or struct) of exactly
-``num_rows`` rows (no capacity padding, see ``column.py``) plus its
-schema.
+A batch is a list of ``DeviceColumn``s (flat, string or struct) of
+exactly ``num_rows`` rows (no capacity padding, see ``column.py``) plus
+its schema.  Concatenation meets a string column's batches at their
+widest width.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ from typing import List, Sequence
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.column import (DeviceColumn, HostColumn,
+from spark_rapids_tpu_torch.columnar.column import (DEFAULT_WIDTH_BUCKETS,
+                                                    DeviceColumn, HostColumn,
                                                     column_torch_dtype,
                                                     rebuild_column)
 from spark_rapids_tpu_torch.perfcounters import sync_get
@@ -89,6 +91,11 @@ def empty_batch(schema: T.StructType, device) -> ColumnarBatch:
 
 def empty_column(dt: T.DataType, device) -> DeviceColumn:
     validity = torch.zeros(0, dtype=torch.bool, device=device)
+    if isinstance(dt, T.StringType):
+        # the narrowest bucket, as the reference's empty string column
+        return DeviceColumn(dt, validity, chars=torch.zeros(
+            (0, DEFAULT_WIDTH_BUCKETS[0]), dtype=torch.uint8, device=device),
+            lengths=torch.zeros(0, dtype=torch.int32, device=device))
     if isinstance(dt, T.StructType):
         return DeviceColumn(dt, validity, children=[
             empty_column(f.dataType, device) for f in dt.fields])

@@ -1,13 +1,22 @@
 """Device/host column vectors — port of ``spark_rapids_tpu/columnar/column.py``.
 
 Flat columns (int, long, date, bool, double, decimal64 and the
-decimal128 limbs) and struct columns, with the reference's value
-semantics so results compare bit for bit:
+decimal128 limbs), string columns and struct columns, with the
+reference's value semantics so results compare bit for bit:
 
 * validity is a bool vector (True = valid);
 * decimals of 18 digits or fewer are unscaled int64; above 18 digits a
   ``(n, 2)`` int64 ``[hi, lo]`` limb pair (see ``expr/decimal128.py``);
 * DATE is int32 days since the epoch;
+* a string is the reference's padded layout: a ``(n, width)`` uint8 char
+  matrix (``chars``) plus int32 ``lengths``, bytes past a row's length
+  zero, ``data`` None.  A device column's width comes from the
+  ladder ``DEFAULT_WIDTH_BUCKETS`` (``round_up_bucket``), the default of
+  ``spark.rapids.tpu.string.widthBuckets``, which the reference's layers
+  use too;
+  a host column's is its longest value.  Columns of different widths
+  meet at the wider one (``with_width``) before they are compared or
+  stacked.  A null row has length 0;
 * a struct is a validity vector over one full child column per field
   (the reference's kind "struct", as cuDF stores STRUCT columns); its
   ``data`` is None.  A null struct row keeps whatever its children hold.
@@ -33,6 +42,30 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.perfcounters import sync_get, to_device
 
 _EPOCH = _dt.date(1970, 1, 1)
+DEFAULT_WIDTH_BUCKETS = (8, 32, 128, 512, 2048)
+
+
+def round_up_bucket(n: int) -> int:
+    """The smallest bucket holding ``n``; past the ladder the next power
+    of two."""
+    for b in DEFAULT_WIDTH_BUCKETS:
+        if n <= b:
+            return b
+    p = 1
+    while p < n:
+        p <<= 1
+    return p
+
+
+def _fit_chars(chars, width: int):
+    """A char matrix cut or zero-padded to ``width`` columns (numpy or
+    torch)."""
+    w = int(chars.shape[1])
+    if w >= width:
+        return chars[:, :width]
+    if isinstance(chars, np.ndarray):
+        return np.pad(chars, ((0, 0), (0, width - w)))
+    return torch.nn.functional.pad(chars, (0, width - w))
 
 
 def torch_dtype(np_dtype) -> torch.dtype:
@@ -50,17 +83,37 @@ class DeviceColumn:
 
     data: (n,) tensor of the storage dtype, or (n, 2) int64 [hi, lo] limbs
     for decimal(p>18); None for a struct, whose ``children`` hold one
-    column per field.  validity: (n,) bool, True = valid.
+    column per field, and for a string, whose ``chars`` (n, width) uint8
+    and ``lengths`` (n,) int32 hold it.  validity: (n,) bool, True =
+    valid.
     """
 
     dtype: T.DataType
     validity: torch.Tensor
     data: Optional[torch.Tensor] = None
     children: Optional[List["DeviceColumn"]] = None
+    chars: Optional[torch.Tensor] = None
+    lengths: Optional[torch.Tensor] = None
 
     @property
     def is_struct(self) -> bool:
         return self.children is not None
+
+    @property
+    def is_string(self) -> bool:
+        return self.chars is not None
+
+    @property
+    def width(self) -> int:
+        return int(self.chars.shape[1]) if self.chars is not None else 0
+
+    def with_width(self, width: int) -> "DeviceColumn":
+        """A string column's chars cut or zero-padded to ``width``."""
+        if self.width == width:
+            return self
+        return DeviceColumn(self.dtype, self.validity,
+                            chars=_fit_chars(self.chars, width),
+                            lengths=self.lengths)
 
     @property
     def is_dec128(self) -> bool:
@@ -75,16 +128,18 @@ class DeviceColumn:
         return self.validity.device
 
     def nbytes(self) -> int:
-        """Bytes of the validity (one a row) and the data, children
-        included."""
+        """Bytes of the validity (one a row) and the data (a string's
+        chars and lengths), children included."""
         return sum(t.numel() * t.element_size() for t in self.tensors())
 
     def tensors(self) -> List[torch.Tensor]:
-        """Every buffer, depth first: the validity, then the data or each
-        child's buffers."""
+        """Every buffer, depth first: the validity, then the data, a
+        string's chars and lengths, or each child's buffers."""
         if self.is_struct:
             return [self.validity] + [t for c in self.children
                                       for t in c.tensors()]
+        if self.is_string:
+            return [self.validity, self.chars, self.lengths]
         return [self.validity, self.data]
 
     def map_rows(self, fn) -> "DeviceColumn":
@@ -101,18 +156,29 @@ class DeviceColumn:
 
     @staticmethod
     def concat(cols: Sequence["DeviceColumn"]) -> "DeviceColumn":
+        """Rows of ``cols`` in order; strings at the widest width."""
+        cols = _common_width(cols)
         per = [c.tensors() for c in cols]
         return rebuild_column(cols[0].dtype, iter(
             [torch.cat([p[i] for p in per]) for i in range(len(per[0]))]))
 
     @staticmethod
     def from_host(h: "HostColumn", device) -> "DeviceColumn":
-        return rebuild_column(h.dtype, iter([to_device(a, device)
-                                             for a in h.arrays()]))
+        """Upload; a string's chars widen to their bucket first."""
+        return rebuild_column(h.dtype, iter([to_device(a, device) for a in
+                                             h.bucketed().arrays()]))
 
     def to_host(self, num_rows: int) -> "HostColumn":
         return rebuild_column(self.dtype, iter(sync_get(
             *[t[:num_rows] for t in self.tensors()])), HostColumn)
+
+
+def _common_width(cols):
+    """String columns at the widest of their widths (others as given)."""
+    if not cols[0].is_string:
+        return cols
+    w = max(c.width for c in cols)
+    return [c.with_width(w) for c in cols]
 
 
 def rebuild_column(dtype: T.DataType, it: Iterator, cls=None):
@@ -123,6 +189,8 @@ def rebuild_column(dtype: T.DataType, it: Iterator, cls=None):
     if isinstance(dtype, T.StructType):
         kids = [rebuild_column(f.dataType, it, cls) for f in dtype.fields]
         return cls(dtype, validity, children=kids)
+    if isinstance(dtype, T.StringType):
+        return cls(dtype, validity, chars=next(it), lengths=next(it))
     return cls(dtype, validity, data=next(it))
 
 
@@ -135,10 +203,20 @@ class HostColumn:
     validity: np.ndarray
     data: Optional[np.ndarray] = None
     children: Optional[List["HostColumn"]] = None
+    chars: Optional[np.ndarray] = None     # (n, width) uint8
+    lengths: Optional[np.ndarray] = None   # (n,) int32
 
     @property
     def is_struct(self) -> bool:
         return self.children is not None
+
+    @property
+    def is_string(self) -> bool:
+        return self.chars is not None
+
+    @property
+    def width(self) -> int:
+        return int(self.chars.shape[1]) if self.chars is not None else 0
 
     @property
     def num_rows(self) -> int:
@@ -149,7 +227,27 @@ class HostColumn:
         if self.is_struct:
             return [self.validity] + [a for c in self.children
                                       for a in c.arrays()]
+        if self.is_string:
+            return [self.validity, self.chars, self.lengths]
         return [self.validity, self.data]
+
+    def with_width(self, width: int) -> "HostColumn":
+        if self.width == width:
+            return self
+        return HostColumn(self.dtype, self.validity,
+                          chars=_fit_chars(self.chars, width),
+                          lengths=self.lengths)
+
+    def bucketed(self) -> "HostColumn":
+        """The column with every string (struct fields too) at the bucket
+        of its longest value, as it lives on the device."""
+        if self.is_struct:
+            return HostColumn(self.dtype, self.validity, children=[
+                c.bucketed() for c in self.children])
+        if not self.is_string:
+            return self
+        longest = int(self.lengths.max()) if self.num_rows else 0
+        return self.with_width(round_up_bucket(max(longest, 1)))
 
     def slice_rows(self, start: int, end: int) -> "HostColumn":
         return rebuild_column(self.dtype, iter([a[start:end]
@@ -158,6 +256,7 @@ class HostColumn:
 
     @staticmethod
     def concat(cols: Sequence["HostColumn"]) -> "HostColumn":
+        cols = _common_width(cols)
         per = [c.arrays() for c in cols]
         return rebuild_column(cols[0].dtype, iter(
             [np.concatenate([p[i] for p in per])
@@ -166,8 +265,30 @@ class HostColumn:
     @staticmethod
     def from_numpy(arr: np.ndarray, dtype: T.DataType,
                    validity: Optional[np.ndarray] = None) -> "HostColumn":
+        """A column over ``arr`` in storage form; a string column takes an
+        array of ``str`` or ``bytes`` (a null row's value is ignored)."""
         v = validity if validity is not None else np.ones(len(arr), np.bool_)
+        if isinstance(dtype, T.StringType):
+            return HostColumn.strings(arr, v)
         return HostColumn(dtype, v, data=np.ascontiguousarray(arr))
+
+    @staticmethod
+    def strings(values, validity: np.ndarray) -> "HostColumn":
+        """A string column of ``values`` (``str``, UTF-8 encoded, or
+        ``bytes``) at the width of the longest valid one."""
+        validity = np.asarray(validity, np.bool_)
+        enc = [b"" if not ok or v is None else
+               v.encode("utf-8") if isinstance(v, str) else bytes(v)
+               for v, ok in zip(values, validity)]
+        lengths = np.fromiter((len(b) for b in enc), np.int32, len(enc))
+        width = max(int(lengths.max()) if len(enc) else 0, 1)
+        joined = np.frombuffer(b"".join(enc), np.uint8)
+        rows = np.repeat(np.arange(len(enc)), lengths)
+        starts = np.cumsum(lengths) - lengths
+        cols = np.arange(len(joined)) - np.repeat(starts, lengths)
+        chars = np.zeros((len(enc), width), np.uint8)
+        chars[rows, cols] = joined
+        return HostColumn(T.STRING, validity, chars=chars, lengths=lengths)
 
     @staticmethod
     def from_pylist(values: List, dtype: T.DataType) -> "HostColumn":
@@ -175,6 +296,8 @@ class HostColumn:
 
         n = len(values)
         validity = np.array([v is not None for v in values], dtype=np.bool_)
+        if isinstance(dtype, T.StringType):
+            return HostColumn.strings(values, validity)
         if isinstance(dtype, T.StructType):
             # rows are dicts (by field name) or sequences (by position);
             # a null row's children are null (Spark reads null.field as
@@ -217,6 +340,9 @@ class HostColumn:
         for i in range(self.num_rows):
             if not self.validity[i]:
                 out.append(None)
+            elif self.is_string:
+                out.append(bytes(self.chars[i, :self.lengths[i]]).decode(
+                    "utf-8", "replace"))
             elif isinstance(self.dtype, T.DecimalType):
                 v = (to_py(int(self.data[i, 0]), int(self.data[i, 1]))
                      if self.dtype.is_128 else int(self.data[i]))

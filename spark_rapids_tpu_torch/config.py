@@ -7,7 +7,7 @@ qa, qb and qc over Parquet, the out-of-core path of bench's rung3_ooc
 the sub-partitioned join), bench's rung4_dist (the query lifecycle,
 the shuffle manager, the circuit breaker and the distributed tier), and
 bench's rung5_recovery and q6_parquet_hot (the query journal and the
-hot-table cache) read.
+hot-table cache), and the string columns of TPC-H Q12 read.
 Unlike the reference there is no process-wide ambient conf: the session
 hands its ``TpuConf`` to every exec that needs one.
 """
@@ -423,6 +423,15 @@ SCAN_HOT_CACHE_MAX_BYTES = conf(
     "Device-bytes bound of the hot-table cache; inserting past it evicts "
     "the least recently used entries (hot_cache_evictions).  A single scan "
     "larger than the bound is not cached.").bytes_conf(1 << 30)
+
+
+# --- string columns (columnar/column.py) ------------------------------------
+
+STRING_WIDTH_BUCKETS = conf("spark.rapids.tpu.string.widthBuckets").doc(
+    "Char-width buckets for the padded string layout.  Registered as the "
+    "reference registers it; like the reference, every layer uses the "
+    "default ladder (columnar/column.py DEFAULT_WIDTH_BUCKETS).").string_conf(
+    "8,32,128,512,2048")
 
 
 class TpuConf:

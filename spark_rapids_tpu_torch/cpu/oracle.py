@@ -21,10 +21,11 @@ errors are the reference's.
 The nodes it runs are ``LocalTableScan``, ``Filter``, ``Project``,
 ``Union`` and ``TpuMaterializedScan``; the expressions, those the port
 runs on the card (references, literals, ``Alias``, comparisons, boolean
-logic, ``IsNull``/``IsNotNull``, ``Add``/``Subtract``/``Multiply``,
-integral and decimal ``Cast``, ``Coalesce``/``Nvl``) and the struct
-expressions.  ``check_cpu_plan`` raises ``NotOnGpu`` at plan time for
-anything else, naming it.
+logic, ``IsNull``/``IsNotNull``, ``In``, ``If``/``CaseWhen``,
+``Add``/``Subtract``/``Multiply``, integral and decimal ``Cast``,
+``Coalesce``/``Nvl``) and the struct expressions, over flat columns (a
+string column in a CPU stage is not ported).  ``check_cpu_plan`` raises
+``NotOnGpu`` at plan time for anything else, naming it.
 """
 from __future__ import annotations
 
@@ -280,6 +281,44 @@ def _h_coalesce(e, cols, n, ansi):
     return acc
 
 
+def _select(take, a: CpuCol, b: CpuCol, dt) -> CpuCol:
+    """where(take, a, b) over values and validity."""
+    t = take if a.values.ndim == 1 else take[:, None]
+    return CpuCol(dt, np.where(t, a.values, b.values),
+                  np.where(take, a.validity, b.validity))
+
+
+def _h_in(e, cols, n, ansi):
+    kids = _kids(e, cols, n, ansi)
+    v = kids[0]
+    match = np.zeros(n, np.bool_)
+    null_cand = False
+    for c, ce in zip(kids[1:], e.children[1:]):
+        if isinstance(ce, Literal) and ce.value is None:
+            null_cand = True
+            continue
+        eq = (v.values == c.values)
+        match |= (eq.all(axis=-1) if eq.ndim == 2 else eq) & c.validity
+    validity = v.validity & match if null_cand else v.validity
+    return CpuCol(T.BOOLEAN, match, validity)
+
+
+def _h_if(e, cols, n, ansi):
+    p, a, b = _kids(e, cols, n, ansi)
+    return _select(p.values.astype(bool) & p.validity, a, b, e.dataType)
+
+
+def _h_case_when(e, cols, n, ansi):
+    kids = _kids(e, cols, n, ansi)
+    acc = kids[-1] if e.has_else else _h_literal(
+        Literal(None, e.dataType), cols, n, ansi)
+    for i in reversed(range(e._n_branches)):
+        cond, val = kids[2 * i], kids[2 * i + 1]
+        acc = _select(cond.values.astype(bool) & cond.validity, val, acc,
+                      e.dataType)
+    return acc
+
+
 def _h_cast(e: Cast, cols, n, ansi):
     (c,) = _kids(e, cols, n, ansi)
     src, dst = e.child.dataType, e.to
@@ -323,6 +362,7 @@ _HANDLERS = {
     P.GreaterThanOrEqual: _h_comparison,
     P.And: _h_and, P.Or: _h_or, P.Not: _h_not,
     P.IsNull: _h_isnull, P.IsNotNull: _h_isnotnull,
+    P.In: _h_in, CO.If: _h_if, CO.CaseWhen: _h_case_when,
     CO.Coalesce: _h_coalesce, CO.Nvl: _h_coalesce,
     Cast: _h_cast,
     CT.GetStructField: _h_get_struct_field,

@@ -27,6 +27,10 @@ spillable buckets with a seed of their own, and the buckets join one by
 one, so about 1/2**k of the build side is on the card at a time
 (reference: GpuSubPartitionHashJoin).
 
+String keys take the build side's width: a probe key is padded or cut to
+it, and a probe row longer than that width cannot match.  A string
+column is joined on bytes and length (``ops/sortkeys.py``).
+
 ``TpuAdaptiveJoinExec`` wraps a shuffled join whose children are
 exchanges: it runs the build side first and joins by broadcast when the
 built bytes are within ``spark.sql.autoBroadcastJoinThreshold``, else
@@ -164,15 +168,31 @@ def _slots_to_probe_rows(excl: torch.Tensor, counts: torch.Tensor,
     return torch.cummax(m, 0).values.clamp(0, max(n - 1, 0))
 
 
+def _fit_key_widths(key_cols: List[DeviceColumn], widths
+                    ) -> List[DeviceColumn]:
+    """Probe key columns at the build side's string widths (``widths``:
+    one per key, 0 for a flat key); a row longer than its build width is
+    null, since no build key can equal it."""
+    out = []
+    for kc, w in zip(key_cols, widths):
+        if kc.is_string and kc.width != w:
+            kc = kc.with_width(w)
+            kc = DeviceColumn(kc.dtype, kc.validity & (kc.lengths <= w),
+                              chars=kc.chars, lengths=kc.lengths)
+        out.append(kc)
+    return out
+
+
 class _SortedBuildSide:
     """Build-side state: the rows with valid keys first, sorted by their
     key words; past ``n_valid`` every word holds the largest value."""
 
-    def __init__(self, words, row_index, n_valid, batch):
+    def __init__(self, words, row_index, n_valid, batch, key_widths):
         self.words = words            # sorted key words
         self.row_index = row_index    # original row of each sorted position
         self.n_valid = n_valid        # device scalar
         self.batch = batch            # the build batch
+        self.key_widths = key_widths  # each string key's width, else 0
         self.run_end = _run_ends(words, n_valid)
         self.tables = _rank_tables(words) if len(words) > 1 else None
 
@@ -210,16 +230,11 @@ class _MaterializedExec(TpuExec):
 
 
 def _null_rows(cols: List[DeviceColumn], n: int) -> List[DeviceColumn]:
-    """``cols`` with ``n`` null rows appended."""
-    out = []
-    for c in cols:
-        tail = torch.zeros((n,) + tuple(c.data.shape[1:]),
-                           dtype=c.data.dtype, device=c.data.device)
-        out.append(DeviceColumn(
-            c.dtype, torch.cat([c.validity, torch.zeros(
-                n, dtype=torch.bool, device=c.validity.device)]),
-            data=torch.cat([c.data, tail])))
-    return out
+    """``cols`` with ``n`` null rows appended (zero buffers; a string's
+    lengths 0)."""
+    return [DeviceColumn.concat([c, c.map_rows(
+        lambda t: torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                              device=t.device))]) for c in cols]
 
 
 class _BaseTpuJoinExec(TpuExec):
@@ -273,7 +288,8 @@ class _BaseTpuJoinExec(TpuExec):
         tail = torch.arange(batch.num_rows, device=valid.device) >= n_valid
         sorted_words = [torch.where(tail, _INT64_MAX, w[perm]) for w in words]
         ctx.check_errors()
-        return _SortedBuildSide(sorted_words, perm, n_valid, batch)
+        return _SortedBuildSide(sorted_words, perm, n_valid, batch,
+                                [kc.width for kc in key_cols])
 
     # -- probe ----------------------------------------------------------
     def _probe_counts(self, build: _SortedBuildSide, batch: ColumnarBatch):
@@ -281,7 +297,8 @@ class _BaseTpuJoinExec(TpuExec):
         their device total, the probe rows without a match (a null key
         included) and their device count."""
         ctx = EvalContext(batch, ansi=self.ansi)
-        key_cols = [k.eval_tpu(ctx) for k in self.left_keys]
+        key_cols = _fit_key_widths(
+            [k.eval_tpu(ctx) for k in self.left_keys], build.key_widths)
         valid = batch.row_mask
         for kc in key_cols:
             valid = valid & kc.validity
@@ -333,9 +350,7 @@ class _BaseTpuJoinExec(TpuExec):
         if um_host:
             rows = self._unmatched_rows(unmatched, um_host)
             um_cols = gather_columns(rows, list(probe.columns))
-            lcols = [DeviceColumn(a.dtype, torch.cat([a.validity,
-                                                      b.validity]),
-                                  data=torch.cat([a.data, b.data]))
+            lcols = [DeviceColumn.concat([a, b])
                      for a, b in zip(lcols, um_cols)]
             bcols = _null_rows(bcols, um_host)
         return ColumnarBatch(lcols + bcols, total_host + um_host,

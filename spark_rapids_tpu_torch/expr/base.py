@@ -16,6 +16,7 @@ import datetime as _dt
 from decimal import Decimal as _Dec
 from typing import Any, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -173,6 +174,10 @@ class Expression:
     def alias(self, name: str):
         return Alias(self, name)
 
+    def isin(self, *values):
+        from spark_rapids_tpu_torch.expr.predicates import In
+        return In(self, [lit(v) for v in values])
+
 
 def _wrap(v) -> Expression:
     return v if isinstance(v, Expression) else Literal.of(v)
@@ -240,6 +245,8 @@ class Literal(Expression):
             return Literal(v, T.INT if -(2**31) <= v < 2**31 else T.LONG)
         if isinstance(v, float):
             return Literal(v, T.DOUBLE)
+        if isinstance(v, str):
+            return Literal(v, T.STRING)
         if isinstance(v, _Dec):
             sign, digits, exp = v.as_tuple()
             scale = max(0, -exp)
@@ -266,14 +273,21 @@ class Literal(Expression):
 
     def eval_tpu(self, ctx: EvalContext) -> DeviceColumn:
         """A literal column is one stored value broadcast (``expand``, no
-        copy) over the batch's rows."""
+        copy) over the batch's rows; a string's chars are one row of its
+        UTF-8 bytes (a null string one zero row of 8)."""
         from spark_rapids_tpu_torch.expr.decimal128 import limbs_of
 
         cap, dev = ctx.batch.capacity, ctx.batch.device
         dt = self._dataType
-        if isinstance(dt, T.StringType):
-            raise TypeError("string literals are not ported yet")
         valid = torch.tensor(self.value is not None, device=dev).expand(cap)
+        if isinstance(dt, T.StringType):
+            b = b"" if self.value is None else self.value.encode("utf-8")
+            row = np.zeros(8 if self.value is None else max(len(b), 1),
+                           np.uint8)
+            row[:len(b)] = np.frombuffer(b, np.uint8)
+            return DeviceColumn(dt, valid, chars=torch.from_numpy(row).to(
+                dev).expand(cap, len(row)), lengths=torch.tensor(
+                len(b), dtype=torch.int32, device=dev).expand(cap))
         if isinstance(dt, T.DecimalType) and dt.is_128:
             limbs = limbs_of(int(self.storage_value())) \
                 if self.value is not None else (0, 0)

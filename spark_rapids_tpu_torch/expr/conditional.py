@@ -1,11 +1,13 @@
-"""Null expressions — port of ``Coalesce`` and ``Nvl`` from
-``spark_rapids_tpu/expr/conditional.py``, with the helpers they use
-(``select_column``, ``_common_type``).
+"""Conditional and null expressions — port of ``If``, ``CaseWhen``,
+``Coalesce`` and ``Nvl`` from ``spark_rapids_tpu/expr/conditional.py``,
+with the helpers they use (``select_column``, ``_common_type``), over
+flat and string columns.
 
-Like the reference, both sides are computed over every row and a
-``torch.where`` picks one: there is no lazy side evaluation.  ``If``,
-``CaseWhen``, ``NaNvl``, ``Greatest``/``Least``, ``Nvl2`` and ``NullIf``
-are not ported yet; a plan can only name the expressions above.
+Like the reference, every branch is computed over every row and a
+``torch.where`` picks one: there is no lazy side evaluation.  A null
+condition takes the else branch.  String branches meet at the wider
+width.  ``NaNvl``, ``Greatest``/``Least``, ``Nvl2`` and ``NullIf`` are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -23,6 +25,11 @@ def select_column(pred, pred_valid, a: DeviceColumn, b: DeviceColumn,
     """where(pred, a, b); a null ``pred`` takes ``b``."""
     take_a = pred & pred_valid
     validity = torch.where(take_a, a.validity, b.validity)
+    if a.is_string:
+        w = max(a.width, b.width)
+        return DeviceColumn(dtype, validity, chars=torch.where(
+            take_a[:, None], a.with_width(w).chars, b.with_width(w).chars),
+            lengths=torch.where(take_a, a.lengths, b.lengths))
     pick = take_a[:, None] if a.data.dim() == 2 else take_a
     return DeviceColumn(dtype, validity, data=torch.where(pick, a.data,
                                                           b.data))
@@ -46,6 +53,90 @@ def _common_type(ts: List[T.DataType]) -> T.DataType:
         else:
             raise TypeError(f"no common type for {out} and {t}")
     return out
+
+
+class If(Expression):
+    def __init__(self, pred: Expression, left: Expression,
+                 right: Expression):
+        super().__init__([pred, left, right])
+
+    def sql_string(self):
+        p, l, r = (c.sql_string() for c in self.children)
+        return f"if({p}, {l}, {r})"
+
+    def _resolve_type(self):
+        from spark_rapids_tpu_torch.expr.cast import Cast
+
+        common = _common_type([self.children[1].dataType,
+                               self.children[2].dataType])
+        for i in (1, 2):
+            if self.children[i].dataType != common:
+                self.children[i] = Cast(self.children[i],
+                                        common).resolve(None)
+        self._dataType = common
+        self._nullable = any(c.nullable for c in self.children)
+
+    def do_columnar_eval(self, ctx: EvalContext, cols):
+        p, a, b = cols
+        return select_column(p.data, p.validity, a, b, self.dataType)
+
+
+class CaseWhen(Expression):
+    """CASE WHEN c1 THEN v1 [WHEN c2 THEN v2]... [ELSE e] END;
+    ``children`` are ``[c1, v1, c2, v2, ..., (e)]``."""
+
+    def __init__(self, branches, else_value=None):
+        kids: List[Expression] = []
+        for c, v in branches:
+            kids.extend([c, v])
+        self.has_else = else_value is not None
+        if else_value is not None:
+            kids.append(else_value)
+        super().__init__(kids)
+
+    @property
+    def _n_branches(self) -> int:
+        return (len(self.children) - (1 if self.has_else else 0)) // 2
+
+    def sql_string(self):
+        parts = [f"WHEN {self.children[2 * i].sql_string()} "
+                 f"THEN {self.children[2 * i + 1].sql_string()}"
+                 for i in range(self._n_branches)]
+        if self.has_else:
+            parts.append(f"ELSE {self.children[-1].sql_string()}")
+        return "CASE " + " ".join(parts) + " END"
+
+    def _value_children_idx(self) -> List[int]:
+        idx = [2 * i + 1 for i in range(self._n_branches)]
+        if self.has_else:
+            idx.append(len(self.children) - 1)
+        return idx
+
+    def _resolve_type(self):
+        from spark_rapids_tpu_torch.expr.cast import Cast
+
+        vidx = self._value_children_idx()
+        common = _common_type([self.children[i].dataType for i in vidx])
+        for i in vidx:
+            if self.children[i].dataType != common:
+                self.children[i] = Cast(self.children[i],
+                                        common).resolve(None)
+        self._dataType = common
+        self._nullable = True
+
+    def do_columnar_eval(self, ctx: EvalContext, cols):
+        if self.has_else:
+            acc = cols[-1]
+        else:
+            from spark_rapids_tpu_torch.expr.base import Literal
+
+            acc = Literal(None, self.dataType).eval_tpu(ctx)
+        # from the last branch back, so an earlier WHEN wins
+        for i in reversed(range(self._n_branches)):
+            cond, val = cols[2 * i], cols[2 * i + 1]
+            acc = select_column(cond.data, cond.validity, val, acc,
+                                self.dataType)
+        return acc
 
 
 class Coalesce(Expression):

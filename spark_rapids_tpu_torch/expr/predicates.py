@@ -1,10 +1,18 @@
 """Comparison and boolean predicates with Spark null semantics — port of
-``spark_rapids_tpu/expr/predicates.py`` (flat types; strings come later).
+``spark_rapids_tpu/expr/predicates.py`` (flat and string columns), with
+``In`` over a list of literals.
 
 Comparisons coerce both sides to one type first, as the reference does:
 two decimals meet at the wider integral part and the larger scale, an
 integer meets a decimal as decimal(10,0)/decimal(20,0), and two other
 numerics promote by Spark's tightest-common-type rule.
+
+Strings compare by UTF-8 byte order, as Spark does, on the padded char
+matrices (``string_compare``): both sides padded to the wider width, the
+first differing byte decides, and when the padded bytes are equal the
+shorter string is the smaller (so a string with trailing NUL bytes still
+orders after its prefix).  The comparison with a string and a date is
+not ported (the reference casts the date to a string).
 """
 from __future__ import annotations
 
@@ -20,6 +28,22 @@ from spark_rapids_tpu_torch.expr.base import (
     Expression,
     UnaryExpression,
 )
+
+
+def string_compare(l: DeviceColumn, r: DeviceColumn):
+    """(lt, eq) bool vectors of two string columns, row by row."""
+    w = max(l.width, r.width)
+    a = l.with_width(w).chars
+    b = r.with_width(w).chars
+    diff = a != b
+    any_diff = diff.any(dim=1)
+    # the first differing byte: argmax over bools is the first True
+    first = diff.to(torch.uint8).argmax(dim=1, keepdim=True)
+    av = a.gather(1, first).squeeze(1)
+    bv = b.gather(1, first).squeeze(1)
+    lt = (any_diff & (av < bv)) | (~any_diff & (l.lengths < r.lengths))
+    eq = ~any_diff & (l.lengths == r.lengths)
+    return lt, eq
 
 
 def _coerce_comparison(left: Expression, right: Expression):
@@ -70,7 +94,9 @@ class BinaryComparison(BinaryExpression):
     def do_columnar_eval(self, ctx: EvalContext, cols: List[DeviceColumn]):
         l, r = cols
         validity = l.validity & r.validity
-        if l.is_dec128:
+        if l.is_string:
+            data = self._from_lt_eq(*string_compare(l, r))
+        elif l.is_dec128:
             from spark_rapids_tpu_torch.expr import decimal128 as D
 
             ah, al = D.unpack(l.data)
@@ -215,3 +241,59 @@ class IsNotNull(UnaryExpression):
         c = cols[0]
         return DeviceColumn(T.BOOLEAN, torch.ones_like(c.validity),
                             data=c.validity)
+
+
+class In(Expression):
+    """value IN (list of literals), with Spark's null semantics: null when
+    the value is null, or when nothing matches and the list holds a
+    null."""
+
+    def __init__(self, value: Expression, candidates: List[Expression]):
+        super().__init__([value] + list(candidates))
+
+    def sql_string(self):
+        cands = ", ".join(c.sql_string() for c in self.children[1:])
+        return f"({self.children[0].sql_string()} IN ({cands}))"
+
+    def _resolve_type(self):
+        # every candidate is coerced to a type comparable with the value
+        # (Spark's ImplicitTypeCasts); a value-side promotion made by a
+        # later candidate is applied to the earlier ones again
+        value = self.children[0]
+        cands = []
+        for c in self.children[1:]:
+            if _is_null_literal(c):
+                cands.append(c)
+                continue
+            value, c2 = _coerce_comparison(value, c)
+            cands.append(c2)
+        final = [c if _is_null_literal(c) or c.dataType == value.dataType
+                 else _coerce_comparison(value, c)[1] for c in cands]
+        self.children = [value] + final
+        self._dataType = T.BOOLEAN
+        self._nullable = True
+
+    def do_columnar_eval(self, ctx, cols):
+        v = cols[0]
+        any_match = torch.zeros(v.capacity, dtype=torch.bool,
+                                device=v.device)
+        # a candidate's null-ness is a plan-time fact (they are literals)
+        null_cand = any(_is_null_literal(c) for c in self.children[1:])
+        for expr, c in zip(self.children[1:], cols[1:]):
+            if _is_null_literal(expr):
+                continue
+            if v.is_string:
+                _, eq = string_compare(v, c)
+            elif v.is_dec128:
+                eq = (v.data == c.data).all(dim=-1)
+            else:
+                eq = v.data == c.data
+            any_match = any_match | (eq & c.validity)
+        validity = v.validity & any_match if null_cand else v.validity
+        return DeviceColumn(T.BOOLEAN, validity, data=any_match)
+
+
+def _is_null_literal(e: Expression) -> bool:
+    from spark_rapids_tpu_torch.expr.base import Literal
+
+    return isinstance(e, Literal) and e.value is None

@@ -1,5 +1,5 @@
-"""Device-side Parquet column assembly — port of the numeric path of
-``spark_rapids_tpu/io/parquet_device.py``.
+"""Device-side Parquet column assembly — port of
+``spark_rapids_tpu/io/parquet_device.py`` for numeric and string columns.
 
 The host half (``io/parquet_native.py``) parses footers, page headers and
 run headers; the device half expands runs and unpacks bits with the K1
@@ -14,6 +14,17 @@ dictionary pages of a chunk with one K1 launch over a joined byte buffer
 and one run table (``pallas/decode.py::batch_run_table``).  A
 feature outside the supported subset raises ``_Unsupported``: the port has
 no host decode to fall back to.
+
+A BYTE_ARRAY column decodes to a string column.  Its dictionary pages'
+indices go through K1 as a numeric column's do, one launch a chunk; a
+PLAIN page (the pages parquet-mr writes once a dictionary overflows, or a
+writer without dictionaries) walks its lengths on the host in C and
+becomes a page-local char matrix.  Each file's dictionaries and page
+matrices are stacked on the host at the bucket of the longest value, with
+a zero row for the nulls, uploaded once, and gathered once by the rows'
+indices on the device.  A PLAIN string page has no compressed-transfer
+route (its interleaved lengths need the host walk): its chunk ships
+decoded pages (``chunk_decode_fallbacks``), as in the reference.
 """
 from __future__ import annotations
 
@@ -27,6 +38,7 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
 from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
                                                     column_torch_dtype,
+                                                    round_up_bucket,
                                                     torch_dtype)
 from spark_rapids_tpu_torch.io.parquet_native import (
     CODEC_SNAPPY,
@@ -35,6 +47,7 @@ from spark_rapids_tpu_torch.io.parquet_native import (
     ENC_PLAIN_DICT,
     ENC_RLE_DICT,
     TYPE_BOOLEAN,
+    TYPE_BYTE_ARRAY,
     TYPE_FLOAT,
     TYPE_INT32,
     TYPE_INT64,
@@ -71,6 +84,7 @@ _OK_TYPES = {
     TYPE_FLOAT: (T.FloatType,),
     5: (T.DoubleType,),          # TYPE_DOUBLE
     TYPE_BOOLEAN: (T.BooleanType,),
+    TYPE_BYTE_ARRAY: (T.StringType,),
 }
 
 
@@ -198,12 +212,11 @@ def _index_entry(page, ndef, byte_base):
             byte_base, len(page.value_buf))
 
 
-def _decode_dict_pages(pages, dt: T.DataType, dictionary_dev, device):
-    """The dictionary pages of one chunk, decoded transfer -> (values,
-    validity) over all of them: one upload each of the joined index
-    streams, the run table and the definition levels; one K1 launch, one
-    dictionary gather, one cast and one scatter."""
-    _check_dict_pages(pages, dictionary_dev)
+def _dict_indices(pages, device):
+    """The dictionary pages of one chunk, decoded transfer -> (the indices
+    of their defined values, the definition levels over all their rows,
+    the defined count): one upload each of the joined index streams, the
+    run table and the levels, and one K1 launch."""
     levels = [_host_levels(page) for page in pages]
     entries, base = [], 0
     for page, (_, ndef) in zip(pages, levels):
@@ -216,19 +229,15 @@ def _decode_dict_pages(pages, dt: T.DataType, dictionary_dev, device):
     defined = _join_defined([(page.num_values, lv)
                              for page, (lv, _) in zip(pages, levels)],
                             None, device)
-    vals = _dict_values(dictionary_dev, idx).to(column_torch_dtype(dt))
-    n = sum(page.num_values for page in pages)
-    return scatter_present(vals, defined, ndef, n), defined
+    return idx, defined, ndef
 
 
-def _decode_dict_pages_compressed(pages, dt: T.DataType, dictionary_dev,
-                                  device):
-    """Compressed-transfer twin of :func:`_decode_dict_pages`: each page's
-    stored bytes cross the link and decompress on the device as before;
-    the regions are joined with one ``torch.cat``, and one K1 launch
-    expands every page's indices and v1 definition levels (their rows
-    follow the indices in the table)."""
-    _check_dict_pages(pages, dictionary_dev)
+def _dict_indices_compressed(pages, device):
+    """Compressed-transfer twin of :func:`_dict_indices`: each page's
+    stored bytes cross the link and decompress on the device; the regions
+    are joined with one ``torch.cat``, and one K1 launch expands every
+    page's indices and v1 definition levels (their rows follow the
+    indices in the table)."""
     regions = [_page_dev_region(page, device) for page in pages]
     buf = torch.cat(regions) if len(regions) > 1 else regions[0]
     entries, level_entries, parts = [], [], []
@@ -249,10 +258,20 @@ def _decode_dict_pages_compressed(pages, dt: T.DataType, dictionary_dev,
     table, total = batch_run_table(entries + level_entries)
     out = expand_table_dev(buf, 0, table, total)
     defined = _join_defined(parts, out[ndef_all:], device)
-    vals = _dict_values(dictionary_dev, out[:ndef_all])
-    vals = vals.to(column_torch_dtype(dt))
+    return out[:ndef_all], defined, ndef_all
+
+
+def _decode_dict_pages(pages, dt: T.DataType, dictionary_dev, device,
+                       compressed: bool):
+    """The dictionary pages of one chunk -> (values, validity) over all of
+    them: their indices (one K1 launch), one dictionary gather, one cast
+    and one scatter."""
+    _check_dict_pages(pages, dictionary_dev)
+    idx, defined, ndef = (_dict_indices_compressed if compressed
+                          else _dict_indices)(pages, device)
+    vals = _dict_values(dictionary_dev, idx).to(column_torch_dtype(dt))
     n = sum(page.num_values for page in pages)
-    return scatter_present(vals, defined, ndef_all, n), defined
+    return scatter_present(vals, defined, ndef, n), defined
 
 
 def _decode_plain_page(page, info, dt: T.DataType, device):
@@ -310,9 +329,8 @@ def _decode_numeric_chunk(f, info, cp, use_compressed: bool,
            for i, page in enumerate(cp.pages)]
     if dict_pos:
         pages = [cp.pages[i] for i in dict_pos]
-        batch = (_decode_dict_pages_compressed if use_compressed
-                 else _decode_dict_pages)
-        vals, valid = batch(pages, f.dataType, dictionary_dev, device)
+        vals, valid = _decode_dict_pages(pages, f.dataType, dictionary_dev,
+                                         device, use_compressed)
         if len(pages) == len(cp.pages):
             return [vals], [valid]
         sizes = [page.num_values for page in pages]
@@ -321,12 +339,115 @@ def _decode_numeric_chunk(f, info, cp, use_compressed: bool,
     return [v for v, _ in out], [ok for _, ok in out]
 
 
-def _chunk_compressed_eligible(cp) -> bool:
+def _chunk_compressed_eligible(cp, is_string: bool) -> bool:
     """Every page of the chunk must sit inside the compressed-transfer
-    subset BEFORE any bytes ship."""
+    subset BEFORE any bytes ship; a PLAIN string page never does."""
     return all(page.raw_values is not None
                and page.raw_codec in (CODEC_UNCOMPRESSED, CODEC_SNAPPY)
+               and not (is_string and page.encoding == ENC_PLAIN)
                for page in cp.pages)
+
+
+class _StringSources:
+    """One file's string column: the char matrices its rows gather from
+    (row groups' dictionaries, PLAIN pages' values), stacked on the host
+    in the order they come, and the rows' indices into the stack."""
+
+    def __init__(self):
+        self.mats = []            # (chars (k, w) uint8, lengths (k,) int32)
+        self.rows = 0             # rows of the stack so far
+
+    def add(self, chars: np.ndarray, lens: np.ndarray) -> int:
+        """Append a matrix; -> its first row in the stack."""
+        base = self.rows
+        self.mats.append((chars, lens))
+        self.rows += int(lens.shape[0])
+        return base
+
+    def gather(self, dt: T.DataType, idx: torch.Tensor, valid: torch.Tensor
+               ) -> DeviceColumn:
+        """The column: a null row takes the stack's last row (zeros, length
+        0); one upload of the stack, one gather of chars and lengths."""
+        longest = max([int(l.max()) for _, l in self.mats if len(l)] + [1])
+        w = round_up_bucket(longest)
+        chars = np.zeros((self.rows + 1, w), np.uint8)
+        lens = np.zeros(self.rows + 1, np.int32)
+        at = 0
+        for c, l in self.mats:
+            k = int(l.shape[0])
+            chars[at:at + k, :c.shape[1]] = c[:, :w]
+            lens[at:at + k] = l
+            at += k
+        chars_dev = PC.to_device(chars, idx.device)
+        lens_dev = PC.to_device(lens, idx.device)
+        idx = torch.where(valid, idx, self.rows)
+        return DeviceColumn(dt, valid, chars=chars_dev[idx],
+                            lengths=lens_dev[idx])
+
+
+def _string_dict_indices(pages, cp, dict_base: int, compressed: bool,
+                         device):
+    """The dictionary pages of one string chunk -> (stack indices, validity)
+    over their rows: one K1 launch for the indices, offset by the row
+    group's dictionary in the stack."""
+    if cp.dict_chars is None:
+        raise _Unsupported(f"column {cp.info.name}: dictionary page missing")
+    _check_dict_pages(pages, cp.dictionary)
+    idx, defined, ndef = (_dict_indices_compressed if compressed
+                          else _dict_indices)(pages, device)
+    ndict = int(cp.dict_lens.shape[0])
+    idx = idx.to(torch.int64).clamp_(0, max(ndict - 1, 0)) + dict_base
+    n = sum(page.num_values for page in pages)
+    return scatter_present(idx, defined, ndef, n), defined
+
+
+def _decode_plain_string_page(page, sources: _StringSources, device):
+    """A PLAIN BYTE_ARRAY page -> (stack indices, validity): the lengths
+    walked on the host in C, the values gathered into a page-local char
+    matrix in one numpy pass and added to the stack."""
+    from spark_rapids_tpu_torch.native import plain_byte_array_lens
+
+    n = page.num_values
+    defined, ndef = expand_defined(page, device)
+    lens = plain_byte_array_lens(page.value_buf, ndef)
+    buf = np.frombuffer(page.value_buf, np.uint8)
+    starts = 4 * np.arange(1, ndef + 1, dtype=np.int64) + (
+        np.cumsum(lens, dtype=np.int64) - lens)
+    w = max(int(lens.max()) if ndef else 1, 1)
+    pos = starts[:, None] + np.arange(w, dtype=np.int64)[None, :]
+    inside = np.arange(w, dtype=np.int32)[None, :] < lens[:, None]
+    chars = np.where(inside, buf[np.clip(pos, 0, max(len(buf) - 1, 0))],
+                     0).astype(np.uint8)
+    base = sources.add(chars, lens)
+    idx = torch.arange(base, base + ndef, dtype=torch.int64, device=device)
+    return scatter_present(idx, defined, ndef, n), defined
+
+
+def _decode_string_chunk(f, cp, use_compressed: bool,
+                         sources: _StringSources, device):
+    """One string column chunk -> (stack indices, validity) lists in page
+    order.  Its dictionary pages decode together (one K1 launch) against
+    the row group's dictionary, added to the stack once; PLAIN pages add
+    their own matrices."""
+    dict_pos = [i for i, page in enumerate(cp.pages)
+                if page.encoding in (ENC_PLAIN_DICT, ENC_RLE_DICT)]
+    for page in cp.pages:
+        if page.encoding not in (ENC_PLAIN, ENC_PLAIN_DICT, ENC_RLE_DICT):
+            raise _Unsupported(f"byte_array encoding {page.encoding}")
+    out = [None] * len(cp.pages)
+    if dict_pos:
+        base = (sources.add(cp.dict_chars, cp.dict_lens)
+                if cp.dict_chars is not None else 0)
+        pages = [cp.pages[i] for i in dict_pos]
+        idx, valid = _string_dict_indices(pages, cp, base, use_compressed,
+                                          device)
+        sizes = [page.num_values for page in pages]
+        for i, v, ok in zip(dict_pos, idx.split(sizes), valid.split(sizes)):
+            out[i] = (v, ok)
+    for i, page in enumerate(cp.pages):
+        if out[i] is None:
+            out[i] = _decode_plain_string_page(page, sources, device)
+    return [v for v, _ in out], [ok for _, ok in out]
 
 
 def read_parquet_device(path: str, schema: T.StructType, device,
@@ -349,6 +470,8 @@ def _read_parquet_device(path: str, schema: T.StructType, device,
     total = sum(g.num_rows for g in groups)
     per_field_vals: List[List] = [[] for _ in schema.fields]
     per_field_valid: List[List] = [[] for _ in schema.fields]
+    sources = [_StringSources() if isinstance(f.dataType, T.StringType)
+               else None for f in schema.fields]
     for g in groups:
         by_name = {c.name: c for c in g.columns}
         for fi, f in enumerate(schema.fields):
@@ -357,28 +480,43 @@ def _read_parquet_device(path: str, schema: T.StructType, device,
                 raise _Unsupported(f"column {f.name} missing in row group")
             _check_field(info, f.dataType)
             cp = read_column_pages(data, info, g.num_rows)
-            use_comp = compressed and _chunk_compressed_eligible(cp)
+            src = sources[fi]
+            use_comp = compressed and _chunk_compressed_eligible(
+                cp, src is not None)
             if compressed and not use_comp:
                 PC.bump("chunk_decode_fallbacks")
-            # uploaded once: a chunk that falls back keeps its dictionary
-            dictionary_dev = (PC.to_device(cp.dictionary, device)
-                              if cp.dictionary is not None else None)
+            if src is not None:
+                mark = (len(src.mats), src.rows)
+
+                def decode(comp):
+                    return _decode_string_chunk(f, cp, comp, src, device)
+            else:
+                # uploaded once: a chunk that falls back keeps its
+                # dictionary
+                dictionary_dev = (PC.to_device(cp.dictionary, device)
+                                  if cp.dictionary is not None else None)
+
+                def decode(comp):
+                    return _decode_numeric_chunk(f, info, cp, comp,
+                                                 dictionary_dev, device)
             try:
-                vals, valids = _decode_numeric_chunk(
-                    f, info, cp, use_comp, dictionary_dev, device)
+                vals, valids = decode(use_comp)
             except (_CompressedUnsupported, TooFragmented):
                 if not use_comp:
                     raise
                 PC.bump("chunk_decode_fallbacks")
-                vals, valids = _decode_numeric_chunk(
-                    f, info, cp, False, dictionary_dev, device)
+                if src is not None:      # drop what the attempt stacked
+                    del src.mats[mark[0]:]
+                    src.rows = mark[1]
+                vals, valids = decode(False)
             per_field_vals[fi].extend(vals)
             per_field_valid[fi].extend(valids)
     cols = []
     for fi, f in enumerate(schema.fields):
         pv, pm = per_field_vals[fi], per_field_valid[fi]
         if not pv:
-            pv = [torch.zeros(0, dtype=column_torch_dtype(f.dataType),
+            pv = [torch.zeros(0, dtype=torch.int64 if sources[fi]
+                              else column_torch_dtype(f.dataType),
                               device=device)]
             pm = [torch.zeros(0, dtype=torch.bool, device=device)]
         vals = torch.cat(pv) if len(pv) > 1 else pv[0]
@@ -386,5 +524,9 @@ def _read_parquet_device(path: str, schema: T.StructType, device,
         if vals.shape[0] != total:
             raise _Unsupported(f"column {f.name}: {vals.shape[0]} values "
                                f"for {total} rows")
+        if sources[fi] is not None:
+            cols.append(sources[fi].gather(f.dataType, vals.to(torch.int64),
+                                           valid))
+            continue
         cols.append(DeviceColumn(f.dataType, valid, data=vals))
     return ColumnarBatch(cols, total, schema)

@@ -1,8 +1,10 @@
 """Parquet ENCODE — port of ``spark_rapids_tpu/io/parquet_encode.py`` for
-flat INT32 / INT64 / DATE columns and decimals of up to 18 digits, stored
-as parquet-mr stores them: annotated INT32 up to 9 digits, INT64 above
-(``chip_smoke.py`` writes its lineitem and store_sales files with it; the
-card's machine has no pyarrow).
+flat INT32 / INT64 / DATE columns, decimals of up to 18 digits, stored
+as parquet-mr stores them (annotated INT32 up to 9 digits, INT64 above),
+and strings as PLAIN BYTE_ARRAY with the UTF8 annotation, as the
+reference writes them (no dictionary for strings: the reference's writer
+has none).  ``chip_smoke.py`` writes its lineitem, store_sales and orders
+files with it; the card's machine has no pyarrow.
 
 Device (torch ops on the writer's device): the dictionary build (sorted
 uniques), the index computation (``searchsorted`` into the dictionary) and
@@ -10,7 +12,9 @@ the k-bit LSB-first packing of the index stream and of the definition
 levels.  Host: thrift compact page headers and footer, snappy framing
 through the C compressor (``native.snappy_compress``), file layout.  Each
 column chunk is one dictionary page plus one data page holding one
-bit-packed run, as in the reference.
+bit-packed run, as in the reference.  ``encode_column`` and
+``write_chunks`` are the two halves of ``write_parquet_device``, so a
+caller can put chunks of its own making into a file.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from spark_rapids_tpu_torch.io.parquet_native import (CODEC_SNAPPY,
                                                       ENC_PLAIN, ENC_RLE,
                                                       ENC_RLE_DICT,
                                                       PAGE_DATA, PAGE_DICT,
+                                                      TYPE_BYTE_ARRAY,
                                                       TYPE_INT32, TYPE_INT64)
 from spark_rapids_tpu_torch.perfcounters import sync_get, to_device
 
@@ -142,8 +147,8 @@ def _hybrid_bitpacked(packed: bytes, n_values: int, bw: int) -> bytes:
 
 
 _PHYS = {T.IntegerType: TYPE_INT32, T.DateType: TYPE_INT32,
-         T.LongType: TYPE_INT64}
-_CONVERTED_DECIMAL, _CONVERTED_DATE = 5, 6
+         T.LongType: TYPE_INT64, T.StringType: TYPE_BYTE_ARRAY}
+_CONVERTED_UTF8, _CONVERTED_DECIMAL, _CONVERTED_DATE = 0, 5, 6
 
 
 def _phys(dt: T.DataType) -> int:
@@ -193,15 +198,39 @@ def _compress(codec: int, payload: bytes) -> bytes:
     return payload
 
 
-class _ChunkMeta:
+class ChunkMeta:
+    """What the footer records of one column chunk: ``dict_off`` True when
+    the chunk starts with a dictionary page; ``data_off`` the first data
+    page's offset in the chunk; ``usize`` the headers and uncompressed
+    payloads, ``csize`` the chunk's bytes."""
+
     __slots__ = ("name", "phys", "n", "encodings", "codec",
                  "data_off", "dict_off", "csize", "usize", "dict_usize")
 
 
-def _encode_column(f: T.StructField, col, n: int, codec: int,
-                   use_dict: bool, device):
-    """One column chunk -> (pages bytes, _ChunkMeta).  ``col`` carries
-    numpy ``validity`` and ``data``."""
+def plain_byte_array(chars: np.ndarray, lens: np.ndarray) -> bytes:
+    """Rows of a char matrix as a PLAIN BYTE_ARRAY payload: each value's
+    4-byte little-endian length, then its bytes; vectorised scatters, no
+    loop over rows."""
+    lens = lens.astype(np.int64)
+    k = len(lens)
+    starts = np.cumsum(lens + 4) - (lens + 4)
+    out = np.zeros(int((lens + 4).sum()), np.uint8)
+    for b in range(4):
+        out[starts + b] = (lens >> (8 * b)) & 0xFF
+    total = int(lens.sum())
+    if total:
+        rows = np.repeat(np.arange(k), lens)
+        within = np.arange(total) - np.repeat(np.cumsum(lens) - lens, lens)
+        out[np.repeat(starts + 4, lens) + within] = chars[rows, within]
+    return out.tobytes()
+
+
+def encode_column(f: T.StructField, col, n: int, codec: int,
+                  use_dict: bool, device):
+    """One column chunk -> (pages bytes, ChunkMeta).  ``col`` carries
+    numpy ``validity`` and ``data`` (a string ``chars`` and ``lengths``);
+    a string is always PLAIN."""
     phys = _phys(f.dataType)
     nullable = bool(f.nullable)
     validity = np.asarray(col.validity[:n], np.bool_)
@@ -214,14 +243,20 @@ def _encode_column(f: T.StructField, col, n: int, codec: int,
         def_bytes = struct.pack("<I", len(def_bytes)) + def_bytes
 
     pages = bytearray()
-    meta = _ChunkMeta()
+    meta = ChunkMeta()
     meta.name = f.name
     meta.phys = phys
     meta.n = n
     meta.codec = codec
     meta.dict_off = None
     wire = "<i4" if phys == TYPE_INT32 else "<i8"
-    if use_dict:
+    if phys == TYPE_BYTE_ARRAY:
+        keep = validity if nullable else np.ones(n, np.bool_)
+        payload = def_bytes + plain_byte_array(
+            np.asarray(col.chars[:n])[keep], np.asarray(col.lengths[:n])[keep])
+        meta.encodings = [ENC_PLAIN, ENC_RLE]
+        enc = ENC_PLAIN
+    elif use_dict:
         data = to_device(np.asarray(col.data[:n]), device)
         uniques, idx = dict_encode(data, mask)
         n_uniq = int(uniques.shape[0])
@@ -275,15 +310,23 @@ def write_parquet_device(path: str, schema: T.StructType, cols, n: int,
     Returns stats for tests and metrics."""
     device = resolve_device(device)
     if not supported_schema(schema):
-        raise TypeError("the port's writer takes INT32/INT64/DATE and "
-                        "decimal(p<=18) columns only: "
+        raise TypeError("the port's writer takes INT32/INT64/DATE, "
+                        "decimal(p<=18) and string columns only: "
                         f"{schema.simpleString}")
     codec = CODEC_SNAPPY if compression == "snappy" \
         else CODEC_UNCOMPRESSED
+    return write_chunks(path, schema, [
+        encode_column(f, c, n, codec, use_dict, device)
+        for f, c in zip(schema.fields, cols)], n)
+
+
+def write_chunks(path: str, schema: T.StructType, chunks, n: int
+                 ) -> Dict[str, int]:
+    """One file of one row group from its encoded column chunks
+    (``encode_column``'s ``(pages, meta)`` pairs, in schema order)."""
     out = bytearray(b"PAR1")
-    chunk_metas: List[Tuple[_ChunkMeta, int]] = []
-    for f, c in zip(schema.fields, cols):
-        pages, meta = _encode_column(f, c, n, codec, use_dict, device)
+    chunk_metas: List[Tuple[ChunkMeta, int]] = []
+    for pages, meta in chunks:
         chunk_metas.append((meta, len(out)))
         out += pages
 
@@ -308,6 +351,8 @@ def write_parquet_device(path: str, schema: T.StructType, cols, n: int,
         e_last = el.write_bin(4, e_last, f.name.encode())
         if isinstance(f.dataType, T.DateType):
             e_last = el.write_i(6, e_last, _CONVERTED_DATE, _CT_I32)
+        elif isinstance(f.dataType, T.StringType):
+            e_last = el.write_i(6, e_last, _CONVERTED_UTF8, _CT_I32)
         elif isinstance(f.dataType, T.DecimalType):
             e_last = el.write_i(6, e_last, _CONVERTED_DECIMAL, _CT_I32)
             e_last = el.write_i(7, e_last, f.dataType.scale, _CT_I32)

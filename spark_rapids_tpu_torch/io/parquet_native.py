@@ -8,11 +8,14 @@ dictionaries.  Host work is O(#pages + #runs), never O(#values): run
 headers are varints scanned on the host; value bytes upload untouched.
 
 Supported subset: non-nested columns of INT32/INT64/DOUBLE/FLOAT/BOOLEAN
-(the reference also reads dictionary-encoded BYTE_ARRAY; the port's scan
-rejects strings until a later slice), data pages v1 and v2, PLAIN or
+and BYTE_ARRAY, data pages v1 and v2, PLAIN or
 RLE_DICTIONARY/PLAIN_DICTIONARY encodings, UNCOMPRESSED or SNAPPY
-(``native/host_kernels.cpp``).  Anything else raises ``_Unsupported``;
-the port has no host decode to fall back to.
+(``native/host_kernels.cpp``).  A BYTE_ARRAY dictionary page parses on
+the host into a padded char matrix and its lengths (``dict_chars``,
+``dict_lens``); a data page keeps its value bytes (``value_buf``: the
+dictionary indices, or a PLAIN page's interleaved lengths and bytes) for
+the device decode.  Anything else raises ``_Unsupported``; the port has
+no host decode to fall back to.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """File scan exec — port of ``TpuFileSourceScanExec``
 (``spark_rapids_tpu/io/scan.py``) for Parquet with device decode: one
-device batch per file, decoded on the device (``io/parquet_device.py``).
+device batch per file, decoded on the device (``io/parquet_device.py``),
+string columns padded to the width ladder (``DEFAULT_WIDTH_BUCKETS``).
 
 The reader type (``spark.rapids.sql.format.parquet.reader.type``) resolves
 as the reference's ``_mode`` does: AUTO is MULTITHREADED for more than one

@@ -1,9 +1,11 @@
-"""ctypes bindings for the host snappy codec in ``native/host_kernels.cpp``.
+"""ctypes bindings for the host kernels in ``native/host_kernels.cpp``.
 
 The port's own loader (the reference's is ``spark_rapids_tpu/native.py``):
 it compiles the unchanged C++ source with g++ into the port's git-ignored
-build directory, keyed on a hash of the source, and binds only the two
-snappy entry points the Parquet path needs.  There is no pure-Python
+build directory, keyed on a hash of the source, and binds the entry
+points the port calls: the snappy codec (the Parquet path), the length
+walk of a PLAIN BYTE_ARRAY page (the string decode) and the padded <->
+ragged char copies (the TKU2 serializer's string columns).  There is no pure-Python
 fallback: at SF10 a Python snappy would hide a broken toolchain behind hours
 of host time, so a failed build raises.
 """
@@ -54,6 +56,18 @@ def get_lib() -> ctypes.CDLL:
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                ctypes.c_void_p, ctypes.c_int64]
                 fn.restype = ctypes.c_int64
+            lib.plain_byte_array_lens.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_void_p]
+            lib.plain_byte_array_lens.restype = ctypes.c_int64
+            lib.padded_to_ragged.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
+            lib.padded_to_ragged.restype = None
+            lib.ragged_to_padded.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_int64, ctypes.c_void_p]
+            lib.ragged_to_padded.restype = None
             _lib = lib
         return _lib
 
@@ -79,3 +93,45 @@ def snappy_compress(data: bytes) -> bytes:
     if n < 0:
         raise ValueError("snappy compress overflow")
     return out[:n].tobytes()
+
+
+def plain_byte_array_lens(buf: bytes, n: int) -> np.ndarray:
+    """The int32 lengths of the ``n`` values of a PLAIN BYTE_ARRAY page
+    (4-byte little-endian length, then the bytes, per value)."""
+    lens = np.zeros(max(n, 1), np.int32)
+    if n:
+        inp = np.frombuffer(buf, np.uint8)
+        if get_lib().plain_byte_array_lens(inp.ctypes.data, len(inp), n,
+                                           lens.ctypes.data) < 0:
+            raise ValueError("malformed PLAIN byte_array page")
+    return lens[:n]
+
+
+def padded_to_ragged(chars: np.ndarray, lengths: np.ndarray):
+    """A (rows, width) uint8 char matrix and its lengths -> (the rows'
+    bytes back to back, int64 offsets of rows + 1 entries)."""
+    chars = np.ascontiguousarray(chars, np.uint8)
+    rows, width = chars.shape
+    l32 = np.ascontiguousarray(lengths, np.int32)
+    out = np.empty(int(np.minimum(l32.astype(np.int64), width).sum()),
+                   np.uint8)
+    offsets = np.zeros(rows + 1, np.int64)
+    if rows:
+        get_lib().padded_to_ragged(chars.ctypes.data, l32.ctypes.data, rows,
+                                   width, out.ctypes.data,
+                                   offsets.ctypes.data)
+    return out, offsets
+
+
+def ragged_to_padded(buf: np.ndarray, offsets: np.ndarray,
+                     width: int) -> np.ndarray:
+    """Rows' bytes back to back and their int64 offsets -> a zero-padded
+    (rows, width) uint8 matrix."""
+    rows = len(offsets) - 1
+    out = np.zeros((rows, max(width, 1)), np.uint8)
+    if rows:
+        buf = np.ascontiguousarray(buf, np.uint8)
+        offsets = np.ascontiguousarray(offsets, np.int64)
+        get_lib().ragged_to_padded(buf.ctypes.data, offsets.ctypes.data,
+                                   rows, out.shape[1], out.ctypes.data)
+    return out

@@ -1,6 +1,6 @@
 """Stream compaction and row gathers — port of
-``spark_rapids_tpu/ops/filterops.py`` for flat and struct columns (a
-struct's children move with it).
+``spark_rapids_tpu/ops/filterops.py`` for flat, string and struct columns
+(a string's chars and lengths and a struct's children move with it).
 
 The reference compacts with a cumsum and a scatter into a padded batch and
 hands the kept count back on the device.  A port batch holds exactly its

@@ -16,9 +16,10 @@ int64 tensor holding its unsigned value in ``[0, 2**32)``:
 
 Ported types: int, long, date, byte, short, bool, float and double (-0.0
 hashes as 0.0, every NaN as Java's canonical NaN) and decimals up to 18
-digits (their unscaled long).  Decimals above 18 digits raise ``NotOnGpu``,
-as the reference's plan rewrite refuses them; strings, xxhash64 and Hive
-hash are not ported yet.
+digits (their unscaled long), and strings (their UTF-8 bytes, as Spark's
+hashUnsafeBytes).  Decimals above 18 digits raise ``NotOnGpu``, as the
+reference's plan rewrite refuses them; xxhash64 and Hive hash are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -58,7 +59,7 @@ def _mix_h1(h1, k1):
     return (_mul32(h1, 5) + 0xE6546B64) & _M32
 
 
-def _fmix(h1, length: int):
+def _fmix(h1, length):
     h1 = h1 ^ length
     h1 = h1 ^ (h1 >> 16)
     h1 = _mul32(h1, 0x85EBCA6B)
@@ -86,7 +87,9 @@ def murmur3_column(c: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
     [0, 2**32)).  Null rows pass the seed through unchanged, as Spark's
     HashExpression does."""
     dt = c.dtype
-    if isinstance(dt, T.FloatType):
+    if c.is_string:
+        h = _murmur3_string(c, seed)
+    elif isinstance(dt, T.FloatType):
         f = c.data.to(torch.float32)
         f = torch.where(f == 0.0, torch.zeros_like(f), f)   # -0.0 -> 0.0
         bits = f.view(torch.int32).to(torch.int64) & _M32
@@ -116,6 +119,28 @@ def murmur3_column(c: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
     else:
         raise NotOnGpu(f"murmur3 of {dt.simpleString}")
     return torch.where(c.validity, h, seed)
+
+
+def _murmur3_string(c: DeviceColumn, seed: torch.Tensor) -> torch.Tensor:
+    """Spark's hashUnsafeBytes of each row's UTF-8 bytes: the whole 4-byte
+    little-endian blocks, then each tail byte as its own sign-extended
+    block, then fmix with the byte length (the reference's
+    ``_murmur3_string``, over the padded char matrix)."""
+    w = c.width
+    h = seed
+    lengths = c.lengths.to(torch.int64)
+    aligned = (lengths // 4) * 4
+    ch = c.chars.to(torch.int64)
+    for base in range(0, w - 3, 4):
+        block = (ch[:, base] | (ch[:, base + 1] << 8)
+                 | (ch[:, base + 2] << 16) | (ch[:, base + 3] << 24))
+        h = torch.where(base + 4 <= aligned, _mix_h1(h, _mix_k1(block)), h)
+    for t in range(min(3, w)):
+        idx = aligned + t
+        byte = torch.gather(ch, 1, idx.clamp(0, w - 1)[:, None])[:, 0]
+        sbyte = torch.where(byte > 127, byte | 0xFFFFFF00, byte)
+        h = torch.where(idx < lengths, _mix_h1(h, _mix_k1(sbyte)), h)
+    return _fmix(h, lengths)
 
 
 def murmur3_columns(cols: List[DeviceColumn], seed: int = 42

@@ -9,14 +9,19 @@ build side all order rows through them:
 * floats use the IEEE total-order trick with Spark's normalisation: -0.0
   keys with 0.0 and every NaN collapses to one key that sorts largest;
 * decimal128 takes two words, ``hi`` and ``lo`` rebased to signed order;
+* a string of width w takes ceil(w / 8) words, 8 bytes each big-endian
+  with the top bit flipped (the reference's words), then its length as a
+  last word.  The reference carries no length, so "a" and "a\x00" get
+  equal words there and group and join as one key; with the length they
+  stay apart and "a" sorts first, as in Spark.  Two string columns whose
+  words are compared must first meet at one width (``with_width``);
 * nulls are a leading word per column (-1 null / 0 valid for NULLS FIRST,
   1 / 0 for NULLS LAST), never flipped by the direction.
 
 ``jax.lax.sort`` sorts a tuple of key words in one call; ``torch.sort``
 takes one key, so ``lexsort`` makes one stable pass per word, from the last
 word to the first.  That is exact for any number of words: no two words are
-ever packed into one.  String keys wait until the port has string columns
-and raise.
+ever packed into one.
 """
 from __future__ import annotations
 
@@ -60,8 +65,8 @@ def float_order_key(vals: torch.Tensor) -> torch.Tensor:
 def _column_key_words(c: DeviceColumn) -> List[torch.Tensor]:
     """int64 key words of one column for ASC order (nulls handled apart)."""
     dt = c.dtype
-    if isinstance(dt, T.StringType):
-        raise NotImplementedError("string sort keys are not ported yet")
+    if c.is_string:
+        return string_key_words(c.chars) + [c.lengths.to(torch.int64)]
     if isinstance(dt, (T.FloatType, T.DoubleType)):
         return [float_order_key(c.data)]
     if isinstance(dt, T.DecimalType) and dt.is_128:
@@ -69,6 +74,21 @@ def _column_key_words(c: DeviceColumn) -> List[torch.Tensor]:
 
         return list(key_words(*unpack(c.data)))
     return [c.data.to(torch.int64)]
+
+
+def string_key_words(chars: torch.Tensor) -> List[torch.Tensor]:
+    """A (rows, width) uint8 char matrix -> ceil(width / 8) int64 words in
+    byte order: 8 bytes a word, big-endian, zero past the width, the top
+    bit flipped so signed order is unsigned byte order.  The bytes widen
+    to int64 before they shift (a shift of a uint8 wraps in its byte)."""
+    n, w = chars.shape
+    nwords = (w + 7) // 8
+    if nwords * 8 != w:
+        chars = torch.nn.functional.pad(chars, (0, nwords * 8 - w))
+    b = chars.reshape(n, nwords, 8).to(torch.int64)
+    shifts = torch.arange(56, -1, -8, dtype=torch.int64, device=chars.device)
+    words = (b << shifts).sum(dim=2) ^ torch.iinfo(torch.int64).min
+    return list(words.T.contiguous())
 
 
 def pack_sort_keys(cols: Sequence[DeviceColumn], specs: Sequence[SortSpec],

@@ -42,6 +42,7 @@ PORTED_EXPRS = frozenset({
     BoundReference, Literal, Alias,
     P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
     P.GreaterThanOrEqual, P.And, P.Or, P.Not, P.IsNull, P.IsNotNull,
+    P.In, CO.If, CO.CaseWhen,
     CO.Coalesce, CO.Nvl, A.Add, A.Subtract, A.Multiply, Cast,
     CT.GetStructField, CT.CreateNamedStruct})
 
@@ -327,6 +328,8 @@ EXPRESSIONS: Dict[Type, ExprRule] = {
     P.Or: ExprRule(T.BOOLEAN_SIG + T.NULL_SIG),
     P.Not: ExprRule(T.BOOLEAN_SIG + T.NULL_SIG),
     P.IsNull: ExprRule(_WITH_ARRAYS), P.IsNotNull: ExprRule(_WITH_ARRAYS),
+    P.In: ExprRule(_DEC128_FULL),
+    CO.If: ExprRule(_COMMON128), CO.CaseWhen: ExprRule(_COMMON128),
     CO.Coalesce: ExprRule(_COMMON128), CO.Nvl: ExprRule(_COMMON128),
     Cast: ExprRule(_DEC128_FULL, _check_cast),
     CT.GetStructField: ExprRule(_STRUCT_SIG + _DEC128_FULL),

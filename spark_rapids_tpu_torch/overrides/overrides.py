@@ -72,7 +72,7 @@ from spark_rapids_tpu_torch.plan import nodes as PN
 
 _FLAT_TYPES = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
                T.LongType, T.FloatType, T.DoubleType, T.DateType,
-               T.DecimalType, T.NullType)
+               T.DecimalType, T.NullType, T.StringType)
 
 #: window functions the port runs; the ranking ones ignore the frame
 _WINDOW_RANK_FUNCS = {"row_number", "rank", "dense_rank", "percent_rank",
@@ -164,6 +164,8 @@ def _window_check(node: PN.Window) -> None:
             raise NotOnGpu(f"window frame {node.frame!r}")
         check_expression(f.child)
         ct = f.child.dataType
+        if isinstance(ct, T.StringType):
+            raise NotOnGpu(f"window {f.func} over a string (not ported yet)")
         if isinstance(ct, T.DecimalType) and ct.is_128 \
                 and f.func != "count":
             raise NotOnGpu(f"{f.func} over decimals above 18 digits in a "
@@ -297,6 +299,9 @@ def _convert_aggregate(meta: SparkPlanMeta, conf: TpuConf, device
     for a in partial.aggregates:
         if a.child is not None:
             check_expression(a.child)
+            if a.func in ("min", "max") and isinstance(a.child.dataType,
+                                                        T.StringType):
+                raise NotOnGpu(f"{a.func} of a string (not ported yet)")
     return TpuHashAggregateExec(
         partial.grouping, partial.aggregates, PN.AggregateMode.COMPLETE,
         child, partial.child.output, final.output, ansi)

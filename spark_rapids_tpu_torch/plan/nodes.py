@@ -456,7 +456,10 @@ def estimated_plan_bytes(plan: SparkPlan) -> Optional[int]:
     decoded batch (Spark's own estimate for files); a narrow node takes its
     child's estimate (filters and limits only shrink)."""
     if isinstance(plan, LocalTableScan):
-        return sum(h.data.nbytes + h.num_rows for h in plan.host_columns)
+        # a string counts its bytes and 4-byte lengths, as the reference's
+        return sum((int(h.lengths.sum()) + 4 * h.num_rows if h.is_string
+                    else h.data.nbytes) + h.num_rows
+                   for h in plan.host_columns)
     if isinstance(plan, FileSourceScan):
         try:
             return sum(os.path.getsize(p) for p in plan.paths)

@@ -1,5 +1,5 @@
 """The TKU2 wire format — port of ``spark_rapids_tpu/shuffle/serializer.py``
-for flat columns.
+for flat and string columns.
 
 A batch crossing the exchange's host boundary becomes one frame
 (little-endian), byte-compatible with the reference's:
@@ -10,17 +10,22 @@ A batch crossing the exchange's host boundary becomes one frame
     bytes  header: utf-8 JSON {num_rows, cols: [...]}
     buffers back to back, 8-byte aligned, in header order
 
-Per column the header records the kind ("flat"), the numpy dtype string,
-the trailing shape (``[2]`` for decimal128 limbs) and each buffer's
-(offset, length).  Validity travels bit-packed (LSB first).  The optional
+Per column the header records the kind ("flat" or "string"), for a flat
+column the numpy dtype string and the trailing shape (``[2]`` for
+decimal128 limbs), for a string its longest length (``width``), and each
+buffer's (offset, length).  Validity travels bit-packed (LSB first).  A
+string travels ragged: its int32 lengths, then the rows' bytes back to
+back, so padding bytes never cross (the C copies of
+``native/host_kernels.cpp``); the reader pads them again to the width's
+bucket.  The optional
 codec compresses the whole frame: lz4 and zstd go to ``zstandard`` where
 it imports, else to zlib level 1, as in the reference (both sides of a
 shuffle resolve the codec through the same gate).  A frame whose CRC, magic
 or compressed stream is wrong raises ``ShuffleCorruption``.
 
 ``deserialize_concat`` assembles many frames into one batch: one host
-array per buffer across all frames, then one upload each.  String, array
-and struct columns are not ported yet.
+array per buffer across all frames, then one upload each.  Array and
+struct columns are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,7 +38,8 @@ import numpy as np
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
-from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
+                                                    round_up_bucket)
 from spark_rapids_tpu_torch.device import DeviceLike, resolve_device
 from spark_rapids_tpu_torch.perfcounters import sync_get, to_device
 
@@ -101,15 +107,28 @@ def serialize_batch(batch: ColumnarBatch,
 
     flat = []
     for c in batch.columns:
-        if c.data is None:
+        if c.is_struct:
             raise NotImplementedError(
                 f"serializing {c.dtype.simpleString} columns is not ported")
-        flat += [c.validity[:n], c.data[:n]]
-    host = sync_get(*flat)
-    for i in range(len(batch.columns)):
-        validity, data = host[2 * i], np.ascontiguousarray(host[2 * i + 1])
+        flat += [t[:n] for t in c.tensors()]
+    host = iter(sync_get(*flat))
+    for c in batch.columns:
+        validity = next(host)
         vbuf = add_buffer(np.packbits(validity,
                                       bitorder="little").tobytes())
+        if c.is_string:
+            from spark_rapids_tpu_torch.native import padded_to_ragged
+
+            chars, lengths = next(host), next(host)
+            packed, _ = padded_to_ragged(chars, lengths)
+            lbuf = add_buffer(lengths.astype(np.int32).tobytes())
+            cbuf = add_buffer(packed.tobytes())
+            header_cols.append({"kind": "string",
+                                "width": int(lengths.max()) if n else 0,
+                                "validity": vbuf, "lengths": lbuf,
+                                "chars": cbuf})
+            continue
+        data = np.ascontiguousarray(next(host))
         dbuf = add_buffer(data.tobytes())
         header_cols.append({"kind": "flat", "dtype": data.dtype.str,
                             "trail": list(data.shape[1:]),
@@ -162,7 +181,10 @@ def deserialize_concat(blocks: Sequence[bytes], schema: T.StructType,
     total = sum(h["num_rows"] for h, _ in parsed)
     cols: List[DeviceColumn] = []
     for ci, f in enumerate(schema.fields):
-        if isinstance(f.dataType, (T.StringType, T.ArrayType)):
+        if isinstance(f.dataType, T.StringType):
+            cols.append(_string_column(parsed, ci, total, device))
+            continue
+        if isinstance(f.dataType, (T.ArrayType, T.StructType)):
             raise NotImplementedError(
                 f"deserializing {f.dataType.simpleString} columns is not "
                 "ported")
@@ -189,3 +211,38 @@ def deserialize_concat(blocks: Sequence[bytes], schema: T.StructType,
         cols.append(DeviceColumn(f.dataType, to_device(validity, device),
                                  data=to_device(data, device)))
     return ColumnarBatch(cols, total, schema)
+
+
+def _string_column(parsed, ci: int, total: int, device) -> DeviceColumn:
+    """Column ``ci`` of the frames as one string column, its chars padded
+    to the bucket of the longest length."""
+    from spark_rapids_tpu_torch.native import ragged_to_padded
+
+    width = round_up_bucket(max([h["cols"][ci]["width"] for h, _ in parsed]
+                                + [1]))
+    validity = np.empty(total, dtype=np.bool_)
+    chars = np.zeros((total, width), dtype=np.uint8)
+    lengths = np.empty(total, dtype=np.int32)
+    row = 0
+    for h, body in parsed:
+        n = h["num_rows"]
+        col = h["cols"][ci]
+        voff, vlen = col["validity"]
+        vbits = np.frombuffer(body, np.uint8, count=vlen, offset=voff)
+        validity[row: row + n] = np.unpackbits(
+            vbits, count=n, bitorder="little").astype(np.bool_)
+        loff, _ = col["lengths"]
+        lens = np.frombuffer(body, np.int32, count=n, offset=loff)
+        lengths[row: row + n] = lens
+        w = col["width"]
+        if w:
+            coff, clen = col["chars"]
+            offs = np.zeros(n + 1, np.int64)
+            np.cumsum(lens, out=offs[1:])
+            chars[row: row + n, :w] = ragged_to_padded(
+                np.frombuffer(body, np.uint8, count=clen, offset=coff),
+                offs, w)
+        row += n
+    return DeviceColumn(T.STRING, to_device(validity, device),
+                        chars=to_device(chars, device),
+                        lengths=to_device(lengths, device))

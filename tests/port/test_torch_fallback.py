@@ -172,19 +172,25 @@ def test_struct_reference_is_a_cpu_stage_under_the_aggregate(tmp_path):
 
 
 def test_unported_device_nodes_still_raise():
-    """A string literal or column runs on the reference's device but not
-    the port's: ``NotOnGpu``, never a CPU stage; so does a CPU stage the
-    port's engine cannot run (a disabled sort or aggregate)."""
+    """A string literal or column runs on the device now; the max of a
+    string runs on the reference's device but not the port's:
+    ``NotOnGpu``, never a CPU stage; so does a CPU stage the port's engine
+    cannot run (a string in it, a disabled sort or aggregate)."""
     s = S.TpuSession({}, device="cpu")
     df = base(S, s).select(S.col("i"), Literal("x", T.STRING).alias("x"))
-    with pytest.raises(NotOnGpu, match="type string"):
-        df.explain()
-    names = HostColumn(T.STRING, np.ones(2, np.bool_),
-                       data=np.array(["a", "b"], object))
+    assert {x for _, x in df.collect()} == {"x"}
+    names = HostColumn.from_pylist(["a", None, "b"], T.STRING)
     df = S.DataFrame(LocalTableScan([names], T.StructType(
         [T.StructField("name", T.STRING)])), s)
-    with pytest.raises(NotOnGpu, match="type string of column name"):
-        df.filter(S.col("name").is_not_null()).collect()
+    assert df.filter(S.col("name").is_not_null()).collect() == [("a",),
+                                                                ("b",)]
+    with pytest.raises(NotOnGpu, match="max of a string"):
+        df.agg(S.max_("name", "m")).collect()
+    s = S.TpuSession({"spark.rapids.sql.exec.Project": "false"},
+                     device="cpu")
+    df = base(S, s).select(S.col("i"), Literal("x", T.STRING).alias("x"))
+    with pytest.raises(NotOnGpu, match="type string in a CPU stage"):
+        df.explain()
     for node in ("Sort", "HashAggregate"):
         s = S.TpuSession({f"spark.rapids.sql.exec.{node}": "false"},
                          device="cpu")

@@ -442,6 +442,17 @@ def test_murmur3_and_partition_slices_on_gpu_equal_cpu():
             np.testing.assert_array_equal(gc.data.cpu().numpy(),
                                           wc.data.numpy())   # NaN == NaN
             assert torch.equal(gc.validity.cpu(), wc.validity)
+    # strings of every tail length, multi-byte UTF-8, past a width bucket
+    pool = ["", "a", "ab", "abc", "abcd", "MAIL", "1-URGENT",
+            "4-NOT SPECIFIED", "naïve café", "z" * 40, None]
+    h = HostColumn.from_pylist([pool[i] for i in
+                                rng.integers(0, len(pool), n)], T.STRING)
+    scpu, sgpu = (DeviceColumn.from_host(h, d) for d in ("cpu", "cuda"))
+    for k in (None, 0):
+        head = (lambda b: []) if k is None else (lambda b: [b.columns[k]])
+        want = spark_partition_ids(head(cpu) + [scpu], 211)
+        got = spark_partition_ids(head(gpu) + [sgpu], 211)
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.gpu
@@ -716,3 +727,60 @@ def test_q6_hot_cache_on_gpu(tmp_path):
     (_, d1, l1), (_, d2, l2) = r["first"], r["second"]
     assert d1["hot_cache_misses"] == 1 and l1 == 16 and d1["bytes_h2d"] > 0
     assert d2["hot_cache_hits"] == 1 and l2 == 0 and d2["bytes_h2d"] == 0
+
+
+@pytest.mark.gpu
+def test_k1_on_width3_index_pages_matches_plain():
+    """The index pages of a 5- or 7-value dictionary (l_shipmode,
+    o_orderpriority): width 3, Spark-shaped 20,000-value pages in one
+    launch."""
+    _need_gpu()
+    rng = np.random.default_rng(33)
+    pb = page_batch(rng, [("spark", 3, 20_000)] * 6 + [("cut", 3, 7_001)])
+    dev = torch.from_numpy(np.frombuffer(pb["buf"], np.uint8).copy()).cuda()
+    table = torch.from_numpy(pb["table"]).cuda()
+    before = decode.unpack_launches
+    got = decode.unpack_runs(dev, 0, table, pb["total"])
+    assert decode.unpack_launches == before + 1
+    want = decode.unpack_runs_plain(dev, 0, table, pb["total"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and int(got.max()) < 8
+
+
+@pytest.mark.gpu
+def test_q12_on_gpu_equals_numpy(tmp_path):
+    """TPC-H Q12 at test size on the card, from chip_smoke.py's files
+    (dictionary strings, K1 once a dictionary chunk), from memory under
+    phase 20's conf with a small pool, and the PLAIN-string file."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+    import spark_rapids_tpu_torch.session as S
+
+    orders, lineitem = C.make_q12(50_000, 5)
+    want = C.q12_reference(orders, lineitem)
+    dev = torch.device("cuda")
+    o_paths, l_paths, plain = C.write_q12_files(
+        orders, lineitem, str(tmp_path / "q12"), dev, n_files=2)
+    _, _, ors, lrs = C.q12_schemas(T)
+    s = S.TpuSession(C.Q12_CONF, device=dev)
+    q = C.q12_query(s.read.schema(ors).parquet(*o_paths),
+                    s.read.schema(lrs).parquet(*l_paths), S)
+    decode.unpack_launches = 0
+    assert q.collect() == want
+    assert decode.unpack_launches == C.dict_chunks(
+        o_paths, ors) + C.dict_chunks(l_paths, lrs)
+    C.read_q12_plain(plain, orders, dev, "gpu")
+    n = len(lineitem["l_orderkey"])
+    conf = dict(C.ooc_conf(1 << 19, n), **{
+        "spark.rapids.tpu.exchange.deviceResidentBytes": 1 << 16})
+    mem = S.TpuSession(conf, device=dev)
+
+    def frame(table, sch):
+        from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
+        return S.DataFrame(LocalTableScan(C.q12_host_columns(
+            table, sch, 0, len(table[sch.fields[0].name])), sch), mem)
+
+    assert C.q12_query(frame(orders, ors), frame(lineitem, lrs),
+                       S).collect() == want
+    assert mem.close() == []

@@ -1,8 +1,8 @@
 """Spark-exact murmur3 (``ops/hashing.py``) and the exchange's partition
 slices (``exec/exchange.py``) against the JAX package, whose device code
 runs in the child process: every ported type with nulls, -0.0, NaN and
-the special floats of ``tests/test_hash_functions.py``, several columns
-chained, another seed; then hash, round-robin and range slices of one
+the special floats of ``tests/test_hash_functions.py``, strings at
+several widths, several columns chained, another seed; then hash, round-robin and range slices of one
 batch, row for row.  Every comparison is bit-exact."""
 import numpy as np
 import pytest
@@ -96,6 +96,56 @@ def test_murmur3_and_partition_ids_match_reference(tmp_path, seed):
         np.testing.assert_array_equal(p.numpy(), out[f"p{i}"],
                                       err_msg=str(names))
         assert int(p.min()) >= 0 and int(p.max()) < 37
+
+
+# prefixes of one another, every tail length, multi-byte UTF-8 and bytes
+# above 127 (the sign-extended tail), past the first width bucket
+_STRINGS = ["", "a", "ab", "abc", "abcd", "abcde", "MAIL", "SHIP",
+            "1-URGENT", "4-NOT SPECIFIED", "é", "naïve café", "\xff\xfe",
+            "zzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzzz"]
+
+
+@pytest.mark.parametrize("width", [None, 8, 64])
+def test_murmur3_of_strings_matches_reference(tmp_path, width):
+    """Strings alone and chained after an int, at the host width (the
+    longest value) and padded wider: the padding must not change a hash
+    (``width`` 8 holds no row past 8 bytes, so it uses the short ones)."""
+    from torch_port_frames import string_host
+    import spark_rapids_tpu_torch.columnar.column as PCOL
+
+    rng = np.random.default_rng(11)
+    pool = [v for v in _STRINGS if width is None or len(v.encode()) <= width]
+    vals = np.asarray(pool, object)[rng.integers(0, len(pool), N)]
+    h = string_host(PCOL, vals, rng.random(N) > 0.125)
+    if width is not None:
+        h = h.with_width(width)
+    ints, ivalid = column_data("int", rng)
+    out = run_jax(f"""
+        import jax.numpy as jnp
+        from spark_rapids_tpu import types as T
+        from spark_rapids_tpu.columnar.column import DeviceColumn
+        from spark_rapids_tpu.ops.hashing import (murmur3_columns,
+                                                  spark_partition_ids)
+        s = DeviceColumn(T.STRING, jnp.asarray(inp["valid"]),
+                         chars=jnp.asarray(inp["chars"]),
+                         lengths=jnp.asarray(inp["lengths"]))
+        i = DeviceColumn(T.INT, jnp.asarray(inp["ivalid"]),
+                         data=jnp.asarray(inp["ints"]))
+        for name, cols in (("s", [s]), ("is", [i, s])):
+            out["h" + name] = np.asarray(murmur3_columns(cols))
+            out["p" + name] = np.asarray(spark_partition_ids(cols, 37))
+    """, tmp_path, {"valid": h.validity, "chars": h.chars,
+                    "lengths": h.lengths, "ints": ints, "ivalid": ivalid})
+    s = DeviceColumn(T.STRING, torch.from_numpy(h.validity),
+                     chars=torch.from_numpy(h.chars),
+                     lengths=torch.from_numpy(h.lengths))
+    i = port_col("int", ints, ivalid)
+    for name, cols in (("s", [s]), ("is", [i, s])):
+        np.testing.assert_array_equal(H.murmur3_columns(cols).numpy(),
+                                      out["h" + name], err_msg=name)
+        np.testing.assert_array_equal(
+            H.spark_partition_ids(cols, 37).numpy(), out["p" + name],
+            err_msg=name)
 
 
 def test_special_floats_and_nulls():

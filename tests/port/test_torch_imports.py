@@ -47,7 +47,13 @@ def test_import_leaves_no_jax_in_sys_modules():
             "spark_rapids_tpu_torch.distributed.worker, "
             "spark_rapids_tpu_torch.lifecycle.journal, "
             "spark_rapids_tpu_torch.io.hot_cache, "
-            "spark_rapids_tpu_torch.compilecache.keys\n"
+            "spark_rapids_tpu_torch.compilecache.keys, "
+            "spark_rapids_tpu_torch.expr.predicates, "
+            "spark_rapids_tpu_torch.ops.sortkeys, "
+            "spark_rapids_tpu_torch.io.parquet_device, "
+            "spark_rapids_tpu_torch.shuffle.serializer, "
+            "spark_rapids_tpu_torch.memory.spill, "
+            "spark_rapids_tpu_torch.native\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
             "print(','.join(bad))\n"

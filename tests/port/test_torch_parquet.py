@@ -10,6 +10,7 @@ chunk with one K1 call, equal to decoding its pages one by one.
 import datetime
 import itertools
 import os
+import textwrap
 
 import numpy as np
 import pytest
@@ -367,3 +368,138 @@ def test_pyarrow_pages_decode_with_one_call_per_chunk(tmp_path, monkeypatch,
             k: [(_EPOCH + datetime.timedelta(days=int(x)) if k == "d"
                  else int(x)) if ok else None
                 for x, ok in zip(v, valid[k])] for k, v in data.items()}
+
+
+# -- string columns ------------------------------------------------------------
+
+def _strings(rng, n, distinct, nulls):
+    """n strings over ``distinct`` values of 1-19 bytes (multi-byte UTF-8
+    among them), about a tenth null when ``nulls``."""
+    words = [("é" if i % 5 == 0 else "v") * (1 + i % 9) + str(i)
+             for i in range(distinct)]
+    pick = rng.integers(0, distinct, n)
+    valid = rng.random(n) > 0.1 if nulls else np.ones(n, bool)
+    return [words[p] if ok else None for p, ok in zip(pick, valid)]
+
+
+def _reference_decode(tmp_path, path, nullable=True):
+    """The reference's device decode of ``path``'s column ``s`` (child
+    process), as Python strings: its decoded transfer, which compiles a
+    third of what its compressed one does on the CPU."""
+    from torch_port_jaxref import REF_K1_INTERPRET, run_jax
+
+    out = run_jax(REF_K1_INTERPRET + textwrap.dedent(f"""
+    from spark_rapids_tpu import types as T
+    from spark_rapids_tpu.config import TpuConf, set_conf
+    from spark_rapids_tpu.io.parquet_device import read_parquet_device
+    set_conf(TpuConf({{"spark.rapids.sql.format.parquet.transfer.compressed":
+                      False}}))
+    sch = T.StructType([T.StructField("s", T.STRING, {nullable!r})])
+    b = read_parquet_device({path!r}, sch)
+    set_conf(TpuConf())
+    vals = b.columns[0].to_host(b.num_rows).to_pylist()
+    out["valid"] = np.array([v is not None for v in vals])
+    out["lens"] = np.array([len((v or "").encode()) for v in vals])
+    out["bytes"] = np.frombuffer(b"".join((v or "").encode() for v in vals),
+                                 np.uint8)
+    """), tmp_path)
+    ends = np.cumsum(out["lens"])
+    raw = out["bytes"].tobytes()
+    return [raw[e - n:e].decode() if ok else None
+            for e, n, ok in zip(ends, out["lens"], out["valid"])]
+
+
+_STR_FILES = list(itertools.product(["dict", "overflow"], ["1.0", "2.0"]))
+
+
+@pytest.fixture(scope="module")
+def string_files(tmp_path_factory):
+    """Per (kind, page version): a pyarrow file of dictionary-encoded
+    strings over 2 row groups (kind "dict"), or, past a small dictionary
+    page limit, PLAIN pages after the dictionary pages ("overflow", the
+    dictionary overflow of parquet-mr and Arrow); its values, and the
+    reference's device decode of it."""
+    pa = pytest.importorskip("pyarrow")
+    pq = pytest.importorskip("pyarrow.parquet")
+    tmp = tmp_path_factory.mktemp("strings")
+    out = {}
+    for i, (kind, version) in enumerate(_STR_FILES):
+        rng = np.random.default_rng(i)
+        vals = _strings(rng, 6000, 7 if kind == "dict" else 3000, True)
+        path = str(tmp / f"{kind}-{version}.parquet")
+        pq.write_table(pa.table({"s": pa.array(vals, pa.string())}), path,
+                       compression="snappy", data_page_version=version,
+                       dictionary_pagesize_limit=2048, data_page_size=1024,
+                       row_group_size=3000)
+        assert vals == pq.read_table(path).column("s").to_pylist()
+        out[(kind, version)] = (path, vals,
+                                _reference_decode(tmp, path))
+    return out
+
+
+_STR_CASES = [(k, v, c) for k, v in _STR_FILES for c in (True, False)]
+
+
+@pytest.mark.parametrize("kind,page_version,compressed", _STR_CASES,
+                         ids=[f"{k}-{v}-{'comp' if c else 'decoded'}"
+                              for k, v, c in _STR_CASES])
+def test_string_pages_match_pyarrow_and_reference(string_files, monkeypatch,
+                                                  kind, page_version,
+                                                  compressed):
+    from spark_rapids_tpu_torch.io.parquet_native import (ENC_PLAIN,
+                                                          read_column_pages,
+                                                          read_footer)
+
+    path, vals, ref = string_files[(kind, page_version)]
+    assert ref == vals                          # the reference's decode
+    raw = open(path, "rb").read()
+    groups, _ = read_footer(raw)
+    assert len(groups) == 2
+    encs = [p.encoding for g in groups
+            for p in read_column_pages(raw, g.columns[0], g.num_rows).pages]
+    assert (ENC_PLAIN in encs) == (kind == "overflow")
+    schema = T.StructType([T.StructField("s", T.STRING)])
+    calls = _counted(monkeypatch)
+    snap = PC.snapshot()
+    col = read_parquet_device(path, schema, CPU, compressed).columns[0]
+    assert col.to_host(len(vals)).to_pylist() == vals
+    assert calls[0] == 2                         # one a chunk
+    if kind == "overflow" and compressed:        # PLAIN: no compressed route
+        assert PC.since(snap)["chunk_decode_fallbacks"] == 2
+    assert col.width == 32 and not col.chars[~col.validity].any()
+
+
+@pytest.mark.parametrize("nullable", [True, False])
+def test_port_writer_plain_strings_read_back(tmp_path, nullable):
+    """The port writes strings as the reference does: PLAIN BYTE_ARRAY
+    with the UTF8 annotation; pyarrow, the port and the reference read
+    them back."""
+    pq = pytest.importorskip("pyarrow.parquet")
+    from spark_rapids_tpu_torch.io.parquet_native import (ENC_PLAIN,
+                                                          TYPE_BYTE_ARRAY,
+                                                          read_column_pages,
+                                                          read_footer)
+
+    rng = np.random.default_rng(31)
+    n = 4001
+    vals = _strings(rng, n, 50, nullable)
+    schema = T.StructType([T.StructField("s", T.STRING, nullable),
+                           T.StructField("i", T.INT, nullable)])
+    ints = rng.integers(-9, 9, n).astype(np.int32)
+    valid = np.array([v is not None for v in vals])
+    path = str(tmp_path / "ps.parquet")
+    write_parquet_device(path, schema, [
+        HostColumn.from_pylist(vals, T.STRING),
+        HostColumn(T.INT, valid, data=ints)], n, device=CPU)
+    raw = open(path, "rb").read()
+    groups, _ = read_footer(raw)
+    info = groups[0].columns[0]
+    assert info.ptype == TYPE_BYTE_ARRAY
+    assert [p.encoding for p in read_column_pages(raw, info, n).pages] == [
+        ENC_PLAIN]
+    tbl = pq.read_table(path)
+    assert str(tbl.schema.field("s").type) == "string"
+    assert tbl.column("s").to_pylist() == vals
+    batch = read_parquet_device(path, schema, CPU)
+    assert batch.columns[0].to_host(n).to_pylist() == vals
+    assert _reference_decode(tmp_path, path, nullable) == vals

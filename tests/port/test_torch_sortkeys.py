@@ -5,7 +5,6 @@ multi-key orders with ties (ASC/DESC, NULLS FIRST/LAST, INT, DOUBLE with
 in the child process (its functions compile XLA programs).  Every
 comparison is exact."""
 import numpy as np
-import pytest
 import torch
 
 from spark_rapids_tpu_torch import types as T
@@ -130,8 +129,17 @@ def test_lexsort_matches_numpy_and_segments_of_nothing():
 
 
 def test_string_keys_raise():
-    c = DeviceColumn(T.STRING, torch.ones(2, dtype=torch.bool),
-                     data=torch.zeros(2, dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="string sort keys"):
-        SK.sort_permutation([c], [SK.SortSpec()],
-                            torch.ones(2, dtype=torch.bool))
+    """String keys, which raised before the string columns were ported,
+    now sort (``test_torch_strings.py``: the reference's words and a
+    length word) and hash (``test_torch_hashing.py``: murmur3 against the
+    reference's); neither raises."""
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.ops.hashing import spark_partition_ids
+
+    c = DeviceColumn.from_host(HostColumn.from_pylist(["b", None, "a"],
+                                                      T.STRING), "cpu")
+    perm = SK.sort_permutation([c], [SK.SortSpec()],
+                               torch.ones(3, dtype=torch.bool))
+    assert perm.tolist() == [1, 2, 0]
+    ids = spark_partition_ids([c], 4)
+    assert ids.shape == (3,) and int(ids.min()) >= 0 and int(ids.max()) < 4

@@ -10,15 +10,38 @@ import numpy as np
 ORACLE = {"spark.rapids.sql.enabled": False}
 
 
+def string_host(column, values, validity=None):
+    """A string ``HostColumn`` of the package whose ``columnar.column``
+    module is ``column``: ``values`` an array of ``str`` (UTF-8 encoded)
+    or ``bytes``; a row's chars zero past its length, a null row's length
+    0 (the layout both packages hold)."""
+    n = len(values)
+    valid = (np.ones(n, np.bool_) if validity is None
+             else np.asarray(validity, np.bool_))
+    enc = [b"" if not ok else v.encode("utf-8") if isinstance(v, str)
+           else bytes(v) for v, ok in zip(values, valid)]
+    lengths = np.array([len(b) for b in enc], np.int32)
+    chars = np.zeros((n, max(int(lengths.max()) if n else 0, 1)), np.uint8)
+    for i, b in enumerate(enc):
+        chars[i, :len(b)] = np.frombuffer(b, np.uint8)
+    types = __import__(column.__name__.split(".")[0] + ".types",
+                       fromlist=["STRING"])
+    return column.HostColumn(types.STRING, valid, chars=chars,
+                             lengths=lengths)
+
+
 def frame(mod, session, arrays, schema, validity=None):
     """A ``LocalTableScan`` DataFrame of ``arrays`` (name -> numpy array in
-    the field's storage form; ``validity``: name -> bool array) in the
-    package whose ``session`` module is ``mod``."""
+    the field's storage form, strings as ``str`` or ``bytes``;
+    ``validity``: name -> bool array) in the package whose ``session``
+    module is ``mod``."""
     pkg = mod.__name__.rsplit(".", 1)[0]
     column = __import__(pkg + ".columnar.column", fromlist=["HostColumn"])
     nodes = __import__(pkg + ".plan.nodes", fromlist=["LocalTableScan"])
     validity = validity or {}
-    host = [column.HostColumn.from_numpy(np.asarray(arrays[f.name]),
+    host = [string_host(column, arrays[f.name], validity.get(f.name))
+            if type(f.dataType).__name__ == "StringType" else
+            column.HostColumn.from_numpy(np.asarray(arrays[f.name]),
                                          f.dataType,
                                          validity.get(f.name))
             for f in schema.fields]

@@ -47,6 +47,39 @@ for line in sys.stdin:
 
 _worker = None
 
+#: Child code that makes the reference's device decode run here: its
+#: ``_unpack_call`` traces K1's body in an ``enable_x64`` scope that this
+#: jax does not export, so the same ``pallas_call`` (the real kernel body,
+#: the same tile padding, interpret mode) is bound without that scope.
+REF_K1_INTERPRET = """
+from functools import partial as _partial
+import jax as _jax
+import jax.numpy as _jnp
+from jax.experimental import pallas as _pl
+import spark_rapids_tpu.pallas.decode as _D
+# kept on the module, so the child's later jobs reuse the compiled calls
+_K1 = _D.__dict__.setdefault("_interpret_k1", {})
+def _interpret_unpack_call(padded, bw, groups):
+    tiles = 1
+    while tiles * _D._TILE < groups:
+        tiles *= 2
+    # padded in numpy: one compiled program per (tiles, bw), not per page
+    mat = np.zeros((tiles * _D._TILE, _D._LANES), np.uint32)
+    mat[:groups, :bw] = np.asarray(padded).reshape(groups, bw)
+    if (tiles, bw) not in _K1:
+        _K1[(tiles, bw)] = _jax.jit(_pl.pallas_call(
+            _partial(_D._unpack_body, bw=bw),
+            out_shape=_jax.ShapeDtypeStruct(mat.shape, _jnp.uint32),
+            grid=(tiles,),
+            in_specs=[_pl.BlockSpec((_D._TILE, _D._LANES),
+                                    lambda i: (i, 0))],
+            out_specs=_pl.BlockSpec((_D._TILE, _D._LANES),
+                                    lambda i: (i, 0)),
+            interpret=True))
+    return _K1[(tiles, bw)](mat)[:, :8]
+_D._unpack_call = _interpret_unpack_call
+"""
+
 
 def _stop_worker():
     if _worker is not None and _worker.poll() is None:
