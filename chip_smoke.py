@@ -6,8 +6,11 @@ rung3 (a CPU stage under the aggregate, the out-of-core sort), bench's
 rung4_dist (its exchanges over two worker processes, one killed), bench's
 rung5_recovery (the query journal, a query killed at a stage commit and
 resumed), the driver SIGKILLed and restarted over re-attaching workers,
-bench's q6_parquet_hot (Q6 over the hot-table cache), and TPC-H Q12 at
-SF10 (string columns end to end), from Parquet and out of core.
+bench's q6_parquet_hot (Q6 over the hot-table cache), TPC-H Q12 at
+SF10 (string columns end to end), from Parquet and out of core, TPC-H Q4
+and the other join types on its tables (semi, anti, right and full
+outer), and TPC-H Q1 at SF10 (averages over 128-bit sums, a CPU stage
+with strings and decimal products).
 
     python3 chip_smoke.py [--scale 10] [--seed 20261017]
 
@@ -175,7 +178,30 @@ Phases, each failing the run at its first mismatch:
     exchanges sized, their slices past the queues' device budget framed
     to the host as TKU2 blocks carrying the strings (at least one), two
     collects exact, no leak; then the orders exchange's write and read
-    alone.
+    alone;
+21. TPC-H Q4 (spec 2.4.4) from phase 19's files: the quarter's orders
+    that have a late line (EXISTS, a left semi join), counted by
+    priority; two collects equal to numpy, the plan the reference's
+    (``q4_plan``) with the adaptive join deciding ``shuffled`` over the
+    late lines' 9 bytes each, K1 once a dictionary column chunk read, a
+    breakdown by operator and one profiled collect;
+22. the other join types on Q4's tables: the NOT EXISTS twin (left
+    anti; semi + anti equal the quarter's orders per priority), the
+    quarter's orders right and full outer joined to the late lines,
+    counted by priority with the null group, each exact and planned as
+    the reference plans it; then Q4 and its anti twin from memory under
+    phase 12's conf, collected once each, the built late lines
+    sub-partitioned into >= 2 buckets, exact, no leak;
+23. TPC-H Q1 (spec 2.4.1) at ``--scale``: lineitem (59,986,052 rows at
+    SF10) from ``--seed`` + 1 per spec 4.2.3 (``lineitem_q1``) as 8 snappy
+    files, the money columns INT64 annotated DECIMAL(12,2), l_returnflag
+    and l_linestatus dictionary-encoded (index widths 2 and 1); K1 held
+    against its plain version on the first file's string index tables;
+    two collects equal to numpy exactly (four sums, three HALF_UP
+    decimal(16,6) averages over decimal(22,2) sums, the count), the plan
+    the reference's with the Project as a CPU stage (``q1_plan``), K1
+    once a dictionary chunk; a breakdown (the CPU stage's seconds and
+    its ``bytes_d2h``/``bytes_h2d``) and one profiled collect.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
@@ -1761,18 +1787,19 @@ def _spill_line(fw) -> str:
             f"pool={fw.pool_bytes}")
 
 
-def _ooc_collects(q, check, label: str, n: int, smi: str):
-    """Two collects of ``q``, both held by ``check``; the counts (K1
-    launches, perfcounters, peak memory) set to 0 just before the timed
-    second one and read after it.  The spill framework is the one the
-    second collect built."""
+def _ooc_collects(q, check, label: str, n: int, smi: str,
+                  warm: bool = True):
+    """Two collects of ``q`` (one without ``warm``), each held by
+    ``check``; the counts (K1 launches, perfcounters, peak memory) set to
+    0 just before the timed last one and read after it.  The spill
+    framework is the one the last collect built."""
     import torch
 
     from spark_rapids_tpu_torch import perfcounters as PC
     from spark_rapids_tpu_torch.memory.spill import peek_spill_framework
     from spark_rapids_tpu_torch.pallas import decode
 
-    bad = check(q.collect())
+    bad = check(q.collect()) if warm else None
     if bad:
         fail(f"{label}, first run: {bad}")
     torch.cuda.synchronize()
@@ -3228,13 +3255,13 @@ def dict_chunks(paths, schema) -> int:
     return count
 
 
-def check_q12_k1(paths, device, smi: str) -> int:
-    """K1 on the run tables phase 19's scan builds for the string columns
-    of ``paths`` (one orders and one lineitem file): each file's string
-    fields are read as the scan reads them (compressed transfer on), the
-    inputs of every K1 launch are kept, and each is run again through the
-    kernel and its plain version.  -> the largest difference; a
-    difference fails."""
+def check_string_k1(paths, schema_of, device, smi: str, label: str):
+    """K1 on the run tables the scan builds for the string columns of
+    ``paths`` (``schema_of(path)``: the file's schema as the query reads
+    it): each file's string fields are read as the scan reads them
+    (compressed transfer on), the inputs of every K1 launch are kept, and
+    each is run again through the kernel and its plain version.  -> (the
+    largest difference, the index widths seen); a difference fails."""
     import torch
 
     from spark_rapids_tpu_torch import types as T
@@ -3250,14 +3277,14 @@ def check_q12_k1(paths, device, smi: str) -> int:
         return real(buf, base, table, total)
 
     max_err = 0
+    seen = set()
     for path in paths:
-        _, _, ro, rl = q12_schemas(T)
-        sch = T.StructType([f for f in (ro if "orders" in
-                                        os.path.basename(path) else rl).fields
+        sch = T.StructType([f for f in schema_of(path).fields
                             if isinstance(f.dataType, T.StringType)])
         widths = sorted({page.index_bit_width for name, page in
                          main_path_pages(path) if name in sch.field_names()
                          and page.index_bit_width})
+        seen.update(widths)
         PD.expand_table_dev = keep
         try:
             PD.read_parquet_device(path, sch, device)
@@ -3279,9 +3306,21 @@ def check_q12_k1(paths, device, smi: str) -> int:
             f"{max_err} against the plain version; {smi}")
         calls.clear()
     if max_err:
-        fail(f"K1 differs from its plain version on Q12's string index "
+        fail(f"K1 differs from its plain version on {label}'s string index "
              f"tables (max_abs_err {max_err})")
-    return max_err
+    return max_err, sorted(seen)
+
+
+def check_q12_k1(paths, device, smi: str) -> int:
+    """K1 on the run tables phase 19's scan builds for the string columns
+    of ``paths`` (one orders and one lineitem file), against its plain
+    version."""
+    from spark_rapids_tpu_torch import types as T
+
+    _, _, ro, rl = q12_schemas(T)
+    return check_string_k1(
+        paths, lambda p: ro if "orders" in os.path.basename(p) else rl,
+        device, smi, "Q12")[0]
 
 
 def q12_plan(threshold: int = 10 << 20, decided: str = "shuffled",
@@ -3530,6 +3569,506 @@ def run_q12_ooc(orders, lineitem, want, pool: int, device, smi: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# TPC-H Q4 (spec 2.4.4): EXISTS as a left semi join, from phase 19's files;
+# the other join types on its tables
+# ---------------------------------------------------------------------------
+
+Q4_QUARTER = (8582, 8674)          # [1993-07-01, 1993-10-01) in epoch days
+
+
+def q4_schemas(T):
+    """(orders as Q4 reads it, lineitem as Q4 reads it) from phase 19's
+    files; TPC-H's columns are NOT NULL."""
+    def sch(fields):
+        return T.StructType([T.StructField(nm, t, False)
+                             for nm, t in fields])
+    return (sch([("o_orderkey", T.LONG), ("o_orderdate", T.DATE),
+                 ("o_orderpriority", T.STRING)]),
+            sch([("l_orderkey", T.LONG), ("l_commitdate", T.DATE),
+                 ("l_receiptdate", T.DATE)]))
+
+
+def q4_sides(orders, lineitem, mod):
+    """``o_q``: the quarter's orders (``orderkey``, ``o_orderpriority``);
+    ``l_q``: the late lines' ``orderkey``."""
+    import datetime as dt
+
+    col, lit = mod.col, mod.lit
+    o_q = (orders.filter((col("o_orderdate") >= lit(dt.date(1993, 7, 1)))
+                         & (col("o_orderdate") < lit(dt.date(1993, 10, 1))))
+           .select(col("o_orderkey").alias("orderkey"), "o_orderpriority"))
+    l_q = (lineitem.filter(col("l_commitdate") < col("l_receiptdate"))
+           .select(col("l_orderkey").alias("orderkey")))
+    return o_q, l_q
+
+
+def q4_query(orders, lineitem, mod, how: str = "left_semi"):
+    """TPC-H Q4 over two DataFrames of the package whose session module is
+    ``mod``: the quarter's orders that have a late line (EXISTS, a left
+    semi join; ``how="left_anti"`` is the NOT EXISTS twin), counted by
+    o_orderpriority, ordered by it.  ``how="right"`` or ``"full"`` counts
+    the outer join's rows by priority instead (the null group first)."""
+    o_q, l_q = q4_sides(orders, lineitem, mod)
+    return (o_q.join(l_q, "orderkey", how=how)
+            .group_by("o_orderpriority")
+            .agg(mod.count_(None, "order_count"))
+            .order_by("o_orderpriority"))
+
+
+def q4_reference(orders, lineitem, how: str = "left_semi"):
+    """Q4 (or its twins) in numpy, from the generator's line -> order row
+    map: [(priority or None, count)], ordered by priority, nulls first."""
+    odate = orders["o_orderdate"]
+    quarter = (odate >= Q4_QUARTER[0]) & (odate < Q4_QUARTER[1])
+    late = lineitem["l_commitdate"] < lineitem["l_receiptdate"]
+    rows = lineitem["order_row"][late]
+    has_late = np.zeros(len(odate), np.bool_)
+    has_late[rows] = True
+    prio = orders["o_orderpriority"]
+    k = len(Q12_PRIORITIES)
+    if how in ("left_semi", "left_anti"):
+        keep = quarter & (has_late if how == "left_semi" else ~has_late)
+        counts = np.bincount(prio[keep], minlength=k)
+        nulls = 0
+    else:
+        # one row a late line: its order's priority if the order is in
+        # the quarter, else null; a full join adds the quarter's orders
+        # without a late line
+        in_q = quarter[rows]
+        counts = np.bincount(prio[rows[in_q]], minlength=k)
+        nulls = int((~in_q).sum())
+        if how == "full":
+            counts = counts + np.bincount(prio[quarter & ~has_late],
+                                          minlength=k)
+    out = [(None, nulls)] if nulls else []
+    return out + [(Q12_PRIORITIES[i], int(c)) for i, c in enumerate(counts)
+                  if c]
+
+
+def q4_build_bytes(lineitem) -> int:
+    """The adaptive join's measured build side at Q4: 9 bytes a late line
+    (the key and its validity), as the reference counts a row."""
+    return 9 * int((lineitem["l_commitdate"]
+                    < lineitem["l_receiptdate"]).sum())
+
+
+Q4_JOIN_NAMES = {"left_semi": "LeftSemi", "left_anti": "LeftAnti",
+                 "right": "RightOuter", "full": "FullOuter"}
+
+
+def q4_plan(how: str = "left_semi", threshold: int = 10 << 20,
+            decided: str = "shuffled", goal: int = 1 << 30,
+            broadcast_planned: bool = False):
+    """The reference's plan for Q4 (or a twin) after a collect (the
+    reference's explain on the CPU, scans as ``<scan>``, the bytes as
+    ``<bytes>``): broadcast at planning when the lineitem files are
+    within ``threshold``, else adaptive, decided ``decided``."""
+    jt = Q4_JOIN_NAMES[how]
+    head = ["TpuSort [o_orderpriority ASC]",
+            "  TpuHashAggregate(Complete) keys=[o_orderpriority] "
+            "aggs=[count_star(*) AS order_count]"]
+    orders = ["TpuStageExec[FilterProject]", "  <scan>"]
+    lines = ["TpuStageExec[FilterProject]", "  <scan>"]
+    if broadcast_planned:
+        return head + [f"    TpuBroadcastHashJoinExec {jt} "
+                       "[orderkey=orderkey]"] + [
+            "      " + ln for ln in orders] + [
+            "      TpuBroadcastExchangeExec"] + [
+            "        " + ln for ln in lines]
+    reader = f"TpuAdaptiveShuffleReader(target={goal}B small=4194304B)"
+    side = ["      " + reader, "        TpuShuffleExchange SinglePartition"]
+    return head + [
+        f"    TpuAdaptiveJoin(threshold={threshold})[TpuShuffledSymmetricHash"
+        f"JoinExec {jt} [orderkey=orderkey]] decided={decided}(<bytes>)"
+    ] + side + ["          " + ln for ln in orders] + side + [
+        "          " + ln for ln in lines]
+
+
+def _q4_files_query(o_paths, l_paths, how, conf, device):
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+
+    ors, lrs = q4_schemas(T)
+    s = S.TpuSession(conf, device=device)
+    return q4_query(s.read.schema(ors).parquet(*o_paths),
+                    s.read.schema(lrs).parquet(*l_paths), S, how)
+
+
+def run_q4(o_paths, l_paths, want, build_bytes: int, n: int, device,
+           smi: str):
+    """Phase 21: Q4 from phase 19's files, collected twice; the plan the
+    reference's, its adaptive join deciding ``shuffled`` over the late
+    lines' ``build_bytes``; K1 launched once per dictionary column chunk
+    of the columns Q4 reads in the timed collect."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.config import (AUTO_BROADCAST_JOIN_THRESHOLD,
+                                               TpuConf)
+
+    ors, lrs = q4_schemas(T)
+    q = _q4_files_query(o_paths, l_paths, "left_semi", Q12_CONF, device)
+    chunks = dict_chunks(o_paths, ors) + dict_chunks(l_paths, lrs)
+    check_default_reader(q.explain().splitlines(), "Q4")
+    out = _q12_collects(q, want, "Q4 parquet", n, smi)
+    threshold = TpuConf(Q12_CONF).get(AUTO_BROADCAST_JOIN_THRESHOLD)
+    check_plan(q, q4_plan("left_semi", threshold, "shuffled"), "Q4")
+    join = [ln for ln in q.explain().splitlines()
+            if "decided=" in ln][0].split("decided=")[1]
+    if join != f"shuffled({build_bytes}B)":
+        fail(f"Q4: the adaptive join decided {join}, not shuffled over the "
+             f"{build_bytes} B of the late lines")
+    if out["launches"] != chunks:
+        fail(f"Q4: K1 launched {out['launches']} times, not once for each "
+             f"of the {chunks} dictionary column chunks")
+    log("Q4 plan after the collects:\n" + q.explain())
+    log(f"Q4 parquet: join {join}; K1 launches {out['launches']} == "
+        f"{chunks} dictionary chunks [{smi}]")
+    return out
+
+
+def q4_breakdown(q, smi: str):
+    """Where a Q4 collect spends its time, operator by operator, each on
+    its input batches already on the card: the orders scan with its
+    filter, the lineitem scan with its filter, the semi join (the
+    adaptive one: its build side and the probes), the aggregate, the
+    sort."""
+    sort = fresh_plan(q)
+    agg = sort.children[0]
+    join = agg.children[0]
+    left, right = join.shuffled.children
+    t_o, _ = _replay_leaf(left, 0)
+    t_l, _ = _replay_leaf(right, 0)
+    t_join, batches = _timed_run(join)
+    agg.children[0] = _Replay(batches, join.output)
+    t_agg, out = _timed_run(agg)
+    sort.children[0] = _Replay(out, agg.output)
+    t_sort, _ = _timed_run(sort)
+    log(f"Q4 breakdown: orders scan + filter {t_o:.4f} s, lineitem scan + "
+        f"filter {t_l:.4f} s, semi join {t_join:.4f} s ({join.decision}), "
+        f"aggregate {t_agg:.4f} s, sort {t_sort:.4f} s [{smi}]")
+
+
+def run_q4_join_types(o_paths, l_paths, orders, lineitem, semi, device,
+                      smi: str):
+    """Phase 22, from the files: Q4's NOT EXISTS twin (a left anti join),
+    semi + anti equal to the quarter's orders per priority; the right and
+    full outer joins of the quarter's orders and the late lines, counted
+    by priority with the null group; each exact against numpy twice, each
+    plan the reference's."""
+    out = {}
+    for how in ("left_anti", "right", "full"):
+        want = q4_reference(orders, lineitem, how)
+        q = _q4_files_query(o_paths, l_paths, how, Q12_CONF, device)
+        res = _q12_collects(q, want, f"Q4 {how}", len(lineitem["l_orderkey"]),
+                            smi)
+        check_plan(q, q4_plan(how), f"Q4 {how}")
+        out[how] = res
+        del res["query"]
+    anti = dict(q4_reference(orders, lineitem, "left_anti"))
+    odate = orders["o_orderdate"]
+    quarter = (odate >= Q4_QUARTER[0]) & (odate < Q4_QUARTER[1])
+    per = np.bincount(orders["o_orderpriority"][quarter],
+                      minlength=len(Q12_PRIORITIES))
+    for i, p in enumerate(Q12_PRIORITIES):
+        if dict(semi).get(p, 0) + anti.get(p, 0) != int(per[i]):
+            fail(f"Q4: semi + anti of {p} is not the quarter's orders")
+    log(f"Q4 join types: anti, right and full outer exact; semi + anti == "
+        f"the quarter's {int(quarter.sum())} orders per priority [{smi}]")
+    return out
+
+
+def run_q4_ooc(orders, lineitem, pool: int, device, smi: str):
+    """Phase 22, from memory under phase 12's conf (the capped pool, a
+    batch goal of an eighth of it, no broadcast, no adaptive execution):
+    Q4 and its anti twin, each collected once, exact; the built late
+    lines are over the goal, so the join sub-partitions (>= 2 buckets),
+    and nothing leaks."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.memory.spill import peek_spill_framework
+    from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
+
+    ors, lrs = q4_schemas(T)
+    n = len(lineitem["l_orderkey"])
+    out = {}
+    for how in ("left_semi", "left_anti"):
+        s = S.TpuSession(ooc_conf(pool, n), device=device)
+
+        def frame(table, sch):
+            return S.DataFrame(LocalTableScan(q12_host_columns(
+                table, sch, 0, len(table[sch.fields[0].name])), sch), s)
+
+        q = q4_query(frame(orders, ors), frame(lineitem, lrs), S, how)
+        want = q4_reference(orders, lineitem, how)
+        # one collect each: the sub-partitioned join at SF10 takes about
+        # half a minute under this pool
+        res = _ooc_collects(q, lambda rows: None if rows == want else
+                            f"{rows} != {want}", f"Q4 {how} out of core", n,
+                            smi, warm=False)
+        join = q._planned().children[0].children[0]
+        if not join.sub_partitions or join.sub_partitions < 2:
+            fail(f"Q4 {how} out of core: the join did not sub-partition")
+        fw = peek_spill_framework()
+        leaks = fw.leak_report() if fw is not None else []
+        leaks += s.close()
+        if leaks:
+            fail(f"Q4 {how} out of core: leaks {leaks[:3]}")
+        log(f"Q4 {how} out of core: the join sub-partitioned both sides "
+            f"into {join.sub_partitions} buckets; spills "
+            f"{res['metrics']['spillToHostCount']}; no leak [{smi}]")
+        res["buckets"] = join.sub_partitions
+        del res["query"]
+        out[how] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# TPC-H Q1 (spec 2.4.1): three avgs over 128-bit sums, a CPU stage with
+# strings and decimal products above 18 digits, from Parquet at SF10
+# ---------------------------------------------------------------------------
+
+Q1_FLAGS = ("A", "N", "R")
+Q1_STATUS = ("F", "O")
+Q1_VALUES = {"l_returnflag": Q1_FLAGS, "l_linestatus": Q1_STATUS}
+Q1_CURRENT = 9298                  # 1995-06-17, TPC-H's CURRENTDATE
+Q1_SHIP_MAX = 10471                # 1998-09-02 = 1998-12-01 - 90 days
+
+
+def lineitem_q1(n: int, scale: float, seed: int):
+    """The columns Q1 reads, by TPC-H 4.2.3, from ``seed``: L_QUANTITY in
+    [1, 50], L_EXTENDEDPRICE = quantity x the part's retail price (as
+    ``lineitem_q6``), L_DISCOUNT in [0.00, 0.10], L_TAX in [0.00, 0.08]
+    (unscaled cents), L_SHIPDATE = orderdate + [1, 121], L_RECEIPTDATE =
+    shipdate + [1, 30]; L_RETURNFLAG R or A where the receipt is on or
+    before 1995-06-17, else N, and L_LINESTATUS O where the ship date is
+    after it, else F (codes into ``Q1_FLAGS`` and ``Q1_STATUS``)."""
+    rng = np.random.default_rng(seed)
+    quantity = rng.integers(1, 51, n, dtype=np.int64)
+    partkey = rng.integers(1, max(int(scale * 200_000), 1) + 1, n,
+                           dtype=np.int64)
+    retail = (90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1_000))
+    orderdate = rng.integers(8035, 10440 + 1, n, dtype=np.int64)
+    ship = (orderdate + rng.integers(1, 122, n)).astype(np.int32)
+    receipt = ship + rng.integers(1, 31, n).astype(np.int32)
+    flag = np.where(receipt <= Q1_CURRENT,
+                    np.where(rng.integers(0, 2, n) == 0, 0, 2), 1)
+    return {"l_quantity": quantity * 100,
+            "l_extendedprice": quantity * retail,
+            "l_discount": rng.integers(0, 11, n, dtype=np.int64),
+            "l_tax": rng.integers(0, 9, n, dtype=np.int64),
+            "l_shipdate": ship,
+            "l_returnflag": flag.astype(np.int8),
+            "l_linestatus": (ship > Q1_CURRENT).astype(np.int8)}
+
+
+def q1_schema(T):
+    """lineitem as Q1's files hold it and Q1 reads it: the money columns
+    DECIMAL(12,2) (INT64 annotated, as Spark writes them)."""
+    money = T.DecimalType(12, 2)
+    return T.StructType([T.StructField(nm, t, False) for nm, t in (
+        ("l_quantity", money), ("l_extendedprice", money),
+        ("l_discount", money), ("l_tax", money), ("l_shipdate", T.DATE),
+        ("l_returnflag", T.STRING), ("l_linestatus", T.STRING))])
+
+
+def q1_query(lineitem, mod):
+    """TPC-H Q1 over a DataFrame of the package whose session module is
+    ``mod``, its charge and discounted price projected before the
+    aggregate: the lines shipped by 1998-09-02, grouped by return flag
+    and line status, four sums, three averages and the count, ordered by
+    the keys."""
+    import datetime as dt
+
+    col, lit = mod.col, mod.lit
+
+    def disc():
+        return col("l_extendedprice") * (lit(1) - col("l_discount"))
+
+    li = (lineitem.filter(col("l_shipdate") <= lit(dt.date(1998, 9, 2)))
+          .select("l_returnflag", "l_linestatus", "l_quantity",
+                  "l_extendedprice", "l_discount",
+                  disc().alias("disc_price"),
+                  (disc() * (lit(1) + col("l_tax"))).alias("charge")))
+    return (li.group_by("l_returnflag", "l_linestatus")
+            .agg(mod.sum_("l_quantity", "sum_qty"),
+                 mod.sum_("l_extendedprice", "sum_base_price"),
+                 mod.sum_("disc_price", "sum_disc_price"),
+                 mod.sum_("charge", "sum_charge"),
+                 mod.avg_("l_quantity", "avg_qty"),
+                 mod.avg_("l_extendedprice", "avg_price"),
+                 mod.avg_("l_discount", "avg_disc"),
+                 mod.count_(None, "count_order"))
+            .order_by("l_returnflag", "l_linestatus"))
+
+
+def _exact_sum(x) -> int:
+    """An int64 array's exact sum (past int64) over 32-bit halves."""
+    x = np.asarray(x, np.int64)
+    return (int(np.sum(x >> 32, dtype=np.int64)) << 32) \
+        + int(np.sum(x & 0xFFFFFFFF, dtype=np.int64))
+
+
+def _avg_half_up(s: int, n: int, shift: int) -> int:
+    """round_half_up(s * 10^shift / n) for an exact integer ``s``."""
+    num = abs(s) * 10 ** shift
+    q, r = divmod(num, n)
+    q += 2 * r >= n
+    return -q if s < 0 else q
+
+
+def q1_reference(li):
+    """Q1 in numpy and Python integers: [(flag, status, sum_qty,
+    sum_base_price, sum_disc_price, sum_charge, avg_qty, avg_price,
+    avg_disc, count)] with the decimals as ``Decimal`` at Spark's result
+    scales (sums 2, 2, 4, 6; averages 6, HALF_UP), ordered by the
+    keys."""
+    keep = li["l_shipdate"] <= Q1_SHIP_MAX
+    flag = li["l_returnflag"][keep]
+    status = li["l_linestatus"][keep]
+    qty = li["l_quantity"][keep]
+    ep = li["l_extendedprice"][keep]
+    disc = li["l_discount"][keep]
+    dp = ep * (100 - disc)                                  # scale 4
+    charge = dp * (100 + li["l_tax"][keep])                 # scale 6
+    out = []
+    for fi, f in enumerate(Q1_FLAGS):
+        for si, st in enumerate(Q1_STATUS):
+            g = (flag == fi) & (status == si)
+            n = int(g.sum())
+            if not n:
+                continue
+            s_qty, s_ep, s_disc = (_exact_sum(c[g]) for c in (qty, ep, disc))
+            out.append((f, st, Decimal(s_qty).scaleb(-2),
+                        Decimal(s_ep).scaleb(-2),
+                        Decimal(_exact_sum(dp[g])).scaleb(-4),
+                        Decimal(_exact_sum(charge[g])).scaleb(-6),
+                        Decimal(_avg_half_up(s_qty, n, 4)).scaleb(-6),
+                        Decimal(_avg_half_up(s_ep, n, 4)).scaleb(-6),
+                        Decimal(_avg_half_up(s_disc, n, 4)).scaleb(-6), n))
+    return out
+
+
+def q1_plan():
+    """The reference's plan for Q1 (explain on the CPU, the scan as
+    ``<scan>``): the sort over the aggregate over the CPU stage (the
+    Project, whose charge multiplies a decimal(26,4)), over the device
+    filter and scan, with the reference's reason."""
+    return [
+        "TpuSort [l_returnflag ASC, l_linestatus ASC]",
+        "  TpuHashAggregate(Complete) keys=[l_returnflag, l_linestatus] "
+        "aggs=[sum(l_quantity) AS sum_qty, sum(l_extendedprice) AS "
+        "sum_base_price, sum(disc_price) AS sum_disc_price, sum(charge) AS "
+        "sum_charge, avg(l_quantity) AS avg_qty, avg(l_extendedprice) AS "
+        "avg_price, avg(l_discount) AS avg_disc, count_star(*) AS "
+        "count_order]",
+        "    TpuRowToColumnar <- Project [l_returnflag, l_linestatus, "
+        "l_quantity, l_extendedprice, l_discount, (l_extendedprice * "
+        "(CAST(1 AS decimal(10,0)) - l_discount)) AS disc_price, "
+        "((l_extendedprice * (CAST(1 AS decimal(10,0)) - l_discount)) * "
+        "(CAST(1 AS decimal(10,0)) + l_tax)) AS charge]",
+        "Fallback reasons:",
+        "        !Project cannot run on TPU because decimal multiply with an "
+        "operand above 18 digits is not supported on TPU (needs 256-bit "
+        "intermediates)"]
+
+
+def write_q1_files(li, out_dir: str, device, n_files: int = N_FILES):
+    """lineitem as ``n_files`` snappy files, one row group each: the
+    numeric columns dictionary-encoded by the port's writer (the money
+    columns INT64 annotated DECIMAL(12,2)), the two strings by
+    ``encode_dict_strings`` (index widths 2 and 1)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.io import parquet_encode as PE
+    from spark_rapids_tpu_torch.io.parquet_native import CODEC_SNAPPY
+
+    sch = q1_schema(T)
+    os.makedirs(out_dir, exist_ok=True)
+    n = len(li["l_quantity"])
+    bounds = np.linspace(0, n, n_files + 1).astype(np.int64)
+    paths = []
+    for i in range(n_files):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        chunks = [encode_dict_strings(f, li[f.name][lo:hi],
+                                      Q1_VALUES[f.name], device, CODEC_SNAPPY)
+                  if f.name in Q1_VALUES else
+                  PE.encode_column(f, HostColumn.from_numpy(
+                      li[f.name][lo:hi], f.dataType), hi - lo, CODEC_SNAPPY,
+                      True, device)
+                  for f in sch.fields]
+        path = os.path.join(out_dir, f"lineitem-q1-{i:02d}.parquet")
+        PE.write_chunks(path, sch, chunks, hi - lo)
+        paths.append(path)
+    return paths
+
+
+def run_q1(paths, want, n: int, device, smi: str):
+    """Phase 23: Q1 from its files, collected twice, exact; the plan the
+    reference's (the Project a CPU stage); K1 once per dictionary column
+    chunk in the timed collect."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+
+    sch = q1_schema(T)
+    s = S.TpuSession(Q12_CONF, device=device)
+    q = q1_query(s.read.schema(sch).parquet(*paths), S)
+    chunks = dict_chunks(paths, sch)
+    out = _q12_collects(q, want, "Q1 parquet", n, smi)
+    check_plan(q, q1_plan(), "Q1")
+    if out["launches"] != chunks:
+        fail(f"Q1: K1 launched {out['launches']} times, not once for each "
+             f"of the {chunks} dictionary column chunks")
+    log(f"Q1 parquet: K1 launches {out['launches']} == {chunks} dictionary "
+        f"chunks [{smi}]")
+    return out
+
+
+def q1_breakdown(q, smi: str):
+    """Where a Q1 collect spends its time, step by step: the device scan
+    and filter with their download (the CPU stage's input), the CPU stage
+    (the Project: two decimal products, one of them 128 x 64 bits, on
+    limbs), the upload, the aggregate, the sort; with the stage's
+    ``bytes_d2h`` and ``bytes_h2d``."""
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.cpu.oracle import eval_expr
+    from spark_rapids_tpu_torch.memory.spill import get_spill_framework
+
+    get_spill_framework(q.session.conf, q.session.device)
+    sort = fresh_plan(q)
+    agg = sort.children[0]
+    r2c = agg.children[0]
+    proj = r2c.cpu_plan
+    torch.cuda.synchronize()
+    snap = PC.snapshot()
+    t0 = time.perf_counter()
+    cols, rows = proj.children[0].materialize_cpu()
+    t_scan = time.perf_counter() - t0
+    d2h = PC.since(snap)["bytes_d2h"]
+    t0 = time.perf_counter()
+    host = [eval_expr(e, cols, rows).to_host() for e in proj.exprs]
+    t_cpu = time.perf_counter() - t0
+    del cols
+    snap = PC.snapshot()
+    t0 = time.perf_counter()
+    batches = list(r2c.upload(host))
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    h2d = PC.since(snap)["bytes_h2d"]
+    del host
+    agg.children[0] = _Replay(batches, r2c.output)
+    t_agg, out = _timed_run(agg)
+    del batches
+    sort.children[0] = _Replay(out, agg.output)
+    t_sort, _ = _timed_run(sort)
+    log(f"Q1 breakdown: device scan + filter + download {t_scan:.4f} s "
+        f"(bytes_d2h {d2h}), CPU stage {t_cpu:.4f} s ({rows} rows), upload "
+        f"{t_up:.4f} s (bytes_h2d {h2d}), aggregate {t_agg:.4f} s, sort "
+        f"{t_sort:.4f} s [{smi}]")
+    return {"scan": t_scan, "cpu": t_cpu, "upload": t_up, "agg": t_agg}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -3745,15 +4284,65 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
     q12_ooc = run_q12_ooc(orders, lineitem, want_q12, OOC_POOL, device, smi)
-    del orders, lineitem
     log(f"phase 20 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 21. TPC-H Q4 from phase 19's files: EXISTS as a left semi join
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    want_q4 = q4_reference(orders, lineitem)
+    q4 = run_q4(o_paths, l_paths, want_q4, q4_build_bytes(lineitem), n_li,
+                device, smi)
+    q4_breakdown(q4["query"], smi)
+    profile_collect(q4["query"], want_q4, "Q4 parquet")
+    del q4["query"]
+    log(f"phase 21 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 22. the other join types on Q4's tables: the anti twin, right and
+    # full outer from the files; Q4 and its twin sub-partitioned in memory
+    t0 = time.perf_counter()
+    q4_types = run_q4_join_types(o_paths, l_paths, orders, lineitem, want_q4,
+                                 device, smi)
+    torch.cuda.empty_cache()
+    q4_ooc = run_q4_ooc(orders, lineitem, OOC_POOL, device, smi)
+    del orders, lineitem
+    log(f"phase 22 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 23. TPC-H Q1 at SF10 from 8 new files: avg over 128-bit sums, a CPU
+    # stage with strings and a 128 x 64-bit decimal product
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    li1 = lineitem_q1(n, args.scale, args.seed + 1)
+    want_q1 = q1_reference(li1)
+    ref_s = time.perf_counter() - t0
+    q1_dir = os.path.join(HERE, "spark_rapids_tpu_torch", "build",
+                          f"q1_sf{args.scale:g}_seed{args.seed + 1}")
+    q1_paths = write_q1_files(li1, q1_dir, device)
+    del li1
+    log(f"Q1 data: {n} lineitem rows in {N_FILES} files "
+        f"({sum(os.path.getsize(p) for p in q1_paths)} bytes); generated "
+        f"with the numpy reference in {ref_s:.1f} s, written in "
+        f"{time.perf_counter() - t0 - ref_s:.1f} s")
+    log("Q1 dictionary index widths: " + str(sorted(
+        {(name, page.index_bit_width) for p in q1_paths
+         for name, page in main_path_pages(p)})))
+    from spark_rapids_tpu_torch import types as _T
+    q1_k1_err, q1_widths = check_string_k1(
+        [q1_paths[0]], lambda p: q1_schema(_T), device, smi, "Q1")
+    if not {1, 2} <= set(q1_widths):
+        fail(f"Q1: the string index tables have widths {q1_widths}, not 1 "
+             "and 2")
+    q1 = run_q1(q1_paths, want_q1, n, device, smi)
+    q1_breakdown(q1["query"], smi)
+    profile_collect(q1["query"], want_q1, "Q1 parquet")
+    del q1["query"]
+    log(f"phase 23 wall time {time.perf_counter() - t0:.1f} s")
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": q6["launches"],
-        "max_abs_err": max(err, q12_k1_err),
+        "max_abs_err": max(err, q12_k1_err, q1_k1_err),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -3775,6 +4364,11 @@ def main(argv=None) -> int:
         "q6_hot_hit_launches": hot["big"]["second"][2],
         "q12_launches": q12["launches"],
         "q12_ooc_launches": q12_ooc["launches"],
+        "q4_launches": q4["launches"],
+        "q4_join_types_launches": sum(r["launches"]
+                                      for r in q4_types.values()),
+        "q4_ooc_launches": sum(r["launches"] for r in q4_ooc.values()),
+        "q1_launches": q1["launches"],
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

@@ -8,23 +8,35 @@ runs here; its device children reach it through ``TpuMaterializedScan``
 (``overrides/transitions.py``), and a device parent reads its output
 through ``TpuRowToColumnarExec`` (``exec/transitions.py``).
 
-The reference's oracle holds decimals and structs as Python objects, one
-per row.  This copy keeps every column in its storage form, as the host
-columns hold it (``columnar/column.py``): unscaled int64 or ``[hi, lo]``
-limbs for decimals, one child column per struct field.  Moving a column
-through a stage, selecting rows or picking a struct field is then a numpy
-view or gather, and a CPU stage over tens of millions of rows takes
-seconds.  Arithmetic goes through Python integers where the reference's
-does (decimals, and integers where Java wraps), so values, nulls and
-errors are the reference's.
+The reference's oracle holds decimals, strings and structs as Python
+objects, one per row.  This copy keeps every column in its storage form,
+as the host columns hold it (``columnar/column.py``): unscaled int64 or
+``[hi, lo]`` limbs for decimals, a zero-padded char matrix and lengths
+for strings, one child column per struct field.  Moving a column through
+a stage, selecting rows or picking a struct field is then a numpy view or
+gather.  Decimal ``+``, ``-``, ``*`` and casts to a decimal run on int64
+limbs, with the port's own ``expr/decimal128.py`` functions on CPU
+tensors: exact in 128 bits, a result past 10^precision (or past 128 bits)
+null, or an error under ANSI, as the reference's Python integers give
+them.  A product of two 128-bit operands needs one of them within 64 bits
+(``decimal128.mul128_checked``); a larger product is past 38 digits
+anyway.  The Python-integer versions stay as the plain twins that the
+tests hold the limb path against (``_h_binarith_py``, ``_h_cast_py``);
+integer arithmetic and 128-bit comparisons still go through Python
+integers.  A subtree without a column reference (the cast of a literal)
+is evaluated for one row and broadcast.  So a stage of several decimal
+products over tens of millions of rows takes seconds on a few cores,
+where Python integers take minutes.
 
 The nodes it runs are ``LocalTableScan``, ``Filter``, ``Project``,
 ``Union`` and ``TpuMaterializedScan``; the expressions, those the port
 runs on the card (references, literals, ``Alias``, comparisons, boolean
 logic, ``IsNull``/``IsNotNull``, ``In``, ``If``/``CaseWhen``,
 ``Add``/``Subtract``/``Multiply``, integral and decimal ``Cast``,
-``Coalesce``/``Nvl``) and the struct expressions, over flat columns (a
-string column in a CPU stage is not ported).  ``check_cpu_plan`` raises
+``Coalesce``/``Nvl``) and the struct expressions.  A string column passes
+through references, ``Alias``, ``If``/``CaseWhen`` and ``Coalesce``/
+``Nvl`` and is read by comparisons (bytes, then length, as on the card),
+``In`` and ``IsNull``/``IsNotNull``.  ``check_cpu_plan`` raises
 ``NotOnGpu`` at plan time for anything else, naming it.
 """
 from __future__ import annotations
@@ -54,40 +66,78 @@ _U64 = 1 << 64
 @dataclasses.dataclass
 class CpuCol:
     """One host column in storage form: ``values`` as ``HostColumn.data``
-    (None for a struct, whose ``children`` hold its fields) and a bool
-    ``validity``."""
+    (None for a struct, whose ``children`` hold its fields, and for a
+    string, whose ``chars`` (n, width) uint8 and ``lengths`` int32 hold
+    it, as in ``columnar/column.py``) and a bool ``validity``."""
 
     dtype: T.DataType
     values: Optional[np.ndarray]
     validity: np.ndarray
     children: Optional[List["CpuCol"]] = None
+    chars: Optional[np.ndarray] = None
+    lengths: Optional[np.ndarray] = None
 
     @property
     def n(self) -> int:
         return len(self.validity)
 
+    @property
+    def is_string(self) -> bool:
+        return self.chars is not None
+
     @staticmethod
     def from_host(h: HostColumn) -> "CpuCol":
         kids = (None if h.children is None
                 else [CpuCol.from_host(c) for c in h.children])
-        return CpuCol(h.dtype, h.data, h.validity, kids)
+        return CpuCol(h.dtype, h.data, h.validity, kids, h.chars, h.lengths)
 
     def to_host(self) -> HostColumn:
         kids = (None if self.children is None
                 else [c.to_host() for c in self.children])
         return HostColumn(self.dtype, self.validity, data=self.values,
-                          children=kids)
+                          children=kids, chars=self.chars,
+                          lengths=self.lengths)
 
     def take(self, rows) -> "CpuCol":
         """The rows ``rows`` (a bool mask or indices) selects."""
         kids = (None if self.children is None
                 else [c.take(rows) for c in self.children])
         vals = None if self.values is None else self.values[rows]
+        if self.is_string:
+            return CpuCol(self.dtype, None, self.validity[rows], None,
+                          self.chars[rows], self.lengths[rows])
         return CpuCol(self.dtype, vals, self.validity[rows], kids)
+
+    def with_width(self, width: int) -> "CpuCol":
+        """A string column's chars padded (zeros) or cut to ``width``."""
+        if not self.is_string or self.chars.shape[1] == width:
+            return self
+        chars = np.zeros((self.n, width), np.uint8)
+        w = min(width, self.chars.shape[1])
+        chars[:, :w] = self.chars[:, :w]
+        return CpuCol(self.dtype, None, self.validity, None, chars,
+                      self.lengths)
+
+    def broadcast(self, n: int) -> "CpuCol":
+        """A one-row column as ``n`` equal rows (read-only views)."""
+        def b(a):
+            return None if a is None else np.broadcast_to(
+                a, (n,) + a.shape[1:])
+        kids = (None if self.children is None
+                else [c.broadcast(n) for c in self.children])
+        return CpuCol(self.dtype, b(self.values), b(self.validity), kids,
+                      b(self.chars), b(self.lengths))
 
     @staticmethod
     def concat(cols: List["CpuCol"]) -> "CpuCol":
         first = cols[0]
+        if first.is_string:
+            w = max(c.chars.shape[1] for c in cols)
+            cols = [c.with_width(w) for c in cols]
+            return CpuCol(first.dtype, None,
+                          np.concatenate([c.validity for c in cols]), None,
+                          np.concatenate([c.chars for c in cols]),
+                          np.concatenate([c.lengths for c in cols]))
         kids = (None if first.children is None
                 else [CpuCol.concat([c.children[i] for c in cols])
                       for i in range(len(first.children))])
@@ -160,11 +210,20 @@ def _java_wrap(vals, validity, dt, ansi: bool, what: str) -> np.ndarray:
 
 # -- expressions ------------------------------------------------------------
 
+def _constant(e: Expression) -> bool:
+    """No column reference below ``e``: one value for every row."""
+    return not isinstance(e, BoundReference) and all(
+        _constant(c) for c in e.children)
+
+
 def eval_expr(e: Expression, cols: CpuBatch, n: int,
               ansi: bool = False) -> CpuCol:
     h = _HANDLERS.get(type(e))
     if h is None:
         raise NotOnGpu(f"expression {type(e).__name__} in a CPU stage")
+    if n > 1 and not isinstance(e, Literal) and _constant(e):
+        # a constant subtree (the cast of a literal) is evaluated once
+        return h(e, cols, 1, ansi).broadcast(n)
     return h(e, cols, n, ansi)
 
 
@@ -181,10 +240,19 @@ def _h_literal(e: Literal, cols, n, ansi):
     valid = np.full(n, e.value is not None, np.bool_)
     if isinstance(dt, T.NullType):
         return CpuCol(dt, np.zeros(n, np.int32), valid)
+    if isinstance(dt, T.StringType):
+        raw = (b"" if e.value is None else e.value if isinstance(
+            e.value, bytes) else str(e.value).encode("utf-8"))
+        row = np.zeros((1, max(len(raw), 1)), np.uint8)
+        row[0, :len(raw)] = np.frombuffer(raw, np.uint8)
+        return CpuCol(dt, None, valid, None,
+                      np.broadcast_to(row, (n, row.shape[1])),
+                      np.full(n, len(raw), np.int32))
     v = e.storage_value() if e.value is not None else 0
     if isinstance(dt, T.DecimalType):
-        return CpuCol(dt, _from_py_ints(np.full(n, int(v), object), valid,
-                                        dt), valid)
+        row = _from_py_ints(np.array([int(v)], object),
+                            np.ones(1, np.bool_), dt)
+        return CpuCol(dt, np.repeat(row, n, axis=0), valid)
     return CpuCol(dt, np.full(n, v, T.storage_dtype(dt)), valid)
 
 
@@ -192,7 +260,141 @@ def _h_alias(e, cols, n, ansi):
     return eval_expr(e.children[0], cols, n, ansi)
 
 
+def _limbs(c: CpuCol):
+    """A decimal or integer column's values as torch (hi, lo) int64 limbs
+    on the CPU (views where the storage allows)."""
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    v = _tensor(c.values)
+    if _is_dec128(c.dtype):
+        return D.unpack(v)
+    return D.from64(v)
+
+
+def _from_limbs(hi, lo, dt: T.DecimalType) -> np.ndarray:
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    return (D.pack(hi, lo) if dt.is_128 else lo).numpy()
+
+
+def _limb_check(ok, validity, ansi: bool, op: str) -> np.ndarray:
+    """Validity with the rows where ``ok`` (torch) fails nulled, or under
+    ANSI an error if a valid row fails (the reference's ``_dec_check``)."""
+    bad = validity & ~ok.numpy()
+    if bad.any():
+        if ansi:
+            raise SparkArithmeticException(f"decimal {op} overflow (ANSI)")
+        return validity & ~bad
+    return validity
+
+
+def _tensor(a: np.ndarray):
+    """A CPU tensor over ``a`` (torch's elementwise ops use every core)."""
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _valid_only(t, validity: np.ndarray):
+    """``t`` with its invalid rows zeroed (as is, when every row is
+    valid)."""
+    return t if validity.all() else t.where(_tensor(validity), 0)
+
+
+def _one_limb(c: CpuCol, validity):
+    """A decimal column's values as an int64 tensor when every valid one
+    fits a single limb (a 128-bit value whose high word is its low word's
+    sign), else None."""
+    if not _is_dec128(c.dtype):
+        return _tensor(c.values.astype(np.int64, copy=False))
+    hi, lo = _tensor(c.values[:, 0]), _tensor(c.values[:, 1])
+    if bool(_valid_only(hi != (lo >> 63), validity).any()):
+        return None
+    return lo
+
+
+def _small_product(l: CpuCol, r: CpuCol, validity):
+    """The int64 product (a tensor) of two decimal columns where every
+    valid product is below 2^62 in magnitude (the largest magnitudes, read
+    on the host, say so), else None: the limb multiply is then exact but
+    not needed."""
+    a, b = _one_limb(l, validity), _one_limb(r, validity)
+    if a is None or b is None or not validity.any():
+        return None
+    a, b = _valid_only(a, validity), _valid_only(b, validity)
+    amax = max(int(a.max()), -int(a.min()))
+    bmax = max(int(b.max()), -int(b.min()))
+    if amax * bmax >= 1 << 62:
+        return None
+    return a * b
+
+
+def _dec_binarith(e: A.BinaryArithmetic, l: CpuCol, r: CpuCol, validity,
+                  ansi: bool) -> CpuCol:
+    """Decimal ``+``, ``-`` and ``*`` on int64 limbs (torch on the CPU,
+    ``expr/decimal128.py``): exact in 128 bits, a result past 10^precision
+    (or past 128 bits) null, or an error under ANSI.  In one int64 where
+    the operands and the result are within 18 digits, as on the card, and
+    for a product above 18 digits whose operands' largest magnitudes
+    multiply to less than 2^62 (``_small_product``).
+    ``_h_binarith_py`` is its Python-integer twin."""
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    dt = e.dataType
+    lt, rt = e.left.dataType, e.right.dataType
+    name = type(e).__name__
+    if not (dt.is_128 or lt.is_128 or rt.is_128):
+        # every value within 18 digits: int64 cannot wrap (an operand
+        # rescaled, a sum or a product stays below 10^18)
+        a, b = _tensor(l.values), _tensor(r.values)
+        if name == "Multiply":
+            out = a * b
+        else:
+            a = a * 10 ** (dt.scale - lt.scale)
+            b = b * 10 ** (dt.scale - rt.scale)
+            out = a + b if name == "Add" else a - b
+        bound = 10 ** dt.precision
+        validity = _limb_check((out < bound) & (out > -bound), validity,
+                               ansi, name.lower())
+        return CpuCol(dt, _valid_only(out, validity).numpy(), validity)
+    if name == "Multiply":
+        small = _small_product(l, r, validity)
+        if small is not None:
+            # |product| < 2^62 < 10^19 <= 10^precision: in bounds
+            return CpuCol(dt, _from_limbs(small >> 63, small, dt), validity)
+    ah, al = _limbs(l)
+    bh, bl = _limbs(r)
+    if name == "Multiply":
+        if lt.is_128 or rt.is_128:
+            over, rh, rl = D.mul128_checked(ah, al, bh, bl)
+        else:
+            rh, rl = D.mul64_to_128(al, bl)     # exact, cannot wrap
+            over = None
+    else:
+        oa, ah, al = D.mul128_pow10(ah, al, dt.scale - lt.scale)
+        ob, bh, bl = D.mul128_pow10(bh, bl, dt.scale - rt.scale)
+        if name == "Subtract":
+            bh, bl = D.neg128(bh, bl)
+        rh, rl = D.add128(ah, al, bh, bl)
+        # signed 128 wrap: same operand signs, a different result sign
+        over = oa | ob | (((ah < 0) == (bh < 0)) & ((rh < 0) != (ah < 0)))
+    ok = D.in_bounds(rh, rl, dt.precision)
+    if over is not None:
+        ok = ok & ~over
+    validity = _limb_check(ok, validity, ansi, name.lower())
+    return CpuCol(dt, _from_limbs(rh, rl, dt), validity)
+
+
 def _h_binarith(e: A.BinaryArithmetic, cols, n, ansi):
+    if isinstance(e.dataType, T.DecimalType):
+        l, r = _kids(e, cols, n, ansi)
+        return _dec_binarith(e, l, r, l.validity & r.validity, ansi)
+    return _h_binarith_py(e, cols, n, ansi)
+
+
+def _h_binarith_py(e: A.BinaryArithmetic, cols, n, ansi):
+    """Arithmetic through Python integers (decimals) or Java-wrapped ones
+    (integers); for decimals the plain twin of ``_dec_binarith``."""
     l, r = _kids(e, cols, n, ansi)
     validity = l.validity & r.validity
     dt = e.dataType
@@ -229,9 +431,34 @@ _CMP = {P.EqualTo: lambda a, b: a == b, P.LessThan: lambda a, b: a < b,
         P.GreaterThanOrEqual: lambda a, b: a >= b}
 
 
+def _str_compare(l: CpuCol, r: CpuCol):
+    """(lt, eq) of two string columns row by row: the first differing
+    byte, else the shorter is smaller (``expr/predicates.py``'s
+    ``string_compare``)."""
+    w = max(l.chars.shape[1], r.chars.shape[1])
+    a, b = l.with_width(w).chars, r.with_width(w).chars
+    diff = a != b
+    any_diff = diff.any(axis=1)
+    first = diff.argmax(axis=1)
+    rows = np.arange(len(first))
+    lt = np.where(any_diff, a[rows, first] < b[rows, first],
+                  l.lengths < r.lengths)
+    eq = ~any_diff & (l.lengths == r.lengths)
+    return lt, eq
+
+
+_STR_CMP = {P.EqualTo: lambda lt, eq: eq, P.LessThan: lambda lt, eq: lt,
+            P.LessThanOrEqual: lambda lt, eq: lt | eq,
+            P.GreaterThan: lambda lt, eq: ~lt & ~eq,
+            P.GreaterThanOrEqual: lambda lt, eq: ~lt}
+
+
 def _h_comparison(e, cols, n, ansi):
     l, r = _kids(e, cols, n, ansi)
     validity = l.validity & r.validity
+    if l.is_string:
+        return CpuCol(T.BOOLEAN, _STR_CMP[type(e)](*_str_compare(l, r)),
+                      validity)
     if _is_dec128(e.left.dataType):
         a, b = _py_ints(l), _py_ints(r)
     else:
@@ -275,17 +502,22 @@ def _h_coalesce(e, cols, n, ansi):
     kids = _kids(e, cols, n, ansi)
     acc = kids[-1]
     for c in reversed(kids[:-1]):
-        take = c.validity if acc.values.ndim == 1 else c.validity[:, None]
-        acc = CpuCol(e.dataType, np.where(take, c.values, acc.values),
-                     c.validity | acc.validity)
+        acc = _select(c.validity, c, acc, e.dataType)
     return acc
 
 
 def _select(take, a: CpuCol, b: CpuCol, dt) -> CpuCol:
-    """where(take, a, b) over values and validity."""
+    """where(take, a, b) over values (a string's chars and lengths) and
+    validity."""
+    validity = np.where(take, a.validity, b.validity)
+    if a.is_string:
+        w = max(a.chars.shape[1], b.chars.shape[1])
+        return CpuCol(dt, None, validity, None,
+                      np.where(take[:, None], a.with_width(w).chars,
+                               b.with_width(w).chars),
+                      np.where(take, a.lengths, b.lengths))
     t = take if a.values.ndim == 1 else take[:, None]
-    return CpuCol(dt, np.where(t, a.values, b.values),
-                  np.where(take, a.validity, b.validity))
+    return CpuCol(dt, np.where(t, a.values, b.values), validity)
 
 
 def _h_in(e, cols, n, ansi):
@@ -297,8 +529,12 @@ def _h_in(e, cols, n, ansi):
         if isinstance(ce, Literal) and ce.value is None:
             null_cand = True
             continue
-        eq = (v.values == c.values)
-        match |= (eq.all(axis=-1) if eq.ndim == 2 else eq) & c.validity
+        if v.is_string:
+            eq = _str_compare(v, c)[1]
+        else:
+            eq = (v.values == c.values)
+            eq = eq.all(axis=-1) if eq.ndim == 2 else eq
+        match |= eq & c.validity
     validity = v.validity & match if null_cand else v.validity
     return CpuCol(T.BOOLEAN, match, validity)
 
@@ -320,6 +556,37 @@ def _h_case_when(e, cols, n, ansi):
 
 
 def _h_cast(e: Cast, cols, n, ansi):
+    """A cast to a decimal on limbs (``decimal128.mul128_pow10`` up,
+    ``div128_pow10_half_up`` down), an integer narrowing by numpy's wrap;
+    ``_h_cast_py`` is the Python-integer twin."""
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    (c,) = _kids(e, cols, n, ansi)
+    src, dst = e.child.dataType, e.to
+    ansi = ansi or e.ansi_override
+    if src == dst:
+        return c
+    if isinstance(dst, _INTEGRAL):
+        out = c.values.astype(T.storage_dtype(dst))
+        if ansi and bool((c.validity & (out.astype(np.int64)
+                                        != c.values.astype(np.int64)))
+                         .any()):
+            raise SparkArithmeticException("cast overflow (ANSI)")
+        return CpuCol(dst, out, c.validity)
+    h, lo = _limbs(c)
+    diff = dst.scale - (src.scale if isinstance(src, T.DecimalType) else 0)
+    if diff >= 0:
+        over, h, lo = D.mul128_pow10(h, lo, diff)
+        ok = D.in_bounds(h, lo, dst.precision) & ~over
+    else:
+        h, lo = D.div128_pow10_half_up(h, lo, -diff)
+        ok = D.in_bounds(h, lo, dst.precision)
+    validity = _limb_check(ok, c.validity, ansi, "cast")
+    return CpuCol(dst, _from_limbs(h, lo, dst), validity)
+
+
+def _h_cast_py(e: Cast, cols, n, ansi):
+    """``_h_cast`` through Python integers (the plain twin)."""
     (c,) = _kids(e, cols, n, ansi)
     src, dst = e.child.dataType, e.to
     ansi = ansi or e.ansi_override
@@ -372,6 +639,11 @@ _HANDLERS = {
 
 # -- plans ------------------------------------------------------------------
 
+#: the expressions that yield a string in a CPU stage (a comparison,
+#: ``In`` and ``IsNull``/``IsNotNull`` read one)
+_STRING_EXPRS = frozenset({BoundReference, Literal, Alias, CO.If,
+                           CO.CaseWhen, CO.Coalesce, CO.Nvl})
+
 def _check_expr(e: Expression, why: str) -> None:
     if type(e) not in PORTED_EXPRS:
         raise NotOnGpu(f"expression {type(e).__name__} in a CPU stage "
@@ -379,8 +651,10 @@ def _check_expr(e: Expression, why: str) -> None:
     if isinstance(e, Cast) and not cast_supported(e.child.dataType, e.to):
         raise NotOnGpu(f"cast {e.child.dataType.simpleString} -> "
                        f"{e.to.simpleString} in a CPU stage ({why})")
-    if isinstance(e.dataType, (T.StringType, T.BinaryType, T.TimestampType,
-                               T.ArrayType, T.MapType)):
+    if isinstance(e.dataType, (T.BinaryType, T.TimestampType, T.ArrayType,
+                               T.MapType)) or (
+            isinstance(e.dataType, T.StringType)
+            and type(e) not in _STRING_EXPRS):
         raise NotOnGpu(f"type {e.dataType.simpleString} in a CPU stage "
                        f"({why})")
     for c in e.children:

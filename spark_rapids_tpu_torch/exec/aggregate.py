@@ -1,6 +1,9 @@
 """Hash aggregation — port of ``TpuHashAggregateExec``
-(``spark_rapids_tpu/exec/aggregate.py``) for ``sum``, ``count``, ``min``
-and ``max``, with and without grouping keys.
+(``spark_rapids_tpu/exec/aggregate.py``) for ``sum``, ``count``, ``min``,
+``max``, ``avg``, the variance family (``var_pop``, ``var_samp``,
+``stddev_pop``, ``stddev_samp``), ``count_if``, ``bool_and``/``bool_or``,
+``bit_and``/``bit_or``/``bit_xor`` and ``first``/``last``/``any_value``,
+with and without grouping keys.
 
 Group-by is sort-based, as in the reference: the key columns become key
 words (``ops/sortkeys.py``), one stable lexicographic sort orders the rows,
@@ -13,18 +16,29 @@ in the card's order.
 
 The plan rewrite builds the exec only in COMPLETE mode.  Each input batch
 is reduced to a buffer (one row per group) as it arrives; several buffers
-are concatenated once and reduced once more, with merge semantics (counts
-add).  A buffer has the output's columns plus an overflow flag for each
-decimal sum above 18 digits, so a sum that overflowed in one batch stays
-null through the merge (Spark's sum buffer keeps the same flag); the
-finish drops the flags.  Each input batch is reduced under ``with_retry``
+are concatenated once and reduced once more, with merge semantics, and the
+finish turns the buffer into the output.  Each aggregate's buffer is the
+reference's partial buffer: ``avg`` a (sum, count) pair, the variance
+family (n, mean, m2) doubles, merged by Chan's formula (the reference
+computes the moments of a whole batch in one pass; the port merges
+per-batch triples, so doubles may differ in the last digits), the others
+their result.  The port adds flags: a decimal sum above 18 digits and an
+``avg`` over one carry an overflow flag, so a sum that overflowed in one
+batch stays null through the merge (Spark's sum buffer keeps the same
+flag), and ``first``/``last``/``any_value`` a seen flag, so a batch that
+kept no row does not win the merge.  ``first``/``last``/``any_value``
+keep nulls (ignoreNulls false), as the reference's.  A decimal ``avg``
+is HALF_UP at the result scale; over a 128-bit sum it divides exactly by
+any count, where the reference nulls a group of 2^31 rows or more (ROADMAP
+Queue 3).  Each input batch is reduced under ``with_retry``
 over a spillable handle, as in the reference.  The reference's
 PARTIAL/FINAL twins, pairwise merges and finalize let it spill buffers
 between merges, which the port does not do: the buffers stay on the card
 until the one merge.  It absorbs the stage below it as ``pre_ops``
-(filters only narrow the row mask).  An empty grouped input yields no rows; an empty global input yields one row (counts 0,
-everything else null).  ``avg``, the moments, HLL, percentile and collect
-are not ported: the session rejects them.
+(filters only narrow the row mask).  An empty grouped input yields no
+rows; an empty global input yields one row (counts 0, everything else
+null).  Skewness, kurtosis, the covariance and ``regr_*`` family, HLL,
+percentile and collect are not ported: building one raises ``NotOnGpu``.
 """
 from __future__ import annotations
 
@@ -33,7 +47,8 @@ from typing import Iterator, List, Optional
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
+from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
+                                                   empty_batch, empty_column)
 from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
                                                     column_torch_dtype)
 from spark_rapids_tpu_torch.exec.base import TpuExec
@@ -44,7 +59,8 @@ from spark_rapids_tpu_torch.ops import segment as SEG
 from spark_rapids_tpu_torch.ops.sortkeys import (_column_key_words,
                                                  group_segments, lexsort)
 from spark_rapids_tpu_torch.perfcounters import sync_get
-from spark_rapids_tpu_torch.plan.nodes import (AggregateExpression,
+from spark_rapids_tpu_torch.plan.nodes import (VARIANCE_FUNCS,
+                                               AggregateExpression,
                                                AggregateMode)
 
 _INT64_MAX = 0x7FFFFFFFFFFFFFFF
@@ -145,49 +161,78 @@ class TpuHashAggregateExec(TpuExec):
                                self._merge_batch(ColumnarBatch.concat(bufs)))
         yield out
 
-    def _flagged(self) -> List[int]:
-        """Positions of the aggregates whose buffer carries an overflow
-        flag: the decimal sums above 18 digits."""
+    # -- buffers ----------------------------------------------------------
+    def _buf_fields(self, a: AggregateExpression, f: T.StructField
+                    ) -> List[T.StructField]:
+        """One aggregate's buffer columns (the reference's
+        ``partial_buffer_schema``, plus the port's flags): a sum above 18
+        digits and an ``avg`` over such a sum carry an overflow flag,
+        ``first``/``last``/``any_value`` a seen flag."""
+        name = f.name
+        flag = T.StructField(f"{name}_overflow", T.BOOLEAN, False)
+        if a.func == "sum":
+            return [f] + ([flag] if _sum_flagged(a, f.dataType) else [])
+        if a.func == "avg":
+            sdt = _avg_sum_type(a)
+            return ([T.StructField(f"{name}_sum", sdt),
+                     T.StructField(f"{name}_count", T.LONG, False)]
+                    + ([flag] if _is_dec128_type(sdt) else []))
+        if a.func in VARIANCE_FUNCS:
+            return [T.StructField(name + sfx, T.DOUBLE)
+                    for sfx in ("_n", "_avg", "_m2")]
+        if a.func in _PICK_FUNCS:
+            return [f, T.StructField(f"{name}_seen", T.BOOLEAN, False)]
+        return [f]
+
+    def _buffer_layout(self):
+        """Per aggregate: (its output field, its buffer fields)."""
         k = len(self.grouping)
-        return [i for i, (a, f) in enumerate(zip(
-            self.aggregates, self._output.fields[k:]))
-            if a.func == "sum" and isinstance(f.dataType, T.DecimalType)
-            and (f.dataType.is_128 or (a.child is not None and isinstance(
-                a.child.dataType, T.DecimalType)
-                and a.child.dataType.is_128))]
+        return [(f, self._buf_fields(a, f)) for a, f in
+                zip(self.aggregates, self._output.fields[k:])]
 
     def _buffer_schema(self) -> T.StructType:
-        return T.StructType(list(self._output.fields) + [
-            T.StructField(f"_overflow{i}", T.BOOLEAN, False)
-            for i in self._flagged()])
+        k = len(self.grouping)
+        return T.StructType(list(self._output.fields[:k]) + [
+            bf for _, bfs in self._buffer_layout() for bf in bfs])
+
+    def _split_buffer(self, cols):
+        """Buffer columns after the keys -> one list per aggregate."""
+        out, pos = [], 0
+        for _, bfs in self._buffer_layout():
+            out.append(list(cols[pos:pos + len(bfs)]))
+            pos += len(bfs)
+        return out
 
     def _merge_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
-        """Buffer rows -> one row per group (the reference's ``_merge_fn``):
-        counts add, sums add, min/max take min/max, overflow flags OR."""
+        """Buffer rows -> one buffer row per group (the reference's
+        ``_merge_fn``)."""
         k = len(self.grouping)
-        m = len(self.aggregates)
-        return self._reduce(batch.columns[:k], batch.columns[k:k + m],
-                            batch.row_mask, True, batch.columns[k + m:])
+        return self._reduce(batch.columns[:k],
+                            self._split_buffer(batch.columns[k:]),
+                            batch.row_mask, True)
 
     def _finish(self, buf: ColumnarBatch) -> ColumnarBatch:
-        """A buffer -> the output: a sum whose flag is set is null, or under
-        ANSI an error (one host sync, only under ANSI)."""
+        """A buffer -> the output: a sum or avg whose overflow flag is set
+        is null, or under ANSI an error (one host sync, only under ANSI
+        and only with flags)."""
         k = len(self.grouping)
-        n_out = len(self._output.fields)
-        cols = list(buf.columns[:n_out])
-        flags = buf.columns[n_out:]
-        if self.ansi and flags:
-            from spark_rapids_tpu_torch.expr.base import (
-                SparkArithmeticException)
+        per = self._split_buffer(buf.columns[k:])
+        if self.ansi:
+            flags = [bc[-1].data for (_, bfs), bc in
+                     zip(self._buffer_layout(), per)
+                     if bfs[-1].name.endswith("_overflow")]
+            if flags:
+                from spark_rapids_tpu_torch.expr.base import (
+                    SparkArithmeticException)
 
-            (hit,) = sync_get(torch.stack([f.data.any() for f in flags]))
-            if hit.any():
-                raise SparkArithmeticException(
-                    "decimal sum overflow (ANSI)")
-        for i, f in zip(self._flagged(), flags):
-            c = cols[k + i]
-            cols[k + i] = DeviceColumn(c.dtype, c.validity & ~f.data,
-                                       data=c.data)
+                (hit,) = sync_get(torch.stack([fl.any() for fl in flags]))
+                if hit.any():
+                    raise SparkArithmeticException(
+                        "decimal sum overflow (ANSI)")
+        cols = list(buf.columns[:k])
+        for a, (f, bfs), bc in zip(self.aggregates, self._buffer_layout(),
+                                   per):
+            cols.append(_final(a, f.dataType, bfs, bc))
         return ColumnarBatch(cols, buf.num_rows, self._output)
 
     def _aggregate_batch(self, batch: ColumnarBatch) -> ColumnarBatch:
@@ -199,8 +244,8 @@ class TpuHashAggregateExec(TpuExec):
             batch, mask = op.apply_masked(ctx, batch, mask)
         ctx.batch = batch
         keys = [g.eval_tpu(ctx) for g in self.grouping]
-        inputs = [self._input_col(a, ctx) for a in self.aggregates]
-        out = self._reduce(keys, inputs, mask, False, [])
+        inputs = [[self._input_col(a, ctx)] for a in self.aggregates]
+        out = self._reduce(keys, inputs, mask, False)
         ctx.check_errors()
         return out
 
@@ -214,76 +259,296 @@ class TpuHashAggregateExec(TpuExec):
                                                 device=dev))
         return a.child.eval_tpu(ctx)
 
-    def _reduce(self, keys, inputs, mask, merge: bool,
-                flags_in) -> ColumnarBatch:
-        """Rows (or, with ``merge``, buffer rows and their overflow flags
-        ``flags_in``) -> one buffer row per group."""
+    def _reduce(self, keys, inputs, mask, merge: bool) -> ColumnarBatch:
+        """Rows (each aggregate's input column) or, with ``merge``, buffer
+        rows (each aggregate's buffer columns) -> one buffer row per
+        group."""
         g = _group(keys, mask)
         out: List[DeviceColumn] = []
         if g.perm is not None:
             rows = g.perm[g.first]
             out += [kc.gather(rows) for kc in keys]
-        fields = self._output.fields[len(keys):]
-        flags = []
-        for a, c, f in zip(self.aggregates, inputs, fields):
-            col, flag = self._eval_agg(a, f, c, g, merge)
-            out.append(col.slice(0, g.num_groups))
-            if flag is not None:
-                flags.append(flag)
-        for j, fin in enumerate(flags_in):
-            fs = fin.data if g.perm is None else fin.data[g.perm]
-            flags[j] = flags[j] | (SEG.seg_count(fs & g.mask_sorted, g.seg,
-                                                 g.nseg) > 0)
-        out += [DeviceColumn(T.BOOLEAN, torch.ones_like(fl), data=fl)
-                .slice(0, g.num_groups) for fl in flags]
+        for a, (f, bfs), cols in zip(self.aggregates, self._buffer_layout(),
+                                     inputs):
+            cs = [c if g.perm is None else c.gather(g.perm) for c in cols]
+            fn = _merge_agg if merge else _update_agg
+            out += [c.slice(0, g.num_groups)
+                    for c in fn(a, f.dataType, bfs, cs, g)]
         return ColumnarBatch(out, g.num_groups, self._buffer_schema())
 
-    def _eval_agg(self, a: AggregateExpression, f: T.StructField,
-                  c: DeviceColumn, g: _Groups, merge: bool):
-        """One aggregate over the groups -> (column, overflow flag or
-        None).  Update semantics for raw rows; with ``merge`` the input is
-        a buffer (the reference's ``_eval_merge``): a count buffer is
-        summed."""
-        cs = c if g.perm is None else c.gather(g.perm)
-        validity = cs.validity & g.mask_sorted
-        nseg, seg = g.nseg, g.seg
-        func = "count" if a.func == "count_star" else a.func
-        if func == "count":
-            if merge:
-                cnt, _ = SEG.seg_sum(cs.data.to(torch.int64), validity, seg,
-                                     nseg)
-            else:
-                cnt = SEG.seg_count(validity, seg, nseg)
-            return DeviceColumn(T.LONG, torch.ones_like(cnt, dtype=torch.bool),
-                                data=cnt), None
-        dt = f.dataType
-        if func == "sum":
-            if isinstance(dt, T.DecimalType) and (dt.is_128 or cs.is_dec128):
-                return _sum_dec128(cs, validity, seg, nseg, dt)
-            s, has = SEG.seg_sum(_sum_input(cs, dt), validity, seg, nseg)
-            return DeviceColumn(dt, has, data=s.to(column_torch_dtype(dt))), \
-                None
-        if func in ("min", "max"):
-            if cs.is_dec128:
-                return _minmax_dec128(cs, func, seg, validity, nseg, dt), None
-            fn = SEG.seg_min if func == "min" else SEG.seg_max
-            m, has = fn(cs.data, validity, seg, nseg, _is_float(dt))
-            return DeviceColumn(dt, has, data=m), None
-        raise NotImplementedError(f"aggregate {func} is not ported yet")
-
     def _global_agg_empty(self) -> ColumnarBatch:
-        """No input batch and no keys: counts are a valid 0, the rest null."""
+        """No input batch and no keys: one buffer row of one masked-out
+        row, finished (counts a valid 0, the rest null)."""
         dev = self._device()
-        cols = []
-        for a, f in zip(self.aggregates, self._output.fields):
-            shape = ((1, 2) if isinstance(f.dataType, T.DecimalType)
-                     and f.dataType.is_128 else (1,))
-            counted = a.func in ("count", "count_star")
-            cols.append(DeviceColumn(
-                f.dataType, torch.full((1,), counted, device=dev),
-                data=torch.zeros(shape, dtype=column_torch_dtype(f.dataType),
-                                 device=dev)))
-        return ColumnarBatch(cols, 1, self._output)
+        inputs = [[_null_column(a.child.dataType if a.child is not None
+                                else T.LONG, 1, dev)]
+                  for a in self.aggregates]
+        buf = self._reduce([], inputs,
+                           torch.zeros(1, dtype=torch.bool, device=dev),
+                           False)
+        return self._finish(buf)
+
+
+_PICK_FUNCS = ("first", "last", "any_value")
+
+_BIT_OPS = {"bit_and": (torch.bitwise_and, -1),
+            "bit_or": (torch.bitwise_or, 0),
+            "bit_xor": (torch.bitwise_xor, 0)}
+
+
+def _is_dec128_type(dt) -> bool:
+    return isinstance(dt, T.DecimalType) and dt.is_128
+
+
+def _sum_flagged(a: AggregateExpression, dt: T.DataType) -> bool:
+    """A decimal sum above 18 digits (or over 128-bit input) carries an
+    overflow flag."""
+    return isinstance(dt, T.DecimalType) and (
+        dt.is_128 or (a.child is not None and _is_dec128_type(
+            a.child.dataType)))
+
+
+def _avg_sum_type(a: AggregateExpression) -> T.DataType:
+    """``avg``'s sum buffer: decimal(p + 10, s) for a decimal input (128
+    bits above 8 digits of input, as the reference's ``buf128``), long
+    for integers, double for floats."""
+    ct = a.child.dataType
+    if isinstance(ct, T.DecimalType):
+        return T.DecimalType(min(ct.precision + 10, 38), ct.scale)
+    return T.LONG if ct.is_integral else T.DOUBLE
+
+
+def _null_column(dt: T.DataType, n: int, device) -> DeviceColumn:
+    """``n`` null rows of ``dt`` (zero buffers)."""
+    return empty_column(dt, device).map_rows(
+        lambda t: torch.zeros((n,) + tuple(t.shape[1:]), dtype=t.dtype,
+                              device=t.device))
+
+
+def _with_validity(c: DeviceColumn, validity) -> DeviceColumn:
+    return DeviceColumn(c.dtype, validity, data=c.data, chars=c.chars,
+                        lengths=c.lengths, children=c.children)
+
+
+def _flag_col(fl: torch.Tensor) -> DeviceColumn:
+    return DeviceColumn(T.BOOLEAN, torch.ones_like(fl), data=fl)
+
+
+def _count_col(cnt: torch.Tensor) -> DeviceColumn:
+    return DeviceColumn(T.LONG, torch.ones_like(cnt, dtype=torch.bool),
+                        data=cnt)
+
+
+def _sum_cols(c: DeviceColumn, validity, g: _Groups, dt: T.DataType,
+              flagged: bool) -> List[DeviceColumn]:
+    """A sum buffer (and its overflow flag when ``flagged``) over the
+    sorted column ``c``."""
+    if isinstance(dt, T.DecimalType) and (dt.is_128 or c.is_dec128):
+        col, flag = _sum_dec128(c, validity, g.seg, g.nseg, dt)
+        return [col] + ([_flag_col(flag)] if flagged else [])
+    s, has = SEG.seg_sum(_sum_input(c, dt), validity, g.seg, g.nseg)
+    return [DeviceColumn(dt, has, data=s.to(column_torch_dtype(dt)))]
+
+
+def _or_flags(flag: DeviceColumn, buf_flag: DeviceColumn,
+              g: _Groups) -> DeviceColumn:
+    """A merged overflow flag: the new sum's, or any merged buffer's."""
+    hit = SEG.seg_count(buf_flag.data & g.mask_sorted, g.seg, g.nseg) > 0
+    return _flag_col(flag.data | hit)
+
+
+def _pick(c: DeviceColumn, idx, seen, nseg: int) -> DeviceColumn:
+    """The rows ``idx`` of ``c`` (one per segment), null where not
+    ``seen``."""
+    if c.capacity == 0:
+        return _null_column(c.dtype, nseg, c.device)
+    v = c.gather(idx.clamp(0, c.capacity - 1))
+    return _with_validity(v, v.validity & seen)
+
+
+def _minmax_cols(c, func, validity, g, dt) -> List[DeviceColumn]:
+    if c.is_dec128:
+        return [_minmax_dec128(c, func, g.seg, validity, g.nseg, dt)]
+    fn = SEG.seg_min if func == "min" else SEG.seg_max
+    m, has = fn(c.data, validity, g.seg, g.nseg, _is_float(dt))
+    return [DeviceColumn(dt, has, data=m)]
+
+
+def _moments(x, valid, g: _Groups):
+    """(n, mean, m2) of the valid doubles per segment: two passes in the
+    batch, as the reference's ``_eval_variance``."""
+    n = SEG.seg_count(valid, g.seg, g.nseg).to(torch.float64)
+    s, _ = SEG.seg_sum(x, valid, g.seg, g.nseg)
+    nz = n > 0
+    mean = s / torch.where(nz, n, 1.0)
+    d = torch.where(valid, x - mean[g.seg], 0.0)
+    m2, _ = SEG.seg_sum(d * d, valid, g.seg, g.nseg)
+    return n, mean, m2
+
+
+def _moment_cols(n, mean, m2) -> List[DeviceColumn]:
+    nz = n > 0
+    return [DeviceColumn(T.DOUBLE, torch.ones_like(nz), data=n),
+            DeviceColumn(T.DOUBLE, nz, data=mean),
+            DeviceColumn(T.DOUBLE, nz, data=m2)]
+
+
+def _update_agg(a: AggregateExpression, dt: T.DataType, bfs,
+                cols: List[DeviceColumn], g: _Groups) -> List[DeviceColumn]:
+    """One aggregate over raw rows (its input column, sorted) -> its
+    buffer columns, one row per segment (the reference's ``_eval_agg``)."""
+    (c,) = cols
+    validity = c.validity & g.mask_sorted
+    func = a.func
+    if func in ("count", "count_star"):
+        return [_count_col(SEG.seg_count(validity, g.seg, g.nseg))]
+    if func == "count_if":
+        hit = validity & c.data.to(torch.bool)
+        return [_count_col(SEG.seg_count(hit, g.seg, g.nseg))]
+    if func == "sum":
+        return _sum_cols(c, validity, g, dt, len(bfs) > 1)
+    if func == "avg":
+        sums = _sum_cols(c, validity, g, bfs[0].dataType, len(bfs) > 2)
+        return (sums[:1] + [_count_col(SEG.seg_count(validity, g.seg,
+                                                     g.nseg))] + sums[1:])
+    if func in ("min", "max", "bool_and", "bool_or"):
+        mm = {"bool_and": "min", "bool_or": "max"}.get(func, func)
+        return _minmax_cols(c, mm, validity, g, dt)
+    if func in _BIT_OPS:
+        op, ident = _BIT_OPS[func]
+        m, has = SEG.seg_fold(c.data, validity, g.seg, g.nseg, op, ident)
+        return [DeviceColumn(dt, has, data=m)]
+    if func in _PICK_FUNCS:
+        # ignoreNulls false, as the reference's: the group's first (last)
+        # row, null or not
+        if func == "last":
+            idx = SEG.seg_last_index(g.seg, g.mask_sorted, g.nseg)
+            seen = idx >= 0
+        else:
+            idx = SEG.seg_first_index(g.seg, g.mask_sorted, g.nseg)
+            seen = idx < c.capacity
+        return [_pick(c, idx, seen, g.nseg), _flag_col(seen)]
+    if func in VARIANCE_FUNCS:
+        x = torch.where(validity, _as_double(c), 0.0)
+        return _moment_cols(*_moments(x, validity, g))
+    raise NotImplementedError(f"aggregate {func} is not ported yet")
+
+
+def _merge_agg(a: AggregateExpression, dt: T.DataType, bfs,
+               cols: List[DeviceColumn], g: _Groups) -> List[DeviceColumn]:
+    """One aggregate over buffer rows (sorted) -> its merged buffer (the
+    reference's ``_eval_merge``): counts add, sums add and their flags
+    OR, min/max and the folds fold again, first/last take the first
+    (last) buffer row that saw a row, moments Chan-merge."""
+    func = a.func
+    if func in ("count", "count_star", "count_if"):
+        (c,) = cols
+        cnt, _ = SEG.seg_sum(c.data.to(torch.int64), g.mask_sorted, g.seg,
+                             g.nseg)
+        return [_count_col(cnt)]
+    if func in ("sum", "avg"):
+        c = cols[0]
+        sdt = bfs[0].dataType
+        flagged = bfs[-1].name.endswith("_overflow")
+        out = _sum_cols(c, c.validity & g.mask_sorted, g, sdt, flagged)
+        if flagged:
+            out[1] = _or_flags(out[1], cols[-1], g)
+        if func == "avg":
+            cnt, _ = SEG.seg_sum(cols[1].data, g.mask_sorted, g.seg, g.nseg)
+            out.insert(1, _count_col(cnt))
+        return out
+    if func in _PICK_FUNCS:
+        c, seen = cols
+        mask = g.mask_sorted & seen.data
+        if func == "last":
+            idx = SEG.seg_last_index(g.seg, mask, g.nseg)
+            got = idx >= 0
+        else:
+            idx = SEG.seg_first_index(g.seg, mask, g.nseg)
+            got = idx < c.capacity
+        return [_pick(c, idx, got, g.nseg), _flag_col(got)]
+    if func in VARIANCE_FUNCS:
+        return _moment_cols(*_chan_merge(*cols, g))
+    return _update_agg(a, dt, bfs, cols, g)
+
+
+def _final(a: AggregateExpression, dt: T.DataType, bfs,
+           cols: List[DeviceColumn]) -> DeviceColumn:
+    """One aggregate's buffer -> its result column."""
+    func = a.func
+    if func == "sum":
+        c = cols[0]
+        if len(cols) > 1:
+            return _with_validity(c, c.validity & ~cols[1].data)
+        return c
+    if func == "avg":
+        return _avg_final(a, dt, cols)
+    if func in VARIANCE_FUNCS:
+        n, mean, m2 = (c.data for c in cols)
+        pop = func.endswith("_pop")
+        den = n if pop else n - 1.0
+        # Spark's nullOnDivideByZero: a sample of one row is null
+        ok = (n > 0) & (den > 0.0)
+        var = m2 / torch.where(ok, den, 1.0)
+        res = var if func.startswith("var") else torch.sqrt(var)
+        return DeviceColumn(T.DOUBLE, ok, data=res)
+    return cols[0]
+
+
+def _avg_final(a: AggregateExpression, dt: T.DataType,
+               cols: List[DeviceColumn]) -> DeviceColumn:
+    """sum / count: a double for numbers, HALF_UP at the result scale for
+    decimals (exact 128-bit division above 18 digits of sum, the
+    reference's int64 path below)."""
+    s, cnt = cols[0], cols[1].data
+    nz = cnt > 0
+    valid = s.validity & nz
+    if len(cols) > 2:
+        valid = valid & ~cols[2].data
+    den = torch.where(nz, cnt, 1)
+    if not isinstance(dt, T.DecimalType):
+        return DeviceColumn(T.DOUBLE, valid,
+                            data=s.data.to(torch.float64) / den)
+    shift = dt.scale - a.child.dataType.scale
+    if s.is_dec128:
+        from spark_rapids_tpu_torch.expr import decimal128 as D
+
+        over, qh, ql = D.div128_by_count_half_up(*D.unpack(s.data), den,
+                                                 shift)
+        valid = valid & ~over & D.in_bounds(qh, ql, dt.precision)
+        return DeviceColumn(dt, valid,
+                            data=D.pack(qh, ql) if dt.is_128 else ql)
+    num = s.data * (10 ** shift)
+    q = torch.div(num, den, rounding_mode="trunc")
+    rem = num - q * den
+    q = q + torch.where(rem.abs() * 2 >= den, torch.sign(num), 0) \
+        * (rem != 0)
+    return DeviceColumn(dt, valid, data=q)
+
+
+def _as_double(c: DeviceColumn) -> torch.Tensor:
+    """A numeric column as doubles (a decimal scaled, as Spark casts it)."""
+    x = c.data.to(torch.float64)
+    if isinstance(c.dtype, T.DecimalType):
+        x = x * (10.0 ** -c.dtype.scale)
+    return x
+
+
+def _chan_merge(cn: DeviceColumn, ca: DeviceColumn, cm: DeviceColumn,
+                g: _Groups):
+    """Chan's parallel merge of (n, mean, m2) buffer rows per segment (the
+    reference's ``_chan_merge``) -> (n, mean, m2)."""
+    valid = cn.validity & g.mask_sorted & (cn.data > 0)
+    n_r = torch.where(valid, cn.data, 0.0)
+    ntot, _ = SEG.seg_sum(n_r, valid, g.seg, g.nseg)
+    wsum, _ = SEG.seg_sum(n_r * torch.where(valid, ca.data, 0.0), valid,
+                          g.seg, g.nseg)
+    nz = ntot > 0
+    mean = wsum / torch.where(nz, ntot, 1.0)
+    d = torch.where(valid, ca.data, 0.0) - mean[g.seg]
+    m2, _ = SEG.seg_sum(torch.where(valid, cm.data + n_r * d * d, 0.0),
+                        valid, g.seg, g.nseg)
+    return ntot, mean, m2
 
 
 def _sum_input(c: DeviceColumn, out_dtype: Optional[T.DataType]):

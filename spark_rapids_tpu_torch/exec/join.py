@@ -1,6 +1,7 @@
-"""Equi-joins — port of the inner and left outer hash joins of
-``spark_rapids_tpu/exec/join.py``: the broadcast join, the shuffled join
-and the adaptive join that picks one of them at run time.
+"""Equi-joins — port of the hash joins of ``spark_rapids_tpu/exec/join.py``
+(inner, left, right and full outer, left semi, left anti): the broadcast
+join, the shuffled join and the adaptive join that picks one of them at
+run time.
 
 The join is sort-based, as in the reference: the build side keeps its rows
 with valid keys, sorted by their key words (``ops/sortkeys.py``); every
@@ -31,12 +32,22 @@ String keys take the build side's width: a probe key is padded or cut to
 it, and a probe row longer than that width cannot match.  A string
 column is joined on bytes and length (``ops/sortkeys.py``).
 
+Left semi and left anti joins keep or drop each probe row on its match
+count and output the probe side's columns only; a null key never
+matches, so the anti join keeps it.  A full outer join is a left outer
+join that also ORs, per probe batch, the build rows its pairs covered
+into one flag (idempotent, so a re-run or split probe batch under
+``with_retry`` may repeat it), and after the last probe batch emits the
+build rows never covered once, with null probe columns; each bucket of
+the sub-partitioned join emits its own.  A right outer join is the left
+outer join with the sides swapped (the left side built) and the columns
+put back in order.
+
 ``TpuAdaptiveJoinExec`` wraps a shuffled join whose children are
 exchanges: it runs the build side first and joins by broadcast when the
 built bytes are within ``spark.sql.autoBroadcastJoinThreshold``, else
-replays them into the shuffled join.  Semi, anti, right, full and cross
-joins and a residual condition are not ported: the plan rewrite raises
-``NotOnGpu`` for them.
+replays them into the shuffled join.  The cross join and a residual
+condition are not ported: the plan rewrite raises ``NotOnGpu`` for them.
 """
 from __future__ import annotations
 
@@ -45,7 +56,8 @@ from typing import Iterator, List, Optional
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch, empty_batch
+from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
+                                                   empty_batch, empty_column)
 from spark_rapids_tpu_torch.columnar.column import DeviceColumn
 from spark_rapids_tpu_torch.exec.base import NotOnGpu, TpuExec
 from spark_rapids_tpu_torch.exec.exchange import (gather_slice,
@@ -53,7 +65,8 @@ from spark_rapids_tpu_torch.exec.exchange import (gather_slice,
 from spark_rapids_tpu_torch.expr.base import EvalContext, Expression
 from spark_rapids_tpu_torch.memory.retry import with_retry
 from spark_rapids_tpu_torch.memory.spill import get_spill_framework
-from spark_rapids_tpu_torch.ops.filterops import gather_columns
+from spark_rapids_tpu_torch.ops.filterops import (compact_columns,
+                                                  gather_columns)
 from spark_rapids_tpu_torch.ops.hashing import spark_partition_ids
 from spark_rapids_tpu_torch.ops.segment import seg_first_rows
 from spark_rapids_tpu_torch.ops.sortkeys import _column_key_words, lexsort
@@ -197,7 +210,10 @@ class _SortedBuildSide:
         self.tables = _rank_tables(words) if len(words) > 1 else None
 
 
-_PORTED_JOIN_TYPES = (JoinType.INNER, JoinType.LEFT_OUTER)
+#: the equi-join types the port runs
+PORTED_JOIN_TYPES = (JoinType.INNER, JoinType.LEFT_OUTER,
+                      JoinType.RIGHT_OUTER, JoinType.FULL_OUTER,
+                      JoinType.LEFT_SEMI, JoinType.LEFT_ANTI)
 
 _SUB_PARTITION_SEED = 100407   # decorrelated from exchange partitioning
 
@@ -237,6 +253,32 @@ def _null_rows(cols: List[DeviceColumn], n: int) -> List[DeviceColumn]:
                               device=t.device))]) for c in cols]
 
 
+def _null_columns(schema: T.StructType, n: int, device
+                  ) -> List[DeviceColumn]:
+    """``n`` null rows of each field of ``schema`` (a string at the
+    narrowest width, as the reference's tail)."""
+    return _null_rows([empty_column(f.dataType, device)
+                       for f in schema.fields], n)
+
+
+def _covered_build_rows(build: "_SortedBuildSide", lo, counts
+                        ) -> torch.Tensor:
+    """bool per original build row: in some matched pair of this probe
+    batch (a difference array over the sorted positions, mapped back to
+    the rows; the reference's ``_covered_build_rows``)."""
+    n = build.row_index.shape[0]
+    dev = counts.device
+    has = counts > 0
+    diff = torch.zeros(n + 1, dtype=torch.int64, device=dev)
+    diff.index_add_(0, torch.where(has, lo, n),
+                    has.to(torch.int64))
+    diff.index_add_(0, torch.where(has, lo + counts, n),
+                    -has.to(torch.int64))
+    covered_sorted = torch.cumsum(diff[:-1], 0) > 0
+    return torch.zeros(n, dtype=torch.bool, device=dev).scatter_(
+        0, build.row_index, covered_sorted)
+
+
 class _BaseTpuJoinExec(TpuExec):
     def __init__(self, left: TpuExec, right: TpuExec,
                  left_keys: List[Expression], right_keys: List[Expression],
@@ -244,11 +286,11 @@ class _BaseTpuJoinExec(TpuExec):
                  output_schema: T.StructType, ansi: bool = False,
                  sub_partition_bytes: int = 1 << 30):
         super().__init__([left, right])
-        if join_type not in _PORTED_JOIN_TYPES or condition is not None \
+        if join_type not in PORTED_JOIN_TYPES or condition is not None \
                 or not left_keys:
-            raise NotOnGpu(f"{join_type.value} join (only the inner and "
-                           "left outer equi-joins without a condition are "
-                           "ported)")
+            raise NotOnGpu(f"{join_type.value} join (only the inner, "
+                           "outer, semi and anti equi-joins without a "
+                           "condition are ported)")
         self.left_keys = left_keys
         self.right_keys = right_keys
         self.join_type = join_type
@@ -336,11 +378,24 @@ class _BaseTpuJoinExec(TpuExec):
                            device=unmatched.device).scatter_(
             0, to, iota)[:n_unmatched]
 
-    def _probe_one(self, build: _SortedBuildSide, probe: ColumnarBatch
+    def _probe_one(self, build: _SortedBuildSide, probe: ColumnarBatch,
+                   covered: Optional[List[torch.Tensor]] = None
                    ) -> Optional[ColumnarBatch]:
+        """One probe batch against the build side.  Semi and anti joins
+        keep or drop each probe row on its match count (the compaction's
+        count is their one sync, as the reference's ``_semi_anti``); the
+        full outer join ORs the build rows this batch covered into
+        ``covered[0]``, which a re-run or a split batch may repeat."""
+        jt = self.join_type
         lo, counts, total, unmatched, n_um = self._probe_counts(build, probe)
+        if jt in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+            keep = (counts == 0) if jt == JoinType.LEFT_ANTI else counts > 0
+            cols, n = compact_columns(keep & probe.row_mask, probe.columns)
+            return ColumnarBatch(cols, n, self._output) if n else None
+        if jt == JoinType.FULL_OUTER:
+            covered[0] = covered[0] | _covered_build_rows(build, lo, counts)
         total_host, um_host = (int(x) for x in sync_get(total, n_um))
-        if self.join_type != JoinType.LEFT_OUTER:
+        if jt == JoinType.INNER:
             um_host = 0
         if total_host + um_host == 0:
             return None
@@ -355,6 +410,41 @@ class _BaseTpuJoinExec(TpuExec):
             bcols = _null_rows(bcols, um_host)
         return ColumnarBatch(lcols + bcols, total_host + um_host,
                              self._output)
+
+    def _unmatched_build_tail(self, build_batch: ColumnarBatch,
+                              covered: torch.Tensor
+                              ) -> Optional[ColumnarBatch]:
+        """The full outer join's build rows that no probe row matched, once
+        after the last probe batch, with every probe column null (the
+        reference's ``_unmatched_build_tail``)."""
+        cols, n = compact_columns(build_batch.row_mask & ~covered,
+                                  build_batch.columns)
+        if n == 0:
+            return None
+        nulls = _null_columns(self._probe_child().output, n,
+                              build_batch.device)
+        return ColumnarBatch(nulls + cols, n, self._output)
+
+    def _execute_right_outer(self) -> Iterator[ColumnarBatch]:
+        """RIGHT OUTER is LEFT OUTER with the sides swapped (the left side
+        built, the right side probed), its columns reordered (the
+        reference's ``_execute_right_outer``)."""
+        left_out = self._probe_child().output
+        right_out = self._build_child().output
+        swapped = TpuShuffledSymmetricHashJoinExec(
+            self.children[1], self.children[0], self.right_keys,
+            self.left_keys, JoinType.LEFT_OUTER, self.condition,
+            T.StructType(list(right_out.fields) + [
+                T.StructField(f.name, f.dataType, True)
+                for f in left_out.fields]),
+            self.ansi, sub_partition_bytes=self.sub_partition_bytes)
+        nr = len(right_out.fields)
+        try:
+            for b in swapped.execute_columnar():
+                yield ColumnarBatch(b.columns[nr:] + b.columns[:nr],
+                                    b.num_rows, self._output)
+        finally:
+            self.sub_partitions = swapped.sub_partitions
 
     # -- sub-partitioning (GpuSubPartitionHashJoin analog) ----------------
     def _sub_partition(self, spillables, keys, n_parts: int, schema, fw):
@@ -409,9 +499,11 @@ class _BaseTpuJoinExec(TpuExec):
                 (fw.track(b) for b in self._probe_child().execute_columnar()),
                 self.left_keys, n_parts, pschema, fw)
             for pid in range(n_parts):
-                if not probe_buckets[pid]:
-                    # nothing to probe with: an inner or left outer join
-                    # of this bucket is empty
+                if not probe_buckets[pid] and not (
+                        self.join_type == JoinType.FULL_OUTER
+                        and build_buckets[pid]):
+                    # nothing to probe with: only a full outer join keeps
+                    # a build row of this bucket (its tail)
                     continue
                 sub = TpuShuffledSymmetricHashJoinExec(
                     _MaterializedExec(probe_buckets[pid], pschema),
@@ -434,6 +526,9 @@ class _BaseTpuJoinExec(TpuExec):
 
     # -- execution -------------------------------------------------------
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
+        if self.join_type == JoinType.RIGHT_OUTER:
+            yield from self._execute_right_outer()
+            return
         fw = get_spill_framework()
         # track the build batches as they stream in, so the framework can
         # shed them while the rest arrives
@@ -465,13 +560,22 @@ class _BaseTpuJoinExec(TpuExec):
                 s.close()
         del build_spill, batches
         build = self._prepare_build(build_batch, self.right_keys)
+        covered = None
+        if self.join_type == JoinType.FULL_OUTER:
+            covered = [torch.zeros(build_batch.num_rows, dtype=torch.bool,
+                                   device=build_batch.device)]
         for probe in self._probe_child().execute_columnar():
             # re-runnable and splittable by probe rows, as the reference's
-            outs = list(with_retry(fw.track(probe),
-                                   lambda p: self._probe_one(build, p)))
+            outs = list(with_retry(
+                fw.track(probe),
+                lambda p: self._probe_one(build, p, covered)))
             for out in outs:
                 if out is not None:
                     yield out
+        if covered is not None:
+            tail = self._unmatched_build_tail(build_batch, covered[0])
+            if tail is not None:
+                yield tail
 
 
 class TpuBroadcastHashJoinExec(_BaseTpuJoinExec):

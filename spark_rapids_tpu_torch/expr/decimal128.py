@@ -178,6 +178,84 @@ def udivmod128_by_u32(h, l, d: int):
     return (q[0] << 32) | q[1], (q[2] << 32) | q[3], rem
 
 
+_U31 = 1 << 31
+
+
+def _udivmod128_bits(h, l, d):
+    """Unsigned 128-bit // d -> (qhi, qlo, rem) for a per-row int64 ``d``
+    in [1, 2^63): restoring division, one quotient bit a step (the
+    partial remainder, below 2^64, is compared unsigned)."""
+    rem = torch.zeros_like(h)
+    qh = torch.zeros_like(h)
+    ql = torch.zeros_like(h)
+    for word, is_hi in ((h, True), (l, False)):
+        for bit in range(63, -1, -1):
+            rem = (rem << 1) | ((word >> bit) & 1)
+            ge = ~ult(rem, d)
+            rem = torch.where(ge, rem - d, rem)
+            q = ge.to(torch.int64) << bit
+            if is_hi:
+                qh = qh | q
+            else:
+                ql = ql | q
+    return qh, ql, rem
+
+
+def udivmod128_by_u64(h, l, d):
+    """Unsigned 128-bit // d -> (qhi, qlo, rem) for a per-row int64 ``d``
+    in [1, 2^63): the four-limb long division where every ``d`` is below
+    2^31 (one host sync decides), else the bit-by-bit division for all
+    rows."""
+    from spark_rapids_tpu_torch.perfcounters import sync_get
+
+    big = d >= _U31
+    (any_big,) = sync_get(big.any())
+    if not bool(any_big):
+        return udivmod128_by_u32(h, l, d)
+    return _udivmod128_bits(h, l, d)
+
+
+def div128_by_count_half_up(h, l, n, shift: int):
+    """Signed 128-bit ``(h, l)`` / a per-row count ``n`` (>= 1), scaled by
+    10^shift and rounded HALF_UP (Spark's decimal ``avg``) -> (overflowed,
+    hi, lo).  Exact for every count below 2^63: the quotient, then the
+    remainder times 10^shift divided again."""
+    neg = is_neg(h, l)
+    uh, ul = abs128(h, l)
+    qh, ql, rem = udivmod128_by_u64(uh, ul, n)
+    over, qh, ql = mul128_pow10(qh, ql, shift)
+    nh, nl = mul64_to_128(rem, torch.full_like(rem, 10 ** shift))
+    _, eq, er = udivmod128_by_u64(nh, nl, n)
+    # HALF_UP: 2 * er >= n, asked without doubling er
+    eq = eq + (er >= n - er).to(torch.int64)
+    qh, ql = add128(qh, ql, *from64(eq))
+    over = over | (qh < 0)
+    rh, rl = neg128(qh, ql)
+    return over, torch.where(neg, rh, qh), torch.where(neg, rl, ql)
+
+
+def mul128_checked(ah, al, bh, bl):
+    """Signed 128 x 128 -> (overflowed, hi, lo): exact where the product
+    fits signed 128 bits, ``overflowed`` elsewhere (a CPU stage's decimal
+    multiply with an operand above 18 digits).  One operand's magnitude
+    must fit 64 bits; the other's high word times it must not carry."""
+    neg = is_neg(ah, al) ^ is_neg(bh, bl)
+    xh, xl = abs128(ah, al)
+    yh, yl = abs128(bh, bl)
+    # |MIN| stays negative; both magnitudes past 2^64 cannot fit
+    over = (xh < 0) | (yh < 0) | ((xh != 0) & (yh != 0))
+    swap = xh == 0
+    bh_, bl_ = torch.where(swap, yh, xh), torch.where(swap, yl, xl)
+    m = torch.where(swap, xl, yl)              # the 64-bit magnitude
+    lo = bl_ * m
+    hi1 = umulhi64(bl_, m)
+    over = over | (umulhi64(bh_, m) != 0)
+    hi = hi1 + bh_ * m
+    over = over | ult(hi, hi1) | (hi < 0)
+    rh, rl = neg128(hi, lo)
+    return over, torch.where(neg, rh, hi), torch.where(neg, rl, lo)
+
+
 def div128_pow10_half_up(h, l, k: int) -> Pair:
     """Signed 128 / 10^k with HALF_UP rounding (Spark decimal scale change)."""
     if k == 0:

@@ -8,7 +8,9 @@ with no valid input is null (the second result, ``has``), and float
 min/max order NaN above every number.  Sums and counts are
 ``index_add_``, min and max ``scatter_reduce_``, and plain reductions for
 a single segment: exact for integers, while CUDA adds floats in an order
-of its own.
+of its own.  The bitwise folds (``seg_fold``) have no scatter in torch:
+they run the segmented scan below over the sorted rows and keep each
+segment's last row, as the reference's ``seg_fold`` does.
 
 The reference's ``SegBounds``/``bounds_scope`` (a cumsum-and-gather form
 that avoids full-width scatters, which are slow on the TPU) are not ported:
@@ -122,6 +124,39 @@ def seg_first_index(seg_ids, row_mask, num_segments: int) -> torch.Tensor:
     iota = torch.arange(n, dtype=torch.int64, device=seg_ids.device)
     return _scatter("amin", torch.where(row_mask, iota, n), seg_ids,
                     num_segments, n)
+
+
+def seg_last_index(seg_ids, row_mask, num_segments: int) -> torch.Tensor:
+    """Index of the last row of each segment inside ``row_mask``; -1 for a
+    segment with no such row (the reference's ``_seg_last_index``)."""
+    n = seg_ids.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=seg_ids.device)
+    return _scatter("amax", torch.where(row_mask, iota, -1), seg_ids,
+                    num_segments, -1)
+
+
+def seg_fold(values, validity, seg_ids, num_segments: int, op,
+             identity: int) -> Pair:
+    """Segmented fold with a combine that torch has no scatter for (the
+    bitwise aggregates): the log-step segmented scan, then each segment's
+    last row.  ``seg_ids`` must be non-decreasing (the group-by's sorted
+    rows).  -> (per-segment fold of the valid values, has a valid
+    value)."""
+    n = values.shape[0]
+    # one slot past the segments takes the rows that end none
+    out = torch.full((num_segments + 1,), identity, dtype=values.dtype,
+                     device=values.device)
+    has = seg_count(validity, seg_ids, num_segments) > 0
+    if n == 0:
+        return out[:num_segments], has
+    v = torch.where(validity, values, torch.full_like(values, identity))
+    starts = torch.ones(n, dtype=torch.bool, device=values.device)
+    starts[1:] = seg_ids[1:] != seg_ids[:-1]
+    run = _seg_scan(v, starts, op)
+    ends = torch.ones(n, dtype=torch.bool, device=values.device)
+    ends[:-1] = starts[1:]
+    out.scatter_(0, torch.where(ends, seg_ids, num_segments), run)
+    return out[:num_segments], has
 
 
 # -- segmented scans (window running frames) --------------------------------

@@ -9,7 +9,9 @@ device: a type its ``TypeSig`` rejects, a nested type the device layout
 lacks, ``spark.rapids.sql.exec.<Name>=false`` or
 ``spark.rapids.sql.expression.<Name>=false``, and the extra checks (a
 decimal multiply above 18 digits, an add or subtract past 38 digits, a
-decimal128 cast pair, a decimal128 hash key, a disabled file format) and
+decimal128 cast pair, a decimal128 hash key, a disabled file format, an
+aggregate's input type, ``avg`` or a variance over a decimal above 18
+digits) and
 an open circuit-breaker entry for the node's key
 (``resilience/breaker.py::consult_plan``).  A node with a reason stays on the host as a CPU stage (``cpu/oracle.py``);
 ``explain`` prints the reasons in the reference's words.  What the
@@ -360,6 +362,27 @@ def _exchange_check(meta: SparkPlanMeta):
                     "supported on TPU (murmur3 big-integer path missing)")
 
 
+def _agg_check(meta: SparkPlanMeta):
+    """The reference's ``_agg_check`` and ``_agg_extra_checks``, narrowed
+    to the functions the port runs: input types the functions need, and
+    ``avg`` and the variance family over decimals above 18 digits (their
+    128-bit division is not on the reference's device)."""
+    for a in meta.plan.aggregates:
+        ct = a.child._dataType if a.child is not None else None
+        if a.func in ("count_if", "bool_and", "bool_or") \
+                and not isinstance(ct, T.BooleanType):
+            meta.will_not_work_on_tpu(f"{a.func} requires a boolean input")
+        if a.func in PN.BIT_AGG_FUNCS \
+                and not (ct is not None and ct.is_integral):
+            meta.will_not_work_on_tpu(
+                f"{a.func} requires an integral input")
+        if (a.func == "avg" or a.func in PN.VARIANCE_FUNCS) \
+                and _is_dec128(ct):
+            meta.will_not_work_on_tpu(
+                f"{a.func} over decimals above 18 digits needs 128-bit "
+                f"division; not supported on TPU yet")
+
+
 def _exprs_of(plan: PN.SparkPlan) -> List[Expression]:
     if isinstance(plan, PN.Project):
         return list(plan.exprs)
@@ -388,7 +411,7 @@ EXECS: Dict[Type, ExecRule] = {
     PN.FileSourceScan: ExecRule(_DEC128_FULL, _scan_check),
     PN.Project: ExecRule(_WITH_NESTED),
     PN.Filter: ExecRule(_WITH_NESTED),
-    PN.HashAggregate: ExecRule(_WITH_ARRAYS),
+    PN.HashAggregate: ExecRule(_WITH_ARRAYS, _agg_check),
     PN.SortMergeJoin: ExecRule(_WITH_ARRAYS),
     PN.BroadcastHashJoin: ExecRule(_WITH_ARRAYS),
     PN.Sort: ExecRule(_DEC128_FULL),

@@ -53,7 +53,7 @@ from spark_rapids_tpu_torch.exec.exchange import (
     TpuAdaptiveShuffleReaderExec, TpuBroadcastExchangeExec,
     TpuShuffleExchangeExec)
 from spark_rapids_tpu_torch.exec.join import (
-    TpuAdaptiveJoinExec, TpuBroadcastHashJoinExec,
+    PORTED_JOIN_TYPES, TpuAdaptiveJoinExec, TpuBroadcastHashJoinExec,
     TpuShuffledSymmetricHashJoinExec)
 from spark_rapids_tpu_torch.exec.limit import (TpuGlobalLimitExec,
                                                TpuLocalLimitExec)
@@ -124,10 +124,11 @@ def _collapse_complete_agg(meta: SparkPlanMeta) -> Optional[SparkPlanMeta]:
 
 
 def _check_join(node: PN.SparkPlan) -> None:
-    """The inner and left outer equi-joins without a condition are
-    ported, broadcast or shuffled (a build side over batchSizeBytes
-    sub-partitions at run time)."""
-    if node.join_type not in (PN.JoinType.INNER, PN.JoinType.LEFT_OUTER):
+    """The inner, outer (left, right, full), left semi and left anti
+    equi-joins without a condition are ported, broadcast or shuffled (a
+    build side over batchSizeBytes sub-partitions at run time); the cross
+    join and a residual condition are not."""
+    if node.join_type not in PORTED_JOIN_TYPES:
         raise NotOnGpu(f"join type {node.join_type.value}")
     if node.condition is not None:
         raise NotOnGpu("join with a residual condition")
@@ -301,6 +302,9 @@ def _convert_aggregate(meta: SparkPlanMeta, conf: TpuConf, device
             check_expression(a.child)
             if a.func in ("min", "max") and isinstance(a.child.dataType,
                                                         T.StringType):
+                raise NotOnGpu(f"{a.func} of a string (not ported yet)")
+            if (a.func == "avg" or a.func in PN.VARIANCE_FUNCS) \
+                    and isinstance(a.child.dataType, T.StringType):
                 raise NotOnGpu(f"{a.func} of a string (not ported yet)")
     return TpuHashAggregateExec(
         partial.grouping, partial.aggregates, PN.AggregateMode.COMPLETE,

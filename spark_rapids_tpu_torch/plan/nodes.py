@@ -1,7 +1,9 @@
 """CPU physical plan nodes — port of the subset of
-``spark_rapids_tpu/plan/nodes.py`` that TPC-H Q6 and bench qa, qb and qc
-plan: scans, project, filter, union, aggregates, broadcast and shuffled
-joins over hash exchanges, repartitioning, windows, sorts and limits.
+``spark_rapids_tpu/plan/nodes.py`` that the ported queries plan: scans,
+project, filter, union, aggregates, broadcast and shuffled joins over
+hash exchanges, repartitioning, windows, sorts and limits.  Aggregate
+result types are the reference's ``_compute_type`` for the ported
+functions.
 
 The session builds this Catalyst-shaped plan; ``overrides/overrides.py``
 rewrites it into device execs.  The node names and ``describe`` strings
@@ -132,8 +134,18 @@ class AggregateMode(enum.Enum):
     COMPLETE = "Complete"
 
 
+#: the central-moment aggregates, sharing the (n, mean, m2) buffer
+VARIANCE_FUNCS = frozenset(
+    {"var_pop", "var_samp", "stddev_pop", "stddev_samp"})
+
+#: the bitwise aggregates (Spark BitAndAgg/BitOrAgg/BitXorAgg)
+BIT_AGG_FUNCS = frozenset({"bit_and", "bit_or", "bit_xor"})
+
 #: aggregate functions the port runs
-PORTED_AGG_FUNCS = frozenset({"sum", "count", "count_star", "min", "max"})
+PORTED_AGG_FUNCS = frozenset(
+    {"sum", "count", "count_star", "min", "max", "avg", "count_if",
+     "bool_and", "bool_or", "first", "last", "any_value"}
+    | VARIANCE_FUNCS | BIT_AGG_FUNCS)
 
 
 @dataclasses.dataclass
@@ -147,24 +159,33 @@ class AggregateExpression:
 
     def resolve(self, schema: T.StructType) -> "AggregateExpression":
         if self.func not in PORTED_AGG_FUNCS:
-            raise NotImplementedError(
-                f"aggregate {self.func} is not ported yet")
+            from spark_rapids_tpu_torch.exec.base import NotOnGpu
+
+            raise NotOnGpu(f"aggregate {self.func} is not ported yet")
         if self.child is not None:
             self.child = self.child.resolve(schema)
         self.result_type = self._compute_type()
         return self
 
     def _compute_type(self) -> T.DataType:
-        if self.func in ("count", "count_star"):
+        if self.func in ("count", "count_star", "count_if"):
             return T.LONG
         ct = self.child.dataType
-        if self.func in ("min", "max"):
-            return ct
-        if isinstance(ct, T.DecimalType):
-            return T.DecimalType(min(ct.precision + 10, 38), ct.scale)
-        if ct.is_integral:
-            return T.LONG
-        return T.DOUBLE
+        if self.func == "sum":
+            if isinstance(ct, T.DecimalType):
+                return T.DecimalType(min(ct.precision + 10, 38), ct.scale)
+            if ct.is_integral:
+                return T.LONG
+            return T.DOUBLE
+        if self.func == "avg":
+            if isinstance(ct, T.DecimalType):
+                return T.DecimalType(min(ct.precision + 4, 38),
+                                     min(ct.scale + 4, 38))
+            return T.DOUBLE
+        if self.func in VARIANCE_FUNCS:
+            return T.DOUBLE
+        # min/max, bool_and/bool_or, bit_*, first/last/any_value
+        return ct
 
     def describe(self):
         inner = self.child.sql_string() if self.child is not None else "*"

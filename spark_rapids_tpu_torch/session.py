@@ -6,8 +6,10 @@ The API is call-compatible with the reference: ``TpuSession(conf)``,
 ``select``, ``agg``, ``group_by(...).agg``, ``join``, ``union``,
 ``window``, ``order_by``, ``limit``, ``explain``, ``collect`` and
 ``count``, with ``col``,
-``lit``, ``sum_``, ``count_``, ``min_``, ``max_`` and ``SortSpec``, and
-``repartition``.  A session runs on ``cuda`` unless it is given another
+``lit``, ``sum_``, ``count_``, ``min_``, ``max_``, ``avg_``, ``stddev_``,
+``stddev_pop_``, ``variance_``, ``var_pop_``, ``count_if_``,
+``bool_and_``, ``bool_or_``, ``bit_and_``, ``bit_or_``, ``bit_xor_``,
+``any_value_`` and ``SortSpec``, and ``repartition``.  A session runs on ``cuda`` unless it is given another
 device (``TpuSession(conf, device="cpu")``); without a GPU and without a
 device argument it raises.  Aggregates are planned two-phase around a hash
 exchange on the keys; a join broadcasts its right side under
@@ -156,8 +158,8 @@ class DataFrame:
 
     def agg(self, *aggs) -> "DataFrame":
         """Global aggregate: ``aggs`` are ``(func, column, name)`` tuples
-        (``sum_``, ``count_``, ``min_``, ``max_``) or
-        ``AggregateExpression``s."""
+        (``sum_``, ``count_``, ``avg_``, ...; ``("first", column,
+        name)`` and ``("last", ...)`` too) or ``AggregateExpression``s."""
         return GroupedData(self, []).agg(*aggs)
 
     def union(self, other: "DataFrame") -> "DataFrame":
@@ -178,7 +180,10 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on, how: str = "inner"
              ) -> "DataFrame":
-        """Equi-join on the column names ``on``.  The right side is
+        """Equi-join on the column names ``on``; ``how`` is inner, left
+        (left_outer), right (right_outer), full (outer, full_outer),
+        left_semi (semi), left_anti (anti) or cross.  A semi or anti join
+        outputs the left side's columns only.  The right side is
         broadcast when its estimated size is within
         ``spark.sql.autoBroadcastJoinThreshold``; else the join is planned
         as a shuffled join over a hash exchange of
@@ -391,6 +396,54 @@ def min_(c: ColumnLike, name: str = "min"):
 
 def max_(c: ColumnLike, name: str = "max"):
     return ("max", c, name)
+
+
+def avg_(c: ColumnLike, name: str = "avg"):
+    return ("avg", c, name)
+
+
+def stddev_(c: ColumnLike, name: str = "stddev"):
+    return ("stddev_samp", c, name)
+
+
+def stddev_pop_(c: ColumnLike, name: str = "stddev_pop"):
+    return ("stddev_pop", c, name)
+
+
+def variance_(c: ColumnLike, name: str = "variance"):
+    return ("var_samp", c, name)
+
+
+def var_pop_(c: ColumnLike, name: str = "var_pop"):
+    return ("var_pop", c, name)
+
+
+def count_if_(c: ColumnLike, name: str = "count_if"):
+    return ("count_if", c, name)
+
+
+def bool_and_(c: ColumnLike, name: str = "bool_and"):
+    return PN.AggregateExpression("bool_and", _to_expr(c), name)
+
+
+def bool_or_(c: ColumnLike, name: str = "bool_or"):
+    return PN.AggregateExpression("bool_or", _to_expr(c), name)
+
+
+def bit_and_(c: ColumnLike, name: str = "bit_and"):
+    return PN.AggregateExpression("bit_and", _to_expr(c), name)
+
+
+def bit_or_(c: ColumnLike, name: str = "bit_or"):
+    return PN.AggregateExpression("bit_or", _to_expr(c), name)
+
+
+def bit_xor_(c: ColumnLike, name: str = "bit_xor"):
+    return PN.AggregateExpression("bit_xor", _to_expr(c), name)
+
+
+def any_value_(c: ColumnLike, name: str = "any_value"):
+    return PN.AggregateExpression("any_value", _to_expr(c), name)
 
 
 # pyspark.sql.functions flavoured re-exports

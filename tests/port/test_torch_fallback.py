@@ -22,6 +22,8 @@ from spark_rapids_tpu_torch.columnar.column import HostColumn
 from spark_rapids_tpu_torch.exec.base import NotOnGpu
 from spark_rapids_tpu_torch.expr.base import (Literal,
                                               SparkArithmeticException)
+from spark_rapids_tpu_torch.expr.complextypes import (CreateNamedStruct,
+                                                      GetStructField)
 from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
 from torch_port_frames import ORACLE, rows_key
 from torch_port_jaxref import REPO, run_jax
@@ -172,10 +174,11 @@ def test_struct_reference_is_a_cpu_stage_under_the_aggregate(tmp_path):
 
 
 def test_unported_device_nodes_still_raise():
-    """A string literal or column runs on the device now; the max of a
-    string runs on the reference's device but not the port's:
-    ``NotOnGpu``, never a CPU stage; so does a CPU stage the port's engine
-    cannot run (a string in it, a disabled sort or aggregate)."""
+    """A string literal or column runs on the device and in a CPU stage
+    now; the max of a string runs on the reference's device but not the
+    port's: ``NotOnGpu``, never a CPU stage; so does a CPU stage the
+    port's engine cannot run (a string struct field in it, a disabled
+    sort or aggregate)."""
     s = S.TpuSession({}, device="cpu")
     df = base(S, s).select(S.col("i"), Literal("x", T.STRING).alias("x"))
     assert {x for _, x in df.collect()} == {"x"}
@@ -188,7 +191,12 @@ def test_unported_device_nodes_still_raise():
         df.agg(S.max_("name", "m")).collect()
     s = S.TpuSession({"spark.rapids.sql.exec.Project": "false"},
                      device="cpu")
+    # a string literal now passes through a CPU stage; a string picked
+    # out of a struct does not
     df = base(S, s).select(S.col("i"), Literal("x", T.STRING).alias("x"))
+    assert {x for _, x in df.collect()} == {"x"}
+    named = CreateNamedStruct(["x"], [Literal("x", T.STRING)])
+    df = base(S, s).select(GetStructField(named, "x").alias("x"))
     with pytest.raises(NotOnGpu, match="type string in a CPU stage"):
         df.explain()
     for node in ("Sort", "HashAggregate"):

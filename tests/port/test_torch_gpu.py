@@ -2,6 +2,7 @@
 device).  This file imports no jax, so it also runs on a machine without
 it: ``python -m pytest tests/port/test_torch_gpu.py --noconftest``."""
 import datetime
+import math
 import os
 import sys
 from decimal import Decimal
@@ -784,3 +785,122 @@ def test_q12_on_gpu_equals_numpy(tmp_path):
     assert C.q12_query(frame(orders, ors), frame(lineitem, lrs),
                        S).collect() == want
     assert mem.close() == []
+
+
+@pytest.mark.gpu
+def test_join_types_and_new_aggregates_on_gpu_equal_cpu():
+    """Left semi, left anti, right and full outer joins (broadcast,
+    adaptive shuffled, sub-partitioned; an int and a string key, nulls
+    on both sides) and the aggregates beyond sum, count, min and max
+    (grouped and global, over several batches) on the card against the same queries on the CPU
+    (held against the JAX package in test_torch_join_types.py and
+    test_torch_agg_breadth.py).  Doubles to a relative 1e-9: the card
+    adds floats in its own order, so a 12-digit rounding may flip."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.columnar.column import HostColumn as H
+    from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
+
+    rng = np.random.default_rng(31)
+    # a key's strings as selective as the int key: about one match a row
+    words = np.array([f"key-{i}" + "z" * (i % 30) for i in range(4000)],
+                     object)
+    n, m = 20_000, 3_000
+
+    def strings(vals, valid):
+        return H.strings(list(vals), valid)
+
+    psch = T.StructType([T.StructField("k", T.INT),
+                         T.StructField("s", T.STRING),
+                         T.StructField("v", T.DecimalType(12, 2)),
+                         T.StructField("d", T.DOUBLE),
+                         T.StructField("b", T.BOOLEAN)])
+    bsch = T.StructType([T.StructField("k", T.INT),
+                         T.StructField("s", T.STRING),
+                         T.StructField("w", T.LONG)])
+    pcols = [H.from_numpy(rng.integers(0, 3000, n).astype(np.int32), T.INT,
+                          rng.random(n) > 0.05),
+             strings(words[rng.integers(0, 3000, n)], rng.random(n) > 0.05),
+             H.from_numpy(rng.integers(-10 ** 11, 10 ** 11, n),
+                          T.DecimalType(12, 2), rng.random(n) > 0.1),
+             H.from_numpy(rng.normal(0, 100, n), T.DOUBLE,
+                          rng.random(n) > 0.1),
+             H.from_numpy(rng.random(n) > 0.5, T.BOOLEAN,
+                          rng.random(n) > 0.1)]
+    bcols = [H.from_numpy(rng.integers(0, 4000, m).astype(np.int32), T.INT,
+                          rng.random(m) > 0.05),
+             strings(words[rng.integers(0, 4000, m)], rng.random(m) > 0.05),
+             H.from_numpy(rng.integers(0, 10 ** 6, m), T.LONG)]
+
+    def norm(rows):
+        # rows of an aggregate sort by their unique key, joined rows carry
+        # no computed double: the order is the same on both devices
+        return sorted(rows, key=repr)
+
+    def same(a, b):
+        """Equal, doubles to a relative 1e-9 (NaN equal to NaN)."""
+        return len(a) == len(b) and all(
+            len(ra) == len(rb) and all(
+                math.isclose(x, y, rel_tol=1e-9, abs_tol=1e-12)
+                or (x != x and y != y)
+                if isinstance(x, float) and isinstance(y, float) else x == y
+                for x, y in zip(ra, rb))
+            for ra, rb in zip(a, b))
+
+    confs = [{}, {"spark.sql.autoBroadcastJoinThreshold": "-1"},
+             {"spark.rapids.sql.batchSizeBytes": "8k",
+              "spark.rapids.sql.reader.batchSizeRows": 4000}]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        res = []
+        for conf in confs:
+            s = S.TpuSession(conf, device=dev)
+            left = S.DataFrame(LocalTableScan(pcols, psch), s)
+            right = S.DataFrame(LocalTableScan(bcols, bsch), s)
+            for how in ("left_semi", "left_anti", "right", "full"):
+                for key in ("k", "s"):
+                    res.append(norm(left.join(right, on=key,
+                                              how=how).collect()))
+            for keys in (["k"], []):
+                res.append(norm(left.group_by(*keys).agg(
+                    S.avg_("v", "av"), S.avg_("d", "ad"),
+                    S.variance_("v", "vv"), S.stddev_pop_("d", "sd"),
+                    S.count_if_("b", "ci"), S.bool_and_("b", "ba"),
+                    S.bit_xor_("k", "bx"), S.bit_and_("k", "bn"),
+                    ("first", "s", "fs"), ("last", "v", "lv")).collect()))
+        out[dev] = res
+    assert all(same(a, b) for a, b in zip(out["cuda"], out["cpu"]))
+
+
+@pytest.mark.gpu
+def test_q4_and_q1_on_gpu_equal_numpy(tmp_path):
+    """TPC-H Q4 and its twins from phase 19's kind of files, and Q1 from
+    phase 23's, at test size on the card: exact against numpy, K1 once a
+    dictionary chunk, K1 equal to its plain version on Q1's width-1 and
+    width-2 string index tables."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+
+    dev = torch.device("cuda")
+    orders, lineitem = C.make_q12(20_000, 5)
+    o_paths, l_paths, _ = C.write_q12_files(
+        orders, lineitem, str(tmp_path / "q4"), dev, n_files=2)
+    ors, lrs = C.q4_schemas(T)
+    for how in ("left_semi", "left_anti", "right", "full"):
+        q = C._q4_files_query(o_paths, l_paths, how, C.Q12_CONF, dev)
+        decode.unpack_launches = 0
+        assert q.collect() == C.q4_reference(orders, lineitem, how)
+        assert decode.unpack_launches == C.dict_chunks(
+            o_paths, ors) + C.dict_chunks(l_paths, lrs)
+    li = C.lineitem_q1(50_000, 10 * 50_000 / C.SF10_ROWS, 9)
+    paths = C.write_q1_files(li, str(tmp_path / "q1"), dev, n_files=2)
+    err, widths = C.check_string_k1(paths[:1], lambda p: C.q1_schema(T),
+                                    dev, "gpu", "Q1")
+    assert err == 0 and widths == [1, 2]
+    import spark_rapids_tpu_torch.session as S
+    q = C.q1_query(S.TpuSession(C.Q12_CONF, device=dev).read.schema(
+        C.q1_schema(T)).parquet(*paths), S)
+    decode.unpack_launches = 0
+    assert q.collect() == C.q1_reference(li)
+    assert decode.unpack_launches == C.dict_chunks(paths, C.q1_schema(T))

@@ -235,7 +235,9 @@ def test_fused_stage_matches_graft_q6_step(reference_device_run):
     root = q6(DataFrame(LocalTableScan(host, sch), s), S,
               count_(None, "n"))._planned()
     assert root.describe().endswith("fused=[FilterProject]")
-    res = root._aggregate_batch(batch).to_host_columns()
+    # the batch's buffer, finished (a buffer holds each sum's overflow
+    # flag beside it)
+    res = root._finish(root._aggregate_batch(batch)).to_host_columns()
     assert batch.num_rows == n
     assert to_py(*res[0].data[0]) == int(out["sum"])
     assert int(res[1].data[0]) == int(out["count"])
