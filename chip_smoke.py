@@ -9,8 +9,10 @@ resumed), the driver SIGKILLed and restarted over re-attaching workers,
 bench's q6_parquet_hot (Q6 over the hot-table cache), TPC-H Q12 at
 SF10 (string columns end to end), from Parquet and out of core, TPC-H Q4
 and the other join types on its tables (semi, anti, right and full
-outer), and TPC-H Q1 at SF10 (averages over 128-bit sums, a CPU stage
-with strings and decimal products).
+outer), TPC-H Q1 at SF10 (averages over 128-bit sums, a CPU stage
+with strings and decimal products), and TPC-H Q11, Q15 and q16_nolike at
+SF10 (nested-loop and cross joins, a residual condition, count
+distinct).
 
     python3 chip_smoke.py [--scale 10] [--seed 20261017]
 
@@ -201,7 +203,40 @@ Phases, each failing the run at its first mismatch:
     decimal(16,6) averages over decimal(22,2) sums, the count), the plan
     the reference's with the Project as a CPU stage (``q1_plan``), K1
     once a dictionary chunk; a breakdown (the CPU stage's seconds and
-    its ``bytes_d2h``/``bytes_h2d``) and one profiled collect.
+    its ``bytes_d2h``/``bytes_h2d``) and one profiled collect;
+24. TPC-H Q11 (spec 2.4.11, NATION GERMANY, FRACTION 0.0001 / SF) at
+    ``--scale``: nation, supplier (100,000 at SF10), part (2,000,000) and
+    partsupp (8,000,000) from ``--seed`` + 2 per spec 4.2.3
+    (``make_tpch_parts``), written as snappy files (8 a table, nation
+    one), money INT64 DECIMAL(12,2), every string dictionary-encoded by
+    ``encode_dict_strings``; K1 held against its plain version on part's
+    and nation's string index tables (widths 5 and 8).  Q11's threshold
+    (the nation's stock times FRACTION, a CPU stage) is a one-row side
+    joined by a nested-loop join on ``value > threshold``; two collects
+    exact against numpy, the plan the reference's (``q11_plan``), K1
+    once a dictionary chunk of both sides' scans; a breakdown (scans,
+    joins, the value sum, the threshold's device side, CPU stage and
+    upload, the nested-loop join) and one profiled collect; then the same
+    query as a cross join and a filter (``TpuCartesianProductExec``);
+25. the nested-loop join's left semi, left anti and left outer types on
+    Q11's rows (semi the inner rows, anti the rest, semi + anti every
+    part, left outer the inner rows with the threshold and the rest with
+    a null one) and a full outer one, a CPU stage with the reference's
+    reason, equal to the left outer's rows; then partsupp ⋈ part with the
+    residual condition ``ps_availqty > p_size * 100``, planned by hand,
+    on the broadcast join, the shuffled join and, under phase 13's conf,
+    the sub-partitioned join (>= 2 buckets); each exact, each plan the
+    reference's;
+26. TPC-H Q15 (spec 2.4.15, DATE 1996-01-01) over its own lineitem
+    (59,986,052 rows at SF10, ``lineitem_q15`` from ``--seed`` + 3:
+    l_suppkey by the spec's formula from l_partkey) and phase 24's
+    supplier: the revenue view, its max as a one-row side of an equality
+    nested-loop join, the supplier's columns by an equi-join; and
+    ``q16_nolike``, TPC-H Q16 without its two LIKE predicates: the
+    count(distinct ps_suppkey) by brand, type and size, planned as a
+    dedup aggregate under the count.  Each collected twice, exact, the
+    plan the reference's, K1 once a dictionary chunk, one profiled
+    collect.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
@@ -3157,9 +3192,8 @@ def encode_dict_strings(f, codes, values, device, codec: int):
     from spark_rapids_tpu_torch.perfcounters import sync_get, to_device
 
     n = len(codes)
-    hit = [(int(np.argmax(codes == c)), c) for c in range(len(values))
-           if (codes == c).any()]
-    order = [c for _, c in sorted(hit)]
+    present, first = np.unique(codes, return_index=True)
+    order = present[np.argsort(first)]
     rank = np.zeros(len(values), np.int64)
     rank[order] = np.arange(len(order))
     table = q12_string_column(np.asarray(order), values)
@@ -3361,18 +3395,23 @@ def q12_build_bytes(lineitem) -> int:
     return 22 * int(q12_selected(lineitem).sum())
 
 
-def _q12_collects(q, want, label: str, n: int, smi: str):
-    """Two collects of ``q``, both equal to ``want``; the counts (K1
-    launches, perfcounters, peak memory) set to 0 just before the timed
-    second one and read just after it."""
+def _q12_collects(q, want, label: str, n: int, smi: str, check=None,
+                  unit: str = "lineitem rows"):
+    """Two collects of ``q``, both equal to ``want`` (or held by ``check``:
+    rows -> None or a complaint); the counts (K1 launches, perfcounters,
+    peak memory) set to 0 just before the timed second one and read just
+    after it."""
     import torch
 
     from spark_rapids_tpu_torch import perfcounters as PC
     from spark_rapids_tpu_torch.pallas import decode
 
-    first = q.collect()
-    if first != want:
-        fail(f"{label}, first run: {first} != {want}")
+    if check is None:
+        def check(rows):
+            return None if rows == want else f"{rows} != {want}"
+    bad = check(q.collect())
+    if bad:
+        fail(f"{label}, first run: {bad}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     decode.unpack_launches = 0
@@ -3384,9 +3423,11 @@ def _q12_collects(q, want, label: str, n: int, smi: str):
     launches = decode.unpack_launches
     d = PC.since(snap)
     peak = torch.cuda.max_memory_allocated()
-    if rows != want:
-        fail(f"{label}, second run: {rows} != {want}")
-    log(f"{label}: {rows} == numpy reference; {n} lineitem rows in "
+    bad = check(rows)
+    if bad:
+        fail(f"{label}, second run: {bad}")
+    shown = rows if len(rows) <= 8 else f"{len(rows)} rows"
+    log(f"{label}: {shown} == numpy reference; {n} {unit} in "
         f"{secs:.3f} s = {n / secs:.0f} rows/s [{smi}]")
     log(f"{label} counters: unpack_launches={launches} bytes_h2d="
         f"{d['bytes_h2d']} bytes_d2h={d['bytes_d2h']} host_syncs="
@@ -4069,6 +4110,866 @@ def q1_breakdown(q, smi: str):
     return {"scan": t_scan, "cpu": t_cpu, "upload": t_up, "agg": t_agg}
 
 
+# ---------------------------------------------------------------------------
+# TPC-H Q11 and Q15 (a scalar subquery as a nested-loop join against a
+# one-row broadcast side), and q16_nolike (count(distinct)), from Parquet
+# ---------------------------------------------------------------------------
+
+TPCH_NATIONS = ("ALGERIA", "ARGENTINA", "BRAZIL", "CANADA", "EGYPT",
+                "ETHIOPIA", "FRANCE", "GERMANY", "INDIA", "INDONESIA", "IRAN",
+                "IRAQ", "JAPAN", "JORDAN", "KENYA", "MOROCCO", "MOZAMBIQUE",
+                "PERU", "CHINA", "ROMANIA", "SAUDI ARABIA", "VIETNAM",
+                "RUSSIA", "UNITED KINGDOM", "UNITED STATES")
+TPCH_REGIONS = (0, 1, 1, 1, 4, 0, 3, 3, 2, 2, 4, 4, 2, 4, 0, 0, 0, 1, 2, 3,
+                4, 2, 3, 3, 1)
+TPCH_BRANDS = tuple(f"Brand#{m}{n}" for m in range(1, 6)
+                    for n in range(1, 6))
+TPCH_TYPES = tuple(f"{a} {b} {c}"
+                   for a in ("STANDARD", "SMALL", "MEDIUM", "LARGE",
+                             "ECONOMY", "PROMO")
+                   for b in ("ANODIZED", "BURNISHED", "PLATED", "POLISHED",
+                             "BRUSHED")
+                   for c in ("TIN", "NICKEL", "BRASS", "STEEL", "COPPER"))
+TPCH_VSTR = ("0123456789abcdefghijklmnopqrstuvwxyz"
+             "ABCDEFGHIJKLMNOPQRSTUVWXYZ, ")    # 64 characters
+Q11_NATION = "GERMANY"             # spec 2.4.11.3's validation parameters
+Q15_WINDOW = (9496, 9587)          # [1996-01-01, 1996-04-01) in epoch days
+Q16_SIZES = (49, 14, 23, 45, 19, 3, 36, 9)
+Q16_BRAND = "Brand#45"
+
+
+def q11_fraction(scale: float) -> Decimal:
+    """FRACTION = 0.0001 / SF, written at 10 decimal places as qgen does
+    (0.0000100000 at SF10)."""
+    return (Decimal("0.0001") / Decimal(str(scale))).quantize(
+        Decimal("0.0000000001"))
+
+
+def _v_strings(rng, n: int, lo: int, hi: int):
+    """``n`` of TPC-H's random v-strings (length uniform in [lo, hi]) as
+    an object array of ``str``."""
+    chars = np.frombuffer(TPCH_VSTR.encode(), np.uint8)[
+        rng.integers(0, len(TPCH_VSTR), (n, hi))]
+    lens = rng.integers(lo, hi + 1, n)
+    return np.array([bytes(r[:k]).decode() for r, k in zip(chars, lens)],
+                    dtype=object)
+
+
+def make_tpch_parts(scale: float, seed: int):
+    """nation, supplier, part and partsupp as TPC-H 4.2.3 draws the columns
+    Q11, Q15 and Q16 read, from ``seed``: 25 nations; SF x 10,000
+    suppliers (S_NAME ``Supplier#`` and the key in 9 digits, S_ADDRESS a
+    v-string of 10-40 characters, S_NATIONKEY uniform in [0, 24], S_PHONE
+    its country code 10 + nationkey and three random groups); SF x
+    200,000 parts (P_BRAND ``Brand#MN`` with M, N uniform in [1, 5],
+    P_TYPE uniform over the 150 syllable triples, P_SIZE uniform in [1,
+    50]); four partsupp rows a part, PS_SUPPKEY by the spec's formula,
+    PS_AVAILQTY uniform in [1, 9999], PS_SUPPLYCOST uniform in [1.00,
+    1000.00] (cents).  Strings are codes into ``values`` (name -> the
+    strings); a table whose every row has its own string holds
+    ``arange`` codes and the row's string in ``values``."""
+    rng = np.random.default_rng(seed)
+    n_s = max(int(round(scale * 10_000)), 4)
+    n_p = max(int(round(scale * 200_000)), 1)
+    skey = np.arange(1, n_s + 1, dtype=np.int64)
+    snation = rng.integers(0, 25, n_s).astype(np.int32)
+    groups = rng.integers([100, 100, 1000], [1000, 1000, 10000], (n_s, 3))
+    supplier = {"s_suppkey": skey, "s_name": np.arange(n_s),
+                "s_address": np.arange(n_s), "s_nationkey": snation,
+                "s_phone": np.arange(n_s)}
+    values = {
+        "n_name": TPCH_NATIONS, "p_brand": TPCH_BRANDS, "p_type": TPCH_TYPES,
+        "s_name": np.array([f"Supplier#{k:09d}" for k in skey], object),
+        "s_address": _v_strings(rng, n_s, 10, 40),
+        "s_phone": np.array([f"{10 + c}-{a}-{b}-{d}" for c, (a, b, d)
+                             in zip(snation, groups)], object)}
+    nation = {"n_nationkey": np.arange(25, dtype=np.int32),
+              "n_name": np.arange(25, dtype=np.int8),
+              "n_regionkey": np.array(TPCH_REGIONS, np.int32)}
+    pkey = np.arange(1, n_p + 1, dtype=np.int64)
+    part = {"p_partkey": pkey,
+            "p_brand": rng.integers(0, 25, n_p).astype(np.int8),
+            "p_type": rng.integers(0, len(TPCH_TYPES), n_p).astype(np.int16),
+            "p_size": rng.integers(1, 51, n_p).astype(np.int32)}
+    ps_part = np.repeat(pkey, 4)
+    i = np.tile(np.arange(4, dtype=np.int64), n_p)
+    partsupp = {"ps_partkey": ps_part,
+                "ps_suppkey": tpch_suppkey(ps_part, i, n_s),
+                "ps_availqty": rng.integers(1, 10_000, 4 * n_p).astype(
+                    np.int32),
+                "ps_supplycost": rng.integers(100, 100_001, 4 * n_p)}
+    return {"nation": nation, "supplier": supplier, "part": part,
+            "partsupp": partsupp}, values
+
+
+def tpch_suppkey(partkey, i, n_s: int):
+    """The spec's supplier of a part: (partkey + i * (S/4 + (partkey - 1)
+    / S)) mod S + 1 for i in [0, 3], S the supplier count."""
+    return (partkey + i * (n_s // 4 + (partkey - 1) // n_s)) % n_s + 1
+
+
+def lineitem_q15(n: int, scale: float, seed: int):
+    """The columns Q15 reads, by TPC-H 4.2.3, from ``seed``: L_PARTKEY
+    uniform over the parts, L_SUPPKEY the spec's supplier ``i`` (uniform
+    in [0, 3]) of that part, L_EXTENDEDPRICE = quantity x the part's
+    retail price (cents), L_DISCOUNT in [0.00, 0.10], L_SHIPDATE =
+    orderdate + [1, 121]."""
+    rng = np.random.default_rng(seed)
+    n_s = max(int(round(scale * 10_000)), 4)
+    partkey = rng.integers(1, max(int(round(scale * 200_000)), 1) + 1, n,
+                           dtype=np.int64)
+    suppkey = tpch_suppkey(partkey, rng.integers(0, 4, n), n_s)
+    retail = (90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1_000))
+    quantity = rng.integers(1, 51, n, dtype=np.int64)
+    orderdate = rng.integers(8035, 10440 + 1, n).astype(np.int32)
+    return {"l_suppkey": suppkey, "l_extendedprice": quantity * retail,
+            "l_discount": rng.integers(0, 11, n, dtype=np.int64),
+            "l_shipdate": orderdate + rng.integers(1, 122, n).astype(
+                np.int32)}
+
+
+def tpch_schemas(T):
+    """The files' schemas (TPC-H's columns are NOT NULL; money
+    DECIMAL(12,2) over INT64, as ``q1_schema``)."""
+    money = T.DecimalType(12, 2)
+
+    def sch(fields):
+        return T.StructType([T.StructField(nm, t, False)
+                             for nm, t in fields])
+    return {
+        "nation": sch([("n_nationkey", T.INT), ("n_name", T.STRING),
+                       ("n_regionkey", T.INT)]),
+        "supplier": sch([("s_suppkey", T.LONG), ("s_name", T.STRING),
+                         ("s_address", T.STRING), ("s_nationkey", T.INT),
+                         ("s_phone", T.STRING)]),
+        "part": sch([("p_partkey", T.LONG), ("p_brand", T.STRING),
+                     ("p_type", T.STRING), ("p_size", T.INT)]),
+        "partsupp": sch([("ps_partkey", T.LONG), ("ps_suppkey", T.LONG),
+                         ("ps_availqty", T.INT), ("ps_supplycost", money)]),
+        "lineitem": sch([("l_suppkey", T.LONG), ("l_extendedprice", money),
+                         ("l_discount", money), ("l_shipdate", T.DATE)])}
+
+
+def write_tpch_files(name, table, values, schema, out_dir: str, device,
+                     n_files: int = N_FILES):
+    """A generated table as ``n_files`` snappy files, one row group each:
+    numeric columns dictionary-encoded by the port's writer, strings by
+    ``encode_dict_strings`` (a table whose rows each hold their own
+    string gets the file's rows as its dictionary)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.column import HostColumn
+    from spark_rapids_tpu_torch.io import parquet_encode as PE
+    from spark_rapids_tpu_torch.io.parquet_native import CODEC_SNAPPY
+
+    os.makedirs(out_dir, exist_ok=True)
+    n = len(table[schema.fields[0].name])
+    bounds = np.linspace(0, n, n_files + 1).astype(np.int64)
+    paths = []
+    for i in range(n_files):
+        lo, hi = int(bounds[i]), int(bounds[i + 1])
+        chunks = []
+        for f in schema.fields:
+            if isinstance(f.dataType, T.StringType):
+                codes, vals = table[f.name][lo:hi], values[f.name]
+                if len(vals) == n:            # each row its own string
+                    codes, vals = codes - lo, vals[lo:hi]
+                chunks.append(encode_dict_strings(f, codes, vals, device,
+                                                  CODEC_SNAPPY))
+            else:
+                chunks.append(PE.encode_column(
+                    f, HostColumn.from_numpy(table[f.name][lo:hi],
+                                             f.dataType),
+                    hi - lo, CODEC_SNAPPY, True, device))
+        path = os.path.join(out_dir, f"{name}-{i:02d}.parquet")
+        PE.write_chunks(path, schema, chunks, hi - lo)
+        paths.append(path)
+    return paths
+
+
+def q11_query(partsupp, supplier, nation, mod, fraction: Decimal,
+              how: str = "inner"):
+    """TPC-H Q11 over three DataFrames of the package whose session module
+    is ``mod``: the stock value of each part held by the nation's
+    suppliers, kept where it is above FRACTION of the nation's total (the
+    scalar subquery: a one-row side joined by a nested-loop join), ordered
+    by value descending, as (ps_partkey, value).  ``how="cross"`` writes
+    the subquery as a cross join and a filter; ``left``, ``left_semi``,
+    ``left_anti`` and ``full`` give the nested-loop join's other types on
+    the same rows, with every column the join outputs."""
+    col, lit = mod.col, mod.lit
+    nat = (nation.filter(col("n_name").eq(Q11_NATION))
+           .select(col("n_nationkey").alias("nationkey")))
+    supp = (supplier.select(col("s_suppkey").alias("suppkey"),
+                            col("s_nationkey").alias("nationkey"))
+            .join(nat, "nationkey").select("suppkey"))
+    rows = (partsupp.select("ps_partkey", col("ps_suppkey").alias("suppkey"),
+                            "ps_availqty", "ps_supplycost")
+            .join(supp, "suppkey"))
+
+    def stock():
+        return col("ps_supplycost") * col("ps_availqty")
+
+    value = rows.group_by("ps_partkey").agg(mod.sum_(stock(), "value"))
+    threshold = (rows.agg(mod.sum_(stock(), "total"))
+                 .select((col("total") * lit(fraction)).alias("threshold")))
+    cond = col("value") > col("threshold")
+    if how == "cross":
+        joined = value.cross_join(threshold).filter(cond)
+    else:
+        joined = value.join(threshold, cond, how)
+    if how in ("inner", "cross"):
+        joined = joined.select("ps_partkey", "value")
+    return joined.order_by("value", ascending=False)
+
+
+def q11_values(tables):
+    """(part keys, their stock values in cents, the nation's total) in
+    numpy: the parts held by the nation's suppliers."""
+    ps, sup = tables["partsupp"], tables["supplier"]
+    german = np.zeros(len(sup["s_suppkey"]) + 1, np.bool_)
+    german[sup["s_suppkey"]] = sup["s_nationkey"] == TPCH_NATIONS.index(
+        Q11_NATION)
+    keep = german[ps["ps_suppkey"]]
+    stock = ps["ps_supplycost"][keep] * ps["ps_availqty"][keep]
+    keys, inv = np.unique(ps["ps_partkey"][keep], return_inverse=True)
+    value = np.zeros(len(keys), np.int64)
+    np.add.at(value, inv, stock)
+    return keys, value, int(stock.sum())
+
+
+def q11_reference(tables, fraction: Decimal, how: str = "inner"):
+    """Q11 (or the nested-loop join's ``how`` on its rows) in numpy:
+    [(ps_partkey, value)] with the value a ``Decimal`` at scale 2,
+    ordered by value descending (ties in partkey order, which the checks
+    do not hold the port to); left and full outer add the threshold, a
+    ``Decimal`` at scale 12, or None."""
+    keys, value, total = q11_values(tables)
+    num, den = fraction.as_integer_ratio()
+    # value > total * fraction, exact in integers (den > 0)
+    above = value > (total * num) // den
+    order = np.lexsort((keys, -value))
+    rows = [(int(k), Decimal(int(v)).scaleb(-2), bool(a))
+            for k, v, a in zip(keys[order], value[order], above[order])]
+    if how in ("inner", "cross", "left_semi"):
+        return [r[:2] for r in rows if r[2]]
+    if how == "left_anti":
+        return [r[:2] for r in rows if not r[2]]
+    thr = Decimal(total).scaleb(-2) * fraction
+    return [r[:2] + ((thr,) if r[2] else (None,)) for r in rows]
+
+
+def q11_check(rows, want):
+    """Q11's rows against numpy: the same rows, and the values in the
+    same (descending) order; ties may come in any order."""
+    if sorted(rows) != sorted(want) or [r[1] for r in rows] != [
+            r[1] for r in want]:
+        return f"{rows[:3]}... ({len(rows)} rows) != {want[:3]}... " \
+               f"({len(want)} rows)"
+    return None
+
+
+def q15_query(lineitem, supplier, mod):
+    """TPC-H Q15 over two DataFrames of the package whose session module
+    is ``mod``: the revenue view (each supplier's discounted revenue over
+    the quarter from 1996-01-01), its ``max`` as a one-row side joined by
+    an equality nested-loop join, then the supplier's name, address and
+    phone by an equi-join, ordered by s_suppkey."""
+    import datetime as dt
+
+    col, lit = mod.col, mod.lit
+
+    def revenue0():
+        return (lineitem
+                .filter((col("l_shipdate") >= lit(dt.date(1996, 1, 1)))
+                        & (col("l_shipdate") < lit(dt.date(1996, 4, 1))))
+                .group_by(col("l_suppkey").alias("supplier_no"))
+                .agg(mod.sum_(col("l_extendedprice")
+                              * (lit(1) - col("l_discount")),
+                              "total_revenue")))
+
+    top = revenue0().agg(mod.max_("total_revenue", "max_revenue"))
+    best = (revenue0()
+            .join(top, col("total_revenue").eq(col("max_revenue")), "inner")
+            .select(col("supplier_no").alias("suppkey"), "total_revenue"))
+    supp = supplier.select(col("s_suppkey").alias("suppkey"), "s_suppkey",
+                           "s_name", "s_address", "s_phone")
+    return (supp.join(best, "suppkey")
+            .select("s_suppkey", "s_name", "s_address", "s_phone",
+                    "total_revenue")
+            .order_by("s_suppkey"))
+
+
+def q15_reference(li, tables, values):
+    """Q15 in numpy: [(s_suppkey, s_name, s_address, s_phone,
+    total_revenue)] with the revenue a ``Decimal`` at scale 4, ordered by
+    s_suppkey."""
+    ship = li["l_shipdate"]
+    sel = (ship >= Q15_WINDOW[0]) & (ship < Q15_WINDOW[1])
+    supp = li["l_suppkey"][sel]
+    rev = li["l_extendedprice"][sel] * (100 - li["l_discount"][sel])
+    keys, inv = np.unique(supp, return_inverse=True)
+    total = np.zeros(len(keys), np.int64)
+    np.add.at(total, inv, rev)
+    best = keys[total == total.max()]
+    row = {k: i for i, k in enumerate(tables["supplier"]["s_suppkey"])}
+    return [(int(k), values["s_name"][row[k]], values["s_address"][row[k]],
+             values["s_phone"][row[k]], Decimal(int(total.max())).scaleb(-4))
+            for k in sorted(best)]
+
+
+def q16_query(partsupp, part, mod):
+    """``q16_nolike``: TPC-H Q16 without its two LIKE predicates (``p_type
+    NOT LIKE 'MEDIUM POLISHED%'`` and the supplier-complaints ``NOT IN``):
+    the suppliers of parts of another brand than Brand#45 in eight sizes,
+    counted distinct by brand, type and size, ordered by the count
+    descending, then brand, type and size."""
+    col = mod.col
+    parts = (part.filter(~col("p_brand").eq(Q16_BRAND)
+                         & col("p_size").isin(*Q16_SIZES))
+             .select(col("p_partkey").alias("partkey"), "p_brand", "p_type",
+                     "p_size"))
+    return (partsupp.select(col("ps_partkey").alias("partkey"), "ps_suppkey")
+            .join(parts, "partkey")
+            .group_by("p_brand", "p_type", "p_size")
+            .agg(mod.count_distinct_("ps_suppkey", "supplier_cnt"))
+            .order_by("supplier_cnt", "p_brand", "p_type", "p_size",
+                      ascending=[False, True, True, True]))
+
+
+def q16_reference(tables):
+    """q16_nolike in numpy: [(p_brand, p_type, p_size, supplier_cnt)] in
+    Q16's order."""
+    part, ps = tables["part"], tables["partsupp"]
+    ok = ((part["p_brand"] != TPCH_BRANDS.index(Q16_BRAND))
+          & np.isin(part["p_size"], Q16_SIZES))
+    row = ps["ps_partkey"] - 1                 # partkeys are 1..n dense
+    sel = ok[row]
+    r = row[sel]
+    group = ((part["p_brand"][r].astype(np.int64) * len(TPCH_TYPES)
+              + part["p_type"][r]) * 51 + part["p_size"][r])
+    pairs = np.unique(group * (1 << 32) + ps["ps_suppkey"][sel])
+    g, cnt = np.unique(pairs >> 32, return_counts=True)
+    out = [(TPCH_BRANDS[x // 51 // len(TPCH_TYPES)],
+            TPCH_TYPES[x // 51 % len(TPCH_TYPES)], int(x % 51), int(c))
+           for x, c in zip(g, cnt)]
+    return sorted(out, key=lambda t: (-t[3], t[0], t[1], t[2]))
+
+
+_READER = "TpuAdaptiveShuffleReader(target=1073741824B small=4194304B)"
+
+
+def _indent(lines, k: int):
+    return [" " * k + ln for ln in lines]
+
+
+def _adaptive(join: str, decided: str, left, right,
+              threshold: int = 10 << 20):
+    """An adaptive join over a single-partition exchange on each side (the
+    reference's plan at one device), ``left`` and ``right`` the lines
+    under each exchange."""
+    side = [_READER, "  TpuShuffleExchange SinglePartition"]
+    return ([f"TpuAdaptiveJoin(threshold={threshold})[TpuShuffledSymmetricHash"
+             f"JoinExec Inner [{join}]] decided={decided}(<bytes>)"]
+            + _indent(side, 2) + _indent(left, 6)
+            + _indent(side, 2) + _indent(right, 6))
+
+
+def q11_plan(how: str, fraction: Decimal):
+    """The reference's plan for Q11 (or the nested-loop join's ``how`` on
+    its rows) from the files after a collect (the reference's explain on
+    the CPU, scans as ``<scan>``, the adaptive join's bytes as
+    ``<bytes>``): the threshold's Project a CPU stage (a decimal(33,2)
+    times a decimal(11,10)); a full outer nested-loop join a CPU stage
+    too."""
+    value = ["TpuHashAggregate(Complete) keys=[ps_partkey] aggs=[sum(("
+             "ps_supplycost * CAST(ps_availqty AS decimal(10,0)))) AS value]"
+             ] + _indent(_adaptive(
+                 "suppkey=suppkey", "broadcast",
+                 ["TpuProject [ps_partkey, ps_suppkey AS suppkey, "
+                  "ps_availqty, ps_supplycost]", "  <scan>"],
+                 ["TpuProject [suppkey]",
+                  "  TpuBroadcastHashJoinExec Inner [nationkey=nationkey]",
+                  "    TpuProject [s_suppkey AS suppkey, s_nationkey AS "
+                  "nationkey]", "      <scan>",
+                  "    TpuBroadcastExchangeExec",
+                  "      TpuStageExec[FilterProject]", "        <scan>"]), 2)
+    stage = (f"TpuRowToColumnar <- Project [(total * Decimal('{fraction}')) "
+             "AS threshold]")
+    why = ("!Project cannot run on TPU because decimal multiply with an "
+           "operand above 18 digits is not supported on TPU (needs 256-bit "
+           "intermediates)")
+    cond = ("[(CAST(value AS decimal(38,12)) > CAST(threshold AS "
+            "decimal(38,12)))]")
+    head = ["TpuSort [value DESC]"]
+    if how == "cross":
+        return head + ["  TpuStageExec[FilterProject]",
+                       "    TpuCartesianProductExec"] + _indent(
+            value, 6) + ["      " + stage, "Fallback reasons:",
+                         "        " + why]
+    if how == "full":
+        return head + [
+            f"  TpuRowToColumnar <- BroadcastNestedLoopJoin FullOuter {cond}",
+            "Fallback reasons:",
+            "  !BroadcastNestedLoopJoin cannot run on TPU because nested-loop "
+            "join type FullOuter is not supported on TPU (use an "
+            "equi-join)", "      " + why]
+    jt = {"inner": "Inner", "left": "LeftOuter", "left_semi": "LeftSemi",
+          "left_anti": "LeftAnti"}[how]
+    join = [f"TpuBroadcastNestedLoopJoin {jt} {cond}"] + _indent(
+        value, 2) + ["  TpuBroadcastExchangeExec", "    " + stage]
+    # a reason is indented by its node's depth in the CPU plan
+    depth = 3
+    if how == "inner":
+        join = ["TpuProject [ps_partkey, value]"] + _indent(join, 2)
+        depth = 4
+    return head + _indent(join, 2) + ["Fallback reasons:",
+                                      "  " * depth + why]
+
+
+def q15_plan():
+    """The reference's plan for Q15 from the files after a collect: the
+    revenue view twice (its sum fused over the date filter), the max's
+    one row broadcast to an equality nested-loop join, the supplier's
+    columns by an adaptive join that broadcasts that one row."""
+    revenue = ["TpuHashAggregate(Complete) keys=[l_suppkey AS supplier_no] "
+               "aggs=[sum((l_extendedprice * (CAST(1 AS decimal(10,0)) - "
+               "l_discount))) AS total_revenue] fused=[Filter]", "  <scan>"]
+    best = (["TpuProject [supplier_no AS suppkey, total_revenue]",
+             "  TpuBroadcastNestedLoopJoin Inner [(total_revenue = "
+             "max_revenue)]"] + _indent(revenue, 4)
+            + ["    TpuBroadcastExchangeExec",
+               "      TpuHashAggregate(Complete) keys=[] aggs=["
+               "max(total_revenue) AS max_revenue]"] + _indent(revenue, 8))
+    return ["TpuSort [s_suppkey ASC]",
+            "  TpuProject [s_suppkey, s_name, s_address, s_phone, "
+            "total_revenue]"] + _indent(_adaptive(
+                "suppkey=suppkey", "broadcast",
+                ["TpuProject [s_suppkey AS suppkey, s_suppkey, s_name, "
+                 "s_address, s_phone]", "  <scan>"], best), 4)
+
+
+def q16_plan(decided: str, broadcast_planned: bool = False,
+             threshold: int = 10 << 20):
+    """The reference's plan for q16_nolike from the files after a collect,
+    without its join-aggregate fusion (not ported): the count over the
+    dedup aggregate over the join of partsupp with the filtered parts,
+    broadcast at planning when the part files are within the threshold,
+    else adaptive, decided ``decided``."""
+    ps = ["TpuProject [ps_partkey AS partkey, ps_suppkey]", "  <scan>"]
+    parts = ["TpuStageExec[FilterProject]", "  <scan>"]
+    join = (["TpuBroadcastHashJoinExec Inner [partkey=partkey]"]
+            + _indent(ps, 2) + ["  TpuBroadcastExchangeExec"]
+            + _indent(parts, 4) if broadcast_planned
+            else _adaptive("partkey=partkey", decided, ps, parts, threshold))
+    return ["TpuSort [supplier_cnt DESC, p_brand ASC, p_type ASC, p_size "
+            "ASC]",
+            "  TpuHashAggregate(Complete) keys=[p_brand, p_type, p_size] "
+            "aggs=[count(ps_suppkey) AS supplier_cnt]",
+            "    TpuHashAggregate(Complete) keys=[p_brand, p_type, p_size, "
+            "ps_suppkey] aggs=[]"] + _indent(join, 6)
+
+
+def residual_plan(route: str):
+    """The reference's plan for the residual-condition join built by hand
+    (no exchange, so no adaptive join): the broadcast join over a
+    broadcast part side, or the shuffled join bare."""
+    agg = ("TpuHashAggregate(Complete) keys=[] aggs=[count_star(*) AS pairs, "
+           "sum(ps_availqty) AS sum_availqty, sum(ps_suppkey) AS "
+           "sum_suppkey, sum(p_size) AS sum_size]")
+    ps = ["    TpuProject [ps_partkey AS partkey, ps_suppkey, ps_availqty]",
+          "      <scan>"]
+    if route == "broadcast":
+        return [agg, "  TpuBroadcastHashJoinExec Inner [partkey=pkey]"] + ps \
+            + ["    TpuBroadcastExchangeExec",
+               "      TpuProject [p_partkey AS pkey, p_size]", "        <scan>"]
+    return [agg, "  TpuShuffledSymmetricHashJoinExec Inner [partkey=pkey]"] \
+        + ps + ["    TpuProject [p_partkey AS pkey, p_size]", "      <scan>"]
+
+
+def q16_build_bytes(tables) -> int:
+    """The adaptive join's measured build side at q16_nolike: 64 bytes a
+    filtered part (the key and its validity; p_brand's 8 chars, p_type's
+    32, each with a length and a validity; p_size and its validity), as
+    the port counts a row."""
+    part = tables["part"]
+    return 64 * int(((part["p_brand"] != TPCH_BRANDS.index(Q16_BRAND))
+                     & np.isin(part["p_size"], Q16_SIZES)).sum())
+
+
+def residual_query(partsupp, part, mod, route: str):
+    """partsupp ⋈ part on the part key with the residual condition
+    ``ps_availqty > p_size * 100``, built as a plan by hand (the session
+    plans no equi-join with a condition): a ``BroadcastHashJoin`` over a
+    broadcast part side (``route="broadcast"``) or a ``SortMergeJoin``
+    over the two sides, the shuffled join; then the pairs counted and
+    summed."""
+    pkg = mod.__name__.rsplit(".", 1)[0]
+    PN = importlib.import_module(pkg + ".plan.nodes")
+    col, lit = mod.col, mod.lit
+    ps = partsupp.select(col("ps_partkey").alias("partkey"), "ps_suppkey",
+                         "ps_availqty")
+    p = part.select(col("p_partkey").alias("pkey"), "p_size")
+    lk = [col("partkey").resolve(ps.schema)]
+    rk = [col("pkey").resolve(p.schema)]
+    if route == "broadcast":
+        node = PN.BroadcastHashJoin(ps.plan, PN.BroadcastExchange(p.plan), lk,
+                                    rk, PN.JoinType.INNER)
+    else:
+        node = PN.SortMergeJoin(ps.plan, p.plan, lk, rk, PN.JoinType.INNER)
+    joined = mod.DataFrame(node, ps.session)
+    node.condition = (col("ps_availqty") > col("p_size") * lit(100)).resolve(
+        joined.schema)
+    return joined.agg(mod.count_(None, "pairs"),
+                      mod.sum_("ps_availqty", "sum_availqty"),
+                      mod.sum_("ps_suppkey", "sum_suppkey"),
+                      mod.sum_("p_size", "sum_size"))
+
+
+def residual_reference(tables):
+    """The residual-condition join's one row in numpy."""
+    ps, part = tables["partsupp"], tables["part"]
+    size = part["p_size"][ps["ps_partkey"] - 1]
+    keep = ps["ps_availqty"] > size * 100
+    return [(int(keep.sum()), int(ps["ps_availqty"][keep].sum()),
+             int(ps["ps_suppkey"][keep].sum()), int(size[keep].sum()))]
+
+
+def tpch_frames(paths, s, reads):
+    """The files of each table in ``reads`` (table -> the columns the
+    query reads) as a DataFrame of session ``s`` under that read
+    schema."""
+    from spark_rapids_tpu_torch import types as T
+
+    sch = tpch_schemas(T)
+    return {name: s.read.schema(T.StructType(
+        [f for f in sch[name].fields if f.name in cols])).parquet(
+        *paths[name]) for name, cols in reads.items()}
+
+
+def write_tpch_tables(tables, values, li, out_dir: str, device,
+                      n_files: int = N_FILES):
+    """partsupp, part, supplier and Q15's lineitem as ``n_files`` snappy
+    files each, nation (25 rows) as one file."""
+    from spark_rapids_tpu_torch import types as T
+
+    sch = tpch_schemas(T)
+    out = {}
+    for name in ("nation", "supplier", "part", "partsupp", "lineitem"):
+        table = li if name == "lineitem" else tables[name]
+        out[name] = write_tpch_files(name, table, values, sch[name], out_dir,
+                                     device, 1 if name == "nation"
+                                     else n_files)
+    return out
+
+
+def tpch_chunks(paths, names) -> int:
+    """The K1 launches of scanning the columns ``names`` read from the
+    tables' files: one per dictionary chunk."""
+    from spark_rapids_tpu_torch import types as T
+
+    sch = tpch_schemas(T)
+    total = 0
+    for table, cols in names.items():
+        read = T.StructType([f for f in sch[table].fields if f.name in cols])
+        total += dict_chunks(paths[table], read)
+    return total
+
+
+#: the columns each query reads, by table (its scans' K1 launches)
+Q11_READS = {"partsupp": ("ps_partkey", "ps_suppkey", "ps_availqty",
+                          "ps_supplycost"),
+             "supplier": ("s_suppkey", "s_nationkey"),
+             "nation": ("n_nationkey", "n_name")}
+Q15_READS = {"lineitem": ("l_suppkey", "l_extendedprice", "l_discount",
+                          "l_shipdate"),
+             "supplier": ("s_suppkey", "s_name", "s_address", "s_phone")}
+Q16_READS = {"partsupp": ("ps_partkey", "ps_suppkey"),
+             "part": ("p_partkey", "p_brand", "p_type", "p_size")}
+RESIDUAL_READS = {"partsupp": ("ps_partkey", "ps_suppkey", "ps_availqty"),
+                  "part": ("p_partkey", "p_size")}
+
+
+def _check_launches(label: str, got: int, want: int):
+    if got != want:
+        fail(f"{label}: K1 launched {got} times, not once for each of the "
+             f"{want} dictionary column chunks")
+
+
+def run_q11(paths, tables, scale: float, device, smi: str):
+    """Phase 24: TPC-H Q11 from the files, collected twice (the second
+    timed), exact against numpy, the plan the reference's; then the same
+    query as a cross join and a filter."""
+    import spark_rapids_tpu_torch.session as S
+
+    fraction = q11_fraction(scale)
+    want = q11_reference(tables, fraction)
+    n = len(tables["partsupp"]["ps_partkey"])
+    out = {}
+    for how, label in (("inner", "Q11"), ("cross", "Q11 cross join")):
+        f = tpch_frames(paths, S.TpuSession(Q12_CONF, device=device),
+                        Q11_READS)
+        q = q11_query(f["partsupp"], f["supplier"], f["nation"], S, fraction,
+                      how)
+        res = _q12_collects(q, want, label, n, smi,
+                            check=lambda rows: q11_check(rows, want),
+                            unit="partsupp rows")
+        check_plan(q, q11_plan(how, fraction), label)
+        # both sides of the nested-loop join scan the three tables
+        _check_launches(label, res["launches"],
+                        2 * tpch_chunks(paths, Q11_READS))
+        out[how] = res
+    log("Q11 plan after the collects:\n" + out["inner"]["query"].explain())
+    log(f"Q11: {len(want)} parts above FRACTION {fraction} of the "
+        f"{Q11_NATION} stock, the first {want[:2]}; K1 launches "
+        f"{out['inner']['launches']} [{smi}]")
+    return out, want
+
+
+def q11_breakdown(q, smi: str):
+    """Where a Q11 collect spends its time, step by step, each on its
+    input batches already on the card: the partsupp scan, supplier ⋈
+    nation, the adaptive join, the grouped value sum; the threshold side
+    (its device scans, joins and global sum with the download), its CPU
+    stage (the decimal(33,2) x decimal(11,10) product on limbs) and the
+    upload; the nested-loop join; the projection and the sort."""
+    import torch
+
+    from spark_rapids_tpu_torch.cpu.oracle import eval_expr
+
+    sort = fresh_plan(q)
+    proj = sort.children[0]
+    bnlj = proj.children[0]
+    agg = bnlj.children[0]
+    join = agg.children[0]
+    left, right = join.shuffled.children
+    t_ps, _ = _replay_leaf(left, 0)
+    t_supp, _ = _replay_leaf(right, 0)
+    t_join, batches = _timed_run(join)
+    agg.children[0] = _Replay(batches, join.output)
+    t_agg, values = _timed_run(agg)
+    r2c = bnlj.children[1].children[0]
+    stage = r2c.cpu_plan
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cols, rows = stage.children[0].materialize_cpu()
+    t_thr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [eval_expr(e, cols, rows).to_host() for e in stage.exprs]
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    thr = list(r2c.upload(host))
+    torch.cuda.synchronize()
+    t_up = time.perf_counter() - t0
+    bnlj.children = [_Replay(values, agg.output), _Replay(thr, r2c.output)]
+    t_bnlj, pairs = _timed_run(bnlj)
+    proj.children[0] = _Replay(pairs, bnlj.output)
+    t_proj, projected = _timed_run(proj)
+    sort.children[0] = _Replay(projected, proj.output)
+    t_sort, _ = _timed_run(sort)
+    n_left = sum(b.num_rows for b in values)
+    log(f"Q11 breakdown: partsupp scan {t_ps:.4f} s, supplier ⋈ nation "
+        f"{t_supp:.4f} s, join {t_join:.4f} s ({join.decision}), value sum "
+        f"{t_agg:.4f} s ({n_left} parts); threshold side: device scans, "
+        f"joins and sum + download {t_thr:.4f} s, CPU stage {t_cpu:.4f} s, "
+        f"upload {t_up:.4f} s; nested-loop join {t_bnlj:.4f} s ({n_left} x "
+        f"{sum(b.num_rows for b in thr)} pairs, "
+        f"{sum(b.num_rows for b in pairs)} kept); project {t_proj:.4f} s, "
+        f"sort {t_sort:.4f} s [{smi}]")
+
+
+def run_bnlj_types(paths, tables, q11_rows, scale: float, device,
+                   smi: str):
+    """Phase 25: the nested-loop join's other types on Q11's rows — left
+    semi (the inner rows), left anti (the rest), semi + anti (every
+    part), left outer (the inner rows with the threshold, the rest with
+    a null one), full outer (a CPU stage, the left outer's rows) — each
+    collected once, exact, planned as the reference plans it."""
+    import spark_rapids_tpu_torch.session as S
+
+    fraction = q11_fraction(scale)
+    n_rows = {}
+    for how in ("left_semi", "left_anti", "left", "full"):
+        want = q11_reference(tables, fraction, how)
+        f = tpch_frames(paths, S.TpuSession(Q12_CONF, device=device),
+                        Q11_READS)
+        q = q11_query(f["partsupp"], f["supplier"], f["nation"], S, fraction,
+                      how)
+        t0 = time.perf_counter()
+        rows = q.collect()
+        secs = time.perf_counter() - t0
+        bad = q11_check(rows, want)
+        if bad:
+            fail(f"Q11 {how} nested-loop join: {bad}")
+        check_plan(q, q11_plan(how, fraction), f"Q11 {how}")
+        n_rows[how] = len(rows)
+        log(f"Q11 {how} nested-loop join: {len(rows)} rows == numpy in "
+            f"{secs:.3f} s [{smi}]")
+    n_parts = len(q11_values(tables)[0])
+    if n_rows["left_semi"] != len(q11_rows) \
+            or n_rows["left_semi"] + n_rows["left_anti"] != n_parts:
+        fail("Q11: semi is not the inner rows, or semi + anti is not every "
+             "part")
+    log("Q11 full outer, a CPU stage:\n" + q.explain())
+    log(f"Q11 join types: semi {n_rows['left_semi']} + anti "
+        f"{n_rows['left_anti']} == the {n_parts} parts; left and full "
+        f"outer exact [{smi}]")
+
+
+def run_residual(paths, tables, pool: int, device, smi: str):
+    """Phase 25: partsupp ⋈ part with ``ps_availqty > p_size * 100`` on
+    the broadcast join, the shuffled join, and the shuffled join under
+    phase 13's conf (the pool, a batch goal of an eighth of it), where the
+    built part side is over the goal and sub-partitions; each exact
+    against numpy, each plan the reference's."""
+    import spark_rapids_tpu_torch.session as S
+
+    want = residual_reference(tables)
+    n = len(tables["partsupp"]["ps_partkey"])
+    out = {}
+    for route, conf in (("broadcast", Q12_CONF), ("shuffled", Q12_CONF),
+                        ("sub_partitioned", ooc_qb_conf(pool))):
+        f = tpch_frames(paths, S.TpuSession(conf, device=device),
+                        RESIDUAL_READS)
+        q = residual_query(f["partsupp"], f["part"], S,
+                           "broadcast" if route == "broadcast"
+                           else "shuffled")
+        res = _q12_collects(q, want, f"residual condition {route}", n, smi,
+                            unit="partsupp rows")
+        check_plan(q, residual_plan(route), f"residual {route}")
+        _check_launches(f"residual {route}", res["launches"],
+                        tpch_chunks(paths, RESIDUAL_READS))
+        buckets = q._planned().children[0].sub_partitions
+        if route == "sub_partitioned" and not (buckets or 0) >= 2:
+            fail("residual condition: the join did not sub-partition")
+        if route != "sub_partitioned" and buckets:
+            fail(f"residual condition {route}: the join sub-partitioned")
+        out[route] = res
+        del res["query"]
+        log(f"residual condition {route}: {want} == numpy; buckets "
+            f"{buckets} [{smi}]")
+    return out
+
+
+def run_q15(paths, li, tables, values, device, smi: str):
+    """Phase 26: TPC-H Q15 from the files (its own lineitem and phase 24's
+    supplier), collected twice, exact, the plan the reference's."""
+    import spark_rapids_tpu_torch.session as S
+
+    want = q15_reference(li, tables, values)
+    f = tpch_frames(paths, S.TpuSession(Q12_CONF, device=device),
+                    Q15_READS)
+    q = q15_query(f["lineitem"], f["supplier"], S)
+    res = _q12_collects(q, want, "Q15", len(li["l_suppkey"]), smi)
+    check_plan(q, q15_plan(), "Q15")
+    _check_launches("Q15", res["launches"],
+                    tpch_chunks(paths, {"lineitem": Q15_READS["lineitem"]})
+                    * 2 + tpch_chunks(paths, {"supplier":
+                                              Q15_READS["supplier"]}))
+    log("Q15 plan after the collects:\n" + q.explain())
+    log(f"Q15: {want} [{smi}]")
+    return res, want
+
+
+def run_q16(paths, tables, device, smi: str):
+    """Phase 26: q16_nolike from the files, collected twice, exact, the
+    plan the reference's (its count(distinct) as two aggregates)."""
+    import spark_rapids_tpu_torch.session as S
+
+    want = q16_reference(tables)
+    f = tpch_frames(paths, S.TpuSession(Q12_CONF, device=device),
+                    Q16_READS)
+    q = q16_query(f["partsupp"], f["part"], S)
+    res = _q12_collects(q, want, "q16_nolike",
+                        len(tables["partsupp"]["ps_partkey"]), smi,
+                        unit="partsupp rows")
+    build = q16_build_bytes(tables)
+    decided = "broadcast" if build <= 10 << 20 else "shuffled"
+    planned = sum(os.path.getsize(p) for p in paths["part"]) <= 10 << 20
+    check_plan(q, q16_plan(decided, planned), "q16_nolike")
+    join = "broadcast at planning"
+    if not planned:
+        join = [ln for ln in q.explain().splitlines()
+                if "decided=" in ln][0].split("decided=")[1]
+        if join != f"{decided}({build}B)":
+            fail(f"q16_nolike: the adaptive join decided {join}, not "
+                 f"{decided} over the {build} B of the filtered parts")
+    _check_launches("q16_nolike", res["launches"],
+                    tpch_chunks(paths, Q16_READS))
+    log("q16_nolike plan after the collects:\n" + q.explain())
+    log(f"q16_nolike: join {join}; {len(want)} groups, the first "
+        f"{want[:2]} [{smi}]")
+    return res, want
+
+
+def run_tpch_phases(scale: float, seed: int, device, smi: str, out_dir: str,
+                    pool: int = OOC_POOL):
+    """Phases 24-26: TPC-H's nation, supplier, part and partsupp (seed + 2)
+    and Q15's lineitem (seed + 3) at ``scale``, written as snappy files;
+    K1 against its plain version on part's and nation's string index
+    tables; Q11 in both forms with a breakdown and a profiled collect; the
+    nested-loop join's other types and the residual condition on three
+    routes (the sub-partitioned one under ``pool``); Q15 and q16_nolike,
+    each profiled.  -> the launches and seconds the kernel line and the
+    records take."""
+    from spark_rapids_tpu_torch import types as T
+
+    t0 = time.perf_counter()
+    tables, values = make_tpch_parts(scale, seed + 2)
+    li = lineitem_q15(int(round(SF10_ROWS * scale / 10)), scale, seed + 3)
+    gen_s = time.perf_counter() - t0
+    paths = write_tpch_tables(tables, values, li, out_dir, device)
+    sizes = {k: (len((li if k == "lineitem" else tables[k])[
+        tpch_schemas(T)[k].fields[0].name]),
+        sum(os.path.getsize(p) for p in v)) for k, v in paths.items()}
+    log(f"TPC-H data (rows, bytes): {sizes}; generated in {gen_s:.1f} s, "
+        f"written in {time.perf_counter() - t0 - gen_s:.1f} s")
+    log("TPC-H dictionary index widths: " + str(sorted(
+        {(os.path.basename(p).split("-")[0], name, page.index_bit_width)
+         for v in paths.values() for p in v[:1]
+         for name, page in main_path_pages(p)})))
+    sch = tpch_schemas(T)
+    k1_err, _ = check_string_k1(
+        [paths["part"][0], paths["nation"][0]],
+        lambda p: sch["nation" if "nation" in os.path.basename(p)
+                      else "part"], device, smi, "part and nation")
+    log(f"phases 24-26 data wall time {time.perf_counter() - t0:.1f} s")
+
+    # 24. TPC-H Q11: the scalar subquery as a nested-loop join, and as a
+    # cross join and a filter
+    t1 = time.perf_counter()
+    q11, q11_rows = run_q11(paths, tables, scale, device, smi)
+    q11_breakdown(q11["inner"]["query"], smi)
+    profile_collect(q11["inner"]["query"], q11_rows, "Q11 parquet",
+                    key=lambda rows: q11_rows
+                    if q11_check(rows, q11_rows) is None else rows)
+    log(f"phase 24 wall time {time.perf_counter() - t1:.1f} s")
+
+    # 25. the nested-loop join's other types on Q11's rows; the inner
+    # equi-join's residual condition on three routes
+    t1 = time.perf_counter()
+    run_bnlj_types(paths, tables, q11_rows, scale, device, smi)
+    residual = run_residual(paths, tables, pool, device, smi)
+    log(f"phase 25 wall time {time.perf_counter() - t1:.1f} s")
+
+    # 26. TPC-H Q15 (an equality nested-loop join against the max) and
+    # q16_nolike (count(distinct))
+    t1 = time.perf_counter()
+    q15, want15 = run_q15(paths, li, tables, values, device, smi)
+    del li
+    profile_collect(q15["query"], want15, "Q15 parquet")
+    q16, want16 = run_q16(paths, tables, device, smi)
+    profile_collect(q16["query"], want16, "q16_nolike parquet")
+    log(f"phase 26 wall time {time.perf_counter() - t1:.1f} s")
+    log(f"phases 24-26 wall time {time.perf_counter() - t0:.1f} s")
+    return {"k1_err": k1_err,
+            "q11_launches": q11["inner"]["launches"],
+            "q11_cross_launches": q11["cross"]["launches"],
+            "residual_launches": sum(r["launches"]
+                                     for r in residual.values()),
+            "q15_launches": q15["launches"],
+            "q16_launches": q16["launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=10.0)
@@ -4336,13 +5237,22 @@ def main(argv=None) -> int:
     profile_collect(q1["query"], want_q1, "Q1 parquet")
     del q1["query"]
     log(f"phase 23 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 24-26. TPC-H Q11 and Q15 (scalar subqueries as nested-loop joins),
+    # the nested-loop join's types, the residual condition on three
+    # routes, and q16_nolike (count(distinct)), from 33 new files
+    torch.cuda.empty_cache()
+    tpch = run_tpch_phases(
+        args.scale, args.seed, device, smi,
+        os.path.join(HERE, "spark_rapids_tpu_torch", "build",
+                     f"tpch_sf{args.scale:g}_seed{args.seed + 2}"))
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": q6["launches"],
-        "max_abs_err": max(err, q12_k1_err, q1_k1_err),
+        "max_abs_err": max(err, q12_k1_err, q1_k1_err, tpch["k1_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -4369,6 +5279,11 @@ def main(argv=None) -> int:
                                       for r in q4_types.values()),
         "q4_ooc_launches": sum(r["launches"] for r in q4_ooc.values()),
         "q1_launches": q1["launches"],
+        "q11_launches": tpch["q11_launches"],
+        "q11_cross_launches": tpch["q11_cross_launches"],
+        "residual_launches": tpch["residual_launches"],
+        "q15_launches": tpch["q15_launches"],
+        "q16_nolike_launches": tpch["q16_launches"],
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

@@ -29,7 +29,9 @@ products over tens of millions of rows takes seconds on a few cores,
 where Python integers take minutes.
 
 The nodes it runs are ``LocalTableScan``, ``Filter``, ``Project``,
-``Union`` and ``TpuMaterializedScan``; the expressions, those the port
+``Union``, ``BroadcastNestedLoopJoin`` (every join type; the tagging
+sends it the right and full outer ones) and ``TpuMaterializedScan``; the
+expressions, those the port
 runs on the card (references, literals, ``Alias``, comparisons, boolean
 logic, ``IsNull``/``IsNotNull``, ``In``, ``If``/``CaseWhen``,
 ``Add``/``Subtract``/``Multiply``, integral and decimal ``Cast``,
@@ -127,6 +129,17 @@ class CpuCol:
                 else [c.broadcast(n) for c in self.children])
         return CpuCol(self.dtype, b(self.values), b(self.validity), kids,
                       b(self.chars), b(self.lengths))
+
+    def nulls(self, n: int) -> "CpuCol":
+        """``n`` null rows of this column's type and layout (zero buffers,
+        a string at this column's width)."""
+        def z(a):
+            return None if a is None else np.zeros((n,) + a.shape[1:],
+                                                   a.dtype)
+        kids = (None if self.children is None
+                else [c.nulls(n) for c in self.children])
+        return CpuCol(self.dtype, z(self.values), np.zeros(n, np.bool_),
+                      kids, z(self.chars), z(self.lengths))
 
     @staticmethod
     def concat(cols: List["CpuCol"]) -> "CpuCol":
@@ -661,18 +674,22 @@ def _check_expr(e: Expression, why: str) -> None:
         _check_expr(c, why)
 
 
+#: the plan nodes this engine runs (a device subtree under one of them
+#: reaches it as ``TpuMaterializedScan``)
+CPU_PLAN_NODES = frozenset({PN.LocalTableScan, PN.Filter, PN.Project,
+                            PN.Union, PN.BroadcastNestedLoopJoin})
+
+
 def check_cpu_plan(node: PN.SparkPlan, why: str) -> None:
     """Raise ``NotOnGpu`` unless this engine runs ``node`` and its
     expressions (its children are checked where they are converted);
     ``why`` is the reason the node is not on the device."""
-    exprs = {PN.LocalTableScan: [], PN.Union: [],
-             PN.Filter: [getattr(node, "condition", None)],
-             PN.Project: list(getattr(node, "exprs", []))
-             }.get(type(node))
-    if exprs is None:
+    if type(node) not in CPU_PLAN_NODES:
         raise NotOnGpu(f"{node.node_name} in a CPU stage ({why}), which "
                        "the port's CPU engine does not run")
-    for e in exprs:
+    cond = getattr(node, "condition", None)
+    for e in list(getattr(node, "exprs", [])) + (
+            [cond] if cond is not None else []):
         _check_expr(e, why)
 
 
@@ -698,4 +715,52 @@ def execute_cpu_plan(plan: PN.SparkPlan,
         cols = [CpuCol.concat([p[0][i] for p in parts])
                 for i in range(len(parts[0][0]))]
         return cols, sum(p[1] for p in parts)
+    if isinstance(plan, PN.BroadcastNestedLoopJoin):
+        return _cpu_bnlj(plan, ansi)
     raise NotOnGpu(f"plan node {plan.node_name} in a CPU stage")
+
+
+def _cpu_bnlj(plan: PN.BroadcastNestedLoopJoin, ansi: bool
+              ) -> Tuple[CpuBatch, int]:
+    """The nested-loop join of every type (the reference's ``_cpu_bnlj``,
+    vectorized): all pairs, left-major, the condition on the pair table,
+    then the matched pairs, the unmatched left rows (left and full outer,
+    a null right side) and the unmatched right rows (right and full
+    outer, a null left side, as Spark gives them; the reference's oracle
+    drops these, ROADMAP Queue 3 R5), or the left rows with (semi) or
+    without (anti) a match."""
+    lcols, nl = execute_cpu_plan(plan.left, ansi)
+    rcols, nr = execute_cpu_plan(plan.right, ansi)
+    jt, J = plan.join_type, PN.JoinType
+    li = np.repeat(np.arange(nl), nr)
+    ri = np.tile(np.arange(nr), nl)
+    pairs = [c.take(li) for c in lcols] + [c.take(ri) for c in rcols]
+    if plan.condition is not None and nl * nr:
+        pred = eval_expr(plan.condition, pairs, nl * nr, ansi)
+        ok = pred.values.astype(bool) & pred.validity
+    else:
+        ok = np.ones(nl * nr, np.bool_)
+    lmatch = np.zeros(nl, np.bool_)
+    lmatch[li[ok]] = True
+    if jt in (J.LEFT_SEMI, J.LEFT_ANTI):
+        keep = lmatch if jt == J.LEFT_SEMI else ~lmatch
+        return [c.take(keep) for c in lcols], int(keep.sum())
+    out = [c.take(ok) for c in pairs]
+    m = int(ok.sum())
+    if jt in (J.LEFT_OUTER, J.FULL_OUTER) and not lmatch.all():
+        um = ~lmatch
+        k = int(um.sum())
+        out = [CpuCol.concat([o, c.take(um)]) for o, c in zip(out, lcols)] \
+            + [CpuCol.concat([o, c.nulls(k)])
+               for o, c in zip(out[len(lcols):], rcols)]
+        m += k
+    rmatch = np.zeros(nr, np.bool_)
+    rmatch[ri[ok]] = True
+    if jt in (J.RIGHT_OUTER, J.FULL_OUTER) and not rmatch.all():
+        um = ~rmatch
+        k = int(um.sum())
+        out = [CpuCol.concat([o, c.nulls(k)]) for o, c in zip(out, lcols)] \
+            + [CpuCol.concat([o, c.take(um)])
+               for o, c in zip(out[len(lcols):], rcols)]
+        m += k
+    return out, m

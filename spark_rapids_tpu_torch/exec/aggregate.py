@@ -310,12 +310,14 @@ def _sum_flagged(a: AggregateExpression, dt: T.DataType) -> bool:
 
 def _avg_sum_type(a: AggregateExpression) -> T.DataType:
     """``avg``'s sum buffer: decimal(p + 10, s) for a decimal input (128
-    bits above 8 digits of input, as the reference's ``buf128``), long
-    for integers, double for floats."""
+    bits above 8 digits of input, as the reference's ``buf128``), double
+    for every other number: an integer input adds as float64, as Spark's
+    ``Average`` and the reference's ``partial_buffer_schema`` do, so a sum
+    past 2^63 does not wrap."""
     ct = a.child.dataType
     if isinstance(ct, T.DecimalType):
         return T.DecimalType(min(ct.precision + 10, 38), ct.scale)
-    return T.LONG if ct.is_integral else T.DOUBLE
+    return T.DOUBLE
 
 
 def _null_column(dt: T.DataType, n: int, device) -> DeviceColumn:

@@ -43,11 +43,21 @@ the sub-partitioned join emits its own.  A right outer join is the left
 outer join with the sides swapped (the left side built) and the columns
 put back in order.
 
+An inner join's residual condition is evaluated on each probe batch's
+pairs, which are then compacted (the reference's ``_apply_condition``),
+so every route applies it after its own pairs: broadcast, shuffled,
+adaptive after its decision, and each bucket of the sub-partitioned join.
+The tagging keeps a residual condition on any other join type off the
+device, as the reference's does.
+
 ``TpuAdaptiveJoinExec`` wraps a shuffled join whose children are
 exchanges: it runs the build side first and joins by broadcast when the
 built bytes are within ``spark.sql.autoBroadcastJoinThreshold``, else
-replays them into the shuffled join.  The cross join and a residual
-condition are not ported: the plan rewrite raises ``NotOnGpu`` for them.
+replays them into the shuffled join.
+
+``TpuCartesianProductExec`` is the cross join: every pair by index
+arithmetic (``left_row = j // n_right``, ``right_row = j % n_right``),
+at most ``MAX_PRODUCT_ROWS`` pairs a step.
 """
 from __future__ import annotations
 
@@ -261,6 +271,40 @@ def _null_columns(schema: T.StructType, n: int, device
                        for f in schema.fields], n)
 
 
+def true_rows(mask: torch.Tensor, count: int) -> torch.Tensor:
+    """The indices where ``mask`` holds, in order, given their ``count``
+    (already on the host, so no further sync)."""
+    n = mask.shape[0]
+    pos = torch.cumsum(mask.to(torch.int64), 0) - 1
+    to = torch.where(mask, pos, count)
+    iota = torch.arange(n, dtype=torch.int64, device=mask.device)
+    return torch.zeros(count + 1, dtype=torch.int64,
+                       device=mask.device).scatter_(0, to, iota)[:count]
+
+
+def condition_mask(condition: Expression, batch: ColumnarBatch,
+                   ansi: bool) -> torch.Tensor:
+    """Where ``condition`` holds (true, not null) on the rows of
+    ``batch``; an ANSI error in it raises, all its flags read in one
+    host sync."""
+    ctx = EvalContext(batch, ansi=ansi)
+    pred = condition.eval_tpu(ctx)
+    ctx.check_errors()
+    return pred.data.to(torch.bool) & pred.validity & batch.row_mask
+
+
+def apply_condition(condition: Optional[Expression], batch: ColumnarBatch,
+                    ansi: bool) -> Optional[ColumnarBatch]:
+    """An inner join's pairs kept where its residual ``condition`` holds
+    (the reference's ``_apply_condition``): the pair batch compacted, its
+    kept count one host sync; None when no pair is kept."""
+    if condition is None:
+        return batch
+    cols, n = compact_columns(condition_mask(condition, batch, ansi),
+                              batch.columns)
+    return ColumnarBatch(cols, n, batch.schema) if n else None
+
+
 def _covered_build_rows(build: "_SortedBuildSide", lo, counts
                         ) -> torch.Tensor:
     """bool per original build row: in some matched pair of this probe
@@ -286,11 +330,11 @@ class _BaseTpuJoinExec(TpuExec):
                  output_schema: T.StructType, ansi: bool = False,
                  sub_partition_bytes: int = 1 << 30):
         super().__init__([left, right])
-        if join_type not in PORTED_JOIN_TYPES or condition is not None \
-                or not left_keys:
+        if join_type not in PORTED_JOIN_TYPES or not left_keys or (
+                condition is not None and join_type != JoinType.INNER):
             raise NotOnGpu(f"{join_type.value} join (only the inner, "
-                           "outer, semi and anti equi-joins without a "
-                           "condition are ported)")
+                           "outer, semi and anti equi-joins, and a residual "
+                           "condition on an inner one, are ported)")
         self.left_keys = left_keys
         self.right_keys = right_keys
         self.join_type = join_type
@@ -366,18 +410,6 @@ class _BaseTpuJoinExec(TpuExec):
         return (gather_columns(probe_row, list(p_cols)),
                 gather_columns(build_row, list(b_cols)))
 
-    @staticmethod
-    def _unmatched_rows(unmatched: torch.Tensor, n_unmatched: int
-                        ) -> torch.Tensor:
-        """The indices of the unmatched probe rows, in order."""
-        n = unmatched.shape[0]
-        pos = torch.cumsum(unmatched.to(torch.int64), 0) - 1
-        to = torch.where(unmatched, pos, n_unmatched)
-        iota = torch.arange(n, dtype=torch.int64, device=unmatched.device)
-        return torch.zeros(n_unmatched + 1, dtype=torch.int64,
-                           device=unmatched.device).scatter_(
-            0, to, iota)[:n_unmatched]
-
     def _probe_one(self, build: _SortedBuildSide, probe: ColumnarBatch,
                    covered: Optional[List[torch.Tensor]] = None
                    ) -> Optional[ColumnarBatch]:
@@ -403,13 +435,16 @@ class _BaseTpuJoinExec(TpuExec):
             build.row_index, build.batch.columns, probe.columns, lo, counts,
             total_host)
         if um_host:
-            rows = self._unmatched_rows(unmatched, um_host)
+            rows = true_rows(unmatched, um_host)
             um_cols = gather_columns(rows, list(probe.columns))
             lcols = [DeviceColumn.concat([a, b])
                      for a, b in zip(lcols, um_cols)]
             bcols = _null_rows(bcols, um_host)
-        return ColumnarBatch(lcols + bcols, total_host + um_host,
-                             self._output)
+        # the residual condition (inner only) over this batch's pairs, so
+        # every route (broadcast, shuffled, adaptive, each bucket of the
+        # sub-partitioned join) applies it after its own pairs
+        return apply_condition(self.condition, ColumnarBatch(
+            lcols + bcols, total_host + um_host, self._output), self.ansi)
 
     def _unmatched_build_tail(self, build_batch: ColumnarBatch,
                               covered: torch.Tensor
@@ -587,6 +622,72 @@ class TpuBroadcastHashJoinExec(_BaseTpuJoinExec):
 class TpuShuffledSymmetricHashJoinExec(_BaseTpuJoinExec):
     """The shuffled join (after the exchanges); on one device its build
     side is the whole right side, joined as the broadcast join joins it."""
+
+
+#: the most pairs one step of a cross or nested-loop join expands
+MAX_PRODUCT_ROWS = 1 << 20
+
+
+def cross_pairs(lb: ColumnarBatch, rb: ColumnarBatch, schema: T.StructType
+                ) -> ColumnarBatch:
+    """Every (left row, right row) pair, left-major: pair ``j`` is left
+    row ``j // n_right`` and right row ``j % n_right``."""
+    nr = rb.num_rows
+    total = lb.num_rows * nr
+    j = torch.arange(total, dtype=torch.int64, device=lb.device)
+    return ColumnarBatch(gather_columns(j // max(nr, 1), lb.columns)
+                         + gather_columns(j % max(nr, 1), rb.columns),
+                         total, schema)
+
+
+def left_chunks(lb: ColumnarBatch, n_right: int, max_pairs: int):
+    """``lb`` in slices (views) of at most ``max_pairs // n_right`` rows,
+    so that no step expands more than ``max_pairs`` pairs."""
+    step = max(1, max_pairs // max(n_right, 1))
+    for start in range(0, lb.num_rows, step):
+        yield lb.slice_rows(start, min(step, lb.num_rows - start))
+
+
+def whole_batch(child: TpuExec) -> ColumnarBatch:
+    """Everything ``child`` yields as one batch (an empty one of its
+    schema when it yields nothing): a broadcast side."""
+    batches = list(child.execute_columnar())
+    if not batches:
+        return empty_batch(child.output, child._device())
+    return batches[0] if len(batches) == 1 else ColumnarBatch.concat(batches)
+
+
+class TpuCartesianProductExec(TpuExec):
+    """The cross join (the reference's ``TpuCartesianProductExec``,
+    GpuCartesianProductExec): the right side whole, then each left batch
+    expanded by index arithmetic in steps of at most ``MAX_PRODUCT_ROWS``
+    pairs, then the condition, if any."""
+
+    MAX_PRODUCT = MAX_PRODUCT_ROWS
+
+    def __init__(self, left: TpuExec, right: TpuExec,
+                 output_schema: T.StructType,
+                 condition: Optional[Expression] = None, ansi: bool = False):
+        super().__init__([left, right])
+        self._output = output_schema
+        self.condition = condition
+        self.ansi = ansi
+
+    @property
+    def output(self):
+        return self._output
+
+    def execute_columnar(self) -> Iterator[ColumnarBatch]:
+        rb = whole_batch(self.children[1])
+        if rb.num_rows == 0:
+            return
+        for lb in self.children[0].execute_columnar():
+            for piece in left_chunks(lb, rb.num_rows, self.MAX_PRODUCT):
+                out = apply_condition(self.condition,
+                                      cross_pairs(piece, rb, self._output),
+                                      self.ansi)
+                if out is not None:
+                    yield out
 
 
 class _ReplayExec(TpuExec):

@@ -11,7 +11,8 @@ lacks, ``spark.rapids.sql.exec.<Name>=false`` or
 decimal multiply above 18 digits, an add or subtract past 38 digits, a
 decimal128 cast pair, a decimal128 hash key, a disabled file format, an
 aggregate's input type, ``avg`` or a variance over a decimal above 18
-digits) and
+digits, a residual condition on a join that is not inner, a join without
+keys that is not a cross join, a right or full outer nested-loop join) and
 an open circuit-breaker entry for the node's key
 (``resilience/breaker.py::consult_plan``).  A node with a reason stays on the host as a CPU stage (``cpu/oracle.py``);
 ``explain`` prints the reasons in the reference's words.  What the
@@ -383,6 +384,36 @@ def _agg_check(meta: SparkPlanMeta):
                 f"division; not supported on TPU yet")
 
 
+def _join_check(meta: SparkPlanMeta):
+    """The reference's ``_join_check``: every join type runs on the
+    device, a residual condition only on an inner join, and a join
+    without equi-keys only as a cross join."""
+    plan = meta.plan
+    if plan.condition is not None and plan.join_type != PN.JoinType.INNER:
+        meta.will_not_work_on_tpu(
+            "non-inner join with residual condition is not supported on TPU")
+    if not plan.left_keys and plan.join_type != PN.JoinType.CROSS:
+        meta.will_not_work_on_tpu("equi-join keys required")
+    for k in list(plan.left_keys) + list(plan.right_keys):
+        if isinstance(k._dataType, (T.ArrayType, T.MapType, T.StructType)):
+            meta.will_not_work_on_tpu(
+                "join keys of nested types are not supported on TPU")
+
+
+#: the nested-loop join types the device runs (the reference's)
+BNLJ_TYPES = frozenset({PN.JoinType.INNER, PN.JoinType.CROSS,
+                        PN.JoinType.LEFT_OUTER, PN.JoinType.LEFT_SEMI,
+                        PN.JoinType.LEFT_ANTI})
+
+
+def _bnlj_check(meta: SparkPlanMeta):
+    plan = meta.plan
+    if plan.join_type not in BNLJ_TYPES:
+        meta.will_not_work_on_tpu(
+            f"nested-loop join type {plan.join_type.value} is not supported "
+            f"on TPU (use an equi-join)")
+
+
 def _exprs_of(plan: PN.SparkPlan) -> List[Expression]:
     if isinstance(plan, PN.Project):
         return list(plan.exprs)
@@ -412,8 +443,9 @@ EXECS: Dict[Type, ExecRule] = {
     PN.Project: ExecRule(_WITH_NESTED),
     PN.Filter: ExecRule(_WITH_NESTED),
     PN.HashAggregate: ExecRule(_WITH_ARRAYS, _agg_check),
-    PN.SortMergeJoin: ExecRule(_WITH_ARRAYS),
-    PN.BroadcastHashJoin: ExecRule(_WITH_ARRAYS),
+    PN.SortMergeJoin: ExecRule(_WITH_ARRAYS, _join_check),
+    PN.BroadcastHashJoin: ExecRule(_WITH_ARRAYS, _join_check),
+    PN.BroadcastNestedLoopJoin: ExecRule(_DEC128_FULL, _bnlj_check),
     PN.Sort: ExecRule(_DEC128_FULL),
     PN.Window: ExecRule(_COMMON128),
     PN.Exchange: ExecRule(_DEC128_FULL, _exchange_check),

@@ -13,6 +13,8 @@ reason of the reference's makes a CPU stage, and what the reference runs
 on the device but the port has not ported yet (``check_expression``,
 ``_check_join``, ``_window_check``, a CPU stage the CPU engine cannot
 run) raises ``NotOnGpu``, so a missing port never turns into a CPU stage.
+A cross join (a ``SortMergeJoin`` without keys) becomes the cartesian
+product exec, a ``BroadcastNestedLoopJoin`` the nested-loop exec.
 A two-phase aggregate (Final <- Exchange(hash or single partition) <-
 Partial) collapses into one COMPLETE aggregate as the reference's
 single-device ``_collapse_complete_agg`` does, and a shuffled join over
@@ -52,8 +54,10 @@ from spark_rapids_tpu_torch.exec.coalesce import (CoalesceGoal,
 from spark_rapids_tpu_torch.exec.exchange import (
     TpuAdaptiveShuffleReaderExec, TpuBroadcastExchangeExec,
     TpuShuffleExchangeExec)
+from spark_rapids_tpu_torch.exec.generate import (
+    TpuBroadcastNestedLoopJoinExec)
 from spark_rapids_tpu_torch.exec.join import (
-    PORTED_JOIN_TYPES, TpuAdaptiveJoinExec, TpuBroadcastHashJoinExec,
+    TpuAdaptiveJoinExec, TpuBroadcastHashJoinExec, TpuCartesianProductExec,
     TpuShuffledSymmetricHashJoinExec)
 from spark_rapids_tpu_torch.exec.limit import (TpuGlobalLimitExec,
                                                TpuLocalLimitExec)
@@ -124,18 +128,13 @@ def _collapse_complete_agg(meta: SparkPlanMeta) -> Optional[SparkPlanMeta]:
 
 
 def _check_join(node: PN.SparkPlan) -> None:
-    """The inner, outer (left, right, full), left semi and left anti
-    equi-joins without a condition are ported, broadcast or shuffled (a
-    build side over batchSizeBytes sub-partitions at run time); the cross
-    join and a residual condition are not."""
-    if node.join_type not in PORTED_JOIN_TYPES:
-        raise NotOnGpu(f"join type {node.join_type.value}")
-    if node.condition is not None:
-        raise NotOnGpu("join with a residual condition")
-    if not node.left_keys:
-        raise NotOnGpu("join without equi-join keys")
-    for k in list(node.left_keys) + list(node.right_keys):
-        check_expression(k)
+    """Every join the tagging leaves on the device is ported (the inner,
+    outer, semi and anti equi-joins, broadcast or shuffled, an inner one
+    with a residual condition; the cross join; the nested-loop join's
+    types): its keys and condition must be in the subset."""
+    for e in list(node.left_keys) + list(node.right_keys) + (
+            [node.condition] if node.condition is not None else []):
+        check_expression(e)
 
 
 def _exchange_check(node: PN.Exchange) -> None:
@@ -336,8 +335,16 @@ def _convert_node(node: PN.SparkPlan, children, conf: TpuConf, device,
         return TpuProjectExec(node.exprs, children[0], ansi)
     if isinstance(node, PN.Union):
         return TpuUnionExec(children)
+    if isinstance(node, PN.BroadcastNestedLoopJoin):
+        _check_join(node)
+        return TpuBroadcastNestedLoopJoinExec(
+            children[0], children[1], node.join_type, node.condition,
+            node.output, ansi)
     if isinstance(node, PN.SortMergeJoin):
         _check_join(node)
+        if node.join_type == PN.JoinType.CROSS:
+            return TpuCartesianProductExec(children[0], children[1],
+                                           node.output, node.condition, ansi)
         shuffled = TpuShuffledSymmetricHashJoinExec(
             children[0], children[1], node.left_keys, node.right_keys,
             node.join_type, node.condition, node.output, ansi,

@@ -1,7 +1,8 @@
 """CPU physical plan nodes — port of the subset of
 ``spark_rapids_tpu/plan/nodes.py`` that the ported queries plan: scans,
 project, filter, union, aggregates, broadcast and shuffled joins over
-hash exchanges, repartitioning, windows, sorts and limits.  Aggregate
+hash exchanges, the nested-loop join, repartitioning, windows, sorts and
+limits.  Aggregate
 result types are the reference's ``_compute_type`` for the ported
 functions.
 
@@ -274,6 +275,20 @@ class SortMergeJoin(_BaseJoin):
 
 class BroadcastHashJoin(_BaseJoin):
     pass
+
+
+class BroadcastNestedLoopJoin(_BaseJoin):
+    """Join without equi-keys: every pair is checked against the condition
+    (which resolves against the left side's columns, then the right
+    side's).  Reference analog: GpuBroadcastNestedLoopJoinExec."""
+
+    def __init__(self, left, right, join_type: JoinType,
+                 condition: Optional[Expression]):
+        super().__init__(left, right, [], [], join_type, condition)
+
+    def describe(self):
+        c = self.condition.sql_string() if self.condition is not None else ""
+        return f"BroadcastNestedLoopJoin {self.join_type.value} [{c}]"
 
 
 class BroadcastExchange(SparkPlan):

@@ -3,10 +3,12 @@ of ``spark_rapids_tpu/session.py`` that Q6 and bench qa, qb and qc use).
 
 The API is call-compatible with the reference: ``TpuSession(conf)``,
 ``create_dataframe``, ``read.schema(...).parquet(...)``, ``filter``,
-``select``, ``agg``, ``group_by(...).agg``, ``join``, ``union``,
+``select``, ``agg``, ``group_by(...).agg``, ``join`` (on column names
+or on a condition), ``cross_join``, ``union``,
 ``window``, ``order_by``, ``limit``, ``explain``, ``collect`` and
 ``count``, with ``col``,
-``lit``, ``sum_``, ``count_``, ``min_``, ``max_``, ``avg_``, ``stddev_``,
+``lit``, ``sum_``, ``count_``, ``count_distinct_``, ``sum_distinct_``,
+``min_``, ``max_``, ``avg_``, ``stddev_``,
 ``stddev_pop_``, ``variance_``, ``var_pop_``, ``count_if_``,
 ``bool_and_``, ``bool_or_``, ``bit_and_``, ``bit_or_``, ``bit_xor_``,
 ``any_value_`` and ``SortSpec``, and ``repartition``.  A session runs on ``cuda`` unless it is given another
@@ -178,6 +180,10 @@ class DataFrame:
             part = PN.RoundRobinPartitioning(num_partitions)
         return DataFrame(PN.Exchange(part, self.plan), self.session)
 
+    def cross_join(self, other: "DataFrame") -> "DataFrame":
+        """Every pair of rows (a CROSS join)."""
+        return self.join(other, None, "cross")
+
     def join(self, other: "DataFrame", on, how: str = "inner"
              ) -> "DataFrame":
         """Equi-join on the column names ``on``; ``how`` is inner, left
@@ -188,11 +194,17 @@ class DataFrame:
         ``spark.sql.autoBroadcastJoinThreshold``; else the join is planned
         as a shuffled join over a hash exchange of
         ``spark.sql.shuffle.partitions`` on each side.  A cross join is
-        planned without exchanges, and the port does not run it yet."""
+        planned without exchanges.  ``on`` may instead be a condition (an
+        ``Expression`` over the left side's columns, then the right
+        side's): a nested-loop join against the broadcast right side."""
         jt = _JOIN_TYPES[how.lower()]
         if isinstance(on, Expression):
-            raise NotImplementedError(
-                "joins on a condition (nested-loop joins) are not ported yet")
+            combined = T.StructType(list(self.schema.fields)
+                                    + list(other.schema.fields))
+            node = PN.BroadcastNestedLoopJoin(
+                self.plan, PN.BroadcastExchange(other.plan), jt,
+                on.resolve(combined))
+            return DataFrame(node, self.session)
         if isinstance(on, str):
             on = [on]
         lkeys = [_col(k).resolve(self.schema) for k in on] if on else []
@@ -341,7 +353,27 @@ class GroupedData:
         ``AggregateExpression``s.  Planned as the reference plans it:
         Partial, an exchange (hash on the keys over
         ``spark.sql.shuffle.partitions``, or a single partition without
-        keys), Final."""
+        keys), Final.  ``count_distinct_`` and ``sum_distinct_`` take
+        Spark's single-distinct-column rewrite, as the reference's: an
+        aggregate without functions on (keys, the column) drops the
+        duplicates, then the plain aggregate runs over its rows."""
+        specs = list(aggs)
+        distinct = [a for a in specs if isinstance(a, tuple)
+                    and a[0] in ("count_distinct", "sum_distinct")]
+        if distinct:
+            if len(distinct) != len(specs):
+                raise NotImplementedError(
+                    "mixing distinct and non-distinct aggregates is not "
+                    "supported yet")
+            if len({str(a[1]) for a in distinct}) != 1:
+                raise NotImplementedError(
+                    "distinct aggregates over multiple columns are not "
+                    "supported yet")
+            dcol = _to_expr(distinct[0][1]).resolve(self.df.schema)
+            dedup = GroupedData(self.df, self.keys + [dcol]).agg()
+            outer = [(a[0].replace("_distinct", ""), dcol.name, a[2])
+                     for a in distinct]
+            return dedup.group_by(*[k.name for k in self.keys]).agg(*outer)
         schema = self.df.schema
         aexprs: List[PN.AggregateExpression] = []
         for a in aggs:
@@ -388,6 +420,14 @@ def sum_(c: ColumnLike, name: str = "sum") -> Tuple[str, ColumnLike, str]:
 
 def count_(c: Optional[ColumnLike] = None, name: str = "count"):
     return ("count", c, name) if c is not None else ("count_star", None, name)
+
+
+def count_distinct_(c: ColumnLike, name: str = "count_distinct"):
+    return ("count_distinct", c, name)
+
+
+def sum_distinct_(c: ColumnLike, name: str = "sum_distinct"):
+    return ("sum_distinct", c, name)
 
 
 def min_(c: ColumnLike, name: str = "min"):

@@ -3,7 +3,7 @@
 ``bool_and``, ``bool_or``, ``bit_and``, ``bit_or``, ``bit_xor``,
 ``first``, ``last`` and ``any_value`` — against the JAX package's CPU
 oracle session: over int, long, double, decimal64 (a decimal(7,2), whose
-``avg`` sums in int64) and decimal inputs whose sum buffer is above 18
+``avg`` sums in int64; an integer's ``avg`` sums in double) and decimal inputs whose sum buffer is above 18
 digits (a decimal(12,2), a decimal(22,2) buffer divided in 128 bits),
 negative values included (``avg``'s HALF_UP); grouped with a null key and
 with groups whose inputs are all null, global, over several batches, and
@@ -163,6 +163,34 @@ def test_avg_half_up_on_negative_and_decimal128_sums():
     assert got[0][2] == Decimal("-312499999.968438")
     assert got[1][2] == Decimal("312499999.968438")
     assert (got[0][3], got[1][3]) == (15.5, -15.5)
+
+
+@pytest.mark.parametrize("value,count,want", [
+    (2 ** 62, 2, 4.611686018427388e18),         # an int64 sum would wrap
+    (2 ** 53 + 1, 3, 9007199254740992.0),       # each addend rounds first
+    (2 ** 40 + 3, 5, 1099511627779.0),          # both sums exact
+], ids=["2^62", "2^53+1", "2^40"])
+def test_avg_of_a_long_sums_in_double(value, count, want):
+    """``avg`` of an integer keeps a DOUBLE sum buffer and adds float64
+    values, as the reference's buffer and Spark's ``Average``: a long
+    sum past 2^63 does not wrap, and each value rounds to a double before
+    it is added.  Exact against the reference's CPU oracle, grouped and
+    global, and over batches of one row (the merge adds doubles too)."""
+    rows = [(1, value)] * count
+
+    def q(mod, types, s, grouped):
+        sch = types.StructType([types.StructField("g", types.INT),
+                                types.StructField("v", types.LONG)])
+        df = s.create_dataframe(rows, sch)
+        gb = df.group_by("g") if grouped else df.group_by()
+        return gb.agg(mod.avg_("v", "a"))
+
+    for conf in ({}, {"spark.rapids.sql.reader.batchSizeRows": 1}):
+        for grouped in (True, False):
+            got = q(S, T, S.TpuSession(conf, device="cpu"), grouped).collect()
+            ref = q(RS, RT, RS.TpuSession(ORACLE), grouped).collect()
+            assert got == ref
+            assert got[0][-1] == want
 
 
 def test_result_types_and_plan_equal_the_reference(tmp_path):

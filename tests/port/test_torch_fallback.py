@@ -254,6 +254,51 @@ def test_cpu_engine_runs_every_ported_expression():
     assert set(oracle._HANDLERS) == PORTED_EXPRS
 
 
+def test_cpu_engine_runs_the_nested_loop_join():
+    """The CPU engine's plan nodes are the scan, filter, project, union and
+    the nested-loop join: a nested-loop join kept off the device (its exec
+    disabled) is a CPU stage, with the reference's reason, whose rows are
+    the device's; an equi-join with a residual condition that is not
+    inner, which the reference runs as a CPU stage, raises ``NotOnGpu``
+    (the engine has no hash join yet)."""
+    from spark_rapids_tpu_torch.cpu import oracle
+    from spark_rapids_tpu_torch.plan import nodes as PN
+
+    assert oracle.CPU_PLAN_NODES == {PN.LocalTableScan, PN.Filter,
+                                     PN.Project, PN.Union,
+                                     PN.BroadcastNestedLoopJoin}
+
+    def joined(s, how="inner"):
+        left = base(S, s).select("i", "d")
+        right = base(S, s).select(S.col("i").alias("j")).filter(
+            S.col("j") < S.lit(-2 ** 30))
+        return left.join(right, S.col("i") > S.col("j"), how)
+
+    off = S.TpuSession({"spark.rapids.sql.exec.BroadcastNestedLoopJoin":
+                        "false"}, device="cpu")
+    df = joined(off)
+    lines = df.explain().splitlines()
+    assert lines[0].startswith("BroadcastNestedLoopJoin Inner")
+    assert lines[-1].endswith(
+        "has been disabled by "
+        "spark.rapids.sql.exec.BroadcastNestedLoopJoin=false")
+    want = joined(S.TpuSession({}, device="cpu")).collect()
+    assert len(want) > 100
+    assert rows_key(df.collect()) == rows_key(want)
+    s = S.TpuSession({}, device="cpu")
+    left = base(S, s).select("i", "l")
+    right = base(S, s).select(S.col("i").alias("k"), S.col("l").alias("n"))
+    node = PN.BroadcastHashJoin(
+        left.plan, PN.BroadcastExchange(right.plan),
+        [S.col("i").resolve(left.schema)], [S.col("k").resolve(right.schema)],
+        PN.JoinType.LEFT_OUTER)
+    df = S.DataFrame(node, s)
+    node.condition = (S.col("l") > S.col("n")).resolve(df.schema)
+    with pytest.raises(NotOnGpu, match="BroadcastHashJoin in a CPU stage "
+                       r"\(non-inner join with residual condition"):
+        df.explain()
+
+
 def test_open_breaker_entry_keeps_the_node_on_the_host():
     """An OPEN circuit-breaker entry for the Filter's key
     (``resilience/breaker.py``) places the Filter as

@@ -904,3 +904,119 @@ def test_q4_and_q1_on_gpu_equal_numpy(tmp_path):
     decode.unpack_launches = 0
     assert q.collect() == C.q1_reference(li)
     assert decode.unpack_launches == C.dict_chunks(paths, C.q1_schema(T))
+
+
+def _nl_sides(s, n_left=2000, n_right=1000):
+    """Two tables for the nested-loop and cross joins: an int, a string and
+    a decimal a side, nulls in the latter two; ``a = b`` matches about one
+    right row in two thousand."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
+
+    rng = np.random.default_rng(43)
+    words = np.array([f"w{i}" * (i % 5 + 1) for i in range(50)], object)
+
+    def table(n, names):
+        sch = T.StructType([T.StructField(names[0], T.INT),
+                            T.StructField(names[1], T.STRING),
+                            T.StructField(names[2], T.DecimalType(12, 2))])
+        cols = [HostColumn.from_numpy(
+                    rng.integers(0, 2000, n).astype(np.int32), T.INT),
+                HostColumn.strings(list(words[rng.integers(0, 50, n)]),
+                                   rng.random(n) > 0.1),
+                HostColumn.from_numpy(rng.integers(-10 ** 9, 10 ** 9, n),
+                                      T.DecimalType(12, 2),
+                                      rng.random(n) > 0.1)]
+        return S.DataFrame(LocalTableScan(cols, sch), s)
+
+    return table(n_left, ["a", "s", "d"]), table(n_right, ["b", "t", "e"])
+
+
+@pytest.mark.gpu
+def test_nested_loop_and_cartesian_joins_on_gpu_equal_cpu():
+    """The nested-loop join (inner, left outer, semi, anti) and the cross
+    join under a filter on the card against the same queries on the CPU,
+    at 2,000 x 1,000 = 2 M pairs, so each left batch takes two chunks of
+    at most 2^20 pairs; the condition keeps about a thousand pairs, so
+    thousands of rows are compared, not millions."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = S.TpuSession({}, device=dev)
+        left, right = _nl_sides(s)
+        cond = S.col("a").eq(S.col("b")) & (S.col("d") > S.col("e"))
+        res = [sorted(left.join(right, cond, how).collect(), key=repr)
+               for how in ("inner", "left", "left_semi", "left_anti")]
+        q = left.cross_join(right).filter(cond)
+        assert "TpuCartesianProductExec" in q.explain()
+        res.append(sorted(q.collect(), key=repr))
+        out[dev] = res
+    assert out["cuda"] == out["cpu"]
+    assert 200 < len(out["cuda"][0]) < 5000
+
+
+@pytest.mark.gpu
+def test_residual_condition_sub_partitioned_on_gpu_equals_cpu():
+    """An inner equi-join with a residual condition on the sub-partitioned
+    route (the built side over an 8 KiB goal) on the card against the
+    CPU: the same rows, at least two buckets on both."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.plan import nodes as PN
+
+    conf = {"spark.rapids.sql.batchSizeBytes": "8k",
+            "spark.rapids.sql.reader.batchSizeRows": 500}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = S.TpuSession(conf, device=dev)
+        left, right = _nl_sides(s, 20_000, 3_000)
+        node = PN.SortMergeJoin(left.plan, right.plan,
+                                [S.col("a").resolve(left.schema)],
+                                [S.col("b").resolve(right.schema)],
+                                PN.JoinType.INNER)
+        df = S.DataFrame(node, s)
+        node.condition = (S.col("d") > S.col("e")).resolve(df.schema)
+        out[dev] = sorted(df.collect(), key=repr)
+        assert df._planned().sub_partitions >= 2
+    assert out["cuda"] == out["cpu"]
+    assert 5000 < len(out["cuda"]) < 30_000
+
+
+@pytest.mark.gpu
+def test_q11_q15_q16_on_gpu_equal_numpy(tmp_path):
+    """TPC-H Q11 (both forms), Q15 and q16_nolike from phases 24-26's kind
+    of files at test size on the card: exact against numpy, K1 once a
+    dictionary chunk of each scan."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+    import spark_rapids_tpu_torch.session as S
+
+    dev = torch.device("cuda")
+    scale = 0.01
+    tables, values = C.make_tpch_parts(scale, 5)
+    li = C.lineitem_q15(int(round(C.SF10_ROWS * scale / 10)), scale, 6)
+    paths = C.write_tpch_tables(tables, values, li, str(tmp_path), dev,
+                                n_files=2)
+    fraction = C.q11_fraction(1)
+    for how in ("inner", "cross"):
+        f = C.tpch_frames(paths, S.TpuSession(C.Q12_CONF, device=dev),
+                          C.Q11_READS)
+        decode.unpack_launches = 0
+        rows = C.q11_query(f["partsupp"], f["supplier"], f["nation"], S,
+                           fraction, how).collect()
+        assert C.q11_check(rows, C.q11_reference(tables, fraction)) is None
+        assert decode.unpack_launches == 2 * C.tpch_chunks(paths,
+                                                           C.Q11_READS)
+    f = C.tpch_frames(paths, S.TpuSession(C.Q12_CONF, device=dev),
+                      C.Q15_READS)
+    assert C.q15_query(f["lineitem"], f["supplier"], S).collect() \
+        == C.q15_reference(li, tables, values)
+    f = C.tpch_frames(paths, S.TpuSession(C.Q12_CONF, device=dev),
+                      C.Q16_READS)
+    decode.unpack_launches = 0
+    assert C.q16_query(f["partsupp"], f["part"], S).collect() \
+        == C.q16_reference(tables)
+    assert decode.unpack_launches == C.tpch_chunks(paths, C.Q16_READS)

@@ -27,6 +27,7 @@ def test_import_leaves_no_jax_in_sys_modules():
             "spark_rapids_tpu_torch.overrides.overrides, "
             "spark_rapids_tpu_torch.exec.window, "
             "spark_rapids_tpu_torch.exec.join, "
+            "spark_rapids_tpu_torch.exec.generate, "
             "spark_rapids_tpu_torch.exec.aggregate, "
             "spark_rapids_tpu_torch.ops.segment, "
             "spark_rapids_tpu_torch.expr.decimal128, "

@@ -6,8 +6,8 @@ duplicate build keys, a two-column key, several probe batches, an empty
 build side and an empty probe side, each collected twice; the adaptive
 join's two run-time decisions and plans against the reference's device
 session (child process); the adaptive shuffle reader's coalescing.
-Every comparison is exact.  Join types and conditions outside the port
-raise ``NotOnGpu``; a build side over the batch size sub-partitions."""
+Every comparison is exact.  Every join type runs, a join on a condition
+as a nested-loop join; a build side over the batch size sub-partitions."""
 import numpy as np
 import pytest
 import torch
@@ -18,7 +18,6 @@ from spark_rapids_tpu import types as RT
 from spark_rapids_tpu_torch import perfcounters as PC
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.exec import join as J
-from spark_rapids_tpu_torch.exec.base import NotOnGpu
 from torch_port_frames import ORACLE, frame, rows_key
 from torch_port_jaxref import run_jax
 
@@ -134,26 +133,26 @@ def test_inner_join_matches_oracle(case, batch_rows):
 @pytest.mark.parametrize("how", ["right_outer", "right", "full", "semi",
                                  "anti", "cross"])
 def test_unported_join_types_raise(how):
-    """Only the cross join is left unported: it raises ``NotOnGpu``; the
-    right and full outer, semi and anti joins, ported since, equal the
-    oracle (``test_torch_join_types.py`` holds them on every path)."""
+    """No join type is left unported: the right and full outer, semi and
+    anti joins and the cross join (its keys dropped, every pair, as the
+    reference plans it) equal the oracle (``test_torch_join_types.py``
+    and ``test_torch_nested_loop_join.py`` hold them on every path)."""
     df = joined(S, T, S.TpuSession({}, device="cpu"), "one_key", 8)
     left, right = df.plan.children[0], df.plan.children[1].children[0]
     df2 = S.DataFrame(left, df.session).join(
         S.DataFrame(right, df.session), on="k", how=how)
-    if how != "cross":
-        want = joined(RS, RT, RS.TpuSession(ORACLE), "one_key", 8, how)
-        assert rows_key(df2.collect()) == rows_key(want.collect())
-        return
-    with pytest.raises(NotOnGpu):
-        df2.collect()
+    want = joined(RS, RT, RS.TpuSession(ORACLE), "one_key", 8, how)
+    assert rows_key(df2.collect()) == rows_key(want.collect())
+    if how == "cross":
+        assert df2.explain().startswith("TpuCartesianProductExec")
 
 
 def test_shuffled_and_oversized_joins_raise():
     """A build side over ``spark.rapids.sql.batchSizeBytes`` takes the
     sub-partitioned join, broadcast or shuffled: both sides hash into
     buckets at run time (2 here), with rows equal to the oracle's; a join
-    on a condition still raises."""
+    on a condition no longer raises: it is a nested-loop join, equal to
+    the oracle."""
     conf = {"spark.rapids.sql.batchSizeBytes": "1k"}
     want = rows_key(joined(RS, RT, RS.TpuSession(ORACLE), "one_key",
                            9).collect())
@@ -166,10 +165,19 @@ def test_shuffled_and_oversized_joins_raise():
     assert "TpuAdaptiveJoin(threshold=-1)" in df.explain()
     assert rows_key(df.collect()) == want
     assert df._planned().shuffled.sub_partitions == 2
-    s = S.TpuSession({}, device="cpu")
-    df = joined(S, T, s, "one_key", 9)
-    with pytest.raises(NotImplementedError):
-        df.join(df, on=S.col("v") > S.lit(0))
+    def on_condition(mod, types, s):
+        df = joined(mod, types, s, "one_key", 9)
+        col, lit = mod.col, mod.lit
+        left = df.select(col("v").alias("lv")).filter(col("lv") < lit(-8))
+        right = df.select(col("w").alias("rw")).filter(
+            col("rw") < lit(100_000))
+        return left.join(right, on=col("lv") * lit(10_000) + col("rw")
+                         > lit(0))
+
+    df = on_condition(S, T, S.TpuSession({}, device="cpu"))
+    assert df.explain().startswith("TpuBroadcastNestedLoopJoin Inner")
+    assert rows_key(df.collect()) == rows_key(on_condition(
+        RS, RT, RS.TpuSession(ORACLE)).collect())
 
 
 STRATEGIES = {"broadcast": {},

@@ -99,6 +99,12 @@ def _get_worker() -> subprocess.Popen:
         # hash exchanges instead of collapsing them to one partition
         flags = " ".join(f for f in os.environ.get("XLA_FLAGS", "").split()
                          if "host_platform_device_count" not in f)
+        # each reference program is compiled once and run on test-sized
+        # inputs, so its compile time is most of its cost: XLA's backend
+        # (LLVM) optimization passes are off.  Fast math stays off at
+        # every level; the tests hold integers and decimals exactly and
+        # doubles to 12 significant digits.
+        flags += " --xla_backend_optimization_level=0"
         env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
                    XLA_FLAGS=flags)
         log = tempfile.TemporaryFile()   # the child's warnings, unread
