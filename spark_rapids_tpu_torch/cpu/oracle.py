@@ -54,7 +54,9 @@ from spark_rapids_tpu_torch.exec.base import NotOnGpu
 from spark_rapids_tpu_torch.expr import arithmetic as A
 from spark_rapids_tpu_torch.expr import complextypes as CT
 from spark_rapids_tpu_torch.expr import conditional as CO
+from spark_rapids_tpu_torch.expr import datetime as DT
 from spark_rapids_tpu_torch.expr import predicates as P
+from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr.base import (Alias, BoundReference,
                                               Expression, Literal,
                                               SparkArithmeticException)
@@ -634,6 +636,115 @@ def _h_create_named_struct(e: CT.CreateNamedStruct, cols, n, ansi):
                   _kids(e, cols, n, ansi))
 
 
+# -- strings and dates ---------------------------------------------------
+
+def _to_torch(c: CpuCol):
+    """A flat or string column as a ``DeviceColumn`` of CPU tensors."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+
+    if c.is_string:
+        return DeviceColumn(c.dtype, _tensor(c.validity),
+                            chars=_tensor(c.chars),
+                            lengths=_tensor(c.lengths))
+    return DeviceColumn(c.dtype, _tensor(c.validity),
+                        data=_tensor(c.values))
+
+
+def _from_torch(d) -> CpuCol:
+    def a(t):
+        return None if t is None else t.contiguous().numpy()
+    return CpuCol(d.dtype, a(d.data), a(d.validity), None, a(d.chars),
+                  a(d.lengths))
+
+
+def _h_torch(e, cols, n, ansi):
+    """The string and date expressions run their device code on CPU
+    tensors (``expr/strings.py``, ``expr/datetime.py``): a CPU stage
+    computes what the card computes, byte for byte."""
+    kids = _kids(e, cols, n, ansi)
+    return _from_torch(e.do_columnar_eval(None, [_to_torch(k)
+                                                 for k in kids]))
+
+
+def _rows_text(c: CpuCol):
+    """A string column's rows as ``str`` (None where null)."""
+    return [bytes(c.chars[i, :c.lengths[i]]).decode("utf-8", "replace")
+            if c.validity[i] else None for i in range(c.n)]
+
+
+def _java_regex_to_python(pat: str) -> str:
+    """The reference oracle's adjustment of Java against Python regexes
+    for its patterns: Java's ``.`` excludes ``\\r`` too, and Java's ``$``
+    also matches before a final ``\\r`` or ``\\r\\n``.  Walks the
+    pattern skipping escapes and character classes."""
+    out = []
+    i = 0
+    in_class = False
+    while i < len(pat):
+        c = pat[i]
+        if c == "\\" and i + 1 < len(pat):
+            out.append(pat[i:i + 2])
+            i += 2
+            continue
+        if in_class:
+            if c == "]":
+                in_class = False
+            out.append(c)
+        elif c == "[":
+            in_class = True
+            out.append(c)
+        elif c == ".":
+            out.append(r"[^\n\r]")
+        elif c == "$":
+            out.append(r"(?=(?:\r\n|\n|\r)?\Z)")
+        else:
+            out.append(c)
+        i += 1
+    return "".join(out)
+
+
+def _h_pattern(e, cols, n, ansi):
+    """``LIKE``, ``ILIKE`` and ``RLIKE``: a pattern the device runs (a fast
+    path or a DFA) runs as on the card (``_h_torch``); one the transpiler
+    rejects, the reason it is in this CPU stage, runs through Python's
+    ``re`` row by row, as the reference's oracle runs every pattern."""
+    import re
+
+    from spark_rapids_tpu_torch.regex import (RegexUnsupported,
+                                              compile_regex, like_to_regex)
+
+    p = e.right.value
+    if p is None:
+        # a NULL pattern yields NULL on every row, as in Spark
+        return CpuCol(T.BOOLEAN, np.zeros(n, np.bool_), np.zeros(n, np.bool_))
+    if isinstance(e, S.RLike):
+        try:
+            e._dfa = getattr(e, "_dfa", None) or compile_regex(p)
+            return _h_torch(e, cols, n, ansi)
+        except RegexUnsupported:
+            rx = re.compile(_java_regex_to_python(p))
+
+            def hit(v):
+                return rx.search(v) is not None
+    else:
+        if isinstance(e, S.ILike):
+            p = str(p).lower()
+        if S.try_compile_like(p)[0]:
+            return _h_torch(e, cols, n, ansi)
+        rx = re.compile(like_to_regex(p))
+        fold = isinstance(e, S.ILike)
+
+        def hit(v):
+            if fold:
+                v = "".join(chr(ord(ch) + 32) if "A" <= ch <= "Z" else ch
+                            for ch in v)
+            return rx.fullmatch(v) is not None
+    (c, _) = _kids(e, cols, n, ansi)
+    out = np.array([v is not None and hit(v) for v in _rows_text(c)],
+                   np.bool_)
+    return CpuCol(T.BOOLEAN, out, c.validity.copy())
+
+
 _HANDLERS = {
     BoundReference: _h_bound, Literal: _h_literal, Alias: _h_alias,
     A.Add: _h_binarith, A.Subtract: _h_binarith, A.Multiply: _h_binarith,
@@ -647,7 +758,16 @@ _HANDLERS = {
     Cast: _h_cast,
     CT.GetStructField: _h_get_struct_field,
     CT.CreateNamedStruct: _h_create_named_struct,
+    S.Like: _h_pattern, S.ILike: _h_pattern, S.RLike: _h_pattern,
 }
+_HANDLERS.update({cls: _h_torch for cls in (
+    S.Length, S.OctetLength, S.BitLength, S.Upper, S.Lower, S.Substring,
+    S.StringLeft, S.StringRight, S.Concat, S.StartsWith, S.EndsWith,
+    S.Contains, S.StringInstr, S.StringLocate, S.StringTrim,
+    S.StringTrimLeft, S.StringTrimRight,
+    DT.Year, DT.Month, DT.DayOfMonth, DT.DayOfWeek, DT.DayOfYear,
+    DT.Quarter, DT.WeekOfYear, DT.LastDay, DT.DateAdd, DT.DateSub,
+    DT.DateDiff, DT.AddMonths, DT.MonthsBetween, DT.TruncDate)})
 
 
 # -- plans ------------------------------------------------------------------
@@ -655,7 +775,10 @@ _HANDLERS = {
 #: the expressions that yield a string in a CPU stage (a comparison,
 #: ``In`` and ``IsNull``/``IsNotNull`` read one)
 _STRING_EXPRS = frozenset({BoundReference, Literal, Alias, CO.If,
-                           CO.CaseWhen, CO.Coalesce, CO.Nvl})
+                           CO.CaseWhen, CO.Coalesce, CO.Nvl, S.Upper,
+                           S.Lower, S.Substring, S.StringLeft,
+                           S.StringRight, S.Concat, S.StringTrim,
+                           S.StringTrimLeft, S.StringTrimRight})
 
 def _check_expr(e: Expression, why: str) -> None:
     if type(e) not in PORTED_EXPRS:
@@ -664,6 +787,9 @@ def _check_expr(e: Expression, why: str) -> None:
     if isinstance(e, Cast) and not cast_supported(e.child.dataType, e.to):
         raise NotOnGpu(f"cast {e.child.dataType.simpleString} -> "
                        f"{e.to.simpleString} in a CPU stage ({why})")
+    if isinstance(e, (S.Like, S.RLike)) and not isinstance(e.right, Literal):
+        raise NotOnGpu(f"{type(e).__name__} with a pattern that is not a "
+                       f"literal in a CPU stage ({why})")
     if isinstance(e.dataType, (T.BinaryType, T.TimestampType, T.ArrayType,
                                T.MapType)) or (
             isinstance(e.dataType, T.StringType)

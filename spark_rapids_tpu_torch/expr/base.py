@@ -178,6 +178,10 @@ class Expression:
         from spark_rapids_tpu_torch.expr.predicates import In
         return In(self, [lit(v) for v in values])
 
+    def substr(self, pos, length):
+        from spark_rapids_tpu_torch.expr.strings import Substring
+        return Substring(self, _wrap(pos), _wrap(length))
+
 
 def _wrap(v) -> Expression:
     return v if isinstance(v, Expression) else Literal.of(v)

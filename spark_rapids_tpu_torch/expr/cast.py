@@ -16,6 +16,42 @@ from spark_rapids_tpu_torch.expr.base import EvalContext, UnaryExpression
 _INTEGRAL = (T.ByteType, T.ShortType, T.IntegerType, T.LongType)
 
 
+# -- civil-calendar day math (reference ``expr/cast.py:43-65``) -------------
+
+def _fdiv(a, b):
+    """Floor division, as ``jnp.floor_divide`` (days before 1970 are
+    negative)."""
+    return torch.div(a, b, rounding_mode="floor")
+
+
+def civil_from_days(days: torch.Tensor):
+    """Days since 1970-01-01 -> (year, month, day) int64 tensors; Howard
+    Hinnant's algorithm, branch-free, proleptic Gregorian."""
+    z = days.to(torch.int64) + 719468
+    era = _fdiv(z, 146097)
+    doe = z - era * 146097
+    yoe = _fdiv(doe - _fdiv(doe, 1460) + _fdiv(doe, 36524)
+                - _fdiv(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _fdiv(yoe, 4) - _fdiv(yoe, 100))
+    mp = _fdiv(5 * doy + 2, 153)
+    d = doy - _fdiv(153 * mp + 2, 5) + 1
+    m = mp + torch.where(mp < 10, 3, -9)
+    y = y + (m <= 2).to(torch.int64)
+    return y, m, d
+
+
+def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor):
+    """(year, month, day) -> days since 1970-01-01 (int64)."""
+    y = y.to(torch.int64) - (m <= 2).to(torch.int64)
+    era = _fdiv(y, 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9).to(torch.int64)
+    doy = _fdiv(153 * mp + 2, 5) + d.to(torch.int64) - 1
+    doe = yoe * 365 + _fdiv(yoe, 4) - _fdiv(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
 def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
     """The casts the port runs, on the device and in a CPU stage."""
     return (src == dst

@@ -9,7 +9,9 @@ device: a type its ``TypeSig`` rejects, a nested type the device layout
 lacks, ``spark.rapids.sql.exec.<Name>=false`` or
 ``spark.rapids.sql.expression.<Name>=false``, and the extra checks (a
 decimal multiply above 18 digits, an add or subtract past 38 digits, a
-decimal128 cast pair, a decimal128 hash key, a disabled file format, an
+decimal128 cast pair, a decimal128 hash key, a ``LIKE``, ``ILIKE`` or
+``RLIKE`` pattern that is not a literal or that the transpiler rejects
+(the tag-time DFA is stashed on the expression), a disabled file format, an
 aggregate's input type, ``avg`` or a variance over a decimal above 18
 digits, a residual condition on a join that is not inner, a join without
 keys that is not a cross join, a right or full outer nested-loop join) and
@@ -31,7 +33,9 @@ from spark_rapids_tpu_torch.config import TpuConf
 from spark_rapids_tpu_torch.expr import arithmetic as A
 from spark_rapids_tpu_torch.expr import complextypes as CT
 from spark_rapids_tpu_torch.expr import conditional as CO
+from spark_rapids_tpu_torch.expr import datetime as DT
 from spark_rapids_tpu_torch.expr import predicates as P
+from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr.base import (Alias, AttributeReference,
                                               BoundReference, Expression,
                                               Literal)
@@ -47,7 +51,14 @@ PORTED_EXPRS = frozenset({
     P.GreaterThanOrEqual, P.And, P.Or, P.Not, P.IsNull, P.IsNotNull,
     P.In, CO.If, CO.CaseWhen,
     CO.Coalesce, CO.Nvl, A.Add, A.Subtract, A.Multiply, Cast,
-    CT.GetStructField, CT.CreateNamedStruct})
+    CT.GetStructField, CT.CreateNamedStruct,
+    S.Length, S.OctetLength, S.BitLength, S.Upper, S.Lower, S.Substring,
+    S.StringLeft, S.StringRight, S.Concat, S.StartsWith, S.EndsWith,
+    S.Contains, S.StringInstr, S.StringLocate, S.StringTrim,
+    S.StringTrimLeft, S.StringTrimRight, S.Like, S.ILike, S.RLike,
+    DT.Year, DT.Month, DT.DayOfMonth, DT.DayOfWeek, DT.DayOfYear,
+    DT.Quarter, DT.WeekOfYear, DT.LastDay, DT.DateAdd, DT.DateSub,
+    DT.DateDiff, DT.AddMonths, DT.MonthsBetween, DT.TruncDate})
 
 class BaseMeta:
     def __init__(self, conf: TpuConf):
@@ -314,6 +325,72 @@ def _check_cast(meta: ExprMeta):
             f"decimal digits is not supported on TPU")
 
 
+def _check_like(meta: ExprMeta):
+    e: S.Like = meta.expr
+    pat = e.right
+    if not isinstance(pat, Literal):
+        meta.will_not_work_on_tpu("LIKE pattern must be a literal")
+        return
+    ok, compiled = S.try_compile_like(pat.value)
+    if not ok:
+        meta.will_not_work_on_tpu(
+            f"LIKE pattern {pat.value!r} is not supported on TPU "
+            f"(transpiler-reject path; see RegexParser analog)")
+    elif compiled is not None:
+        e._dfa = compiled  # reuse the tag-time compilation at eval
+
+
+def _check_rlike(meta: ExprMeta):
+    """Transpile at tag time; a reject keeps the expression in a CPU stage
+    (the reference's transpiler-reject path)."""
+    from spark_rapids_tpu_torch.regex import RegexUnsupported, compile_regex
+
+    pat = meta.expr.children[1]
+    if not isinstance(pat, Literal) or pat.value is None:
+        meta.will_not_work_on_tpu("RLIKE pattern must be a non-null literal")
+        return
+    try:
+        meta.expr._dfa = compile_regex(pat.value)
+    except RegexUnsupported as ex:
+        meta.will_not_work_on_tpu(str(ex))
+
+
+def _check_ilike(meta: ExprMeta):
+    e = meta.expr
+    pat = e.right
+    if not isinstance(pat, Literal) or pat.value is None:
+        meta.will_not_work_on_tpu(
+            "ILIKE pattern must be a non-null literal")
+        return
+    ok, compiled = S.try_compile_like(str(pat.value).lower())
+    if not ok:
+        meta.will_not_work_on_tpu(
+            "ILIKE pattern shape is not supported on TPU")
+    else:
+        e._dfa = compiled
+
+
+def _check_literal_children(*ordinals, names="argument"):
+    def check(meta: ExprMeta):
+        for o in ordinals:
+            ch = meta.expr.children[o]
+            if not isinstance(ch, Literal) or ch.value is None:
+                meta.will_not_work_on_tpu(
+                    f"{names} (child {o}) must be a non-null literal on TPU")
+    return check
+
+
+_ASCII_CASE = T.STRING_SIG.with_note(T.StringType,
+                                     "ASCII-only case conversion")
+_BYTE_BASED = T.STRING_SIG.with_note(T.StringType, "byte-based; ASCII-exact")
+_DATE_INT = T.DATETIME_SIG + T.INTEGRAL_SIG
+#: date_add, date_sub and datediff do integer arithmetic on the days; the
+#: reference's code reads a timestamp's microseconds as days there, so a
+#: timestamp input stays off the device (ROADMAP.md, fault R8)
+_DAYS_INT = T.TypeSig(frozenset({T.DateType})).with_note(
+    T.TimestampType, "date arithmetic takes DATE inputs only") \
+    + T.INTEGRAL_SIG
+
 EXPRESSIONS: Dict[Type, ExprRule] = {
     Literal: ExprRule(_WITH_ARRAYS),
     BoundReference: ExprRule(_WITH_ARRAYS + _WITH_MAPS),
@@ -337,6 +414,36 @@ EXPRESSIONS: Dict[Type, ExprRule] = {
     Cast: ExprRule(_DEC128_FULL, _check_cast),
     CT.GetStructField: ExprRule(_STRUCT_SIG + _DEC128_FULL),
     CT.CreateNamedStruct: ExprRule(_STRUCT_SIG + _DEC128_FULL),
+    S.Length: ExprRule(T.STRING_SIG + T.INTEGRAL_SIG),
+    S.Upper: ExprRule(_ASCII_CASE), S.Lower: ExprRule(_ASCII_CASE),
+    S.Substring: ExprRule(T.STRING_SIG + T.INTEGRAL_SIG),
+    S.Concat: ExprRule(T.STRING_SIG),
+    S.StartsWith: ExprRule(T.STRING_SIG + T.BOOLEAN_SIG),
+    S.EndsWith: ExprRule(T.STRING_SIG + T.BOOLEAN_SIG),
+    S.Contains: ExprRule(T.STRING_SIG + T.BOOLEAN_SIG),
+    S.StringTrim: ExprRule(T.STRING_SIG),
+    S.StringInstr: ExprRule(T.STRING_SIG + T.INTEGRAL_SIG),
+    S.StringLocate: ExprRule(T.STRING_SIG + T.INTEGRAL_SIG),
+    S.OctetLength: ExprRule(T.STRING_SIG + T.INTEGRAL_SIG),
+    S.BitLength: ExprRule(T.STRING_SIG + T.INTEGRAL_SIG),
+    S.StringLeft: ExprRule(_BYTE_BASED + T.INTEGRAL_SIG),
+    S.StringRight: ExprRule(_BYTE_BASED + T.INTEGRAL_SIG),
+    S.StringTrimLeft: ExprRule(T.STRING_SIG),
+    S.StringTrimRight: ExprRule(T.STRING_SIG),
+    S.Like: ExprRule(T.STRING_SIG + T.BOOLEAN_SIG, _check_like),
+    S.RLike: ExprRule(T.STRING_SIG + T.BOOLEAN_SIG, _check_rlike),
+    S.ILike: ExprRule(T.STRING_SIG + T.BOOLEAN_SIG, _check_ilike),
+    DT.Year: ExprRule(_DATE_INT), DT.Month: ExprRule(_DATE_INT),
+    DT.DayOfMonth: ExprRule(_DATE_INT), DT.DayOfWeek: ExprRule(_DATE_INT),
+    DT.DayOfYear: ExprRule(_DATE_INT), DT.Quarter: ExprRule(_DATE_INT),
+    DT.LastDay: ExprRule(T.DATETIME_SIG),
+    DT.DateAdd: ExprRule(_DAYS_INT), DT.DateSub: ExprRule(_DAYS_INT),
+    DT.DateDiff: ExprRule(_DAYS_INT), DT.WeekOfYear: ExprRule(_DATE_INT),
+    DT.AddMonths: ExprRule(_DATE_INT),
+    DT.MonthsBetween: ExprRule(T.DATETIME_SIG + T.FP_SIG),
+    DT.TruncDate: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
+                           _check_literal_children(
+                               1, names="trunc format")),
 }
 
 

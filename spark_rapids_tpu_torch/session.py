@@ -442,6 +442,12 @@ def avg_(c: ColumnLike, name: str = "avg"):
     return ("avg", c, name)
 
 
+def rlike_(c: ColumnLike, pattern: str):
+    from spark_rapids_tpu_torch.expr.strings import RLike
+
+    return RLike(_to_expr(c), _lit(pattern))
+
+
 def stddev_(c: ColumnLike, name: str = "stddev"):
     return ("stddev_samp", c, name)
 

@@ -1020,3 +1020,97 @@ def test_q11_q15_q16_on_gpu_equal_numpy(tmp_path):
     assert C.q16_query(f["partsupp"], f["part"], S).collect() \
         == C.q16_reference(tables)
     assert decode.unpack_launches == C.tpch_chunks(paths, C.Q16_READS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", (8, 32, 128, 512, 2048))
+def test_string_functions_on_gpu_equal_cpu(width):
+    """Every string case of ``torch_port_text`` (the DFA with an inner
+    ``%`` and with ``_`` among them) on the card equals its CPU run, over
+    3,000 seeded rows of ASCII, multibyte UTF-8, empty and null strings in
+    each width bucket."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from torch_port_frames import frame
+    from torch_port_text import (STRING_CASES, select_cases, string_schema,
+                                 string_table)
+
+    arrays, validity = string_table(40 + width, width, n=3000)
+    rows = {dev: select_cases(S, frame(S, TpuSession({}, device=dev), arrays,
+                                       string_schema(T), validity),
+                              STRING_CASES, "expr.strings").collect()
+            for dev in ("cuda", "cpu")}
+    for i, name in enumerate(STRING_CASES):
+        assert [r[i] for r in rows["cuda"]] == [r[i] for r in rows["cpu"]], \
+            name
+
+
+@pytest.mark.gpu
+def test_date_functions_on_gpu_equal_cpu():
+    """Every date case of ``torch_port_text`` on the card equals its CPU
+    run (exact, ``months_between``'s doubles included) over 3,000 seeded
+    days with dates before 1970 and year 1000, leap days and month ends;
+    the TIMESTAMP cases too, evaluated on columns."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from torch_port_frames import frame
+    from torch_port_text import (DATE_CASES, TS_CASES, date_schema,
+                                 date_table, eval_cases, select_cases,
+                                 timestamp_schema)
+
+    arrays, validity = date_table(41)
+    rows = {dev: select_cases(S, frame(S, TpuSession({}, device=dev), arrays,
+                                       date_schema(T), validity),
+                              DATE_CASES, "expr.datetime").collect()
+            for dev in ("cuda", "cpu")}
+    for i, name in enumerate(DATE_CASES):
+        assert [r[i] for r in rows["cuda"]] == [r[i] for r in rows["cpu"]], \
+            name
+    ts = {dev: eval_cases(arrays, validity, timestamp_schema(T), TS_CASES,
+                          dev) for dev in ("cuda", "cpu")}
+    assert ts["cuda"] == ts["cpu"]
+
+
+@pytest.mark.gpu
+def test_q13_q22_q16_q9_on_gpu_equal_numpy(tmp_path):
+    """TPC-H Q13, Q22, Q16 in full and Q9 from phases 27-29's kind of
+    files at test size on the card: exact against numpy, K1 once a
+    dictionary chunk of each scan."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+
+    dev = torch.device("cuda")
+    scale, seed = 0.01, 9
+    tables, values = C.make_tpch_parts(scale, seed)
+    pool = C.text_pool(seed + 1, 1 << 20)
+    green, complain = C.add_text_columns(tables, scale, seed + 2, pool)
+    customer, orders, li9 = C.make_text_tables(scale, seed + 3, pool)
+    li = C.lineitem_q15(1000, scale, seed)
+    paths = C.write_tpch_tables(tables, values, li, str(tmp_path), dev,
+                                n_files=2)
+    sch = C.tpch_all_schemas(T)
+    for name, table in (("customer", customer), ("orders", orders),
+                        ("lineitem9", li9)):
+        paths[name] = C.write_tpch_files(name, table, values, sch[name],
+                                         str(tmp_path), dev, 2)
+    cases = [("q13", C.Q13_READS, None,
+              lambda f, S: C.q13_query(f["customer"], f["orders"], S),
+              C.q13_reference(customer, orders, pool)[0]),
+             ("q22", C.Q22_READS, C.Q22_SCANS,
+              lambda f, S: C.q22_query(f["customer"], f["orders"], S),
+              C.q22_reference(customer, orders)[0]),
+             ("q16", C.Q16_FULL_READS, None,
+              lambda f, S: C.q16_full_query(f["partsupp"], f["part"],
+                                            f["supplier"], S),
+              C.q16_full_reference(tables, complain)),
+             ("q9", C.Q9_READS, None,
+              lambda f, S: C.q9_query(f["part"], f["supplier"],
+                                      f["lineitem9"], f["partsupp"],
+                                      f["orders"], f["nation"], S),
+              C.q9_reference(tables, green, li9, orders))]
+    for name, reads, scans, build, want in cases:
+        decode.unpack_launches = 0
+        assert C._text_query(paths, reads, build, dev).collect() == want, \
+            name
+        assert decode.unpack_launches == C.query_chunks(paths, reads, scans)

@@ -58,6 +58,10 @@ def test_import_leaves_no_jax_in_sys_modules():
             "spark_rapids_tpu_torch.io.parquet_device, "
             "spark_rapids_tpu_torch.shuffle.serializer, "
             "spark_rapids_tpu_torch.memory.spill, "
+            "spark_rapids_tpu_torch.regex, "
+            "spark_rapids_tpu_torch.regex.transpiler, "
+            "spark_rapids_tpu_torch.expr.strings, "
+            "spark_rapids_tpu_torch.expr.datetime, "
             "spark_rapids_tpu_torch.native\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
