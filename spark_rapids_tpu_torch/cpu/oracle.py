@@ -47,6 +47,7 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.column import HostColumn
@@ -55,6 +56,7 @@ from spark_rapids_tpu_torch.expr import arithmetic as A
 from spark_rapids_tpu_torch.expr import complextypes as CT
 from spark_rapids_tpu_torch.expr import conditional as CO
 from spark_rapids_tpu_torch.expr import datetime as DT
+from spark_rapids_tpu_torch.expr import mathfuncs as M
 from spark_rapids_tpu_torch.expr import predicates as P
 from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr.base import (Alias, BoundReference,
@@ -357,7 +359,7 @@ def _dec_binarith(e: A.BinaryArithmetic, l: CpuCol, r: CpuCol, validity,
 
     dt = e.dataType
     lt, rt = e.left.dataType, e.right.dataType
-    name = type(e).__name__
+    name = type(e).__name__.removeprefix("Try")
     if not (dt.is_128 or lt.is_128 or rt.is_128):
         # every value within 18 digits: int64 cannot wrap (an operand
         # rescaled, a sum or a product stays below 10^18)
@@ -573,11 +575,21 @@ def _h_case_when(e, cols, n, ansi):
 def _h_cast(e: Cast, cols, n, ansi):
     """A cast to a decimal on limbs (``decimal128.mul128_pow10`` up,
     ``div128_pow10_half_up`` down), an integer narrowing by numpy's wrap;
-    ``_h_cast_py`` is the Python-integer twin."""
+    ``_h_cast_py`` is the Python-integer twin of these.  Every other cast
+    runs its device code (``_h_torch``)."""
     from spark_rapids_tpu_torch.expr import decimal128 as D
 
-    (c,) = _kids(e, cols, n, ansi)
     src, dst = e.child.dataType, e.to
+    if isinstance(src, (T.FloatType, T.DoubleType)) and _is_dec128(dst):
+        return _fp_to_dec128(e, cols, n, ansi)
+    if src != dst and not (
+            isinstance(src, _INTEGRAL + (T.DecimalType,))
+            and isinstance(dst, T.DecimalType)) and not (
+            isinstance(src, _INTEGRAL) and isinstance(dst, _INTEGRAL)):
+        # the other casts run their device code (the limb paths for a
+        # decimal above 18 digits to an integral or a double included)
+        return _h_torch(e, cols, n, ansi)
+    (c,) = _kids(e, cols, n, ansi)
     ansi = ansi or e.ansi_override
     if src == dst:
         return c
@@ -598,6 +610,35 @@ def _h_cast(e: Cast, cols, n, ansi):
         ok = D.in_bounds(h, lo, dst.precision)
     validity = _limb_check(ok, c.validity, ansi, "cast")
     return CpuCol(dst, _from_limbs(h, lo, dst), validity)
+
+
+def _fp_to_dec128(e: Cast, cols, n, ansi):
+    """A double to a decimal above 18 digits (the tagging keeps it off the
+    device, as the reference's ``_check_cast``): the double's exact
+    binary value scaled and rounded HALF_UP in Python's ``decimal``, as
+    the reference's oracle casts; NaN and the infinities null, or an
+    error under ANSI, as a result past 10^precision."""
+    from decimal import ROUND_HALF_UP, Decimal, localcontext
+
+    (c,) = _kids(e, cols, n, ansi)
+    ansi = ansi or e.ansi_override
+    dst = e.to
+    vals = np.zeros(n, object)
+    validity = c.validity.copy()
+    with localcontext() as ctx:
+        ctx.prec = 400                 # every double's digits, exactly
+        for i in np.flatnonzero(validity):
+            f = float(c.values[i])
+            if not np.isfinite(f):
+                if ansi:
+                    raise SparkArithmeticException(
+                        "cast NaN/Inf to decimal (ANSI)")
+                validity[i] = False
+                continue
+            vals[i] = int(Decimal(f).scaleb(dst.scale).quantize(
+                Decimal(1), rounding=ROUND_HALF_UP))
+    validity = _dec_check(vals, validity, dst, ansi, "cast")
+    return CpuCol(dst, _from_py_ints(vals, validity, dst), validity)
 
 
 def _h_cast_py(e: Cast, cols, n, ansi):
@@ -657,13 +698,29 @@ def _from_torch(d) -> CpuCol:
                   a(d.lengths))
 
 
+class _HostCtx:
+    """The evaluation context of device code run in a CPU stage: an ANSI
+    error (a division by zero, a cast or an overflow) raises at once, as
+    the reference's oracle raises."""
+
+    batch = None
+
+    def __init__(self, ansi: bool):
+        self.ansi = ansi
+
+    def add_error(self, flag_per_row, message: str):
+        if bool(flag_per_row.any()):
+            raise SparkArithmeticException(message)
+
+
 def _h_torch(e, cols, n, ansi):
-    """The string and date expressions run their device code on CPU
-    tensors (``expr/strings.py``, ``expr/datetime.py``): a CPU stage
-    computes what the card computes, byte for byte."""
+    """The string, date, math, bitwise, conditional and non-decimal
+    arithmetic expressions run their device code on CPU tensors
+    (``expr/strings.py``, ``expr/datetime.py``, ``expr/mathfuncs.py``,
+    ...): a CPU stage computes what the card computes, bit for bit."""
     kids = _kids(e, cols, n, ansi)
-    return _from_torch(e.do_columnar_eval(None, [_to_torch(k)
-                                                 for k in kids]))
+    return _from_torch(e.do_columnar_eval(_HostCtx(ansi),
+                                          [_to_torch(k) for k in kids]))
 
 
 def _rows_text(c: CpuCol):
@@ -745,6 +802,183 @@ def _h_pattern(e, cols, n, ansi):
     return CpuCol(T.BOOLEAN, out, c.validity.copy())
 
 
+# -- division, remainder and the decimal unary functions ----------------------
+
+def _dec_operands(e):
+    """(ka, kb): the decimal (or integral) operands' unscaled values are
+    multiplied by 10^ka and 10^kb before the operation: for a divide the
+    numerator by 10^shift (or the denominator by 10^-shift), for a
+    remainder both to the result's scale."""
+    dt = e.dataType
+    lt, rt = e.left.dataType, e.right.dataType
+    ls = lt.scale if isinstance(lt, T.DecimalType) else 0
+    rs = rt.scale if isinstance(rt, T.DecimalType) else 0
+    if isinstance(e, A.Divide):
+        shift = dt.scale - ls + rs
+        return max(shift, 0), max(-shift, 0)
+    return dt.scale - ls, dt.scale - rs
+
+
+def _divmod_limbs(e, l: CpuCol, r: CpuCol, validity):
+    """Exact ``(q, rem)`` of the scaled operands on int64 limbs (torch on
+    the CPU): a numerator below 2^127 in magnitude after its scaling, a
+    denominator below 2^62 after its; the unsigned 128-bit quotient
+    (hi, lo), the remainder's magnitude and the result's and the
+    numerator's signs.  None where a valid row passes those bounds (the
+    Python-integer path then takes the column)."""
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    ka, kb = _dec_operands(e)
+    b = _one_limb(r, validity)
+    if b is None:
+        return None
+    b = _valid_only(b, validity)
+    bmax = max(int(b.max()), -int(b.min())) if len(b) else 0
+    if bmax * 10 ** kb >= 1 << 62:       # a pmod's sum stays in int64
+        return None
+    den = b * 10 ** kb
+    ah, al = _limbs(l)
+    over, ah, al = D.mul128_pow10(ah, al, ka)
+    if bool(_valid_only(over, validity).any()):
+        return None
+    safe = den.where(den != 0, 1)
+    neg_a = D.is_neg(ah, al)
+    uh, ul = D.abs128(ah, al)
+    qh, ql, rem = D.udivmod128_by_u64(uh, ul, safe.abs())
+    return qh, ql, rem, safe, neg_a, neg_a ^ (safe < 0)
+
+
+def _limb_column(hi, lo, validity, dt: T.DecimalType, ansi: bool, op: str):
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    ok = D.in_bounds(hi, lo, dt.precision)
+    validity = _limb_check(ok, validity, ansi, op)
+    return CpuCol(dt, _from_limbs(hi, lo, dt), validity)
+
+
+def _zero_divisors(r: CpuCol, validity, ansi: bool) -> np.ndarray:
+    """Validity with the rows whose divisor is zero nulled, or under ANSI
+    an error if a valid one is."""
+    zero = (r.values == 0).all(axis=-1) if r.values.ndim == 2 \
+        else r.values == 0
+    if ansi and bool((zero & validity).any()):
+        raise SparkArithmeticException("division by zero (ANSI)")
+    return validity & ~zero
+
+
+def _dec_divmod(e, l: CpuCol, r: CpuCol, ansi: bool) -> CpuCol:
+    """A decimal Divide (HALF_UP), Remainder (the sign of the dividend) or
+    Pmod (a negative remainder plus the divisor, then again its remainder,
+    as Spark's pmod) on int64 limbs where the operands allow
+    (``_divmod_limbs``), else through Python integers
+    (``_dec_divmod_py``, also the plain twin the tests hold this to).  A
+    zero divisor is null, or an error under ANSI; a quotient past
+    10^precision null, or an error under ANSI."""
+    from spark_rapids_tpu_torch.expr import decimal128 as D
+
+    dt = e.dataType
+    validity = _zero_divisors(r, l.validity & r.validity, ansi)
+    parts = _divmod_limbs(e, l, r, validity)
+    if parts is None:
+        return _dec_divmod_py(e, l, r, validity, ansi)
+    qh, ql, rem, den, neg_a, neg_q = parts
+    zero64 = torch.zeros_like(rem)
+    if isinstance(e, A.Divide):
+        away = (rem != 0) & (rem >= den.abs() - rem)       # HALF_UP
+        qh, ql = D.add128(qh, ql, zero64, away.to(torch.int64))
+        nh, nl = D.neg128(qh, ql)
+        hi, lo = torch.where(neg_q, nh, qh), torch.where(neg_q, nl, ql)
+        return _limb_column(hi, lo, validity, dt, ansi, "divide")
+    m = torch.where(neg_a, -rem, rem)
+    if isinstance(e, A.Pmod):
+        m2 = m + den
+        m = torch.where(m < 0, m2 - torch.div(m2, den, rounding_mode="trunc")
+                        * den, m)
+    return CpuCol(dt, _from_limbs(m >> 63, m, dt), validity)
+
+
+def _dec_divmod_py(e, l: CpuCol, r: CpuCol, validity, ansi: bool) -> CpuCol:
+    """``_dec_divmod`` through Python integers (exact for any operands)."""
+    dt = e.dataType
+    ka, kb = _dec_operands(e)
+    a = np.where(validity, _py_ints(l), 0) * (10 ** ka)
+    b = np.where(validity, _py_ints(r), 1) * (10 ** kb)
+    mag_q = np.abs(a) // np.abs(b)
+    mag_r = np.abs(a) - mag_q * np.abs(b)
+    neg_a = np.asarray(a < 0, np.bool_)
+    if isinstance(e, A.Divide):
+        away = np.asarray(2 * mag_r >= np.abs(b), np.bool_) \
+            & np.asarray(mag_r != 0, np.bool_)
+        mag_q = mag_q + away
+        out = np.where(neg_a ^ np.asarray(b < 0, np.bool_), -mag_q, mag_q)
+        validity = _dec_check(out, validity, dt, ansi, "divide")
+    else:
+        out = np.where(neg_a, -mag_r, mag_r)
+        if isinstance(e, A.Pmod):
+            m2 = out + b
+            fix = np.where(np.asarray(m2 < 0, np.bool_),
+                           -(np.abs(m2) % np.abs(b)), np.abs(m2) % np.abs(b))
+            out = np.where(np.asarray(out < 0, np.bool_), fix, out)
+    return CpuCol(dt, _from_py_ints(out, validity, dt), validity)
+
+
+def _h_divmod(e, cols, n, ansi):
+    """Divide, Remainder and Pmod: decimals exactly (``_dec_divmod``),
+    the rest by the device code."""
+    if not isinstance(e.dataType, T.DecimalType):
+        return _h_torch(e, cols, n, ansi)
+    l, r = _kids(e, cols, n, ansi)
+    return _dec_divmod(e, l, r, ansi)
+
+
+def _h_try(e, cols, n, ansi):
+    """try_*: on decimals the operation with its errors as nulls (the
+    non-ANSI result of ``_dec_binarith`` or ``_dec_divmod``), else the
+    device code."""
+    if not isinstance(e.dataType, T.DecimalType):
+        return _h_torch(e, cols, n, ansi)
+    l, r = _kids(e, cols, n, ansi)
+    if isinstance(e, A.Divide):
+        return _dec_divmod(e, l, r, False)
+    return _dec_binarith(e, l, r, l.validity & r.validity, False)
+
+
+def _h_dec_unary(e, cols, n, ansi):
+    """UnaryMinus, Abs, Floor, Ceil and Round of a decimal above 18
+    digits, and BRound (HALF_EVEN) of any decimal, through Python
+    integers (the rules keep them off the device); the rest by the device
+    code."""
+    ct = e.children[0].dataType
+    if not (_is_dec128(ct) or (isinstance(e, M.BRound)
+                               and isinstance(ct, T.DecimalType))):
+        return _h_torch(e, cols, n, ansi)
+    c = _kids(e, cols, n, ansi)[0]
+    v = np.where(c.validity, _py_ints(c), 0)
+    dt = e.dataType
+    validity = c.validity
+    if isinstance(e, A.UnaryMinus):
+        out = -v
+    elif isinstance(e, A.Abs):
+        out = np.abs(v)
+    else:
+        den = 10 ** (ct.scale - dt.scale)
+        if isinstance(e, M.Ceil):
+            out = -((-v) // den)
+        elif isinstance(e, M.Floor):
+            out = v // den
+        else:                          # Round HALF_UP, BRound HALF_EVEN
+            mag = np.abs(v)
+            q = mag // den
+            twice = 2 * (mag - q * den)
+            up = twice > den if isinstance(e, M.BRound) else twice >= den
+            if isinstance(e, M.BRound):
+                up = up | ((twice == den) & (q % 2 == 1))
+            q = q + np.asarray(up, np.bool_)
+            out = np.where(np.asarray(v < 0, np.bool_), -q, q)
+        validity = _dec_check(out, validity, dt, ansi, "round")
+    return CpuCol(dt, _from_py_ints(out, validity, dt), validity)
+
+
 _HANDLERS = {
     BoundReference: _h_bound, Literal: _h_literal, Alias: _h_alias,
     A.Add: _h_binarith, A.Subtract: _h_binarith, A.Multiply: _h_binarith,
@@ -759,6 +993,11 @@ _HANDLERS = {
     CT.GetStructField: _h_get_struct_field,
     CT.CreateNamedStruct: _h_create_named_struct,
     S.Like: _h_pattern, S.ILike: _h_pattern, S.RLike: _h_pattern,
+    A.Divide: _h_divmod, A.Remainder: _h_divmod, A.Pmod: _h_divmod,
+    A.TryAdd: _h_try, A.TrySubtract: _h_try, A.TryMultiply: _h_try,
+    A.TryDivide: _h_try,
+    A.UnaryMinus: _h_dec_unary, A.Abs: _h_dec_unary, M.Floor: _h_dec_unary,
+    M.Ceil: _h_dec_unary, M.Round: _h_dec_unary, M.BRound: _h_dec_unary,
 }
 _HANDLERS.update({cls: _h_torch for cls in (
     S.Length, S.OctetLength, S.BitLength, S.Upper, S.Lower, S.Substring,
@@ -767,7 +1006,16 @@ _HANDLERS.update({cls: _h_torch for cls in (
     S.StringTrimLeft, S.StringTrimRight,
     DT.Year, DT.Month, DT.DayOfMonth, DT.DayOfWeek, DT.DayOfYear,
     DT.Quarter, DT.WeekOfYear, DT.LastDay, DT.DateAdd, DT.DateSub,
-    DT.DateDiff, DT.AddMonths, DT.MonthsBetween, DT.TruncDate)})
+    DT.DateDiff, DT.AddMonths, DT.MonthsBetween, DT.TruncDate,
+    A.IntegralDivide, A.UnaryPositive, A.BitwiseAnd, A.BitwiseOr,
+    A.BitwiseXor, A.BitwiseNot, A.ShiftLeft, A.ShiftRight,
+    A.ShiftRightUnsigned, P.EqualNullSafe, P.IsNaN, CO.NaNvl, CO.Greatest,
+    CO.Least, CO.Nvl2, CO.NullIf,
+    M.Sqrt, M.Exp, M.Log, M.Log10, M.Sin, M.Cos, M.Tan, M.Asin, M.Acos,
+    M.Atan, M.Signum, M.Sinh, M.Cosh, M.Tanh, M.Asinh, M.Acosh, M.Atanh,
+    M.Cbrt, M.Log2, M.Log1p, M.Expm1, M.Rint, M.Cot, M.Csc, M.Sec,
+    M.ToDegrees, M.ToRadians, M.Pow, M.Atan2, M.Hypot,
+    M.Logarithm, M.WidthBucket, M.Factorial, M.BitwiseCount)})
 
 
 # -- plans ------------------------------------------------------------------
@@ -775,7 +1023,8 @@ _HANDLERS.update({cls: _h_torch for cls in (
 #: the expressions that yield a string in a CPU stage (a comparison,
 #: ``In`` and ``IsNull``/``IsNotNull`` read one)
 _STRING_EXPRS = frozenset({BoundReference, Literal, Alias, CO.If,
-                           CO.CaseWhen, CO.Coalesce, CO.Nvl, S.Upper,
+                           CO.CaseWhen, CO.Coalesce, CO.Nvl, CO.Greatest,
+                           CO.Least, CO.Nvl2, CO.NullIf, S.Upper,
                            S.Lower, S.Substring, S.StringLeft,
                            S.StringRight, S.Concat, S.StringTrim,
                            S.StringTrimLeft, S.StringTrimRight})

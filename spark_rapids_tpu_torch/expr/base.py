@@ -127,6 +127,18 @@ class Expression:
         from spark_rapids_tpu_torch.expr.arithmetic import Multiply
         return self._bin(o, Multiply)
 
+    def __truediv__(self, o):
+        from spark_rapids_tpu_torch.expr.arithmetic import Divide
+        return self._bin(o, Divide)
+
+    def __mod__(self, o):
+        from spark_rapids_tpu_torch.expr.arithmetic import Remainder
+        return self._bin(o, Remainder)
+
+    def __neg__(self):
+        from spark_rapids_tpu_torch.expr.arithmetic import UnaryMinus
+        return UnaryMinus(self)
+
     def __lt__(self, o):
         from spark_rapids_tpu_torch.expr.predicates import LessThan
         return self._bin(o, LessThan)

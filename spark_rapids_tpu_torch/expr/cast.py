@@ -1,8 +1,24 @@
-"""Cast — the part of ``spark_rapids_tpu/expr/cast.py`` that comparison and
-arithmetic coercion need: integral widening/narrowing, integral -> decimal,
-and decimal -> decimal rescale (HALF_UP; overflow -> null, or an error
-under ANSI), on the int64 path and on the 128-bit limb path.  Any other
-cast raises at evaluation.
+"""Cast — port of ``spark_rapids_tpu/expr/cast.py``'s numeric, boolean,
+decimal and date/timestamp casts, with its dispatch table (``_CASTS``):
+
+  * integral widening/narrowing (narrowing wraps, Java semantics; ANSI
+    raises on a value out of range);
+  * integral <-> floating point, boolean <-> numeric; floating point ->
+    integral truncates, NaN is 0, and the value saturates at the long
+    range before a narrowing wrap, by explicit comparisons (torch's
+    conversion of NaN, an infinity or a value past 2^63 differs between
+    the CPU and CUDA);
+  * decimal rescale (HALF_UP; overflow -> null, or an error under ANSI),
+    integral -> decimal, decimal -> integral (truncating) and decimal ->
+    floating point, on the int64 path and on the 128-bit limb path;
+    floating point -> decimal on the int64 path;
+  * DATE <-> TIMESTAMP, TIMESTAMP <-> LONG (seconds, floored), NULL -> any.
+
+The casts to and from strings (the reference's ``_int_to_string``,
+``_dec_to_string``, ``_date_to_string``, ``_fp_to_string``,
+``_string_to_int``, ``_string_to_date``, ``_string_to_fp`` and the civil
+parser) are not ported: ``cast_supported`` is the reference's table less
+them, and the conversion raises ``NotOnGpu`` for them.
 """
 from __future__ import annotations
 
@@ -52,13 +68,36 @@ def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor):
     return era * 146097 + doe - 719468
 
 
+def _kind(t: T.DataType) -> str:
+    if isinstance(t, T.DecimalType):
+        return "dec"
+    if isinstance(t, (T.FloatType, T.DoubleType)):
+        return "fp"
+    if isinstance(t, _INTEGRAL):
+        return "int"
+    if isinstance(t, T.BooleanType):
+        return "bool"
+    if isinstance(t, T.StringType):
+        return "str"
+    if isinstance(t, T.DateType):
+        return "date"
+    if isinstance(t, T.TimestampType):
+        return "ts"
+    if isinstance(t, T.NullType):
+        return "null"
+    return "?"
+
+
+def _dispatch(src: T.DataType, dst: T.DataType):
+    """The cast function for ``src`` -> ``dst``, or None (the reference's
+    ``_dispatch``)."""
+    return _CASTS.get((_kind(src), _kind(dst)))
+
+
 def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
-    """The casts the port runs, on the device and in a CPU stage."""
-    return (src == dst
-            or (isinstance(src, _INTEGRAL)
-                and isinstance(dst, _INTEGRAL + (T.DecimalType,)))
-            or (isinstance(src, T.DecimalType)
-                and isinstance(dst, T.DecimalType)))
+    """The casts the port runs, on the device and in a CPU stage: the
+    reference's table (``GpuCast.canCast``) less the string casts."""
+    return src == dst or _dispatch(src, dst) is not None
 
 
 class Cast(UnaryExpression):
@@ -88,13 +127,10 @@ class Cast(UnaryExpression):
         ansi = ctx.ansi or self.ansi_override
         if src == dst:
             return c
-        if isinstance(src, _INTEGRAL) and isinstance(dst, _INTEGRAL):
-            return _int_to_int(ctx, c, src, dst, ansi)
-        if isinstance(src, _INTEGRAL) and isinstance(dst, T.DecimalType):
-            return _int_to_dec(ctx, c, src, dst, ansi)
-        if isinstance(src, T.DecimalType) and isinstance(dst, T.DecimalType):
-            return _dec_to_dec(ctx, c, src, dst, ansi)
-        raise TypeError(f"cast {src} -> {dst} is not ported yet")
+        fn = _dispatch(src, dst)
+        if fn is None:
+            raise TypeError(f"cast {src} -> {dst} is not ported yet")
+        return fn(ctx, c, src, dst, ansi)
 
 
 _I_MIN = {T.ByteType: -(2 ** 7), T.ShortType: -(2 ** 15),
@@ -183,3 +219,182 @@ def _int_to_dec(ctx, c, src, dst: T.DecimalType, ansi):
     data, validity = _dec_rescale(ctx, data, c.validity, 0, dst, ansi,
                                   "cast")
     return DeviceColumn(dst, validity, data=data)
+
+
+def _tdt(dt: T.DataType) -> torch.dtype:
+    return column_torch_dtype(dt)
+
+
+def _int_to_fp(ctx, c, src, dst, ansi):
+    return DeviceColumn(dst, c.validity, data=c.data.to(_tdt(dst)))
+
+
+_LMAX_F = 9.223372036854775808e18      # 2^63 exactly as a double
+
+
+def long_of_double(x: torch.Tensor) -> torch.Tensor:
+    """Java's ``(long) trunc(x)`` of a double tensor: NaN is 0, a value at
+    or past 2^63 saturates; by comparisons, never by converting a value
+    out of range."""
+    x = x.to(torch.float64)
+    nan = torch.isnan(x)
+    tr = torch.trunc(torch.where(nan, torch.zeros_like(x), x))
+    hi = tr >= _LMAX_F
+    lo = tr < -_LMAX_F
+    safe = torch.where(hi | lo, torch.zeros_like(tr), tr).to(torch.int64)
+    return torch.where(hi, _I_MAX[T.LongType],
+                       torch.where(lo, _I_MIN[T.LongType], safe))
+
+
+def _fp_to_int(ctx, c, src, dst, ansi):
+    mn, mx = _I_MIN[type(dst)], _I_MAX[type(dst)]
+    x = c.data.to(torch.float64)
+    if ansi:
+        tr = torch.trunc(x)
+        bad = torch.isnan(x) | (tr < mn) | (tr > mx)
+        ctx.add_error(bad & c.validity, f"cast overflow to {dst} (ANSI)")
+    # Java: (long) saturates, then a narrowing wraps
+    return DeviceColumn(dst, c.validity,
+                        data=long_of_double(x).to(_tdt(dst)))
+
+
+def _fp_to_fp(ctx, c, src, dst, ansi):
+    return DeviceColumn(dst, c.validity, data=c.data.to(_tdt(dst)))
+
+
+def _num_to_bool(ctx, c, src, dst, ansi):
+    return DeviceColumn(dst, c.validity, data=c.data != 0)
+
+
+def _bool_to_num(ctx, c, src, dst, ansi):
+    return DeviceColumn(dst, c.validity, data=c.data.to(_tdt(dst)))
+
+
+def _p10_tensor(k: int, like: torch.Tensor) -> torch.Tensor:
+    """10^k as a float64 tensor on ``like``'s device: CUDA divides by a
+    Python scalar as a multiply by its reciprocal, by a tensor exactly."""
+    return torch.full_like(like, 10.0 ** k, dtype=torch.float64)
+
+
+def _dec_to_int(ctx, c, src: T.DecimalType, dst, ansi):
+    mn, mx = _I_MIN[type(dst)], _I_MAX[type(dst)]
+    if src.is_128:
+        from spark_rapids_tpu_torch.expr import decimal128 as D
+
+        hi, lo = D.unpack(c.data)
+        qh, ql = D.div128_pow10_trunc(hi, lo, src.scale)
+        fits64 = qh == (ql >> 63)          # pure sign extension
+        bad = ~fits64 | (ql < mn) | (ql > mx)
+        q = ql
+    else:
+        q = torch.div(c.data, _p10(src.scale), rounding_mode="trunc")
+        bad = (q < mn) | (q > mx)
+    if ansi:
+        ctx.add_error(bad & c.validity, f"cast overflow to {dst} (ANSI)")
+        validity = c.validity
+    else:
+        validity = c.validity & ~bad
+    return DeviceColumn(dst, validity, data=q.to(_tdt(dst)))
+
+
+def _dec_to_fp(ctx, c, src: T.DecimalType, dst, ansi):
+    if src.is_128:
+        from spark_rapids_tpu_torch.expr import decimal128 as D
+
+        hi, lo = D.unpack(c.data)
+        lo_f = lo.to(torch.float64)
+        lo_u = torch.where(lo < 0, lo_f + 18446744073709551616.0, lo_f)
+        val = hi.to(torch.float64) * 18446744073709551616.0 + lo_u
+    else:
+        val = c.data.to(torch.float64)
+    data = val / _p10_tensor(src.scale, val)
+    return DeviceColumn(dst, c.validity, data=data.to(_tdt(dst)))
+
+
+def _fp_to_dec(ctx, c, src, dst: T.DecimalType, ansi):
+    """The int64 layout only (the tagging keeps a DOUBLE -> decimal above
+    18 digits off the device, as the reference's ``_check_cast``): the
+    double times 10^scale, rounded half to even as the reference's
+    ``jnp.round`` (ROADMAP Queue 3, R12), NaN and infinities null."""
+    from spark_rapids_tpu_torch.expr.arithmetic import _decimal_bound_check
+
+    scaled = c.data.to(torch.float64) * float(_p10(dst.scale))
+    nan = torch.isnan(scaled) | torch.isinf(scaled)
+    r = torch.round(torch.where(nan, torch.zeros_like(scaled), scaled))
+    # |r| at or past 2^63 cannot convert; it is past every precision
+    big = r.abs() >= _LMAX_F
+    data = torch.where(big, torch.zeros_like(r), r).to(torch.int64)
+    validity = c.validity & ~nan
+    if ansi:
+        ctx.add_error(nan & c.validity, "cast NaN/Inf to decimal (ANSI)")
+    validity = _decimal_bound_check(ctx, data, dst, validity, ansi, "cast",
+                                    extra_invalid=big)
+    return DeviceColumn(dst, validity, data=data)
+
+
+_US_PER_DAY = 86_400_000_000
+
+
+def _date_to_ts(ctx, c, src, dst, ansi):
+    return DeviceColumn(T.TIMESTAMP, c.validity,
+                        data=c.data.to(torch.int64) * _US_PER_DAY)
+
+
+def _ts_to_date(ctx, c, src, dst, ansi):
+    return DeviceColumn(T.DATE, c.validity,
+                        data=_fdiv(c.data, _US_PER_DAY).to(torch.int32))
+
+
+def _ts_to_long(ctx, c, src, dst, ansi):
+    return DeviceColumn(dst, c.validity,
+                        data=_fdiv(c.data, 1_000_000).to(_tdt(dst)))
+
+
+def _long_to_ts(ctx, c, src, dst, ansi):
+    return DeviceColumn(T.TIMESTAMP, c.validity,
+                        data=c.data.to(torch.int64) * 1_000_000)
+
+
+def _null_to_any(ctx, c, src, dst, ansi):
+    """Every row null, in ``dst``'s layout."""
+    n, dev = c.capacity, c.device
+    valid = torch.zeros(n, dtype=torch.bool, device=dev)
+    if isinstance(dst, T.DecimalType) and dst.is_128:
+        return DeviceColumn(dst, valid, data=torch.zeros(
+            n, 2, dtype=torch.int64, device=dev))
+    return DeviceColumn(dst, valid, data=torch.zeros(
+        n, dtype=_tdt(dst), device=dev))
+
+
+#: the string casts of the reference's ``_CASTS``, not ported (D3, F3)
+STRING_CASTS = frozenset({
+    ("int", "str"), ("fp", "str"), ("str", "fp"), ("bool", "str"),
+    ("dec", "str"), ("date", "str"), ("ts", "str"), ("str", "int"),
+    ("str", "date"), ("str", "bool"), ("null", "str")})
+
+#: the reference's ``_CASTS`` less the string casts
+_CASTS = {
+    ("int", "int"): _int_to_int,
+    ("int", "fp"): _int_to_fp,
+    ("fp", "int"): _fp_to_int,
+    ("fp", "fp"): _fp_to_fp,
+    ("int", "bool"): _num_to_bool,
+    ("fp", "bool"): _num_to_bool,
+    ("bool", "int"): _bool_to_num,
+    ("bool", "fp"): _bool_to_num,
+    ("dec", "dec"): _dec_to_dec,
+    ("int", "dec"): _int_to_dec,
+    ("dec", "int"): _dec_to_int,
+    ("dec", "fp"): _dec_to_fp,
+    ("fp", "dec"): _fp_to_dec,
+    ("date", "ts"): _date_to_ts,
+    ("ts", "date"): _ts_to_date,
+    ("ts", "int"): _ts_to_long,
+    ("int", "ts"): _long_to_ts,
+    ("null", "int"): _null_to_any,
+    ("null", "fp"): _null_to_any,
+    ("null", "bool"): _null_to_any,
+    ("null", "dec"): _null_to_any,
+    ("null", "date"): _null_to_any,
+    ("null", "ts"): _null_to_any,
+}

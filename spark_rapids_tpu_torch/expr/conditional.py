@@ -6,8 +6,9 @@ flat and string columns.
 Like the reference, every branch is computed over every row and a
 ``torch.where`` picks one: there is no lazy side evaluation.  A null
 condition takes the else branch.  String branches meet at the wider
-width.  ``NaNvl``, ``Greatest``/``Least``, ``Nvl2`` and ``NullIf`` are
-not ported yet.
+width.  ``NaNvl``, ``Greatest``/``Least`` (NaN the greatest value, as in
+Spark's ordering; strings by their bytes; decimals above 18 digits by
+their limbs), ``Nvl2`` and ``NullIf`` as the reference has them.
 """
 from __future__ import annotations
 
@@ -166,3 +167,120 @@ class Coalesce(Expression):
 class Nvl(Coalesce):
     def __init__(self, a: Expression, b: Expression):
         super().__init__([a, b])
+
+
+class NaNvl(Expression):
+    """nanvl(a, b): a unless a is NaN."""
+
+    def __init__(self, a: Expression, b: Expression):
+        super().__init__([a, b])
+
+    def _resolve_type(self):
+        self._dataType = self.children[0].dataType
+        self._nullable = any(c.nullable for c in self.children)
+
+    def do_columnar_eval(self, ctx, cols):
+        a, b = cols
+        is_nan = torch.isnan(a.data) & a.validity
+        return select_column(~is_nan, torch.ones_like(is_nan), a, b,
+                             self.dataType)
+
+
+class Greatest(Expression):
+    """Skips nulls (null only if every child is null); NaN is the
+    greatest value."""
+
+    def __init__(self, children):
+        super().__init__(children)
+
+    def _resolve_type(self):
+        from spark_rapids_tpu_torch.expr.cast import Cast
+
+        common = _common_type([c.dataType for c in self.children])
+        self.children = [c if c.dataType == common
+                         else Cast(c, common).resolve(None)
+                         for c in self.children]
+        self._dataType = common
+        self._nullable = all(c.nullable for c in self.children)
+
+    def _b_wins(self, a: DeviceColumn, b: DeviceColumn):
+        """Rows where ``b`` is greater than ``a``."""
+        if a.is_string:
+            from spark_rapids_tpu_torch.expr.predicates import string_compare
+
+            return string_compare(a, b)[0]
+        if a.is_dec128:
+            from spark_rapids_tpu_torch.expr import decimal128 as D
+
+            return D.lt128(*D.unpack(a.data), *D.unpack(b.data))
+        if a.data.dtype.is_floating_point:
+            # NaN wins (torch.maximum propagates NaN, as jnp.maximum)
+            return torch.isnan(b.data) | (a.data < b.data)
+        return a.data < b.data
+
+    def do_columnar_eval(self, ctx, cols):
+        acc = cols[0]
+        for c in cols[1:]:
+            take = ~acc.validity | (c.validity & self._b_wins(acc, c))
+            acc = select_column(take, torch.ones_like(take), c, acc,
+                                self.dataType)
+        return acc
+
+
+class Least(Greatest):
+    """Skips nulls; ignores NaN (NaN is the greatest value)."""
+
+    def _b_wins(self, a, b):
+        if a.is_string:
+            from spark_rapids_tpu_torch.expr.predicates import string_compare
+
+            lt, eq = string_compare(a, b)
+            return ~lt & ~eq
+        if a.is_dec128:
+            from spark_rapids_tpu_torch.expr import decimal128 as D
+
+            return D.lt128(*D.unpack(b.data), *D.unpack(a.data))
+        if a.data.dtype.is_floating_point:
+            return torch.isnan(a.data) & ~torch.isnan(b.data) | (
+                b.data < a.data)
+        return b.data < a.data
+
+
+class Nvl2(Expression):
+    """nvl2(a, b, c): b when a is not null, else c."""
+
+    def __init__(self, a: Expression, b: Expression, c: Expression):
+        super().__init__([a, b, c])
+
+    def _resolve_type(self):
+        self._dataType = self.children[1].dataType
+        self._nullable = (self.children[1].nullable
+                          or self.children[2].nullable)
+
+    def do_columnar_eval(self, ctx, cols):
+        a, b, c = cols
+        return select_column(a.validity, torch.ones_like(a.validity), b, c,
+                             self.dataType)
+
+
+class NullIf(Expression):
+    """nullif(a, b): null when a == b, else a."""
+
+    def __init__(self, a: Expression, b: Expression):
+        super().__init__([a, b])
+
+    def _resolve_type(self):
+        self._dataType = self.children[0].dataType
+        self._nullable = True
+
+    def do_columnar_eval(self, ctx, cols):
+        from spark_rapids_tpu_torch.expr.predicates import EqualTo
+
+        a, b = cols
+        eq = EqualTo(self.children[0], self.children[1])
+        eq._dataType = T.BOOLEAN
+        eq.resolved = True
+        eqc = eq.do_columnar_eval(ctx, [a, b])
+        return DeviceColumn(self.dataType, a.validity & ~(eqc.data
+                                                          & eqc.validity),
+                            data=a.data, chars=a.chars, lengths=a.lengths)

@@ -256,6 +256,21 @@ def mul128_checked(ah, al, bh, bl):
     return over, torch.where(neg, rh, hi), torch.where(neg, rl, lo)
 
 
+def div128_pow10_trunc(h, l, k: int) -> Pair:
+    """Signed 128 / 10^k truncating toward zero."""
+    if k == 0:
+        return h, l
+    neg = is_neg(h, l)
+    uh, ul = abs128(h, l)
+    kk = k
+    while kk > 0:
+        step = min(kk, 9)
+        uh, ul, _ = udivmod128_by_u32(uh, ul, _POW10_32[step])
+        kk -= step
+    rh, rl = neg128(uh, ul)
+    return torch.where(neg, rh, uh), torch.where(neg, rl, ul)
+
+
 def div128_pow10_half_up(h, l, k: int) -> Pair:
     """Signed 128 / 10^k with HALF_UP rounding (Spark decimal scale change)."""
     if k == 0:

@@ -12,7 +12,8 @@ matrices (``string_compare``): both sides padded to the wider width, the
 first differing byte decides, and when the padded bytes are equal the
 shorter string is the smaller (so a string with trailing NUL bytes still
 orders after its prefix).  The comparison with a string and a date is
-not ported (the reference casts the date to a string).
+not ported (the reference casts the date to a string).  ``EqualNullSafe``
+(``<=>``) and ``IsNaN`` never return null.
 """
 from __future__ import annotations
 
@@ -164,6 +165,27 @@ class GreaterThanOrEqual(BinaryComparison):
         return ~lt
 
 
+class EqualNullSafe(BinaryComparison):
+    """<=> : null <=> null is true; never returns null."""
+
+    symbol = "<=>"
+
+    def _resolve_type(self):
+        super()._resolve_type()
+        self._nullable = False
+
+    def do_columnar_eval(self, ctx, cols):
+        l, r = cols
+        if l.is_string:
+            _, eq = string_compare(l, r)
+        elif l.is_dec128:
+            eq = (l.data == r.data).all(dim=-1)
+        else:
+            eq = l.data == r.data
+        data = (l.validity & r.validity & eq) | (~l.validity & ~r.validity)
+        return DeviceColumn(T.BOOLEAN, torch.ones_like(data), data=data)
+
+
 class And(BinaryExpression):
     """Three-valued AND: false AND null = false."""
 
@@ -241,6 +263,18 @@ class IsNotNull(UnaryExpression):
         c = cols[0]
         return DeviceColumn(T.BOOLEAN, torch.ones_like(c.validity),
                             data=c.validity)
+
+
+class IsNaN(UnaryExpression):
+    def _resolve_type(self):
+        self._dataType = T.BOOLEAN
+        self._nullable = False
+
+    def do_columnar_eval(self, ctx, cols):
+        c = cols[0]
+        data = torch.isnan(c.data) & c.validity
+        return DeviceColumn(T.BOOLEAN, torch.ones_like(c.validity),
+                            data=data)
 
 
 class In(Expression):

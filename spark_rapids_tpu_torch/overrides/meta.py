@@ -9,7 +9,11 @@ device: a type its ``TypeSig`` rejects, a nested type the device layout
 lacks, ``spark.rapids.sql.exec.<Name>=false`` or
 ``spark.rapids.sql.expression.<Name>=false``, and the extra checks (a
 decimal multiply above 18 digits, an add or subtract past 38 digits, a
-decimal128 cast pair, a decimal128 hash key, a ``LIKE``, ``ILIKE`` or
+decimal divide whose numerator could pass 18 digits, a decimal remainder
+or pmod whose rescaled operand could (the port's own check: the
+reference's device skips the rescale, ROADMAP R11), a cast outside the
+reference's table or a decimal128 cast pair, ``bround`` of a decimal, a
+decimal128 hash key, a ``LIKE``, ``ILIKE`` or
 ``RLIKE`` pattern that is not a literal or that the transpiler rejects
 (the tag-time DFA is stashed on the expression), a disabled file format, an
 aggregate's input type, ``avg`` or a variance over a decimal above 18
@@ -34,12 +38,14 @@ from spark_rapids_tpu_torch.expr import arithmetic as A
 from spark_rapids_tpu_torch.expr import complextypes as CT
 from spark_rapids_tpu_torch.expr import conditional as CO
 from spark_rapids_tpu_torch.expr import datetime as DT
+from spark_rapids_tpu_torch.expr import mathfuncs as M
 from spark_rapids_tpu_torch.expr import predicates as P
 from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr.base import (Alias, AttributeReference,
                                               BoundReference, Expression,
                                               Literal)
-from spark_rapids_tpu_torch.expr.cast import Cast
+from spark_rapids_tpu_torch.expr.cast import (STRING_CASTS, Cast, _kind,
+                                              cast_supported)
 from spark_rapids_tpu_torch.plan import nodes as PN
 
 
@@ -58,7 +64,19 @@ PORTED_EXPRS = frozenset({
     S.StringTrimLeft, S.StringTrimRight, S.Like, S.ILike, S.RLike,
     DT.Year, DT.Month, DT.DayOfMonth, DT.DayOfWeek, DT.DayOfYear,
     DT.Quarter, DT.WeekOfYear, DT.LastDay, DT.DateAdd, DT.DateSub,
-    DT.DateDiff, DT.AddMonths, DT.MonthsBetween, DT.TruncDate})
+    DT.DateDiff, DT.AddMonths, DT.MonthsBetween, DT.TruncDate,
+    A.Divide, A.IntegralDivide, A.Remainder, A.Pmod, A.UnaryMinus, A.Abs,
+    A.UnaryPositive, A.BitwiseAnd, A.BitwiseOr, A.BitwiseXor, A.BitwiseNot,
+    A.ShiftLeft, A.ShiftRight, A.ShiftRightUnsigned, A.TryAdd,
+    A.TrySubtract, A.TryMultiply, A.TryDivide,
+    P.EqualNullSafe, P.IsNaN, CO.NaNvl, CO.Greatest, CO.Least, CO.Nvl2,
+    CO.NullIf,
+    M.Sqrt, M.Exp, M.Log, M.Log10, M.Sin, M.Cos, M.Tan, M.Asin, M.Acos,
+    M.Atan, M.Signum, M.Sinh, M.Cosh, M.Tanh, M.Asinh, M.Acosh, M.Atanh,
+    M.Cbrt, M.Log2, M.Log1p, M.Expm1, M.Rint, M.Cot, M.Csc, M.Sec,
+    M.ToDegrees, M.ToRadians, M.Pow, M.Floor, M.Ceil, M.Round, M.BRound,
+    M.Atan2, M.Hypot, M.Logarithm, M.WidthBucket, M.Factorial,
+    M.BitwiseCount})
 
 class BaseMeta:
     def __init__(self, conf: TpuConf):
@@ -227,7 +245,15 @@ _COMMON = (T.BOOLEAN_SIG + T.numeric + T.STRING_SIG + T.DATETIME_SIG
            + T.NULL_SIG)
 _COMMON128 = _COMMON + T.DECIMAL_128_SIG.with_max_decimal(18)
 _DEC128_FULL = _COMMON + T.DECIMAL_128_SIG
-_NUM128 = T.numeric + T.NULL_SIG + T.DECIMAL_128_SIG
+_NUM = T.numeric + T.NULL_SIG
+#: numerics with decimals within 18 digits, for the expressions whose
+#: device code reads a decimal as one int64: ``T.numeric`` admits 38 (a
+#: ``TypeSig`` sum keeps the larger decimal cap, and ``INTEGRAL_SIG``'s is
+#: 38), so the reference's device runs them on the limbs of a 38-digit
+#: decimal as if they were int64 (ROADMAP R15)
+_NUM18 = _NUM.with_max_decimal(18)
+_NUM128 = _NUM + T.DECIMAL_128_SIG
+_BITS = T.INTEGRAL_SIG + T.NULL_SIG
 _ARRAY_SIG = T.TypeSig(frozenset({T.ArrayType}), 18)
 _WITH_ARRAYS = _DEC128_FULL + _ARRAY_SIG
 _WITH_MAPS = (T.TypeSig(frozenset({T.MapType, T.ArrayType}))
@@ -286,6 +312,45 @@ def _check_decimal_mult(meta: ExprMeta):
                 "supported on TPU (needs 256-bit intermediates)")
 
 
+def _check_decimal_div(meta: ExprMeta):
+    """Decimal divide computes numerator = l * 10^(s - ls + rs) in int64;
+    operands whose numerator can exceed 18 digits fall back (the
+    reference's words)."""
+    e = meta.expr
+    dt = e.dataType
+    if not isinstance(dt, T.DecimalType):
+        return
+    lt, rt = e.left.dataType, e.right.dataType
+    shift = dt.scale - lt.scale + rt.scale
+    if lt.precision + max(shift, 0) > 18 or rt.precision + max(-shift, 0) > 18:
+        meta.will_not_work_on_tpu(
+            "decimal divide intermediate exceeds 18 digits "
+            "(128-bit division is not implemented on TPU)")
+
+
+def _check_decimal_rem(meta: ExprMeta):
+    """The port's check for a decimal remainder or pmod: both operands
+    are rescaled to the result's scale in int64, so one that could pass
+    18 digits there stays off the device."""
+    e = meta.expr
+    dt = e.dataType
+    if not isinstance(dt, T.DecimalType):
+        return
+    for side in (e.left.dataType, e.right.dataType):
+        if side.precision + dt.scale - side.scale > 18:
+            meta.will_not_work_on_tpu(
+                "decimal remainder intermediate exceeds 18 digits "
+                "(128-bit remainder is not implemented on TPU)")
+            return
+
+
+def _check_bround(meta: ExprMeta):
+    if isinstance(meta.expr.children[0]._dataType, T.DecimalType):
+        meta.will_not_work_on_tpu(
+            "bround over decimals (HALF_EVEN rescale) is not supported "
+            "on TPU")
+
+
 def _check_decimal_addsub(meta: ExprMeta):
     lt, rt = meta.expr.left._dataType, meta.expr.right._dataType
     if isinstance(lt, T.DecimalType) and isinstance(rt, T.DecimalType):
@@ -312,11 +377,21 @@ def _cast_kind(t) -> str:
 
 
 def _check_cast(meta: ExprMeta):
-    """The reference's decimal128 pairs (its ``cast_supported`` table is
-    the port's gap check: the port runs a narrower set of casts)."""
+    """The reference's ``_check_cast``: a cast outside the table, and the
+    decimal128 pairs its limb paths lack.  The string casts are in the
+    reference's table but not ported; the conversion raises ``NotOnGpu``
+    for them (``overrides.py::check_expression``).  The reference's
+    string -> timestamp gate (a string cast) is not ported."""
     e = meta.expr
     src = e.child._dataType
-    if src is None or not (_is_dec128(src) or _is_dec128(e.to)):
+    if src is None:
+        return
+    if not cast_supported(src, e.to) and (
+            _kind(src), _kind(e.to)) not in STRING_CASTS:
+        meta.will_not_work_on_tpu(
+            f"cast from {src.simpleString} to {e.to.simpleString} is not "
+            f"supported on TPU")
+    if not (_is_dec128(src) or _is_dec128(e.to)):
         return
     if (_cast_kind(src), _cast_kind(e.to)) not in {
             ("dec", "dec"), ("int", "dec"), ("dec", "int"), ("dec", "fp")}:
@@ -400,6 +475,30 @@ EXPRESSIONS: Dict[Type, ExprRule] = {
     A.Add: ExprRule(_NUM128, _check_decimal_addsub),
     A.Subtract: ExprRule(_NUM128, _check_decimal_addsub),
     A.Multiply: ExprRule(_NUM128, _check_decimal_mult),
+    A.Divide: ExprRule(_NUM, _check_decimal_div),
+    A.TryAdd: ExprRule(_NUM128, _check_decimal_addsub),
+    A.TrySubtract: ExprRule(_NUM128, _check_decimal_addsub),
+    A.TryMultiply: ExprRule(_NUM128, _check_decimal_mult),
+    A.TryDivide: ExprRule(_NUM, _check_decimal_div),
+    A.IntegralDivide: ExprRule(_NUM),
+    A.Remainder: ExprRule(_NUM18, _check_decimal_rem),
+    A.Pmod: ExprRule(_NUM18, _check_decimal_rem),
+    A.UnaryMinus: ExprRule(_NUM18),
+    A.Abs: ExprRule(_NUM18), A.UnaryPositive: ExprRule(_NUM128),
+    A.BitwiseAnd: ExprRule(_BITS), A.BitwiseOr: ExprRule(_BITS),
+    A.BitwiseXor: ExprRule(_BITS), A.BitwiseNot: ExprRule(_BITS),
+    A.ShiftLeft: ExprRule(_BITS), A.ShiftRight: ExprRule(_BITS),
+    A.ShiftRightUnsigned: ExprRule(_BITS),
+    P.EqualNullSafe: ExprRule(_DEC128_FULL),
+    P.IsNaN: ExprRule(T.FP_SIG + T.BOOLEAN_SIG),
+    CO.NaNvl: ExprRule(T.FP_SIG),
+    CO.Greatest: ExprRule(_NUM18 + T.STRING_SIG.with_max_decimal(18)),
+    CO.Least: ExprRule(_NUM18 + T.STRING_SIG.with_max_decimal(18)),
+    CO.Nvl2: ExprRule(_COMMON128), CO.NullIf: ExprRule(_COMMON128),
+    M.Pow: ExprRule(_NUM), M.Floor: ExprRule(_NUM18), M.Ceil: ExprRule(_NUM18),
+    M.Round: ExprRule(_NUM18), M.BRound: ExprRule(_NUM18, _check_bround),
+    M.WidthBucket: ExprRule(_NUM18), M.Factorial: ExprRule(T.INTEGRAL_SIG),
+    M.BitwiseCount: ExprRule(T.INTEGRAL_SIG + T.BOOLEAN_SIG),
     P.EqualTo: ExprRule(_DEC128_FULL), P.LessThan: ExprRule(_DEC128_FULL),
     P.LessThanOrEqual: ExprRule(_DEC128_FULL),
     P.GreaterThan: ExprRule(_DEC128_FULL),
@@ -445,6 +544,11 @@ EXPRESSIONS: Dict[Type, ExprRule] = {
                            _check_literal_children(
                                1, names="trunc format")),
 }
+EXPRESSIONS.update({cls: ExprRule(_NUM) for cls in (
+    M.Sqrt, M.Exp, M.Log, M.Log10, M.Sin, M.Cos, M.Tan, M.Asin, M.Acos,
+    M.Atan, M.Signum, M.Sinh, M.Cosh, M.Tanh, M.Asinh, M.Acosh, M.Atanh,
+    M.Cbrt, M.Log2, M.Log1p, M.Expm1, M.Rint, M.Cot, M.Csc, M.Sec,
+    M.ToDegrees, M.ToRadians, M.Atan2, M.Hypot, M.Logarithm)})
 
 
 def _scan_check(meta: SparkPlanMeta):

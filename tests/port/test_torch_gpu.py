@@ -1114,3 +1114,74 @@ def test_q13_q22_q16_q9_on_gpu_equal_numpy(tmp_path):
         assert C._text_query(paths, reads, build, dev).collect() == want, \
             name
         assert decode.unpack_launches == C.query_chunks(paths, reads, scans)
+
+
+@pytest.mark.gpu
+def test_arith_math_cast_on_gpu_equal_cpu():
+    """Every case of ``torch_port_arith`` (division, the rest of
+    arithmetic, bitwise and shifts, ``try_*``, the numeric casts, ``<=>``,
+    the conditionals, every math function; the 38-digit cases in CPU
+    stages) on the card equals its CPU run over the seeded edge-case table:
+    exact (doubles bit for bit: +, -, *, /, sqrt and fmod are correctly
+    rounded on both), but the transcendental functions, within ``ULPS``
+    units in the last place of the CPU's; each ANSI case raises on the
+    card."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.expr.base import SparkArithmeticException
+    from torch_port_arith import (ANSI_CASES, DEVICE_CASES, HOST_CASES,
+                                  TRANSCENDENTAL_CASES, ULPS, arith_schema,
+                                  arith_table, columns, same, select_cases)
+    from torch_port_frames import frame
+
+    arrays, validity = arith_table(43, n=3000)
+    for cases in (DEVICE_CASES, TRANSCENDENTAL_CASES, HOST_CASES):
+        cols = {dev: columns(select_cases(S, frame(
+            S, TpuSession({}, device=dev), arrays, arith_schema(T),
+            validity), cases).collect(), cases) for dev in ("cuda", "cpu")}
+        for name in cases:
+            ulps = ULPS if name in TRANSCENDENTAL_CASES else 0
+            bad = [(i, a, b) for i, (a, b) in enumerate(
+                zip(cols["cuda"][name], cols["cpu"][name]))
+                if not same(a, b, ulps)]
+            assert not bad, (name, bad[:5])
+    for name, build in ANSI_CASES.items():
+        with pytest.raises(SparkArithmeticException):
+            select_cases(S, frame(S, TpuSession(
+                {"spark.sql.ansi.enabled": True}, device="cuda"), arrays,
+                arith_schema(T), validity), {name: build}).collect()
+
+
+@pytest.mark.gpu
+def test_q14_q17_q8_on_gpu_equal_numpy(tmp_path):
+    """TPC-H Q14, Q17 and Q8 from phases 30-31's kind of files at test
+    size on the card: exact against numpy (the final divides in CPU
+    stages), K1 once a dictionary chunk of each scan."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+
+    dev = torch.device("cuda")
+    scale, seed = 0.01, 9
+    tables, values = C.make_tpch_parts(scale, seed)
+    pool = C.text_pool(seed + 1, 1 << 20)
+    C.add_text_columns(tables, scale, seed + 2, pool)
+    C.add_arith_columns(tables, values, seed + 4)
+    customer, orders, li9 = C.make_text_tables(scale, seed + 3, pool)
+    paths = C.write_tpch_tables(tables, values,
+                                C.lineitem_q15(1000, scale, seed),
+                                str(tmp_path), dev, n_files=2)
+    sch = C.tpch_all_schemas(T)
+    for name, table in (("customer", customer), ("orders", orders),
+                        ("lineitem9", li9)):
+        paths[name] = C.write_tpch_files(name, table, values, sch[name],
+                                         str(tmp_path), dev, 2)
+    want = C.arith_references(tables, customer, orders, li9)
+    for name in ("q14", "q17", "q8"):
+        reads, scans = C.ARITH_READS[name]
+        decode.unpack_launches = 0
+        got = C._text_query(paths, reads,
+                            lambda f, S: C.arith_query(name, f, S),
+                            dev).collect()
+        assert got == want[name], name
+        assert decode.unpack_launches == C.query_chunks(paths, reads, scans)

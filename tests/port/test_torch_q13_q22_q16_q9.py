@@ -75,9 +75,12 @@ def frames(mod, types, session, tables, values, customer, orders, li9):
     out = {}
     for name in ("nation", "supplier", "part", "partsupp", "customer",
                  "orders", "lineitem9"):
+        # the columns the generators drew (part's P_CONTAINER is added for
+        # Q14, Q17 and Q8 only)
+        held = types.StructType([f for f in sch[name].fields
+                                 if f.name in src[name]])
         out[name] = frame(mod, session, _arrays(src[name], values,
-                                                sch[name].fields),
-                          sch[name])
+                                                held.fields), held)
     return out
 
 
