@@ -149,8 +149,9 @@ Phases, each failing the run at its first mismatch:
     seed 7, a 500-row dimension of 13 groups, under its conf).  Per round
     incarnation 1 is SIGKILLed at the kill point and incarnation 2 runs
     to its end: ``plan:1``, ``ship:6`` and ``ckpt:1`` at 200,000 rows
-    with 32 MiB stores, then ``ckpt:1`` at 28,800,991 rows with
-    rung4_dist's stores and batching.  Incarnation 2 must equal numpy,
+    with 32 MiB stores (the round at 28,800,991 rows with rung4_dist's
+    stores and batching, which ``run_driver_kill`` also runs, is left out
+    for the time limit).  Incarnation 2 must equal numpy,
     classify every journaled query (the crashed one not completed; after
     ``ckpt`` resumable, a stage served), leave no block on the workers
     and leak nothing, and no worker may map CUDA;
@@ -180,8 +181,8 @@ Phases, each failing the run at its first mismatch:
 20. Q12 from memory under phase 12's conf (the 48 MiB pool, a batch goal
     of an eighth of it, no broadcast, no adaptive execution): both
     exchanges sized, their slices past the queues' device budget framed
-    to the host as TKU2 blocks carrying the strings (at least one), two
-    collects exact, no leak; then the orders exchange's write and read
+    to the host as TKU2 blocks carrying the strings (at least one), one
+    collect exact, no leak; then the orders exchange's write and read
     alone;
 21. TPC-H Q4 (spec 2.4.4) from phase 19's files: the quarter's orders
     that have a late line (EXISTS, a left semi join), counted by
@@ -206,7 +207,8 @@ Phases, each failing the run at its first mismatch:
     decimal(16,6) averages over decimal(22,2) sums, the count), the plan
     the reference's with the Project as a CPU stage (``q1_plan``), K1
     once a dictionary chunk; a breakdown (the CPU stage's seconds and
-    its ``bytes_d2h``/``bytes_h2d``) and one profiled collect;
+    its ``bytes_d2h``/``bytes_h2d``; its profiled collect is left out for
+    the time limit);
 24. TPC-H Q11 (spec 2.4.11, NATION GERMANY, FRACTION 0.0001 / SF) at
     ``--scale``: nation, supplier (100,000 at SF10), part (2,000,000) and
     partsupp (8,000,000) from ``--seed`` + 2 per spec 4.2.3
@@ -258,7 +260,25 @@ Phases, each failing the run at its first mismatch:
     once a dictionary chunk;
 31. TPC-H Q8 (spec 2.4.8, BRAZIL, AMERICA, ECONOMY ANODIZED STEEL) over
     eight tables (region written as one file, nation read twice), the
-    same checks, the sort on the card over the CPU stage.
+    same checks, the sort on the card over the CPU stage;
+32. windows and statistics over phases 9-11's store_sales files: K1
+    held against its plain version on item_sk's index tables; a TPC-DS
+    Q47-shaped query (monthly sums cast to DOUBLE, a window ``avg`` over
+    the unbounded frame, ``rank``/``lag``/``lead``, Q47's filter, the top
+    100), moving frames over all 28,800,991 rows (ROWS 3 PRECEDING to 3
+    FOLLOWING per item; RANGE 6 PRECEDING to CURRENT ROW and RANGE
+    UNBOUNDED PRECEDING per store) and per-item ``skewness``,
+    ``kurtosis``, ``corr``, ``covar_*`` and ``regr_*``;
+33. windows over phase 27's orders and customer: each customer's order
+    history (``row_number``, ``lag``, ``lead`` with a default, a trailing
+    90-day RANGE frame over the DATE key) and phones per nation by
+    balance (string ``lag``/``lead``, ``first_value`` IGNORE NULLS,
+    ``last_value``, ``max`` over ``range_running``, ``min`` over
+    ``unbounded``).  Each of phases 32-33's queries is planned as the
+    reference plans it (its fusions aside), collected once under the
+    profiler and twice timed, every row held
+    against numpy references computed in threads from phase 32's start,
+    K1 once a dictionary chunk, and broken down by operator.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
@@ -1434,9 +1454,10 @@ def run_q6(paths, li, n: int, device):
             "delta": delta}
 
 
-def profile_collect(q, want_rows, label: str, key=None):
-    """One more collect under ``torch.profiler``, its rows (through
-    ``key``, if given) equal to ``want_rows``: K1's device time summed
+def profile_collect(collect, want_rows, label: str, key=None):
+    """One more collect (``collect()``: a query's ``collect`` or
+    ``collect_host``) under ``torch.profiler``, its rows (through ``key``,
+    if given) equal to ``want_rows``: K1's device time summed
     over its launches inside the query, and the share of the collect's
     wall time in which the card ran nothing (kernels and copies merged
     into busy intervals).  The profiler's own host cost makes the collect
@@ -1449,7 +1470,7 @@ def profile_collect(q, want_rows, label: str, key=None):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        got = q.collect()
+        got = collect()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     if (key(got) if key else got) != want_rows:
@@ -3332,12 +3353,21 @@ def dict_chunks(paths, schema) -> int:
 
 
 def check_string_k1(paths, schema_of, device, smi: str, label: str):
-    """K1 on the run tables the scan builds for the string columns of
-    ``paths`` (``schema_of(path)``: the file's schema as the query reads
-    it): each file's string fields are read as the scan reads them
-    (compressed transfer on), the inputs of every K1 launch are kept, and
-    each is run again through the kernel and its plain version.  -> (the
-    largest difference, the index widths seen); a difference fails."""
+    """``check_k1_tables`` on the string columns of ``schema_of(path)``."""
+    from spark_rapids_tpu_torch import types as T
+
+    return check_k1_tables(paths, lambda p: T.StructType(
+        [f for f in schema_of(p).fields
+         if isinstance(f.dataType, T.StringType)]), device, smi, label)
+
+
+def check_k1_tables(paths, schema_of, device, smi: str, label: str):
+    """K1 on the run tables the scan builds for the columns of ``paths``
+    that ``schema_of(path)`` names (the file's schema as the query reads
+    it): each file's fields are read as the scan reads them (compressed
+    transfer on), the inputs of every K1 launch are kept, and each is run
+    again through the kernel and its plain version.  -> (the largest
+    difference, the index widths seen); a difference fails."""
     import torch
 
     from spark_rapids_tpu_torch import types as T
@@ -3355,8 +3385,7 @@ def check_string_k1(paths, schema_of, device, smi: str, label: str):
     max_err = 0
     seen = set()
     for path in paths:
-        sch = T.StructType([f for f in schema_of(path).fields
-                            if isinstance(f.dataType, T.StringType)])
+        sch = schema_of(path)
         widths = sorted({page.index_bit_width for name, page in
                          main_path_pages(path) if name in sch.field_names()
                          and page.index_bit_width})
@@ -3376,14 +3405,14 @@ def check_string_k1(paths, schema_of, device, smi: str, label: str):
                                        .abs().max()) if total else 0)
             rows += len(table)
             values += total
-        log(f"K1 on {os.path.basename(path)}'s string index tables "
+        log(f"K1 on {os.path.basename(path)}'s index tables "
             f"({sch.field_names()}, widths {widths}): {len(calls)} "
             f"launches, {rows} run rows, {values} values; max_abs_err "
             f"{max_err} against the plain version; {smi}")
         calls.clear()
     if max_err:
-        fail(f"K1 differs from its plain version on {label}'s string index "
-             f"tables (max_abs_err {max_err})")
+        fail(f"K1 differs from its plain version on {label}'s index tables "
+             f"(max_abs_err {max_err})")
     return max_err, sorted(seen)
 
 
@@ -3610,8 +3639,10 @@ def run_q12_ooc(orders, lineitem, want, pool: int, device, smi: str):
     log("Q12 out of core plan:\n" + q.explain())
     if sum("sized" in ln for ln in q.explain().splitlines()) != 2:
         fail("Q12 out of core: both exchanges must be sized")
+    # one collect (about 13 s each), for the time limit
     out = _ooc_collects(q, lambda rows: None if rows == want else
-                        f"{rows} != {want}", "Q12 out of core", n, smi)
+                        f"{rows} != {want}", "Q12 out of core", n, smi,
+                        warm=False)
     if out["delta"]["exchange_host_blocks"] <= 0:
         fail("Q12 out of core: no exchange slice crossed to the host")
     fw = peek_spill_framework()
@@ -5007,7 +5038,7 @@ def run_tpch_phases(scale: float, seed: int, device, smi: str, out_dir: str,
     t1 = time.perf_counter()
     q11, q11_rows = run_q11(paths, tables, scale, device, smi)
     q11_breakdown(q11["inner"]["query"], smi)
-    profile_collect(q11["inner"]["query"], q11_rows, "Q11 parquet",
+    profile_collect(q11["inner"]["query"].collect, q11_rows, "Q11 parquet",
                     key=lambda rows: q11_rows
                     if q11_check(rows, q11_rows) is None else rows)
     log(f"phase 24 wall time {time.perf_counter() - t1:.1f} s")
@@ -5024,9 +5055,9 @@ def run_tpch_phases(scale: float, seed: int, device, smi: str, out_dir: str,
     t1 = time.perf_counter()
     q15, want15 = run_q15(paths, li, tables, values, device, smi)
     del li
-    profile_collect(q15["query"], want15, "Q15 parquet")
+    profile_collect(q15["query"].collect, want15, "Q15 parquet")
     q16, want16 = run_q16(paths, tables, device, smi)
-    profile_collect(q16["query"], want16, "q16_nolike parquet")
+    profile_collect(q16["query"].collect, want16, "q16_nolike parquet")
     log(f"phase 26 wall time {time.perf_counter() - t1:.1f} s")
     log(f"phases 24-26 wall time {time.perf_counter() - t0:.1f} s")
     text = run_text_phases(scale, seed + 5, device, smi, out_dir, paths,
@@ -5034,7 +5065,8 @@ def run_tpch_phases(scale: float, seed: int, device, smi: str, out_dir: str,
     arith = run_arith_phases(device, smi, paths, text["arith_want"],
                              text["arith_rows"], text["n_lines"])
     return {"k1_err": max(k1_err, text["k1_err"], arith["k1_err"]),
-            "text": text, "arith": arith,
+            "text": text, "arith": arith, "paths": paths,
+            "windows": text["windows"],
             "q11_launches": q11["inner"]["launches"],
             "q11_cross_launches": q11["cross"]["launches"],
             "residual_launches": sum(r["launches"]
@@ -6008,7 +6040,7 @@ def run_text_query(label: str, paths, reads, build, want, plan, n: int,
     chunk of each scan; then its breakdown (unless ``breakdown`` is
     false)."""
     q = _text_query(paths, reads, build, device)
-    profile_collect(q, want, f"{label} parquet")
+    profile_collect(q.collect, want, f"{label} parquet")
     res = _q12_collects(q, want, label, n, smi, unit=unit, warm=False)
     check_plan(q, plan, label)
     want_k1 = query_chunks(paths, reads, scans)
@@ -6118,7 +6150,9 @@ def run_text_phases(scale: float, seed: int, device, smi: str,
     out = {"k1_err": k1_err, "k1_widths": widths,
            "arith_want": arith_references(tables, customer, orders, li9),
            "arith_rows": arith_build_rows(tables, customer, orders, li9),
-           "n_lines": len(li9["l_orderkey"])}
+           "n_lines": len(li9["l_orderkey"]),
+           # what phase 33's references read
+           "windows": window_tables(customer, orders)}
     del customer, orders
     log(f"phases 27-29 data wall time {time.perf_counter() - t0:.1f} s")
     modes = text_join_modes(paths, build_rows)
@@ -6669,6 +6703,859 @@ def run_arith_phases(device, smi: str, paths, want, build_rows,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Windows and statistics at SF10 (phases 32-33): a TPC-DS Q47-shaped query,
+# moving frames and per-item statistics over phases 9-11's store_sales;
+# order histories and customer phones over phase 27's customer and orders
+# ---------------------------------------------------------------------------
+
+Q47_LIMIT = 100
+#: the doubles' tolerance: relative to the larger of the value and the
+#: scale of the terms it was computed from
+WINDOW_RTOL = 1e-9
+Q47_READS = ("date_sk", "store_sk", "item_sk", "ext_sales")
+STATS_READS = ("item_sk", "quantity", "net_profit")
+HISTORY_READS = {"orders": ("o_orderkey", "o_custkey", "o_orderdate")}
+PHONES_READS = {"customer": ("c_custkey", "c_nationkey", "c_phone",
+                             "c_acctbal")}
+
+
+#: the plans, scans as ``<scan>``: the reference's, with its window-chain
+#: fusion (the filter and project over the second window) and its
+#: join-aggregate fusion not ported (ROADMAP item D6)
+Q47_PLAN = [
+    "TpuTopN 100",
+    "  TpuStageExec[FilterProject]",
+    "    TpuWindow [rank, lag, lead] frame=running",
+    "      TpuWindow [avg] frame=unbounded",
+    "        TpuProject [item_sk, store_sk, d_year, d_moy, CAST(monthly AS "
+    "double) AS sum_sales]",
+    "          TpuHashAggregate(Complete) keys=[item_sk, store_sk, d_year, "
+    "d_moy] aggs=[sum(ext_sales) AS monthly]",
+    "            TpuBroadcastHashJoinExec Inner [date_sk=date_sk]",
+    "              <scan>",
+    "              TpuBroadcastExchangeExec",
+    "                TpuFilter ((((d_year = 1999) OR ((d_year = 1998) AND "
+    "(d_moy = 12))) OR ((d_year = 2000) AND (d_moy = 1))))",
+    "                  <scan>"]
+MOVING_PLAN = [
+    "TpuWindow [sum, max] frame=range_running",
+    "  TpuWindow [sum, count, max, var_pop] frame=('range', 6, 0)",
+    "    TpuWindow [avg, stddev_samp, min, first_value, last_value] "
+    "frame=('rows', 3, 3)",
+    "      TpuProject [item_sk, store_sk, date_sk, ticket, quantity, "
+    "ext_sales, net_profit, CASE WHEN (quantity > CAST(90 AS bigint)) THEN "
+    "None ELSE net_profit END AS np]",
+    "        <scan>"]
+STATS_PLAN = [
+    "TpuHashAggregate(Complete) keys=[item_sk] aggs=[skewness(quantity) AS "
+    "q_skew, kurtosis(net_profit) AS p_kurt, corr(quantity) AS corr, "
+    "covar_samp(quantity) AS covar_samp, covar_pop(quantity) AS covar_pop, "
+    "regr_slope(net_profit) AS slope, regr_intercept(net_profit) AS "
+    "intercept, regr_r2(net_profit) AS r2, regr_count(net_profit) AS n]",
+    "  <scan>"]
+HISTORY_PLAN = [
+    "TpuWindow [count, min] frame=('range', 90, 0)",
+    "  TpuWindow [row_number, lag, lead] frame=running",
+    "    <scan>"]
+PHONES_PLAN = [
+    "TpuWindow [min] frame=unbounded",
+    "  TpuWindow [max] frame=range_running",
+    "    TpuWindow [lag, lead, first_value, last_value] frame=running",
+    "      TpuProject [c_custkey, c_nationkey, c_phone, c_acctbal, CASE WHEN "
+    "(CAST(c_acctbal AS decimal(12,2)) < CAST(Decimal('0.00') AS "
+    "decimal(12,2))) THEN None ELSE c_phone END AS ph]",
+    "        <scan>"]
+
+
+def _wf(mod):
+    return _pkg(mod, "plan.nodes").WindowFunction
+
+
+def q47_query(sales, dates, mod):
+    """TPC-DS Q47's shape on bench's keys: the monthly sales of each
+    (item, store) in 1999 and the months either side, as DOUBLE (the
+    reference tags a window ``avg`` over a decimal off the device, and
+    the port has no CPU window: a departure from the spec); the year's
+    average per (item, store, year) over the unbounded frame; ``rank``,
+    ``lag`` and ``lead`` per (item, store) by month (the spec's self-joins
+    on rn +- 1, so both must exist); 1999's months more than 10% off
+    their average, ordered by the difference, item and store, 100
+    rows."""
+    WF = _wf(mod)
+    T_ = _pkg(mod, "types")
+    A_ = _pkg(mod, "expr.arithmetic")
+    col, lit = mod.col, mod.lit
+    year, moy = col("d_year"), col("d_moy")
+    dd = dates.filter(year.eq(lit(1999))
+                      | (year.eq(lit(1998)) & moy.eq(lit(12)))
+                      | (year.eq(lit(2000)) & moy.eq(lit(1))))
+    monthly = (sales.join(dd, on="date_sk")
+               .group_by("item_sk", "store_sk", "d_year", "d_moy")
+               .agg(mod.sum_("ext_sales", "monthly"))
+               .select("item_sk", "store_sk", "d_year", "d_moy",
+                       col("monthly").cast(T_.DOUBLE).alias("sum_sales")))
+    v1 = monthly.window(
+        [WF("avg", col("sum_sales"), "avg_monthly_sales")],
+        partition_by=["item_sk", "store_sk", "d_year"], order_by=[],
+        frame="unbounded")
+    v2 = v1.window(
+        [WF("rank", None, "rn"), WF("lag", col("sum_sales"), "psum"),
+         WF("lead", col("sum_sales"), "nsum")],
+        partition_by=["item_sk", "store_sk"],
+        order_by=["d_year", "d_moy"])
+    avg = col("avg_monthly_sales")
+    diff = col("sum_sales") - avg
+    return (v2.filter(year.eq(lit(1999)) & (avg > lit(0.0))
+                      & (A_.Abs(diff) / avg > lit(0.1))
+                      & col("psum").is_not_null()
+                      & col("nsum").is_not_null())
+            .select("item_sk", "store_sk", "d_year", "d_moy", "sum_sales",
+                    "avg_monthly_sales", "rn", "psum", "nsum",
+                    diff.alias("diff"))
+            .order_by(col("diff"), col("item_sk"), col("store_sk"))
+            .limit(Q47_LIMIT))
+
+
+def _q47_months(ss, dd):
+    """The joined rows' (item, store, year, month) sums: sorted keys
+    ``(item, store, year, month)`` and their sums in cents."""
+    row = ss["date_sk"].astype(np.int64) - DATE_SK0
+    year = dd["d_year"][row].astype(np.int64)
+    moy = dd["d_moy"][row].astype(np.int64)
+    keep = (year == 1999) | ((year == 1998) & (moy == 12)) \
+        | ((year == 2000) & (moy == 1))
+    key = (((ss["item_sk"][keep].astype(np.int64) * 64
+             + ss["store_sk"][keep]) * 4 + (year[keep] - 1998)) * 16
+           + moy[keep])
+    order = np.argsort(key, kind="stable")
+    key = key[order]
+    starts = np.ones(len(key), np.bool_)
+    starts[1:] = key[1:] != key[:-1]
+    first = np.nonzero(starts)[0]
+    cents = np.add.reduceat(ss["ext_sales"][keep][order].astype(np.int64),
+                            first) if len(first) else np.zeros(0, np.int64)
+    return key[first], cents
+
+
+def q47_reference(ss, dd):
+    """Q47's 100 rows from numpy: (item, store, year, month, sum, avg,
+    rank, previous sum, next sum, sum - avg) as arrays."""
+    key, cents = _q47_months(ss, dd)
+    moy = key % 16
+    year = 1998 + key // 16 % 4
+    store = key // 64 % 64
+    item = key // 4096
+    sums = cents / np.float64(100)
+    part = key // 64                       # (item, store)
+    pyear = key // 16                      # (item, store, year)
+    n = len(key)
+    idx = np.arange(n)
+    new_p = np.ones(n, np.bool_)
+    new_p[1:] = part[1:] != part[:-1]
+    new_y = np.ones(n, np.bool_)
+    new_y[1:] = pyear[1:] != pyear[:-1]
+    ystart = np.nonzero(new_y)[0]
+    ysum = np.add.reduceat(sums, ystart)
+    ycnt = np.diff(np.append(ystart, n))
+    avg = (ysum / ycnt)[np.cumsum(new_y) - 1]
+    rank = idx - np.maximum.accumulate(np.where(new_p, idx, 0)) + 1
+    has_prev = ~new_p
+    has_next = np.append(~new_p[1:], False)
+    psum = np.where(has_prev, np.roll(sums, 1), 0.0)
+    nsum = np.where(has_next, np.roll(sums, -1), 0.0)
+    diff = sums - avg
+    keep = ((year == 1999) & (avg > 0) & (np.abs(diff) / avg > 0.1)
+            & has_prev & has_next)
+    sel = np.nonzero(keep)[0]
+    sel = sel[np.lexsort((store[sel], item[sel], diff[sel]))][:Q47_LIMIT]
+    return {"item": item[sel], "store": store[sel], "year": year[sel],
+            "moy": moy[sel], "sum": sums[sel], "avg": avg[sel],
+            "rank": rank[sel], "psum": psum[sel], "nsum": nsum[sel],
+            "diff": diff[sel]}
+
+
+def _close(got, want, scale=None, rtol: float = WINDOW_RTOL):
+    """Doubles within ``rtol`` of max(|want|, ``scale``), NaN with NaN;
+    -> the count of rows that are not."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    ref = np.abs(want) if scale is None else np.maximum(np.abs(want), scale)
+    ok = (np.abs(got - want) <= rtol * ref) | (np.isnan(got)
+                                               & np.isnan(want))
+    return int((~ok).sum())
+
+
+def q47_check(rows, want):
+    """-> None when the port's rows are the reference's, in order (ints
+    exact, doubles to ``WINDOW_RTOL``), else a complaint."""
+    if len(rows) != len(want["item"]):
+        return f"{len(rows)} rows, not {len(want['item'])}"
+    cols = list(zip(*rows)) if rows else [()] * 10
+    for i, k in enumerate(("item", "store", "year", "moy")):
+        if list(cols[i]) != [int(v) for v in want[k]]:
+            return f"{k} differs"
+    if list(cols[6]) != [int(v) for v in want["rank"]]:
+        return "rank differs"
+    for i, k in ((4, "sum"), (5, "avg"), (7, "psum"), (8, "nsum")):
+        if _close(cols[i], want[k]):
+            return f"{k} differs"
+    if _close(cols[9], want["diff"], want["avg"]):
+        return "diff differs"
+    return None
+
+
+def moving_query(sales, mod):
+    """Moving frames over every store_sales row: per item by (date,
+    ticket), ROWS 3 PRECEDING to 3 FOLLOWING: ``avg`` and ``stddev_samp``
+    of the quantity, ``min`` of the sales, ``first_value`` (IGNORE NULLS)
+    and ``last_value`` of ``np`` (the profit, null where the quantity
+    passes 90); per store by date, RANGE 6 PRECEDING to CURRENT ROW (a
+    trailing seven days): ``sum`` of the sales, ``count`` of the tickets,
+    ``max`` of the profit, ``var_pop`` of the quantity; the same
+    partition over RANGE UNBOUNDED PRECEDING: ``sum`` of the quantity,
+    ``max`` of the sales."""
+    WF = _wf(mod)
+    T_ = _pkg(mod, "types")
+    CO_ = _pkg(mod, "expr.conditional")
+    B_ = _pkg(mod, "expr.base")
+    col, lit = mod.col, mod.lit
+    np_ = CO_.CaseWhen([(col("quantity") > lit(90),
+                         B_.Literal(None, T_.DecimalType(7, 2)))],
+                       col("net_profit"))
+    base = sales.select("item_sk", "store_sk", "date_sk", "ticket",
+                        "quantity", "ext_sales", "net_profit",
+                        np_.alias("np"))
+    rows = base.window(
+        [WF("avg", col("quantity"), "q_avg"),
+         WF("stddev_samp", col("quantity"), "q_sd"),
+         WF("min", col("ext_sales"), "s_min"),
+         WF("first_value", col("np"), "np_first", ignore_nulls=True),
+         WF("last_value", col("np"), "np_last")],
+        partition_by=["item_sk"], order_by=["date_sk", "ticket"],
+        frame=("rows", 3, 3))
+    week = rows.window(
+        [WF("sum", col("ext_sales"), "s_7d"),
+         WF("count", col("ticket"), "n_7d"),
+         WF("max", col("net_profit"), "p_max_7d"),
+         WF("var_pop", col("quantity"), "q_var_7d")],
+        partition_by=["store_sk"], order_by=["date_sk"],
+        frame=("range", 6, 0))
+    return week.window(
+        [WF("sum", col("quantity"), "q_run"),
+         WF("max", col("ext_sales"), "s_max_run")],
+        partition_by=["store_sk"], order_by=["date_sk"],
+        frame="range_running")
+
+
+def moving_rows_reference(ss):
+    """``moving_query``'s ROWS 3 PRECEDING .. 3 FOLLOWING columns per item
+    by (date, ticket) from numpy, in the rows' order: name -> (values,
+    validity)."""
+    n = len(ss["item_sk"])
+    q = ss["quantity"].astype(np.int64)
+    sales = ss["ext_sales"].astype(np.int64)
+    profit = ss["net_profit"].astype(np.int64)
+    np_ok = q <= 90
+    out = {}
+    key = ((ss["item_sk"].astype(np.int64) << 34)
+           | ((ss["date_sk"].astype(np.int64) - DATE_SK0) << 22)
+           | ss["ticket"].astype(np.int64))
+    order = np.argsort(key)
+    if (np.diff(key[order]) == 0).any():
+        # a repeated (item, date, ticket): ties keep the rows' order
+        order = np.argsort(key, kind="stable")
+    item = ss["item_sk"][order]
+    qs, ss_, nps, oks = q[order], sales[order], profit[order], np_ok[order]
+    # each row's frame [fs, fe): 3 rows either side, inside its item
+    idx = np.arange(n)
+    new = np.ones(n + 1, np.bool_)
+    new[1:n] = item[1:] != item[:-1]
+    first = np.maximum.accumulate(np.where(new[:n], idx, 0))
+    end = np.minimum.accumulate(np.where(new[1:], idx + 1, n)[::-1])[::-1]
+    fs = np.maximum(idx - 3, first)
+    fe = np.minimum(idx + 4, end)
+    cnt = fe - fs
+
+    def frame_sum(a):
+        c = np.zeros(n + 1, np.int64)
+        np.cumsum(a, out=c[1:])
+        return c[fe] - c[fs]
+
+    # the mean and M2 from exact integer sums: M2 = (n sum(q^2) - sum(q)^2)
+    # / n
+    total = frame_sum(qs)
+    mean = total / cnt
+    m2 = (cnt * frame_sum(qs * qs) - total * total) / cnt
+    s_min = ss_.copy()
+    before, after = idx - fs, fe - idx
+    for d in (1, 2, 3):
+        np.minimum(s_min[d:], ss_[:n - d], out=s_min[d:],
+                   where=before[d:] >= d)
+        np.minimum(s_min[:n - d], ss_[d:], out=s_min[:n - d],
+                   where=after[:n - d] > d)
+    # the frame's first row with np (IGNORE NULLS), its last row's np
+    nxt = np.minimum.accumulate(np.where(oks, idx, n)[::-1])[::-1]
+    at = nxt[fs]
+    sorted_cols = {
+        "q_avg": (mean, np.ones(n, np.bool_)),
+        "q_sd": (np.sqrt(m2 / np.maximum(cnt - 1, 1)), cnt > 1),
+        "s_min": (s_min, np.ones(n, np.bool_)),
+        "np_first": (nps[np.minimum(at, n - 1)], at < fe),
+        "np_last": (nps[fe - 1], oks[fe - 1])}
+    for k, (v, ok) in sorted_cols.items():
+        vv = np.empty_like(v)
+        vv[order] = v
+        okk = np.empty_like(ok)
+        okk[order] = ok
+        out[k] = (vv, okk)
+    return out
+
+
+@np.errstate(divide="ignore", invalid="ignore")
+def moving_range_reference(ss):
+    """The RANGE columns per store by date: over a grid of (store, day)
+    sums and maxima, rolled over the trailing seven days and cumulated."""
+    n = len(ss["item_sk"])
+    q = ss["quantity"].astype(np.int64)
+    sales = ss["ext_sales"].astype(np.int64)
+    profit = ss["net_profit"].astype(np.int64)
+    out = {}
+    st = ss["store_sk"].astype(np.int64)
+    day = ss["date_sk"].astype(np.int64) - DATE_SK0
+    cell = st * N_DATES + day
+    size = (N_STORES + 1) * N_DATES
+    grid = {"n": np.bincount(cell, minlength=size),
+            "s": np.bincount(cell, sales, size).astype(np.int64),
+            "q": np.bincount(cell, q, size).astype(np.int64),
+            "q2": np.bincount(cell, q * q, size).astype(np.int64)}
+    grid = {k: v.reshape(N_STORES + 1, N_DATES) for k, v in grid.items()}
+    pmax = np.full(size, np.iinfo(np.int64).min)
+    np.maximum.at(pmax, cell, profit)
+    smax = np.full(size, np.iinfo(np.int64).min)
+    np.maximum.at(smax, cell, sales)
+    pmax = pmax.reshape(N_STORES + 1, N_DATES)
+    smax = smax.reshape(N_STORES + 1, N_DATES)
+
+    def trailing(a):
+        c = np.concatenate([np.zeros((a.shape[0], 1), a.dtype),
+                            np.cumsum(a, 1)], 1)
+        lo = np.maximum(np.arange(N_DATES) - 6, 0)
+        return c[:, 1:] - c[:, lo]
+
+    n7, s7, q7, q27 = (trailing(grid[k]) for k in ("n", "s", "q", "q2"))
+    p7 = pmax.copy()
+    for d in range(1, 7):
+        p7[:, d:] = np.maximum(p7[:, d:], pmax[:, :-d])
+    # var_pop from exact integer sums: (n sum(q^2) - sum(q)^2) / n^2
+    var7 = (n7 * q27 - q7 * q7) / (n7.astype(np.float64) ** 2)
+    ones = np.ones(n, np.bool_)
+    out["s_7d"] = (s7[st, day], ones)
+    out["n_7d"] = (n7[st, day], ones)
+    out["p_max_7d"] = (p7[st, day], ones)
+    out["q_var_7d"] = (var7[st, day], ones)
+    out["q_run"] = (np.cumsum(grid["q"], 1)[st, day], ones)
+    out["s_max_run"] = (np.maximum.accumulate(smax, 1)[st, day], ones)
+    return out
+
+
+#: moving_query's window columns and how each compares: exactly, or as
+#: doubles to ``WINDOW_RTOL``
+MOVING_COLS = (("q_avg", "f"), ("q_sd", "f"), ("s_min", "i"),
+               ("np_first", "i"), ("np_last", "i"), ("s_7d", "i"),
+               ("n_7d", "i"), ("p_max_7d", "i"), ("q_var_7d", "f"),
+               ("q_run", "i"), ("s_max_run", "i"))
+
+
+def _host_values(c):
+    """A host column's (values, validity): decimals as their unscaled
+    integers, DATEs as days."""
+    return np.asarray(c.data), np.asarray(c.validity, np.bool_)
+
+
+def _check_columns(cols, names, want, kinds, input_cols=None):
+    """Host columns (``names``) against ``want`` (name -> (values,
+    validity)); ``input_cols`` (name -> array) checks the passed-through
+    columns.  -> None, or a complaint naming the first column that
+    differs."""
+    by = dict(zip(names, cols))
+    for name, arr in (input_cols or {}).items():
+        v, _ = _host_values(by[name])
+        if not np.array_equal(v.astype(np.int64), arr.astype(np.int64)):
+            return f"the passed-through {name} differs"
+    for name, kind in kinds:
+        v, ok = _host_values(by[name])
+        wv, wok = want[name]
+        if not np.array_equal(ok, wok):
+            return (f"{name}: {int((ok != wok).sum())} rows differ in "
+                    "validity")
+        if kind == "f":
+            bad = _close(v[ok], np.asarray(wv)[ok])
+        else:
+            bad = int((v[ok].astype(np.int64)
+                       != np.asarray(wv)[ok].astype(np.int64)).sum())
+        if bad:
+            return f"{name}: {bad} rows differ"
+    return None
+
+
+def stats_query(sales, mod):
+    """Per item (100,000 groups): the quantity's skewness, the profit's
+    kurtosis, their correlation and covariances, and the profit's linear
+    regression on the quantity."""
+    return sales.group_by("item_sk").agg(
+        mod.skewness_("quantity", "q_skew"),
+        mod.kurtosis_("net_profit", "p_kurt"),
+        mod.corr_("quantity", "net_profit", "corr"),
+        mod.covar_samp_("quantity", "net_profit", "covar_samp"),
+        mod.covar_pop_("quantity", "net_profit", "covar_pop"),
+        mod.regr_slope_("net_profit", "quantity", "slope"),
+        mod.regr_intercept_("net_profit", "quantity", "intercept"),
+        mod.regr_r2_("net_profit", "quantity", "r2"),
+        mod.regr_count_("net_profit", "quantity", "n"))
+
+
+@np.errstate(divide="ignore", invalid="ignore")
+def stats_reference(ss):
+    """``stats_query`` from numpy, two passes per item: item -> (values
+    in the query's order, each one's scale: the size of the terms it was
+    computed from, for the comparison)."""
+    item = ss["item_sk"].astype(np.int64)
+    size = int(item.max()) + 1
+    x = ss["quantity"].astype(np.float64)
+    y = ss["net_profit"].astype(np.float64) / 100
+    n = np.bincount(item, minlength=size).astype(np.float64)
+    has = n > 0
+    nn = np.where(has, n, 1.0)
+    mx = np.bincount(item, x, size) / nn
+    my = np.bincount(item, y, size) / nn
+    dx = x - mx[item]
+    dy = y - my[item]
+    mom = {k: np.bincount(item, v, size) for k, v in (
+        ("xx", dx * dx), ("yy", dy * dy), ("xy", dx * dy),
+        ("x3", dx ** 3), ("y4", dy ** 4), ("ax3", np.abs(dx) ** 3),
+        ("axy", np.abs(dx * dy)))}
+    xx, yy, xy = mom["xx"], mom["yy"], mom["xy"]
+    slope = xy / np.where(xx != 0, xx, 1.0)
+    cols = {
+        "q_skew": (np.sqrt(n) * mom["x3"] / np.where(xx > 0, xx, 1.0) ** 1.5,
+                   np.sqrt(n) * mom["ax3"] / np.where(xx > 0, xx, 1.0)
+                   ** 1.5),
+        "p_kurt": (n * mom["y4"] / np.where(yy > 0, yy, 1.0) ** 2 - 3.0,
+                   n * mom["y4"] / np.where(yy > 0, yy, 1.0) ** 2),
+        "corr": (xy / np.sqrt(xx * yy), mom["axy"] / np.sqrt(xx * yy)),
+        "covar_samp": (xy / np.maximum(n - 1, 1), mom["axy"] / nn),
+        "covar_pop": (xy / nn, mom["axy"] / nn),
+        "slope": (slope, mom["axy"] / np.where(xx != 0, xx, 1.0)),
+        "intercept": (my - slope * mx,
+                      np.abs(my) + np.abs(slope * mx)
+                      + mom["axy"] / np.where(xx != 0, xx, 1.0) * np.abs(mx)),
+        "r2": (np.where(yy == 0, 1.0, xy * xy / (xx * yy)),
+               2 * mom["axy"] * np.abs(xy) / np.where(xx * yy != 0,
+                                                      xx * yy, 1.0)),
+    }
+    return {"items": np.nonzero(has)[0], "n": n.astype(np.int64),
+            "cols": cols, "xx": xx, "yy": yy}
+
+
+STATS_COLS = ("q_skew", "p_kurt", "corr", "covar_samp", "covar_pop",
+              "slope", "intercept", "r2")
+
+
+def stats_check(cols, want):
+    """-> None when the port's host columns (item, the eight doubles,
+    regr_count) equal the reference's: each double within
+    ``WINDOW_RTOL`` of max(|value|, its terms' scale)."""
+    item, ok = _host_values(cols[0])
+    order = np.argsort(item)
+    item = item[order]
+    if not np.array_equal(item, want["items"]):
+        return "the item keys differ"
+    n = want["n"][item]
+    xx, yy = want["xx"][item], want["yy"][item]
+    valid_want = {"q_skew": xx != 0, "p_kurt": yy != 0, "corr": n > 0,
+                  "covar_samp": n > 1, "covar_pop": n > 0,
+                  "slope": xx != 0, "intercept": xx != 0, "r2": xx != 0}
+    for i, name in enumerate(STATS_COLS, start=1):
+        v, ok = _host_values(cols[i])
+        v, ok = v[order], ok[order]
+        if not np.array_equal(ok, valid_want[name]):
+            return f"{name}: the validity differs"
+        val, scale = want["cols"][name]
+        bad = _close(v[ok], val[item][ok], scale[item][ok])
+        if bad:
+            return f"{name}: {bad} groups differ"
+    cnt, _ = _host_values(cols[9])
+    if not np.array_equal(cnt[order], n):
+        return "regr_count differs"
+    return None
+
+
+def history_query(orders, mod):
+    """A customer's order history: per customer by (date, key)
+    ``row_number``, the previous order's date, the next order's key (-1
+    for the last); per customer by date over RANGE 90 PRECEDING to
+    CURRENT ROW, the count of orders and the earliest date in the trailing
+    90 days."""
+    WF = _wf(mod)
+    col = mod.col
+    ordered = orders.window(
+        [WF("row_number", None, "rn"),
+         WF("lag", col("o_orderdate"), "prev_date"),
+         WF("lead", col("o_orderkey"), "next_key", default=-1)],
+        partition_by=["o_custkey"], order_by=["o_orderdate", "o_orderkey"])
+    return ordered.window(
+        [WF("count", col("o_orderkey"), "n_90d"),
+         WF("min", col("o_orderdate"), "first_90d")],
+        partition_by=["o_custkey"], order_by=["o_orderdate"],
+        frame=("range", 90, 0))
+
+
+def history_reference(orders):
+    """``history_query``'s window columns from numpy, in the rows'
+    order."""
+    cust = orders["o_custkey"].astype(np.int64)
+    date = orders["o_orderdate"].astype(np.int64)
+    okey = orders["o_orderkey"].astype(np.int64)
+    n = len(cust)
+    # dates offset by 128 so that date - 90 stays inside its customer
+    dkey = (cust << 13) | (date - 8035 + 128)
+    order = np.lexsort((okey, dkey))
+    ck = dkey[order]
+    idx = np.arange(n)
+    new = np.ones(n, np.bool_)
+    new[1:] = cust[order][1:] != cust[order][:-1]
+    first = np.maximum.accumulate(np.where(new, idx, 0))
+    has_next = np.append(~new[1:], False)
+    ds = date[order]
+    lo = np.searchsorted(ck, ck - 90, "left")
+    hi = np.searchsorted(ck, ck, "right")
+    sorted_cols = {
+        "rn": (idx - first + 1, np.ones(n, np.bool_)),
+        "prev_date": (np.roll(ds, 1), ~new),
+        "next_key": (np.where(has_next, np.roll(okey[order], -1), -1),
+                     np.ones(n, np.bool_)),
+        "n_90d": (hi - lo, np.ones(n, np.bool_)),
+        "first_90d": (ds[lo], np.ones(n, np.bool_))}
+    out = {}
+    for k, (v, ok) in sorted_cols.items():
+        vv = np.empty_like(v)
+        vv[order] = v
+        okk = np.empty_like(ok)
+        okk[order] = ok
+        out[k] = (vv, okk)
+    return out
+
+
+HISTORY_COLS = (("rn", "i"), ("prev_date", "i"), ("next_key", "i"),
+                ("n_90d", "i"), ("first_90d", "i"))
+
+
+def phones_query(customer, mod):
+    """Phones per nation by balance, highest first, with ``ph`` the phone
+    of a customer whose balance is not negative (else null): the previous
+    customer's phone ('none' for the first), ``ph`` two customers on, the
+    first ``ph`` so far (IGNORE NULLS) and the current one (ROWS
+    UNBOUNDED PRECEDING); the greatest phone so far, ties of balance
+    included (RANGE UNBOUNDED PRECEDING); the nation's least ``ph``."""
+    WF = _wf(mod)
+    T_ = _pkg(mod, "types")
+    CO_ = _pkg(mod, "expr.conditional")
+    B_ = _pkg(mod, "expr.base")
+    col, lit = mod.col, mod.lit
+    ph = CO_.CaseWhen([(col("c_acctbal") < lit(Decimal("0.00")),
+                        B_.Literal(None, T_.STRING))], col("c_phone"))
+    desc = [(col("c_acctbal"), mod.SortSpec(ascending=False,
+                                            nulls_first=False))]
+    base = customer.select("c_custkey", "c_nationkey", "c_phone",
+                           "c_acctbal", ph.alias("ph"))
+    running = base.window(
+        [WF("lag", col("c_phone"), "prev_phone", default="none"),
+         WF("lead", col("ph"), "ph_2on", offset=2),
+         WF("first_value", col("ph"), "ph_first", ignore_nulls=True),
+         WF("last_value", col("ph"), "ph_last")],
+        partition_by=["c_nationkey"], order_by=desc)
+    peers = running.window([WF("max", col("c_phone"), "phone_max")],
+                           partition_by=["c_nationkey"], order_by=desc,
+                           frame="range_running")
+    return peers.window([WF("min", col("ph"), "ph_min")],
+                        partition_by=["c_nationkey"], order_by=desc,
+                        frame="unbounded")
+
+
+_PHONE_DIGITS = (0, 1, 3, 4, 5, 7, 8, 9, 11, 12, 13, 14)
+
+
+def phone_numbers(chars) -> np.ndarray:
+    """'NN-DDD-DDD-DDDD' char rows -> their 12 digits as an int64 (the
+    same order as the strings')."""
+    d = chars[:, list(_PHONE_DIGITS)].astype(np.int64) - ord("0")
+    return d @ (10 ** np.arange(11, -1, -1, dtype=np.int64))
+
+
+def phones_reference(customer):
+    """``phones_query``'s window columns from numpy, in the rows' order;
+    phones as ``phone_numbers``, 'none' as -1."""
+    nation = customer["c_nationkey"].astype(np.int64)
+    bal = customer["c_acctbal"].astype(np.int64)
+    chars, _ = customer["c_phone"].rows(0, len(nation))
+    phone = phone_numbers(chars)
+    n = len(nation)
+    order = np.lexsort((-bal, nation))
+    ns, bs, ps = nation[order], bal[order], phone[order]
+    ok = bs >= 0
+    idx = np.arange(n)
+    new = np.ones(n, np.bool_)
+    new[1:] = ns[1:] != ns[:-1]
+    seg = np.cumsum(new) - 1
+    first = np.maximum.accumulate(np.where(new, idx, 0))
+    j2 = np.minimum(idx + 2, n - 1)
+    lead_in = (idx + 2 < n) & (seg[j2] == seg)
+    nxt = np.minimum.accumulate(np.where(ok, idx, n)[::-1])[::-1]
+    at = nxt[first]
+    peer_new = new.copy()
+    peer_new[1:] |= bs[1:] != bs[:-1]
+    peer_last = np.append(np.nonzero(peer_new)[0][1:], n) - 1
+    peer_last = peer_last[np.cumsum(peer_new) - 1]
+    running_max = np.maximum.accumulate(ps + seg * 10 ** 13) - seg * 10 ** 13
+    big = np.iinfo(np.int64).max
+    mins = np.full(seg[-1] + 1 if n else 0, big)
+    np.minimum.at(mins, seg[ok], ps[ok])
+    sorted_cols = {
+        "prev_phone": (np.where(new, -1, np.roll(ps, 1)),
+                       np.ones(n, np.bool_)),
+        "ph_2on": (ps[j2], lead_in & ok[j2]),
+        "ph_first": (ps[np.minimum(at, n - 1)], at <= idx),
+        "ph_last": (ps, ok),
+        "phone_max": (running_max[peer_last], np.ones(n, np.bool_)),
+        "ph_min": (mins[seg], mins[seg] != big)}
+    out = {}
+    for k, (v, vok) in sorted_cols.items():
+        vv = np.empty_like(v)
+        vv[order] = v
+        okk = np.empty_like(vok)
+        okk[order] = vok
+        out[k] = (vv, okk)
+    return out
+
+
+PHONE_COLS = ("prev_phone", "ph_2on", "ph_first", "ph_last", "phone_max",
+              "ph_min")
+
+
+def phones_check(cols, names, want):
+    """-> None when each string window column, read as
+    ``phone_numbers`` ('none' as -1), is the reference's."""
+    by = dict(zip(names, cols))
+    for name in PHONE_COLS:
+        c = by[name]
+        chars = np.asarray(c.chars)
+        lens = np.asarray(c.lengths)
+        ok = np.asarray(c.validity, np.bool_)
+        wv, wok = want[name]
+        if not np.array_equal(ok, wok):
+            return f"{name}: {int((ok != wok).sum())} rows differ in validity"
+        none = ok & (lens == 4)
+        if name == "prev_phone" and not (chars[none, :4] == np.frombuffer(
+                b"none", np.uint8)).all():
+            return "prev_phone: a short value is not 'none'"
+        full = ok & (lens == 15)
+        if not (full | none == ok).all():
+            return f"{name}: a value of an unexpected length"
+        got = np.full(len(ok), -1, np.int64)
+        if full.any():
+            got[full] = phone_numbers(chars[full, :15])
+        if not np.array_equal(got[ok], np.asarray(wv)[ok]):
+            return f"{name}: {int((got[ok] != wv[ok]).sum())} rows differ"
+    return None
+
+
+def run_window_query(label: str, q, check, plan, n: int, unit: str,
+                     want_k1: int, smi: str, host: bool = True):
+    """One of phases 32-33's queries: the plan the reference's (its
+    window-chain and join-aggregate fusions aside), one untimed collect
+    under the profiler (the idle share), two timed collects, each
+    held by ``check`` (the rows, or with ``host`` the host columns: ->
+    None or a complaint), K1 once a dictionary chunk, the counts read
+    around the last; then its ``op_breakdown``."""
+    import torch
+
+    from spark_rapids_tpu_torch import perfcounters as PC
+    from spark_rapids_tpu_torch.memory.spill import peek_spill_framework
+    from spark_rapids_tpu_torch.pallas import decode
+
+    check_plan(q, plan, label)
+    log(f"{label} plan:\n" + q.explain())
+    collect = q.collect_host if host else q.collect
+    profile_collect(collect, None, f"{label} parquet", key=check)
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        decode.unpack_launches = 0
+        snap = PC.snapshot()
+        t0 = time.perf_counter()
+        got = collect()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        launches = decode.unpack_launches
+        d = PC.since(snap)
+        peak = torch.cuda.max_memory_allocated()
+        bad = check(got)
+        if bad:
+            fail(f"{label}, timed run {len(secs)}: {bad}")
+    _check_launches(label, launches, want_k1)
+    used = peek_spill_framework().metrics()["deviceUsedPeakBytes"]
+    rows = len(got) if not host else (got[0].validity.shape[0]
+                                      if got else 0)
+    log(f"{label}: {rows} rows == numpy reference (doubles within "
+        f"{WINDOW_RTOL:g} of max(|value|, its terms' scale)); {n} {unit} "
+        f"in {', '.join(f'{t:.3f}' for t in secs)} s = "
+        f"{n / min(secs):.0f} rows/s at best [{smi}]")
+    log(f"{label} counters: unpack_launches={launches} == {want_k1} "
+        f"dictionary chunks; bytes_h2d={d['bytes_h2d']} bytes_d2h="
+        f"{d['bytes_d2h']} host_syncs={d['host_syncs']} "
+        f"device_used_peak={used} max_memory_allocated={peak} [{smi}]")
+    breakdown = op_breakdown(q, label, smi)
+    return {"seconds": secs, "launches": launches, "peak": peak,
+            "device_used_peak": used, "breakdown": breakdown}
+
+
+def _start(jobs):
+    """Each job in a thread of its own: name -> future."""
+    pool = ThreadPoolExecutor(len(jobs))
+    futures = {k: pool.submit(fn) for k, fn in jobs.items()}
+    pool.shutdown(wait=False)
+    return futures
+
+
+def store_references(ss, dd):
+    """Phase 32's numpy references, each in a thread of its own (numpy
+    leaves the interpreter lock in its loops, so they run beside the
+    phase's work on the card): name -> future."""
+    return _start({"q47": lambda: q47_reference(ss, dd),
+                   "moving_rows": lambda: moving_rows_reference(ss),
+                   "moving_range": lambda: moving_range_reference(ss),
+                   "stats": lambda: stats_reference(ss)})
+
+
+def tpch_references(tables):
+    """Phase 33's numpy references over ``window_tables``, each in a
+    thread of its own: name -> future."""
+    return _start({"orders_history": lambda: history_reference(
+        tables["orders"]), "customer_phones": lambda: phones_reference(
+        tables["customer"])})
+
+
+def _reference(refs, *names):
+    """The references ``names`` (merged), waited for; the wait printed."""
+    t0 = time.perf_counter()
+    out = {}
+    for name in names:
+        got = refs[name].result()
+        out = {**out, **got} if len(names) > 1 else got
+    log(f"{'+'.join(names)} reference ready after a wait of "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _read(s, paths, schema, cols):
+    from spark_rapids_tpu_torch import types as T
+
+    return s.read.schema(T.StructType(
+        [f for f in schema.fields if f.name in cols])).parquet(*paths)
+
+
+def run_store_windows(refs, ss, ss_paths, dd_path, device, smi: str):
+    """Phase 32 over phases 9-11's store_sales files and date_dim: K1
+    against its plain version on item_sk's index tables; then Q47's shape
+    (a), the per-item statistics (c) and the moving frames over every row
+    (b), last, as their reference takes longest; each exact against numpy
+    (``refs``: ``store_references``).  -> each query's launches and
+    seconds."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+
+    table, _, dsch = qa_schemas(T)
+    n = len(ss["item_sk"])
+    item_sch = T.StructType([f for f in table.fields if f.name == "item_sk"])
+    k1_err, widths = check_k1_tables([ss_paths[0]], lambda p: item_sch,
+                                     device, smi, "store_sales' item_sk")
+    s = S.TpuSession(QA_CONF, device=device)
+    out = {"k1_err": k1_err}
+
+    def chunks(cols):
+        return dict_chunks(ss_paths, T.StructType(
+            [f for f in table.fields if f.name in cols]))
+
+    want = _reference(refs, "q47")
+    log("q47: the monthly sums are cast to DOUBLE before the window avg (a "
+        "departure from TPC-DS Q47: the reference tags a window avg over a "
+        "decimal off the device, and the port has no CPU window)")
+    q = q47_query(_read(s, ss_paths, table, Q47_READS),
+                  s.read.schema(dsch).parquet(dd_path), S)
+    out["q47"] = run_window_query(
+        "q47", q, lambda rows: q47_check(rows, want), Q47_PLAN, n,
+        "store_sales rows", chunks(Q47_READS) + dict_chunks([dd_path], dsch),
+        smi, host=False)
+    if len(want["item"]):
+        log("q47: first row " + str({k: v[0] for k, v in want.items()}))
+
+    want = _reference(refs, "stats")
+    q = stats_query(_read(s, ss_paths, table, STATS_READS), S)
+    out["stats"] = run_window_query(
+        "stats", q, lambda cols: stats_check(cols, want), STATS_PLAN, n,
+        "store_sales rows", chunks(STATS_READS), smi)
+
+    want = _reference(refs, "moving_rows", "moving_range")
+    q = moving_query(_read(s, ss_paths, table, table.field_names()), S)
+    names = q.schema.field_names()
+    passed = {k: ss[k] for k in ("item_sk", "date_sk", "ticket")}
+    out["moving"] = run_window_query(
+        "moving", q,
+        lambda cols: _check_columns(cols, names, want, MOVING_COLS, passed),
+        MOVING_PLAN, n, "store_sales rows", chunks(table.field_names()), smi)
+    del want
+    return out
+
+
+def window_tables(customer, orders):
+    """The columns phase 33's references read, kept when phase 27's data
+    goes."""
+    return {"orders": {k: orders[k] for k in HISTORY_READS["orders"]},
+            "customer": {k: customer[k] for k in ("c_nationkey", "c_phone",
+                                                  "c_acctbal")}}
+
+
+def run_tpch_windows(refs, paths, tables, device, smi: str):
+    """Phase 33 over phase 27's orders and customer files: the order
+    histories (d) and the phones per nation (e), each exact against
+    numpy (``refs``: ``tpch_references``).  -> each query's launches and
+    seconds."""
+    import spark_rapids_tpu_torch.session as S
+
+    s = S.TpuSession(Q12_CONF, device=device)
+    out = {}
+    orders, customer = tables["orders"], tables["customer"]
+    want = _reference(refs, "orders_history")
+    q = history_query(tpch_frames(paths, s, HISTORY_READS)["orders"], S)
+    names = q.schema.field_names()
+    out["orders_history"] = run_window_query(
+        "orders_history", q,
+        lambda cols: _check_columns(cols, names, want, HISTORY_COLS,
+                                    {"o_orderkey": orders["o_orderkey"]}),
+        HISTORY_PLAN, len(orders["o_orderkey"]), "orders",
+        query_chunks(paths, HISTORY_READS), smi)
+    want = _reference(refs, "customer_phones")
+    q = phones_query(tpch_frames(paths, s, PHONES_READS)["customer"], S)
+    names = q.schema.field_names()
+    out["customer_phones"] = run_window_query(
+        "customer_phones", q, lambda cols: phones_check(cols, names, want),
+        PHONES_PLAN, len(customer["c_nationkey"]), "customers",
+        query_chunks(paths, PHONES_READS), smi)
+    return out
+
+
 def _date(days: int):
     import datetime as _dt
 
@@ -6742,7 +7629,7 @@ def main(argv=None) -> int:
     q6 = run_q6(paths, li, n, device)
 
     time_breakdown(paths, device)
-    profile_collect(q6["query"], [(q6["want"],)], "Q6 parquet")
+    profile_collect(q6["query"].collect, [(q6["want"],)], "Q6 parquet")
 
     # 5. Q6 in memory
     run_q6_memory(li, q6["want"], device)
@@ -6771,7 +7658,7 @@ def main(argv=None) -> int:
          for p in ss_paths + [dd_path] for name, page in main_path_pages(p)})))
     qa = run_qa(ss_paths, dd_path, want, n_ss, device)
     qa_breakdown(qa["query"])
-    profile_collect(qa["query"], want, "qa parquet")
+    profile_collect(qa["query"].collect, want, "qa parquet")
     run_qa_memory(ss, dd, want, device)
 
     # 10. bench qb: the shuffled left outer join, then a grouped net sum
@@ -6792,14 +7679,14 @@ def main(argv=None) -> int:
     del sr
     qb = run_qb(ss_paths, sr_paths, want_qb, n_ss, device)
     qb_breakdown(qb["query"])
-    profile_collect(qb["query"], want_qb, "qb parquet", key=sorted)
+    profile_collect(qb["query"].collect, want_qb, "qb parquet", key=sorted)
 
-    # 11. bench qc: a grouped sum, a rank window, rank <= 5
+    # 11. bench qc: a grouped sum, a rank window, rank <= 5 (store_sales
+    # is kept for phase 32)
     want_qc = qc_reference(ss)
-    del ss
     qc = run_qc(ss_paths, want_qc, n_ss, device)
     qc_breakdown(qc["query"])
-    profile_collect(qc["query"], want_qc, "qc parquet", key=qc_rows)
+    profile_collect(qc["query"].collect, want_qc, "qc parquet", key=qc_rows)
 
     # 12. bench rung3_ooc from memory: at bench's defaults, then at SF10
     t0 = time.perf_counter()
@@ -6886,7 +7773,7 @@ def main(argv=None) -> int:
     q12 = run_q12(o_paths, l_paths, want_q12, q12_build_bytes(lineitem),
                   n_li, device, smi)
     q12_breakdown(q12["query"], smi)
-    profile_collect(q12["query"], want_q12, "Q12 parquet")
+    profile_collect(q12["query"].collect, want_q12, "Q12 parquet")
     read_q12_plain(plain, orders, device, smi)
     del q12["query"]
     log(f"phase 19 wall time {time.perf_counter() - t0:.1f} s")
@@ -6904,7 +7791,7 @@ def main(argv=None) -> int:
     q4 = run_q4(o_paths, l_paths, want_q4, q4_build_bytes(lineitem), n_li,
                 device, smi)
     q4_breakdown(q4["query"], smi)
-    profile_collect(q4["query"], want_q4, "Q4 parquet")
+    profile_collect(q4["query"].collect, want_q4, "Q4 parquet")
     del q4["query"]
     log(f"phase 21 wall time {time.perf_counter() - t0:.1f} s")
 
@@ -6950,7 +7837,8 @@ def main(argv=None) -> int:
              "and 2")
     q1 = run_q1(q1_paths, want_q1, n, device, smi)
     q1_breakdown(q1["query"], smi)
-    profile_collect(q1["query"], want_q1, "Q1 parquet")
+    # its profiled collect (about 18 s; idle 0.63-0.69 in PRs 10-13) is
+    # left out for the time limit
     del q1["query"]
     log(f"phase 23 wall time {time.perf_counter() - t0:.1f} s")
 
@@ -6965,13 +7853,34 @@ def main(argv=None) -> int:
         args.scale, args.seed, device, smi,
         os.path.join(HERE, "spark_rapids_tpu_torch", "build",
                      f"tpch_sf{args.scale:g}_seed{args.seed + 2}"))
+    # 32. windows and statistics over phases 9-11's store_sales: TPC-DS
+    # Q47's shape, moving ROWS and RANGE frames over every row, per-item
+    # skewness, kurtosis, correlation and regression
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # phases 32-33's numpy references in threads beside phase 32's work
+    store_refs = store_references(ss, dd)
+    tpch_refs = tpch_references(tpch["windows"])
+    w32 = run_store_windows(store_refs, ss, ss_paths, dd_path, device, smi)
+    del ss, store_refs
+    log(f"phase 32 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 33. windows over phase 27's orders and customer: order histories
+    # (lag, lead, a trailing 90-day RANGE frame over a DATE key) and
+    # phones per nation (string lead/lag, first/last, min/max)
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    w33 = run_tpch_windows(tpch_refs, tpch["paths"],
+                           tpch["windows"], device, smi)
+    log(f"phase 33 wall time {time.perf_counter() - t0:.1f} s")
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
         "source": K1_SOURCE,
         "replaces": K1_REPLACES,
         "launches": q6["launches"],
-        "max_abs_err": max(err, q12_k1_err, q1_k1_err, tpch["k1_err"]),
+        "max_abs_err": max(err, q12_k1_err, q1_k1_err, tpch["k1_err"],
+                           w32["k1_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -7010,6 +7919,11 @@ def main(argv=None) -> int:
         "q14_launches": tpch["arith"]["q14"]["launches"],
         "q17_launches": tpch["arith"]["q17"]["launches"],
         "q8_launches": tpch["arith"]["q8"]["launches"],
+        "q47_launches": w32["q47"]["launches"],
+        "moving_launches": w32["moving"]["launches"],
+        "stats_launches": w32["stats"]["launches"],
+        "orders_history_launches": w33["orders_history"]["launches"],
+        "customer_phones_launches": w33["customer_phones"]["launches"],
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

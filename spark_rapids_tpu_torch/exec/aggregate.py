@@ -1,7 +1,8 @@
 """Hash aggregation — port of ``TpuHashAggregateExec``
 (``spark_rapids_tpu/exec/aggregate.py``) for ``sum``, ``count``, ``min``,
 ``max``, ``avg``, the variance family (``var_pop``, ``var_samp``,
-``stddev_pop``, ``stddev_samp``), ``count_if``, ``bool_and``/``bool_or``,
+``stddev_pop``, ``stddev_samp``), the higher moments, the covariance and
+regression families, ``count_if``, ``bool_and``/``bool_or``,
 ``bit_and``/``bit_or``/``bit_xor`` and ``first``/``last``/``any_value``,
 with and without grouping keys.
 
@@ -37,8 +38,12 @@ between merges, which the port does not do: the buffers stay on the card
 until the one merge.  It absorbs the stage below it as ``pre_ops``
 (filters only narrow the row mask).  An empty grouped input yields no
 rows; an empty global input yields one row (counts 0, everything else
-null).  Skewness, kurtosis, the covariance and ``regr_*`` family, HLL,
-percentile and collect are not ported: building one raises ``NotOnGpu``.
+null).  ``skewness`` and ``kurtosis`` extend the variance buffer with m3
+(and m4), merged by the reference's closed forms (Pébay's, as segmented
+sums); ``covar_pop``, ``covar_samp``, ``corr`` and the nine ``regr_*``
+keep (n, xavg, yavg, ck[, xm2, ym2]) over the rows where both inputs are
+valid, merged Chan-style.  HLL, percentile and collect are not ported:
+building one raises ``NotOnGpu``.
 """
 from __future__ import annotations
 
@@ -59,7 +64,10 @@ from spark_rapids_tpu_torch.ops import segment as SEG
 from spark_rapids_tpu_torch.ops.sortkeys import (_column_key_words,
                                                  group_segments, lexsort)
 from spark_rapids_tpu_torch.perfcounters import sync_get
-from spark_rapids_tpu_torch.plan.nodes import (VARIANCE_FUNCS,
+from spark_rapids_tpu_torch.plan.nodes import (COVARIANCE_FUNCS,
+                                               HIGHER_MOMENT_FUNCS,
+                                               MOMENT_BUFFERS, REGR_FUNCS,
+                                               VARIANCE_FUNCS,
                                                AggregateExpression,
                                                AggregateMode)
 
@@ -177,9 +185,9 @@ class TpuHashAggregateExec(TpuExec):
             return ([T.StructField(f"{name}_sum", sdt),
                      T.StructField(f"{name}_count", T.LONG, False)]
                     + ([flag] if _is_dec128_type(sdt) else []))
-        if a.func in VARIANCE_FUNCS:
+        if a.func in MOMENT_BUFFERS:
             return [T.StructField(name + sfx, T.DOUBLE)
-                    for sfx in ("_n", "_avg", "_m2")]
+                    for sfx in MOMENT_BUFFERS[a.func]]
         if a.func in _PICK_FUNCS:
             return [f, T.StructField(f"{name}_seen", T.BOOLEAN, False)]
         return [f]
@@ -244,7 +252,9 @@ class TpuHashAggregateExec(TpuExec):
             batch, mask = op.apply_masked(ctx, batch, mask)
         ctx.batch = batch
         keys = [g.eval_tpu(ctx) for g in self.grouping]
-        inputs = [[self._input_col(a, ctx)] for a in self.aggregates]
+        inputs = [[self._input_col(a, ctx)] + (
+            [a.child2.eval_tpu(ctx)] if a.child2 is not None else [])
+            for a in self.aggregates]
         out = self._reduce(keys, inputs, mask, False)
         ctx.check_errors()
         return out
@@ -280,8 +290,9 @@ class TpuHashAggregateExec(TpuExec):
         """No input batch and no keys: one buffer row of one masked-out
         row, finished (counts a valid 0, the rest null)."""
         dev = self._device()
-        inputs = [[_null_column(a.child.dataType if a.child is not None
-                                else T.LONG, 1, dev)]
+        inputs = [[_null_column(e.dataType, 1, dev) for e in
+                   (a.child, a.child2) if e is not None]
+                  or [_null_column(T.LONG, 1, dev)]
                   for a in self.aggregates]
         buf = self._reduce([], inputs,
                            torch.zeros(1, dtype=torch.bool, device=dev),
@@ -388,18 +399,43 @@ def _moments(x, valid, g: _Groups):
     return n, mean, m2
 
 
-def _moment_cols(n, mean, m2) -> List[DeviceColumn]:
+def _moment_cols(n, *moments) -> List[DeviceColumn]:
+    """A moment buffer: n (always valid), then its moments (valid where n
+    is positive)."""
     nz = n > 0
-    return [DeviceColumn(T.DOUBLE, torch.ones_like(nz), data=n),
-            DeviceColumn(T.DOUBLE, nz, data=mean),
-            DeviceColumn(T.DOUBLE, nz, data=m2)]
+    return [DeviceColumn(T.DOUBLE, torch.ones_like(nz), data=n)] + [
+        DeviceColumn(T.DOUBLE, nz, data=m) for m in moments]
+
+
+def _cov_cols(func: str, a: DeviceColumn, b: DeviceColumn,
+              g: _Groups) -> List[DeviceColumn]:
+    """(n, xavg, yavg, ck[, xm2, ym2]) over the rows where both inputs are
+    valid, two passes in the batch (the reference's ``_eval_covariance``):
+    ``regr_f(y, x)`` takes x from its second input, the others from their
+    first."""
+    xc, yc = (b, a) if func in REGR_FUNCS else (a, b)
+    valid = xc.validity & yc.validity & g.mask_sorted
+    x = torch.where(valid, _as_double(xc), 0.0)
+    y = torch.where(valid, _as_double(yc), 0.0)
+    n = SEG.seg_count(valid, g.seg, g.nseg).to(torch.float64)
+    safe = torch.where(n > 0, n, 1.0)
+    xavg = SEG.seg_sum(x, valid, g.seg, g.nseg)[0] / safe
+    yavg = SEG.seg_sum(y, valid, g.seg, g.nseg)[0] / safe
+    dx = torch.where(valid, x - xavg[g.seg], 0.0)
+    dy = torch.where(valid, y - yavg[g.seg], 0.0)
+    sums = [dx * dy] + ([dx * dx, dy * dy]
+                        if len(MOMENT_BUFFERS[func]) > 4 else [])
+    return _moment_cols(n, xavg, yavg, *[
+        SEG.seg_sum(t, valid, g.seg, g.nseg)[0] for t in sums])
 
 
 def _update_agg(a: AggregateExpression, dt: T.DataType, bfs,
                 cols: List[DeviceColumn], g: _Groups) -> List[DeviceColumn]:
-    """One aggregate over raw rows (its input column, sorted) -> its
+    """One aggregate over raw rows (its input columns, sorted) -> its
     buffer columns, one row per segment (the reference's ``_eval_agg``)."""
-    (c,) = cols
+    if a.func in COVARIANCE_FUNCS or a.func in REGR_FUNCS:
+        return _cov_cols(a.func, *cols, g)
+    c = cols[0]
     validity = c.validity & g.mask_sorted
     func = a.func
     if func in ("count", "count_star"):
@@ -433,6 +469,13 @@ def _update_agg(a: AggregateExpression, dt: T.DataType, bfs,
     if func in VARIANCE_FUNCS:
         x = torch.where(validity, _as_double(c), 0.0)
         return _moment_cols(*_moments(x, validity, g))
+    if func in HIGHER_MOMENT_FUNCS:
+        x = torch.where(validity, _as_double(c), 0.0)
+        n, mean, m2 = _moments(x, validity, g)
+        d = torch.where(validity, x - mean[g.seg], 0.0)
+        higher = [SEG.seg_sum(d ** k, validity, g.seg, g.nseg)[0]
+                  for k in ((3, 4) if func == "kurtosis" else (3,))]
+        return _moment_cols(n, mean, m2, *higher)
     raise NotImplementedError(f"aggregate {func} is not ported yet")
 
 
@@ -469,8 +512,10 @@ def _merge_agg(a: AggregateExpression, dt: T.DataType, bfs,
             idx = SEG.seg_first_index(g.seg, mask, g.nseg)
             got = idx < c.capacity
         return [_pick(c, idx, got, g.nseg), _flag_col(got)]
-    if func in VARIANCE_FUNCS:
-        return _moment_cols(*_chan_merge(*cols, g))
+    if func in VARIANCE_FUNCS or func in HIGHER_MOMENT_FUNCS:
+        return _moment_cols(*_merge_moment_bufs(cols, g))
+    if func in COVARIANCE_FUNCS or func in REGR_FUNCS:
+        return _moment_cols(*_merge_cov_bufs(cols, g))
     return _update_agg(a, dt, bfs, cols, g)
 
 
@@ -494,6 +539,10 @@ def _final(a: AggregateExpression, dt: T.DataType, bfs,
         var = m2 / torch.where(ok, den, 1.0)
         res = var if func.startswith("var") else torch.sqrt(var)
         return DeviceColumn(T.DOUBLE, ok, data=res)
+    if func in HIGHER_MOMENT_FUNCS:
+        return _moment_final(func, *(c.data for c in cols))
+    if func in COVARIANCE_FUNCS or func in REGR_FUNCS:
+        return _cov_final(func, *(c.data for c in cols))
     return cols[0]
 
 
@@ -536,21 +585,103 @@ def _as_double(c: DeviceColumn) -> torch.Tensor:
     return x
 
 
-def _chan_merge(cn: DeviceColumn, ca: DeviceColumn, cm: DeviceColumn,
-                g: _Groups):
-    """Chan's parallel merge of (n, mean, m2) buffer rows per segment (the
-    reference's ``_chan_merge``) -> (n, mean, m2)."""
+def _merged_mean(cols: List[DeviceColumn], g: _Groups, valid, n_r):
+    """The weighted mean of buffer rows' means (``cols[1]``) per segment:
+    (their total n, the mean, each row's distance from it)."""
+    ntot, _ = SEG.seg_sum(n_r, valid, g.seg, g.nseg)
+    means = torch.where(valid, cols[0].data, 0.0)
+    s, _ = SEG.seg_sum(n_r * means, valid, g.seg, g.nseg)
+    mean = s / torch.where(ntot > 0, ntot, 1.0)
+    return ntot, mean, torch.where(valid, means - mean[g.seg], 0.0)
+
+
+def _merge_moment_bufs(cols: List[DeviceColumn], g: _Groups):
+    """(n, mean, m2[, m3[, m4]]) buffer rows merged per segment by the
+    order-independent closed forms: Chan's for m2, Pébay's for m3 and m4,
+    as segmented sums (the reference's ``_chan_merge`` and
+    ``_merge_moment_bufs``)."""
+    cn = cols[0]
     valid = cn.validity & g.mask_sorted & (cn.data > 0)
     n_r = torch.where(valid, cn.data, 0.0)
-    ntot, _ = SEG.seg_sum(n_r, valid, g.seg, g.nseg)
-    wsum, _ = SEG.seg_sum(n_r * torch.where(valid, ca.data, 0.0), valid,
-                          g.seg, g.nseg)
-    nz = ntot > 0
-    mean = wsum / torch.where(nz, ntot, 1.0)
-    d = torch.where(valid, ca.data, 0.0) - mean[g.seg]
-    m2, _ = SEG.seg_sum(torch.where(valid, cm.data + n_r * d * d, 0.0),
-                        valid, g.seg, g.nseg)
-    return ntot, mean, m2
+    ntot, mean, d = _merged_mean(cols[1:], g, valid, n_r)
+    m = [torch.where(valid, c.data, 0.0) for c in cols[2:]]
+
+    def ssum(t):
+        return SEG.seg_sum(t, valid, g.seg, g.nseg)[0]
+
+    out = [ssum(m[0] + n_r * d * d)]
+    if len(m) > 1:
+        out.append(ssum(m[1] + 3.0 * m[0] * d + n_r * d ** 3))
+    if len(m) > 2:
+        out.append(ssum(m[2] + 4.0 * m[1] * d + 6.0 * m[0] * d * d
+                        + n_r * d ** 4))
+    return (ntot, mean, *out)
+
+
+def _merge_cov_bufs(cols: List[DeviceColumn], g: _Groups):
+    """(n, xavg, yavg, ck[, xm2, ym2]) buffer rows merged per segment (the
+    reference's ``_merge_cov_bufs``)."""
+    cn = cols[0]
+    valid = cn.validity & g.mask_sorted & (cn.data > 0)
+    n_r = torch.where(valid, cn.data, 0.0)
+    ntot, xavg, dx = _merged_mean(cols[1:2], g, valid, n_r)
+    _, yavg, dy = _merged_mean(cols[2:3], g, valid, n_r)
+
+    def ssum(i, t):
+        return SEG.seg_sum(torch.where(valid, cols[i].data, 0.0) + n_r * t,
+                           valid, g.seg, g.nseg)[0]
+
+    out = [ssum(3, dx * dy)]
+    if len(cols) > 4:
+        out += [ssum(4, dx * dx), ssum(5, dy * dy)]
+    return (ntot, xavg, yavg, *out)
+
+
+def _moment_final(func: str, n, mean, m2, m3, m4=None) -> DeviceColumn:
+    """skewness sqrt(n) m3 / m2^1.5, kurtosis n m4 / m2^2 - 3; null where
+    n is 0 or m2 is 0 (Spark's nullOnDivideByZero)."""
+    ok = (n > 0) & (m2 != 0.0)
+    m2 = torch.where(ok, m2, 1.0)
+    if func == "kurtosis":
+        return DeviceColumn(T.DOUBLE, ok, data=n * m4 / (m2 * m2) - 3.0)
+    return DeviceColumn(T.DOUBLE, ok,
+                        data=torch.sqrt(n) * m3 / torch.pow(m2, 1.5))
+
+
+def _cov_final(func: str, n, xavg, yavg, ck, xm2=None,
+               ym2=None) -> DeviceColumn:
+    """The covariance and regression results from their buffer, with the
+    reference's null rules: n of 0 is null (``regr_count`` 0), a sample
+    covariance of one row null, a zero-variance ``corr`` NaN, a zero x
+    variance null for the slope, intercept and r2, a zero y variance an r2
+    of 1."""
+    nz = n > 0
+    if func == "regr_count":
+        return DeviceColumn(T.LONG, torch.ones_like(nz),
+                            data=n.to(torch.int64))
+    plain = {"regr_avgx": xavg, "regr_avgy": yavg, "regr_sxx": xm2,
+             "regr_syy": ym2, "regr_sxy": ck}
+    if func in plain:
+        return DeviceColumn(T.DOUBLE, nz, data=plain[func])
+    if func == "corr":
+        return DeviceColumn(T.DOUBLE, nz, data=ck / torch.sqrt(xm2 * ym2))
+    if func == "covar_pop":
+        return DeviceColumn(T.DOUBLE, nz,
+                            data=ck / torch.where(nz, n, 1.0))
+    if func == "covar_samp":
+        ok = n > 1.0
+        return DeviceColumn(T.DOUBLE, ok,
+                            data=ck / torch.where(ok, n - 1.0, 1.0))
+    ok = nz & (xm2 != 0.0)
+    slope = ck / torch.where(xm2 != 0.0, xm2, 1.0)
+    if func == "regr_slope":
+        return DeviceColumn(T.DOUBLE, ok, data=slope)
+    if func == "regr_intercept":
+        return DeviceColumn(T.DOUBLE, ok, data=yavg - slope * xavg)
+    den = xm2 * ym2
+    r2 = torch.where(ym2 == 0.0, 1.0,
+                     ck * ck / torch.where(den != 0.0, den, 1.0))
+    return DeviceColumn(T.DOUBLE, ok, data=r2)
 
 
 def _sum_input(c: DeviceColumn, out_dtype: Optional[T.DataType]):

@@ -25,7 +25,12 @@ int64; so min, max and float sums use a log-step doubling scan
 (``_seg_scan``: ⌈log2 n⌉ passes of one shifted combine each), which adds
 floats in a tree order of its own, as the reference's
 ``lax.associative_scan`` does in another: float running sums may differ
-from it in the last bits.
+from it in the last bits.  The window's other scans, which the reference
+keeps inside its window exec, live here too: Chan's (n, mean, m2) merge
+as a segmented scan (``seg_scan_moments``), the previous and next valid
+row (``prev_valid_index``, ``next_valid_index``: a ``cummax`` and its
+flipped twin) and the lexicographic arg-min/arg-max of string key words
+(``seg_scan_arg_words``).
 """
 from __future__ import annotations
 
@@ -165,15 +170,26 @@ def _seg_scan(values, starts, combine):
     """Inclusive segmented scan that restarts at the rows where ``starts``
     holds: log-step doubling, each pass combining every row with the row
     ``d`` before it unless a start lies between them."""
-    v, f = values, starts
-    n = v.shape[0]
+    return _seg_scan_many((values,), starts,
+                          lambda a, b: (combine(a[0], b[0]),))[0]
+
+
+def _seg_scan_many(values, starts, combine):
+    """``_seg_scan`` over a tuple of tensors: ``combine(earlier, later)``
+    takes and returns tuples (an associative merge of partial results)."""
+    v, f = tuple(values), starts
+    n = f.shape[0]
     d = 1
     while d < n:
-        nv = v.clone()
-        nv[d:] = torch.where(f[d:], v[d:], combine(v[:-d], v[d:]))
+        merged = combine(tuple(x[:-d] for x in v), tuple(x[d:] for x in v))
+        nv = []
+        for x, m in zip(v, merged):
+            y = x.clone()
+            y[d:] = torch.where(f[d:], x[d:], m)
+            nv.append(y)
         nf = f.clone()
         nf[d:] = f[d:] | f[:-d]
-        v, f = nv, nf
+        v, f = tuple(nv), nf
         d *= 2
     return v
 
@@ -252,3 +268,78 @@ def seg_scan_max(values, validity, starts, is_float: bool) -> Pair:
     v = torch.where(validity, values, torch.full_like(values, ident))
     return (_seg_scan(v, starts, torch.maximum),
             _seg_seen(validity, starts))
+
+
+def chan_merge(na, ma, m2a, nb, mb, m2b):
+    """Chan's pairwise merge of two (n, mean, m2) partial moments, the
+    earlier first (the reference's ``exec/window.py::_chan_merge``)."""
+    n = na + nb
+    nsafe = torch.clamp(n, min=1.0)
+    d = mb - ma
+    return n, ma + d * nb / nsafe, m2a + m2b + d * d * na * nb / nsafe
+
+
+def seg_scan_moments(x, validity, starts):
+    """-> the running (n, mean, m2) of the valid doubles within each
+    segment: the doubling scan of Chan's merge, which is associative, so
+    the scan is exact up to rounding where a running sum of squares would
+    cancel (the reference's ``lax.associative_scan`` of the same merge)."""
+    valid = validity.to(torch.float64)
+    base = (valid, torch.where(validity, x, torch.zeros_like(x)),
+            torch.zeros_like(valid))
+    return _seg_scan_many(base, starts, lambda a, b: chan_merge(*a, *b))
+
+
+def prev_valid_index(validity) -> torch.Tensor:
+    """Each row's index of the last valid row at or before it; -1 where
+    there is none.  Not segmented: a window frame lies inside its
+    partition, and its caller takes the index only when it falls inside
+    the frame (IGNORE NULLS' ``last_value``)."""
+    n = validity.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=validity.device)
+    if n == 0:
+        return iota
+    return torch.cummax(torch.where(validity, iota, -1), 0).values
+
+
+def next_valid_index(validity) -> torch.Tensor:
+    """Each row's index of the first valid row at or after it; ``n`` where
+    there is none (``prev_valid_index``'s flipped twin, IGNORE NULLS'
+    ``first_value``)."""
+    n = validity.shape[0]
+    iota = torch.arange(n, dtype=torch.int64, device=validity.device)
+    if n == 0:
+        return iota
+    v = torch.where(validity, iota, n).flip(0)
+    return torch.cummin(v, 0).values.flip(0)
+
+
+def seg_scan_arg_words(words, validity, starts, is_min: bool) -> Pair:
+    """Segmented lexicographic arg-min (arg-max) scan over key words (a
+    string's ``_column_key_words``): -> (each row's index of a row holding
+    its segment's running optimum of the valid rows, a valid row seen).
+    One stable lexsort ranks the rows (equal words share a rank), and the
+    running optimum of the ranks is the integer doubling scan; invalid
+    rows never win."""
+    from spark_rapids_tpu_torch.ops.sortkeys import lexsort
+
+    n = validity.shape[0]
+    dev = validity.device
+    if n == 0:
+        return torch.zeros(0, dtype=torch.int64, device=dev), validity
+    order = lexsort(words)
+    change = torch.zeros(n, dtype=torch.bool, device=dev)
+    change[0] = True
+    for w in words:
+        ws = w[order]
+        change[1:] |= ws[1:] != ws[:-1]
+    rank_sorted = torch.cumsum(change.to(torch.int64), 0) - 1
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    holder = torch.zeros(n, dtype=torch.int64, device=dev).scatter_(
+        0, rank_sorted[change], order[change])
+    if is_min:
+        r = _seg_scan(torch.where(validity, rank, n), starts, torch.minimum)
+    else:
+        r = _seg_scan(torch.where(validity, rank, -1), starts,
+                      torch.maximum)
+    return holder[r.clamp(0, n - 1)], _seg_seen(validity, starts)

@@ -574,9 +574,14 @@ def _exchange_check(meta: SparkPlanMeta):
                     "supported on TPU (murmur3 big-integer path missing)")
 
 
+_NUMERIC_AGG_INPUT = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+                      T.FloatType, T.DoubleType, T.DecimalType)
+
+
 def _agg_check(meta: SparkPlanMeta):
     """The reference's ``_agg_check`` and ``_agg_extra_checks``, narrowed
-    to the functions the port runs: input types the functions need, and
+    to the functions the port runs: input types the functions need (numeric
+    inputs, both numeric for the covariance and regression families), and
     ``avg`` and the variance family over decimals above 18 digits (their
     128-bit division is not on the reference's device)."""
     for a in meta.plan.aggregates:
@@ -588,11 +593,101 @@ def _agg_check(meta: SparkPlanMeta):
                 and not (ct is not None and ct.is_integral):
             meta.will_not_work_on_tpu(
                 f"{a.func} requires an integral input")
+        if a.func in PN.HIGHER_MOMENT_FUNCS \
+                and not isinstance(ct, _NUMERIC_AGG_INPUT):
+            meta.will_not_work_on_tpu(f"{a.func} requires a numeric input")
+        if a.func in PN.COVARIANCE_FUNCS or a.func in PN.REGR_FUNCS:
+            c2 = a.child2._dataType if a.child2 is not None else None
+            if not all(isinstance(t, _NUMERIC_AGG_INPUT) for t in (ct, c2)):
+                meta.will_not_work_on_tpu(
+                    f"{a.func} requires numeric inputs")
         if (a.func == "avg" or a.func in PN.VARIANCE_FUNCS) \
                 and _is_dec128(ct):
             meta.will_not_work_on_tpu(
                 f"{a.func} over decimals above 18 digits needs 128-bit "
                 f"division; not supported on TPU yet")
+
+
+#: the reference's window sets (``overrides.py:1336-1345``): the functions
+#: the device runs, those that ignore the frame, and the widest bounded
+#: ROWS frame
+WINDOW_FUNCS = frozenset(
+    {"row_number", "rank", "dense_rank", "sum", "count", "min", "max",
+     "avg", "lead", "lag", "ntile", "percent_rank", "cume_dist",
+     "first_value", "last_value", "var_pop", "var_samp", "stddev_pop",
+     "stddev_samp"})
+WINDOW_RANK_FUNCS = frozenset(
+    {"row_number", "rank", "dense_rank", "ntile", "percent_rank",
+     "cume_dist", "lead", "lag"})
+MAX_BOUNDED_WINDOW = 256
+
+
+def _window_check(meta: SparkPlanMeta):
+    """The reference's ``_window_check``, its rules and words: functions
+    outside its set, nested, 128-bit (but for ``count``) and decimal
+    ``avg``/variance inputs, string sums and variances, string min/max
+    over bounded frames, negative offsets, a ROWS frame wider than 256, a
+    RANGE frame without exactly one ORDER BY key of an integral, floating,
+    DATE or TIMESTAMP type."""
+    plan = meta.plan
+    frame = plan.frame
+    bounded = isinstance(frame, tuple)
+    for f in plan.functions:
+        if f.func not in WINDOW_FUNCS:
+            meta.will_not_work_on_tpu(
+                f"window function {f.func} is not supported on TPU")
+            continue
+        if f.func in WINDOW_RANK_FUNCS:
+            continue
+        ct = f.child._dataType if f.child is not None else None
+        if isinstance(ct, (T.ArrayType, T.MapType, T.StructType)):
+            meta.will_not_work_on_tpu(
+                f"{f.func} over nested-typed window inputs is not "
+                f"supported on TPU")
+        if _is_dec128(ct) and f.func != "count":
+            meta.will_not_work_on_tpu(
+                f"{f.func} over decimals above 18 digits in a window is "
+                f"not supported on TPU")
+        if isinstance(ct, T.DecimalType) \
+                and (f.func == "avg" or f.func.startswith(("var", "stddev"))):
+            meta.will_not_work_on_tpu(
+                f"window {f.func} over decimals yields a decimal result "
+                f"(needs decimal division); not supported on TPU")
+        if isinstance(ct, T.StringType):
+            if f.func in ("sum", "avg") or f.func.startswith(
+                    ("var", "stddev")):
+                meta.will_not_work_on_tpu(
+                    f"{f.func} over strings is not valid")
+            elif f.func in ("min", "max") and bounded:
+                meta.will_not_work_on_tpu(
+                    "string min/max over bounded window frames is not "
+                    "supported on TPU (running/range/unbounded frames "
+                    "only)")
+    if bounded:
+        kind, a, b = frame
+        if a < 0 or b < 0:
+            meta.will_not_work_on_tpu(
+                "bounded window frame offsets must be non-negative")
+        elif kind == "rows" and a + b + 1 > MAX_BOUNDED_WINDOW:
+            meta.will_not_work_on_tpu(
+                f"bounded window width {a + b + 1} exceeds the TPU unroll "
+                f"cap ({MAX_BOUNDED_WINDOW})")
+        if kind == "range":
+            if len(plan.order_by) != 1:
+                meta.will_not_work_on_tpu(
+                    "RANGE window frames require exactly one ORDER BY key")
+            else:
+                ot = plan.order_by[0][0]._dataType
+                if not (ot.is_integral or isinstance(
+                        ot, (T.FloatType, T.DoubleType, T.DateType,
+                             T.TimestampType))):
+                    meta.will_not_work_on_tpu(
+                        f"RANGE window frames over {ot.simpleString} order "
+                        f"keys are not supported on TPU")
+    if frame == "range_running" or (bounded and frame[0] == "range"):
+        if not plan.order_by:
+            meta.will_not_work_on_tpu(
+                "RANGE window frames require an ORDER BY")
 
 
 def _join_check(meta: SparkPlanMeta):
@@ -658,7 +753,7 @@ EXECS: Dict[Type, ExecRule] = {
     PN.BroadcastHashJoin: ExecRule(_WITH_ARRAYS, _join_check),
     PN.BroadcastNestedLoopJoin: ExecRule(_DEC128_FULL, _bnlj_check),
     PN.Sort: ExecRule(_DEC128_FULL),
-    PN.Window: ExecRule(_COMMON128),
+    PN.Window: ExecRule(_COMMON128, _window_check),
     PN.Exchange: ExecRule(_DEC128_FULL, _exchange_check),
     PN.BroadcastExchange: ExecRule(_DEC128_FULL),
     PN.GlobalLimit: ExecRule(_WITH_ARRAYS),

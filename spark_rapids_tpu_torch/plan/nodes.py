@@ -139,24 +139,60 @@ class AggregateMode(enum.Enum):
 VARIANCE_FUNCS = frozenset(
     {"var_pop", "var_samp", "stddev_pop", "stddev_samp"})
 
+#: the higher central moments (Spark Skewness/Kurtosis), whose buffers
+#: add m3 (and m4) to the variance family's
+HIGHER_MOMENT_FUNCS = frozenset({"skewness", "kurtosis"})
+
+#: the two-input covariance family (Spark Covariance/Corr)
+COVARIANCE_FUNCS = frozenset({"covar_pop", "covar_samp", "corr"})
+
+#: the linear-regression family (Spark RegrCount, RegrSlope, ...) over the
+#: covariance buffers: ``regr_f(y, x)`` counts a row only where both
+#: inputs are non-null
+REGR_FUNCS = frozenset(
+    {"regr_count", "regr_avgx", "regr_avgy", "regr_sxx", "regr_syy",
+     "regr_sxy", "regr_slope", "regr_intercept", "regr_r2"})
+
 #: the bitwise aggregates (Spark BitAndAgg/BitOrAgg/BitXorAgg)
 BIT_AGG_FUNCS = frozenset({"bit_and", "bit_or", "bit_xor"})
+
+#: the buffer columns' suffixes of each moment-family aggregate, every one
+#: a DOUBLE (the reference's ``MOMENT_BUFFERS``)
+MOMENT_BUFFERS = {
+    "var_pop": ("_n", "_avg", "_m2"),
+    "var_samp": ("_n", "_avg", "_m2"),
+    "stddev_pop": ("_n", "_avg", "_m2"),
+    "stddev_samp": ("_n", "_avg", "_m2"),
+    "skewness": ("_n", "_avg", "_m2", "_m3"),
+    "kurtosis": ("_n", "_avg", "_m2", "_m3", "_m4"),
+    "covar_pop": ("_n", "_xavg", "_yavg", "_ck"),
+    "covar_samp": ("_n", "_xavg", "_yavg", "_ck"),
+    "corr": ("_n", "_xavg", "_yavg", "_ck", "_xm2", "_ym2"),
+    **{f: ("_n", "_xavg", "_yavg", "_ck", "_xm2", "_ym2")
+       for f in REGR_FUNCS},
+}
 
 #: aggregate functions the port runs
 PORTED_AGG_FUNCS = frozenset(
     {"sum", "count", "count_star", "min", "max", "avg", "count_if",
      "bool_and", "bool_or", "first", "last", "any_value"}
-    | VARIANCE_FUNCS | BIT_AGG_FUNCS)
+    | VARIANCE_FUNCS | HIGHER_MOMENT_FUNCS | COVARIANCE_FUNCS | REGR_FUNCS
+    | BIT_AGG_FUNCS)
 
 
 @dataclasses.dataclass
 class AggregateExpression:
-    """One aggregate: func name + input expr (resolved) + result name."""
+    """One aggregate: func name + input expr (resolved) + result name;
+    ``child2`` is the second input of the covariance and regression
+    families (``regr_f(y, x)``: ``child`` is y, ``child2`` x), ``args``
+    the reference's literal extras (no ported aggregate reads them)."""
 
     func: str
     child: Optional[Expression]  # None for count(*)
     result_name: str
     result_type: Optional[T.DataType] = None
+    child2: Optional[Expression] = None
+    args: tuple = ()
 
     def resolve(self, schema: T.StructType) -> "AggregateExpression":
         if self.func not in PORTED_AGG_FUNCS:
@@ -165,6 +201,8 @@ class AggregateExpression:
             raise NotOnGpu(f"aggregate {self.func} is not ported yet")
         if self.child is not None:
             self.child = self.child.resolve(schema)
+        if self.child2 is not None:
+            self.child2 = self.child2.resolve(schema)
         self.result_type = self._compute_type()
         return self
 
@@ -183,7 +221,12 @@ class AggregateExpression:
                 return T.DecimalType(min(ct.precision + 4, 38),
                                      min(ct.scale + 4, 38))
             return T.DOUBLE
-        if self.func in VARIANCE_FUNCS:
+        if self.func in VARIANCE_FUNCS or self.func in HIGHER_MOMENT_FUNCS \
+                or self.func in COVARIANCE_FUNCS:
+            return T.DOUBLE
+        if self.func == "regr_count":
+            return T.LONG
+        if self.func in REGR_FUNCS:
             return T.DOUBLE
         # min/max, bool_and/bool_or, bit_*, first/last/any_value
         return ct
@@ -303,9 +346,10 @@ class BroadcastExchange(SparkPlan):
 @dataclasses.dataclass
 class WindowFunction:
     """One window function over (partition, order, frame).  ``buckets`` is
-    ntile's; ``offset``, ``default`` and ``ignore_nulls`` are the
-    reference's lead/lag and first_value/last_value options, which the port
-    does not run yet."""
+    ntile's; ``offset`` and ``default`` (a literal) are lead/lag's,
+    ``ignore_nulls`` first_value/last_value's.  Result types as the
+    reference's: lead, lag, first_value, last_value, min and max the
+    input's; avg and the variance family DOUBLE."""
 
     func: str                      # row_number, rank, dense_rank, sum, ...
     child: Optional[Expression]
@@ -351,8 +395,8 @@ def normalize_frame(frame):
       ("rows", a, b)   ROWS  BETWEEN a PRECEDING AND b FOLLOWING
       ("range", a, b)  RANGE BETWEEN a PRECEDING AND b FOLLOWING
 
-    A bare (a, b) tuple is shorthand for ("rows", a, b).  The port runs the
-    first and the third; the plan rewrite rejects the others."""
+    A bare (a, b) tuple is shorthand for ("rows", a, b).  A RANGE frame
+    with bounds takes one integral, floating or DATE order key."""
     if isinstance(frame, tuple):
         if len(frame) == 2:
             return ("rows", frame[0], frame[1])

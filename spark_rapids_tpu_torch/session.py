@@ -11,9 +11,12 @@ or on a condition), ``cross_join``, ``union``,
 ``min_``, ``max_``, ``avg_``, ``stddev_``,
 ``stddev_pop_``, ``variance_``, ``var_pop_``, ``count_if_``,
 ``bool_and_``, ``bool_or_``, ``bit_and_``, ``bit_or_``, ``bit_xor_``,
-``any_value_`` and ``SortSpec``, and ``repartition``.  A session runs on ``cuda`` unless it is given another
-device (``TpuSession(conf, device="cpu")``); without a GPU and without a
-device argument it raises.  Aggregates are planned two-phase around a hash
+``any_value_``, ``skewness_``, ``kurtosis_``, ``corr_``, ``covar_pop_``,
+``covar_samp_``, the nine ``regr_*_`` and ``SortSpec``, and
+``repartition``.  ``window`` takes every frame form of
+``plan/nodes.py::normalize_frame``.  A session runs on ``cuda`` unless it
+is given another device (``TpuSession(conf, device="cpu")``); without a
+GPU and without a device argument it raises.  Aggregates are planned two-phase around a hash
 exchange on the keys; a join broadcasts its right side under
 ``spark.sql.autoBroadcastJoinThreshold`` and is otherwise planned as a
 shuffled join over a hash exchange of ``spark.sql.shuffle.partitions`` on
@@ -398,7 +401,8 @@ class GroupedData:
             fkeys = []
             ex = PN.Exchange(PN.SinglePartitioning(), partial)
         final_aggs = [PN.AggregateExpression(a.func, a.child, a.result_name,
-                                             a.result_type)
+                                             a.result_type, child2=a.child2,
+                                             args=a.args)
                       for a in aexprs]
         final = PN.HashAggregate(fkeys, final_aggs, PN.AggregateMode.FINAL,
                                  ex)
@@ -490,6 +494,48 @@ def bit_xor_(c: ColumnLike, name: str = "bit_xor"):
 
 def any_value_(c: ColumnLike, name: str = "any_value"):
     return PN.AggregateExpression("any_value", _to_expr(c), name)
+
+
+def skewness_(c: ColumnLike, name: str = "skewness"):
+    return ("skewness", c, name)
+
+
+def kurtosis_(c: ColumnLike, name: str = "kurtosis"):
+    return ("kurtosis", c, name)
+
+
+def _regr(func):
+    def helper(y: ColumnLike, x: ColumnLike, name: str = None):
+        return PN.AggregateExpression(func, _to_expr(y), name or func,
+                                      child2=_to_expr(x))
+    helper.__name__ = func + "_"
+    return helper
+
+
+regr_count_ = _regr("regr_count")
+regr_avgx_ = _regr("regr_avgx")
+regr_avgy_ = _regr("regr_avgy")
+regr_sxx_ = _regr("regr_sxx")
+regr_syy_ = _regr("regr_syy")
+regr_sxy_ = _regr("regr_sxy")
+regr_slope_ = _regr("regr_slope")
+regr_intercept_ = _regr("regr_intercept")
+regr_r2_ = _regr("regr_r2")
+
+
+def corr_(x: ColumnLike, y: ColumnLike, name: str = "corr"):
+    return PN.AggregateExpression("corr", _to_expr(x), name,
+                                  child2=_to_expr(y))
+
+
+def covar_pop_(x: ColumnLike, y: ColumnLike, name: str = "covar_pop"):
+    return PN.AggregateExpression("covar_pop", _to_expr(x), name,
+                                  child2=_to_expr(y))
+
+
+def covar_samp_(x: ColumnLike, y: ColumnLike, name: str = "covar_samp"):
+    return PN.AggregateExpression("covar_samp", _to_expr(x), name,
+                                  child2=_to_expr(y))
 
 
 # pyspark.sql.functions flavoured re-exports

@@ -259,7 +259,7 @@ def test_unported_aggregate_inputs_raise():
     """``avg`` of a decimal above 18 digits is tagged off the device by
     the reference's rule; the port's CPU engine has no aggregate, so it
     raises ``NotOnGpu`` at plan time, as does the avg of a string; an
-    aggregate the port lacks (``skewness``) raises it when the aggregate is
+    aggregate the port lacks (``median``) raises it when the aggregate is
     built."""
     from spark_rapids_tpu_torch.exec.base import NotOnGpu
 
@@ -271,5 +271,5 @@ def test_unported_aggregate_inputs_raise():
         df.agg(S.avg_("x", "a")).explain()
     with pytest.raises(NotOnGpu, match="avg of a string"):
         df.agg(S.avg_("t", "a")).explain()
-    with pytest.raises(NotOnGpu, match="skewness is not ported"):
-        df.agg(("skewness", "x", "k"))
+    with pytest.raises(NotOnGpu, match="median is not ported"):
+        df.agg(("median", "x", "k"))

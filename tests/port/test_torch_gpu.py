@@ -1185,3 +1185,41 @@ def test_q14_q17_q8_on_gpu_equal_numpy(tmp_path):
                             dev).collect()
         assert got == want[name], name
         assert decode.unpack_launches == C.query_chunks(paths, reads, scans)
+
+
+@pytest.mark.gpu
+def test_window_frames_on_gpu_equal_cpu():
+    """Every window function in every frame of ``torch_port_windows``
+    (``test_torch_window_frames.py``'s table and cases: RANGE frames over
+    int, double and DATE keys both ways, ROWS frames at the 256-row cap,
+    strings, decimals above 18 digits) on the card equals its CPU run:
+    exact, but doubles within a relative 1e-9 (the card adds floats in
+    its own order)."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.plan.nodes import WindowFunction as WF
+    from torch_port_windows import CASES, same_rows, window
+
+    for frame, order in CASES:
+        got = window(S, WF, T, TpuSession({}, device="cuda"), frame,
+                     order).collect()
+        want = window(S, WF, T, TpuSession({}, device="cpu"), frame,
+                      order).collect()
+        assert same_rows(got, want, 1e-9), (frame, order)
+
+
+@pytest.mark.gpu
+def test_stats_aggregates_on_gpu_equal_cpu():
+    """skewness, kurtosis, covar_*, corr and the nine regr_* grouped and
+    global, on one batch and on several, on the card equal the CPU within
+    a relative 1e-9."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from torch_port_windows import same_rows, stats_query
+
+    for conf in ({}, {"spark.rapids.sql.reader.batchSizeRows": 130}):
+        for grouped in (True, False):
+            got, want = (sorted(stats_query(S, T, TpuSession(
+                conf, device=dev), grouped).collect(), key=repr)
+                for dev in ("cuda", "cpu"))
+            assert same_rows(got, want, 1e-9), (conf, grouped)

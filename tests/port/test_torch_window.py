@@ -11,8 +11,9 @@ reference's CPU oracle session, over partition keys with nulls and
 one-row partitions, or none at all, and order keys with nulls, ties, NaN
 and -0.0, ascending and descending, on one batch and on several, and on
 an empty input.  Integers, decimals and dates compare exactly, doubles to
-12 significant digits.  Functions and frames that are not ported raise
-``NotOnGpu``."""
+12 significant digits.  The other functions and frames
+(``test_torch_window_frames.py`` holds them all) run here once each; what
+the reference tags off the device raises ``NotOnGpu`` with its words."""
 import datetime
 from decimal import Decimal
 
@@ -227,32 +228,93 @@ def test_rank_filter_keeps_ties():
          (None, 2, 1), (None, 2, 1)], key=repr)
 
 
+#: functions and frames that once raised ``NotOnGpu`` in the port; each
+#: now equals the oracle
 UNPORTED = {
-    "lead": (lambda c: PWF("lead", c("v"), "x"), "running"),
-    "lag": (lambda c: PWF("lag", c("v"), "x"), "running"),
-    "first_value": (lambda c: PWF("first_value", c("v"), "x"), "running"),
-    "last_value": (lambda c: PWF("last_value", c("v"), "x"), "running"),
-    "avg": (lambda c: PWF("avg", c("v"), "x"), "running"),
-    "var_pop": (lambda c: PWF("var_pop", c("f"), "x"), "running"),
-    "stddev_samp": (lambda c: PWF("stddev_samp", c("f"), "x"), "running"),
-    "range_running": (lambda c: PWF("sum", c("v"), "x"), "range_running"),
-    "rows_frame": (lambda c: PWF("sum", c("v"), "x"), ("rows", 1, 1)),
-    "range_frame": (lambda c: PWF("max", c("v"), "x"), ("range", 1, 1)),
-    "sum_decimal128_result": (lambda c: PWF("sum", c("m12"), "x"),
+    "lead": (lambda WF, c: WF("lead", c("v"), "x"), "running"),
+    "lag": (lambda WF, c: WF("lag", c("v"), "x"), "running"),
+    "first_value": (lambda WF, c: WF("first_value", c("v"), "x"),
+                    "running"),
+    "last_value": (lambda WF, c: WF("last_value", c("v"), "x"), "running"),
+    "avg": (lambda WF, c: WF("avg", c("v"), "x"), "running"),
+    "var_pop": (lambda WF, c: WF("var_pop", c("f"), "x"), "running"),
+    "stddev_samp": (lambda WF, c: WF("stddev_samp", c("f"), "x"),
+                    "running"),
+    "range_running": (lambda WF, c: WF("sum", c("v"), "x"),
+                      "range_running"),
+    "rows_frame": (lambda WF, c: WF("sum", c("v"), "x"), ("rows", 1, 1)),
+    "range_frame": (lambda WF, c: WF("max", c("v"), "x"), ("range", 1, 1)),
+    "sum_decimal128_result": (lambda WF, c: WF("sum", c("m12"), "x"),
                               "running"),
 }
 
 
+def _unported(mod, WF, types, session, what):
+    make, frame = UNPORTED[what]
+    df = session.create_dataframe(_data(), _schema(types)).select(
+        mod.col("p"), mod.col("o"), mod.col("v"), mod.col("f"),
+        mod.col("m").cast(types.DecimalType(12, 2)).alias("m12"))
+    return df.window([make(WF, mod.col)], partition_by=["p"],
+                     order_by=[mod.col("o")], frame=frame)
+
+
 @pytest.mark.parametrize("what", sorted(UNPORTED))
 def test_unported_window_functions_raise(what):
-    make, frame = UNPORTED[what]
-    s = S.TpuSession({}, device="cpu")
-    df = s.create_dataframe(_data(), _schema(T)).select(
-        S.col("p"), S.col("o"), S.col("v"), S.col("f"),
-        S.col("m").cast(T.DecimalType(12, 2)).alias("m12"))
-    w = df.window([make(S.col)], partition_by=["p"],
-                  order_by=[S.col("o")], frame=frame)
-    with pytest.raises(NotOnGpu):
+    """The functions and frames that once raised ``NotOnGpu`` now run and
+    equal the oracle (the name is kept from then)."""
+    got = _unported(S, PWF, T, S.TpuSession({}, device="cpu"),
+                    what).collect()
+    want = _unported(RS, RWF, RT, RS.TpuSession(ORACLE), what).collect()
+    assert rows_key(got, approx_float=True, ordered=True) == \
+        rows_key(want, approx_float=True, ordered=True)
+
+
+#: windows the reference tags off the device, with its words; the port's
+#: CPU engine has no window (item G2), so each raises ``NotOnGpu``
+TAGGED_OFF = {
+    "rows_wider_than_256": (
+        lambda c: [PWF("sum", c("v"), "x")], ("rows", 200, 56),
+        [S.col("o")], "bounded window width 257 exceeds"),
+    "range_over_two_keys": (
+        lambda c: [PWF("sum", c("v"), "x")], ("range", 1, 1),
+        [S.col("o"), S.col("f")],
+        "RANGE window frames require exactly one ORDER BY key"),
+    "range_over_a_string_key": (
+        lambda c: [PWF("count", c("v"), "x")], ("range", 1, 0),
+        [S.col("s")], "RANGE window frames over string order keys"),
+    "avg_over_a_decimal": (
+        lambda c: [PWF("avg", c("m"), "x")], "running", [S.col("o")],
+        "window avg over decimals yields a decimal result"),
+    "sum_of_a_string": (
+        lambda c: [PWF("sum", c("s"), "x")], "running", [S.col("o")],
+        "sum over strings is not valid"),
+    "string_max_bounded": (
+        lambda c: [PWF("max", c("s"), "x")], ("rows", 1, 1), [S.col("o")],
+        "string min/max over bounded window frames"),
+    "negative_offset": (
+        lambda c: [PWF("sum", c("v"), "x")], ("rows", -1, 1), [S.col("o")],
+        "offsets must be non-negative"),
+    "decimal128_input": (
+        lambda c: [PWF("max", c("m22"), "x")], "running", [S.col("o")],
+        "max over decimals above 18 digits in a window"),
+}
+
+
+@pytest.mark.parametrize("what", sorted(TAGGED_OFF))
+def test_tagged_off_windows_raise(what):
+    """The reference's ``_window_check`` tags these off the device; the
+    port raises ``NotOnGpu`` with its words (a Window in a CPU stage)."""
+    make, frame, order, words = TAGGED_OFF[what]
+    rows = _data()
+    rows["s"] = [None if v is None else str(v) for v in rows["o"]]
+    sch = T.StructType(list(_schema(T).fields)
+                       + [T.StructField("s", T.STRING)])
+    df = S.TpuSession({}, device="cpu").create_dataframe(rows, sch).select(
+        S.col("p"), S.col("o"), S.col("v"), S.col("f"), S.col("m"),
+        S.col("m").cast(T.DecimalType(22, 2)).alias("m22"), S.col("s"))
+    w = df.window(make(S.col), partition_by=["p"], order_by=order,
+                  frame=frame)
+    with pytest.raises(NotOnGpu, match=words):
         w.collect()
 
 
