@@ -171,13 +171,12 @@ Phases, each failing the run at its first mismatch:
     (``encode_dict_strings``: a PLAIN dictionary page, 20,000-value
     RLE_DICTIONARY pages of width 3), and orders' first file again with
     PLAIN strings by the port's writer.  Under the default reader type,
-    a timed collect (and, after the breakdown, a profiled one) equal to
-    numpy (``('MAIL', ...), ('SHIP', ...)``); the
+    a timed collect equal to numpy (``('MAIL', ...), ('SHIP', ...)``); the
     plan the reference's (``q12_plan``), its adaptive join deciding on
     22 bytes a filtered line; K1 launched once for each dictionary column
-    chunk in the timed collect; a breakdown by operator, one collect
-    under ``torch.profiler``, and the PLAIN-string file read alone,
-    every row equal;
+    chunk in the timed collect; a breakdown by operator (its collect
+    under ``torch.profiler`` is left out for the time limit), and the
+    PLAIN-string file read alone, every row equal;
 20. Q12 from memory under phase 12's conf (the 48 MiB pool, a batch goal
     of an eighth of it, no broadcast, no adaptive execution): both
     exchanges sized, their slices past the queues' device budget framed
@@ -186,10 +185,11 @@ Phases, each failing the run at its first mismatch:
     alone;
 21. TPC-H Q4 (spec 2.4.4) from phase 19's files: the quarter's orders
     that have a late line (EXISTS, a left semi join), counted by
-    priority; a timed and a profiled collect equal to numpy, the plan the
-    reference's (``q4_plan``) with the adaptive join deciding ``shuffled`` over the
+    priority; a timed collect equal to numpy, the plan the reference's
+    (``q4_plan``) with the adaptive join deciding ``shuffled`` over the
     late lines' 9 bytes each, K1 once a dictionary column chunk read, a
-    breakdown by operator and one profiled collect;
+    breakdown by operator (its profiled collect is left out for the time
+    limit);
 22. the other join types on Q4's tables: the NOT EXISTS twin (left
     anti; semi + anti equal the quarter's orders per priority), the
     quarter's orders right and full outer joined to the late lines,
@@ -202,13 +202,11 @@ Phases, each failing the run at its first mismatch:
     files, the money columns INT64 annotated DECIMAL(12,2), l_returnflag
     and l_linestatus dictionary-encoded (index widths 2 and 1); K1 held
     against its plain version on the first file's string index tables;
-    a timed and a profiled collect equal to numpy exactly (four sums,
-    three HALF_UP
+    a timed collect equal to numpy exactly (four sums, three HALF_UP
     decimal(16,6) averages over decimal(22,2) sums, the count), the plan
     the reference's with the Project as a CPU stage (``q1_plan``), K1
-    once a dictionary chunk; a breakdown (the CPU stage's seconds and
-    its ``bytes_d2h``/``bytes_h2d``; its profiled collect is left out for
-    the time limit);
+    once a dictionary chunk (its profiled collect and its breakdown are
+    left out for the time limit);
 24. TPC-H Q11 (spec 2.4.11, NATION GERMANY, FRACTION 0.0001 / SF) at
     ``--scale``: nation, supplier (100,000 at SF10), part (2,000,000) and
     partsupp (8,000,000) from ``--seed`` + 2 per spec 4.2.3
@@ -221,7 +219,8 @@ Phases, each failing the run at its first mismatch:
     collect exact against numpy, the plan the reference's (``q11_plan``), K1
     once a dictionary chunk of both sides' scans; a breakdown (scans,
     joins, the value sum, the threshold's device side, CPU stage and
-    upload, the nested-loop join) and one profiled collect; then the same
+    upload, the nested-loop join; its profiled collect is left out for
+    the time limit); then the same
     query as a cross join and a filter (``TpuCartesianProductExec``);
 25. the nested-loop join's left semi, left anti and left outer types on
     Q11's rows (semi the inner rows, anti the rest, semi + anti every
@@ -245,15 +244,17 @@ Phases, each failing the run at its first mismatch:
 27-29. TPC-H Q13 and Q22, Q16 in full, and Q9 (strings, LIKE through
     the regex DFA, dates) over customer, orders and Q9's lineitem from
     ``--seed`` + 5 and + 6, strings as parquet-mr writes them; each
-    profiled and timed, exact, planned as the reference plans it, K1 once
-    a dictionary chunk; Q16 and Q22 broken down by operator (Q13's and
-    Q9's breakdowns are left out for the time limit);
+    timed, exact, planned as the reference plans it, K1 once a dictionary
+    chunk; Q16 and Q22 profiled and broken down by operator (Q13's and
+    Q9's profiled collects and breakdowns are left out for the time
+    limit);
 30. TPC-H Q14 (spec 2.4.14, 1995-09) over Q9's lineitem (with
     L_SHIPDATE = O_ORDERDATE + [1, 121]) and part, and Q17 (Brand#23, MED
     BOX; part with P_CONTAINER from ``--seed`` + 8): K1 held against its
-    plain version on part's first file's p_container table; each
-    profiled, timed and broken down, exact against numpy and Python
-    integers, planned as the reference plans it (the final decimal
+    plain version on part's first file's p_container table; each timed
+    (its profiled collect and breakdown left out for the time limit),
+    exact against numpy and Python integers, planned as the reference
+    plans it (the final decimal
     divide a CPU stage; Q17's avg grouped by part and joined back with
     the residual ``l_quantity < 0.2 * avg``), the device subtree under
     the CPU stage the reference's with its joins decided as predicted, K1
@@ -278,7 +279,24 @@ Phases, each failing the run at its first mismatch:
     reference plans it (its fusions aside), collected once under the
     profiler and twice timed, every row held
     against numpy references computed in threads from phase 32's start,
-    K1 once a dictionary chunk, and broken down by operator.
+    K1 once a dictionary chunk (their breakdowns by operator, PR 14's in
+    PERF.md, are left out for the time limit);
+34. the rest of the aggregates over phases 9-11's, 19's and 27's files:
+    per store the median profit, the 90th percentile of the sales, an
+    approximate median and min/max, and over every row the median with
+    ``approx_count_distinct`` (single-phase); HLL reach per store and
+    over every row, each estimate equal to a numpy uint64 twin
+    (xxhash64, the registers, the formula) and within 4 standard errors
+    of the exact count; a runtime bloom filter join (``bloom_filter_agg``
+    over 1993Q3's orders, probed by ``might_contain`` through a one-row
+    cross join), its words and the first file's passes equal to the
+    twin's, its rows to numpy's join without a filter, its
+    false-positive rate printed; each customer's order dates
+    (``collect_list``) and years (``collect_set``) as array columns; the
+    least and greatest phone per nation.  Planned as the reference plans
+    them (the two-phase HLL collapsed), collected once under the profiler
+    and twice timed against references computed in threads from the
+    phase's start, K1 once a dictionary chunk.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  The whole run's wall time is printed
@@ -4140,52 +4158,6 @@ def run_q1(paths, want, n: int, device, smi: str):
     return out
 
 
-def q1_breakdown(q, smi: str):
-    """Where a Q1 collect spends its time, step by step: the device scan
-    and filter with their download (the CPU stage's input), the CPU stage
-    (the Project: two decimal products, one of them 128 x 64 bits, on
-    limbs), the upload, the aggregate, the sort; with the stage's
-    ``bytes_d2h`` and ``bytes_h2d``."""
-    import torch
-
-    from spark_rapids_tpu_torch import perfcounters as PC
-    from spark_rapids_tpu_torch.cpu.oracle import eval_expr
-    from spark_rapids_tpu_torch.memory.spill import get_spill_framework
-
-    get_spill_framework(q.session.conf, q.session.device)
-    sort = fresh_plan(q)
-    agg = sort.children[0]
-    r2c = agg.children[0]
-    proj = r2c.cpu_plan
-    torch.cuda.synchronize()
-    snap = PC.snapshot()
-    t0 = time.perf_counter()
-    cols, rows = proj.children[0].materialize_cpu()
-    t_scan = time.perf_counter() - t0
-    d2h = PC.since(snap)["bytes_d2h"]
-    t0 = time.perf_counter()
-    host = [eval_expr(e, cols, rows).to_host() for e in proj.exprs]
-    t_cpu = time.perf_counter() - t0
-    del cols
-    snap = PC.snapshot()
-    t0 = time.perf_counter()
-    batches = list(r2c.upload(host))
-    torch.cuda.synchronize()
-    t_up = time.perf_counter() - t0
-    h2d = PC.since(snap)["bytes_h2d"]
-    del host
-    agg.children[0] = _Replay(batches, r2c.output)
-    t_agg, out = _timed_run(agg)
-    del batches
-    sort.children[0] = _Replay(out, agg.output)
-    t_sort, _ = _timed_run(sort)
-    log(f"Q1 breakdown: device scan + filter + download {t_scan:.4f} s "
-        f"(bytes_d2h {d2h}), CPU stage {t_cpu:.4f} s ({rows} rows), upload "
-        f"{t_up:.4f} s (bytes_h2d {h2d}), aggregate {t_agg:.4f} s, sort "
-        f"{t_sort:.4f} s [{smi}]")
-    return {"scan": t_scan, "cpu": t_cpu, "upload": t_up, "agg": t_agg}
-
-
 # ---------------------------------------------------------------------------
 # TPC-H Q11 and Q15 (a scalar subquery as a nested-loop join against a
 # one-row broadcast side), and q16_nolike (count(distinct)), from Parquet
@@ -5038,9 +5010,8 @@ def run_tpch_phases(scale: float, seed: int, device, smi: str, out_dir: str,
     t1 = time.perf_counter()
     q11, q11_rows = run_q11(paths, tables, scale, device, smi)
     q11_breakdown(q11["inner"]["query"], smi)
-    profile_collect(q11["inner"]["query"].collect, q11_rows, "Q11 parquet",
-                    key=lambda rows: q11_rows
-                    if q11_check(rows, q11_rows) is None else rows)
+    # its profiled collect (idle 0.99, PRs 11-15) is left out for the time
+    # limit
     log(f"phase 24 wall time {time.perf_counter() - t1:.1f} s")
 
     # 25. the nested-loop join's other types on Q11's rows; the inner
@@ -6033,14 +6004,15 @@ def query_chunks(paths, reads, scans=None) -> int:
 
 def run_text_query(label: str, paths, reads, build, want, plan, n: int,
                    unit: str, device, smi: str, scans=None,
-                   breakdown: bool = True):
-    """One of phases 27-31's queries from the files: collected twice, the
-    first under the profiler, the second timed (its counters read), each
-    exact against numpy; the plan the reference's, K1 once a dictionary
-    chunk of each scan; then its breakdown (unless ``breakdown`` is
-    false)."""
+                   repeats: bool = True):
+    """One of phases 27-31's queries from the files: collected once
+    timed (its counters read), exact against numpy; the plan the
+    reference's, K1 once a dictionary chunk of each scan; with
+    ``repeats``, a collect under the profiler before it and its
+    breakdown after it."""
     q = _text_query(paths, reads, build, device)
-    profile_collect(q.collect, want, f"{label} parquet")
+    if repeats:
+        profile_collect(q.collect, want, f"{label} parquet")
     res = _q12_collects(q, want, label, n, smi, unit=unit, warm=False)
     check_plan(q, plan, label)
     want_k1 = query_chunks(paths, reads, scans)
@@ -6049,7 +6021,7 @@ def run_text_query(label: str, paths, reads, build, want, plan, n: int,
     log(f"{label}: K1 launches {res['launches']} == {want_k1} dictionary "
         f"chunks; bytes_h2d {res['delta']['bytes_h2d']} host_syncs "
         f"{res['delta']['host_syncs']} [{smi}]")
-    if breakdown:
+    if repeats:
         res["breakdown"] = op_breakdown(q, label, smi)
     return res
 
@@ -6164,9 +6136,10 @@ def run_text_phases(scale: float, seed: int, device, smi: str,
         "Q13", paths, Q13_READS,
         lambda f, S: q13_query(f["customer"], f["orders"], S), want13,
         q13_plan(modes), n_o, "orders", device, smi,
-        # its breakdown (the scan's host half, 13-17 s of 14-18 s: PERF.md
-        # section 5) is left out for the time limit
-        breakdown=False)
+        # its profiled collect (idle 0.96-0.97, PRs 12-15) and breakdown
+        # (the scan's host half, 13-17 s of 14-18 s: PERF.md section 5)
+        # are left out for the time limit
+        repeats=False)
     out["q22"] = run_text_query(
         "Q22", paths, Q22_READS,
         lambda f, S: q22_query(f["customer"], f["orders"], S), want22,
@@ -6192,7 +6165,7 @@ def run_text_phases(scale: float, seed: int, device, smi: str,
         lambda f, S: q9_query(f["part"], f["supplier"], f["lineitem9"],
                               f["partsupp"], f["orders"], f["nation"], S),
         want9, q9_plan(modes), len(li9["l_orderkey"]), "lineitem rows", device,
-        smi, breakdown=False)      # its breakdown: PERF.md section 5
+        smi, repeats=False)   # its idle share and breakdown: PERF.md
     log(f"phase 29 wall time {time.perf_counter() - t1:.1f} s")
     log(f"phases 27-29 wall time {time.perf_counter() - t0:.1f} s")
     return out
@@ -6651,15 +6624,16 @@ def check_container_k1(paths, device, smi: str):
 def run_arith_query(label: str, name: str, paths, want, modes, n: int,
                     device, smi: str):
     """One of phases 30-31's queries from the files (``run_text_query``:
-    profiled, timed, exact, planned as the reference plans it, K1 once a
-    dictionary chunk of each scan, broken down), and the device subtree
+    timed, exact, planned as the reference plans it, K1 once a dictionary
+    chunk of each scan; its profiled collect and breakdown, PR 13's and
+    14's in PERF.md, left out for the time limit), and the device subtree
     under its CPU stage the reference's, its joins decided as ``modes``
     predicts."""
     reads, scans = ARITH_READS[name]
     plan, stage = ARITH_PLANS[name](modes)
     res = run_text_query(label, paths, reads,
                          lambda f, S: arith_query(name, f, S), want, plan, n,
-                         "lineitem rows", device, smi, scans)
+                         "lineitem rows", device, smi, scans, repeats=False)
     if stage_plan_shape(res["query"]) != stage:
         fail(f"unexpected {label} plan under its CPU stage:\n"
              + "\n".join(stage_plan_shape(res["query"])))
@@ -7370,14 +7344,14 @@ def phones_check(cols, names, want):
     return None
 
 
-def run_window_query(label: str, q, check, plan, n: int, unit: str,
-                     want_k1: int, smi: str, host: bool = True):
-    """One of phases 32-33's queries: the plan the reference's (its
+def run_timed_query(label: str, q, check, plan, n: int, unit: str,
+                    want_k1: int, smi: str, host: bool = True):
+    """One of phases 32-34's queries: the plan the reference's (its
     window-chain and join-aggregate fusions aside), one untimed collect
     under the profiler (the idle share), two timed collects, each
     held by ``check`` (the rows, or with ``host`` the host columns: ->
     None or a complaint), K1 once a dictionary chunk, the counts read
-    around the last; then its ``op_breakdown``."""
+    around the last."""
     import torch
 
     from spark_rapids_tpu_torch import perfcounters as PC
@@ -7408,17 +7382,15 @@ def run_window_query(label: str, q, check, plan, n: int, unit: str,
     used = peek_spill_framework().metrics()["deviceUsedPeakBytes"]
     rows = len(got) if not host else (got[0].validity.shape[0]
                                       if got else 0)
-    log(f"{label}: {rows} rows == numpy reference (doubles within "
-        f"{WINDOW_RTOL:g} of max(|value|, its terms' scale)); {n} {unit} "
+    log(f"{label}: {rows} rows == numpy reference; {n} {unit} "
         f"in {', '.join(f'{t:.3f}' for t in secs)} s = "
         f"{n / min(secs):.0f} rows/s at best [{smi}]")
     log(f"{label} counters: unpack_launches={launches} == {want_k1} "
         f"dictionary chunks; bytes_h2d={d['bytes_h2d']} bytes_d2h="
         f"{d['bytes_d2h']} host_syncs={d['host_syncs']} "
         f"device_used_peak={used} max_memory_allocated={peak} [{smi}]")
-    breakdown = op_breakdown(q, label, smi)
     return {"seconds": secs, "launches": launches, "peak": peak,
-            "device_used_peak": used, "breakdown": breakdown}
+            "device_used_peak": used, "bytes_d2h": d["bytes_d2h"]}
 
 
 def _start(jobs):
@@ -7494,7 +7466,7 @@ def run_store_windows(refs, ss, ss_paths, dd_path, device, smi: str):
         "decimal off the device, and the port has no CPU window)")
     q = q47_query(_read(s, ss_paths, table, Q47_READS),
                   s.read.schema(dsch).parquet(dd_path), S)
-    out["q47"] = run_window_query(
+    out["q47"] = run_timed_query(
         "q47", q, lambda rows: q47_check(rows, want), Q47_PLAN, n,
         "store_sales rows", chunks(Q47_READS) + dict_chunks([dd_path], dsch),
         smi, host=False)
@@ -7503,7 +7475,7 @@ def run_store_windows(refs, ss, ss_paths, dd_path, device, smi: str):
 
     want = _reference(refs, "stats")
     q = stats_query(_read(s, ss_paths, table, STATS_READS), S)
-    out["stats"] = run_window_query(
+    out["stats"] = run_timed_query(
         "stats", q, lambda cols: stats_check(cols, want), STATS_PLAN, n,
         "store_sales rows", chunks(STATS_READS), smi)
 
@@ -7511,7 +7483,7 @@ def run_store_windows(refs, ss, ss_paths, dd_path, device, smi: str):
     q = moving_query(_read(s, ss_paths, table, table.field_names()), S)
     names = q.schema.field_names()
     passed = {k: ss[k] for k in ("item_sk", "date_sk", "ticket")}
-    out["moving"] = run_window_query(
+    out["moving"] = run_timed_query(
         "moving", q,
         lambda cols: _check_columns(cols, names, want, MOVING_COLS, passed),
         MOVING_PLAN, n, "store_sales rows", chunks(table.field_names()), smi)
@@ -7540,7 +7512,7 @@ def run_tpch_windows(refs, paths, tables, device, smi: str):
     want = _reference(refs, "orders_history")
     q = history_query(tpch_frames(paths, s, HISTORY_READS)["orders"], S)
     names = q.schema.field_names()
-    out["orders_history"] = run_window_query(
+    out["orders_history"] = run_timed_query(
         "orders_history", q,
         lambda cols: _check_columns(cols, names, want, HISTORY_COLS,
                                     {"o_orderkey": orders["o_orderkey"]}),
@@ -7549,10 +7521,675 @@ def run_tpch_windows(refs, paths, tables, device, smi: str):
     want = _reference(refs, "customer_phones")
     q = phones_query(tpch_frames(paths, s, PHONES_READS)["customer"], S)
     names = q.schema.field_names()
-    out["customer_phones"] = run_window_query(
+    out["customer_phones"] = run_timed_query(
         "customer_phones", q, lambda cols: phones_check(cols, names, want),
         PHONES_PLAN, len(customer["c_nationkey"]), "customers",
         query_chunks(paths, PHONES_READS), smi)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 34: array columns and the rest of the aggregates
+# ---------------------------------------------------------------------------
+
+_M64 = (1 << 64) - 1
+_XP1, _XP2, _XP3, _XP4, _XP5 = (np.uint64(p) for p in (
+    0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+    0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5))
+
+
+def _np_rotl(x, r: int):
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def _np_fmix(h):
+    h = h ^ (h >> np.uint64(33))
+    h = h * _XP2
+    h = h ^ (h >> np.uint64(29))
+    h = h * _XP3
+    return h ^ (h >> np.uint64(32))
+
+
+def _np_round(acc, k):
+    return _np_rotl(acc + k * _XP2, 31) * _XP1
+
+
+def _np_xxh_int(u32, seed):
+    h = (seed + (_XP5 + np.uint64(4))) ^ (u32 * _XP1)
+    return _np_fmix(_np_rotl(h, 23) * _XP2 + _XP3)
+
+
+def _np_xxh_long(v, seed):
+    h = (seed + (_XP5 + np.uint64(8))) ^ _np_round(np.zeros_like(v), v)
+    return _np_fmix(_np_rotl(h, 27) * _XP1 + _XP4)
+
+
+def _np_le(ch, base, nbytes: int):
+    """Little-endian words of ``nbytes`` bytes of each row of the uint64
+    byte matrix ``ch`` from ``base`` (positions clipped to the width)."""
+    rows = np.arange(ch.shape[0])
+    v = np.zeros(ch.shape[0], np.uint64)
+    for t in range(nbytes):
+        v |= ch[rows, np.clip(base + t, 0, ch.shape[1] - 1)] << np.uint64(
+            8 * t)
+    return v
+
+
+def _np_xxh_string(chars, lengths, seed):
+    """XXH64.hashUnsafeBytes of each row's first ``lengths`` bytes."""
+    ch = chars.astype(np.uint64)
+    ln = lengths.astype(np.int64)
+    nst = ln // 32
+    acc = [seed + _XP1 + _XP2, seed + _XP2, seed.copy(), seed - _XP1]
+    for b in range(ch.shape[1] // 32):
+        for j in range(4):
+            k = np.zeros(len(ln), np.uint64)
+            for t in range(8):
+                k |= ch[:, 32 * b + 8 * j + t] << np.uint64(8 * t)
+            acc[j] = np.where(b < nst, _np_round(acc[j], k), acc[j])
+    merged = (_np_rotl(acc[0], 1) + _np_rotl(acc[1], 7)
+              + _np_rotl(acc[2], 12) + _np_rotl(acc[3], 18))
+    for v in acc:
+        merged = (merged ^ _np_round(np.zeros_like(v), v)) * _XP1 + _XP4
+    h = np.where(ln >= 32, merged, seed + _XP5) + ln.astype(np.uint64)
+    if ch.shape[1] == 0:
+        return _np_fmix(h)
+    base = nst * 32
+    rem = ln - base
+    for j in range(3):
+        k = _np_le(ch, base + 8 * j, 8)
+        nh = _np_rotl(h ^ _np_round(np.zeros_like(k), k), 27) * _XP1 + _XP4
+        h = np.where((j + 1) * 8 <= rem, nh, h)
+    o4 = base + (rem // 8) * 8
+    has4 = ln - o4 >= 4
+    h = np.where(has4, _np_rotl(h ^ (_np_le(ch, o4, 4) * _XP1), 23) * _XP2
+                 + _XP3, h)
+    ob = o4 + np.where(has4, 4, 0)
+    for t in range(3):
+        idx = ob + t
+        h = np.where(idx < ln, _np_rotl(h ^ (_np_le(ch, idx, 1) * _XP5), 11)
+                     * _XP1, h)
+    return _np_fmix(h)
+
+
+def np_xxhash64(cols, seed: int = 42) -> np.ndarray:
+    """Spark's xxhash64 of ``cols`` chained from ``seed``, in numpy
+    uint64 (the twin of ``ops/hashing.py::xxhash64_columns``): each column
+    a (kind, data, validity) triple, kind ``int`` (int, date, byte,
+    short, bool), ``long`` (long, decimal of 18 digits or fewer),
+    ``float``, ``double`` or ``string`` (data (chars, lengths)); a null
+    passes the seed.  -> int64."""
+    n = len(cols[0][2])
+    h = np.full(n, seed & _M64, np.uint64)
+    for kind, data, valid in cols:
+        if kind == "string":
+            hc = _np_xxh_string(*data, h)
+        elif kind == "float":
+            f = np.asarray(data, np.float32)
+            f = np.where(f == 0, np.float32(0), f)
+            bits = f.view(np.uint32).astype(np.uint64)
+            hc = _np_xxh_int(np.where(np.isnan(f), np.uint64(0x7FC00000),
+                                      bits), h)
+        elif kind == "double":
+            d = np.where(np.asarray(data, np.float64) == 0, 0.0, data)
+            bits = np.where(np.isnan(d), np.uint64(0x7FF8000000000000),
+                            d.view(np.uint64))
+            hc = _np_xxh_long(bits, h)
+        elif kind == "long":
+            hc = _np_xxh_long(np.asarray(data, np.int64).view(np.uint64), h)
+        else:
+            hc = _np_xxh_int(np.asarray(data, np.int64).view(np.uint64)
+                             & np.uint64(0xFFFFFFFF), h)
+        h = np.where(valid, hc, h)
+    return h.view(np.int64)
+
+
+def np_clz64(x) -> np.ndarray:
+    """Leading zero bits of uint64 words (64 for 0)."""
+    n = np.zeros(len(x), np.int64)
+    for s in (32, 16, 8, 4, 2, 1):
+        z = (x >> np.uint64(64 - s)) == 0
+        n += np.where(z, s, 0)
+        x = np.where(z, x << np.uint64(s), x)
+    return n + (x == 0)
+
+
+HLL_P = 9
+
+
+def np_hll_slots(h):
+    """(register, rank) of each int64 xxhash64 (seed 42): the top p bits,
+    and ``min(clz(h << p) + 1, 65 - p)``."""
+    u = h.view(np.uint64)
+    return ((u >> np.uint64(64 - HLL_P)).astype(np.int64),
+            np.minimum(np_clz64(u << np.uint64(HLL_P)) + 1, 65 - HLL_P))
+
+
+def np_hll_registers(register, rank, group, ngroups: int) -> np.ndarray:
+    """HyperLogLog registers (``ngroups`` x 2^p) of the valid values'
+    ``np_hll_slots``, ``group`` each one's group: each register's largest
+    rank, read from a table of the ranks seen."""
+    m = 1 << HLL_P
+    seen = np.zeros((ngroups * m, 64), np.bool_)
+    seen[group * m + register, rank] = True
+    return (seen * np.arange(64)).max(axis=1).reshape(ngroups, m)
+
+
+def np_hll_estimate(regs) -> np.ndarray:
+    """The estimate of each row of registers: linear counting while the
+    raw estimate is at most 2.5 m and a register is 0, else raw; rounded
+    half to even."""
+    m = regs.shape[1]
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    inv = np.ldexp(1.0, -regs.astype(np.int32)).sum(axis=1)
+    raw = np.full(len(inv), alpha * m * m) / inv
+    zeros = (regs == 0).sum(axis=1).astype(np.float64)
+    lin = m * np.log(np.full(len(zeros), float(m)) / np.maximum(zeros, 1.0))
+    est = np.where((raw <= 2.5 * m) & (zeros > 0), lin, raw)
+    return np.round(est).astype(np.int64)
+
+
+def _bloom_k(num_items: int, num_bits: int) -> int:
+    return max(1, round(num_bits / num_items * np.log(2.0)))
+
+
+def _bloom_bits(h1, h2, num_items: int, num_bits: int):
+    for j in range(_bloom_k(num_items, num_bits)):
+        yield np.remainder(h1 + np.int64(j) * h2, num_bits)
+
+
+def np_bloom_words(h1, h2, num_items: int, num_bits: int) -> np.ndarray:
+    """A bloom filter's int64 words over the values whose xxhash64s under
+    seeds 42 and 77 are ``h1`` and ``h2``: bit ``b`` at bit ``b % 64`` of
+    word ``b // 64`` (``np.packbits``, little bit order)."""
+    bits = np.zeros(num_bits, np.bool_)
+    for b in _bloom_bits(h1, h2, num_items, num_bits):
+        bits[b] = True
+    return np.packbits(bits.reshape(-1, 64), axis=1,
+                       bitorder="little").view("<i8").reshape(-1)
+
+
+def np_might_contain(words, h1, h2, num_items: int, num_bits: int):
+    hit = np.ones(len(h1), np.bool_)
+    for b in _bloom_bits(h1, h2, num_items, num_bits):
+        hit &= ((words[b // 64] >> (b % 64)) & 1) == 1
+    return hit
+
+
+PCT_READS = ("store_sk", "ticket", "quantity", "ext_sales", "net_profit")
+REACH_READS = ("store_sk", "item_sk", "ticket")
+BLOOM_ITEMS, BLOOM_BITS = 600_000, 4_194_304
+SETS_READS = {"orders": ("o_custkey", "o_orderdate")}
+BOUNDS_READS = {"customer": ("c_nationkey", "c_phone")}
+_READER = "TpuAdaptiveShuffleReader(target=1073741824B small=4194304B)"
+
+
+def _single_phase_plan(agg: str):
+    return [agg, "  " + _READER, "    TpuShuffleExchange SinglePartition",
+            "      <scan>"]
+
+
+PCT_PLAN = _single_phase_plan(
+    "TpuHashAggregate(Complete) keys=[store_sk] aggs=[median(net_profit) "
+    "AS med_profit, percentile(ext_sales) AS p90_sales, approx_percentile("
+    "quantity) AS ap50_qty, min(quantity) AS min_qty, max(ext_sales) AS "
+    "max_sales]")
+PCT_GLOBAL_PLAN = _single_phase_plan(
+    "TpuHashAggregate(Complete) keys=[] aggs=[median(net_profit) AS "
+    "med_profit, approx_count_distinct(ticket) AS tickets]")
+#: the two-phase HLL collapsed on one device (the reference keeps its
+#: exchange of array<int> registers a CPU stage: ROADMAP, "Differences
+#: that bind the port")
+REACH_PLAN = [
+    "TpuHashAggregate(Complete) keys=[store_sk] aggs=[approx_count_distinct"
+    "(ticket) AS tickets, approx_count_distinct(item_sk) AS items]",
+    "  <scan>"]
+REACH_GLOBAL_PLAN = [
+    "TpuHashAggregate(Complete) keys=[] aggs=[approx_count_distinct("
+    "item_sk) AS items]", "  <scan>"]
+SETS_PLAN = _single_phase_plan(
+    "TpuHashAggregate(Complete) keys=[o_custkey] aggs=[collect_list("
+    "o_orderdate) AS dates, collect_set(year(o_orderdate)) AS years]")
+BOUNDS_PLAN = [
+    "TpuHashAggregate(Complete) keys=[c_nationkey] aggs=[min(c_phone) AS "
+    "phone_min, max(c_phone) AS phone_max]", "  <scan>"]
+BOUNDS_GLOBAL_PLAN = [
+    "TpuHashAggregate(Complete) keys=[] aggs=[min(c_phone) AS phone_min, "
+    "max(c_phone) AS phone_max]", "  <scan>"]
+
+
+def bloom_plan(broadcast: bool):
+    """The bloom filter join's plan before its collect: the probe (a
+    one-row cross join with the filter, might_contain, the filter) joined
+    to the quarter's orders, broadcast at planning or adaptive."""
+    quarter = (f"TpuFilter (((o_orderdate >= {Q4_QUARTER[0]}) AND "
+               f"(o_orderdate < {Q4_QUARTER[1]})))")
+    probe = [
+        "TpuStageExec[Project+Filter]",
+        "  TpuCartesianProductExec",
+        "    <scan>",
+        "    TpuHashAggregate(Complete) keys=[] aggs=[bloom_filter_agg("
+        "o_orderkey) AS bf]",
+        "      " + _READER,
+        "        TpuShuffleExchange SinglePartition",
+        "          " + quarter,
+        "            <scan>"]
+    orders = ["TpuStageExec[FilterProject]", "  <scan>"]
+    head = ["TpuSort [o_orderpriority ASC]",
+            "  TpuHashAggregate(Complete) keys=[o_orderpriority] "
+            "aggs=[count_star(*) AS lines]"]
+    if broadcast:
+        return head + [
+            "    TpuBroadcastHashJoinExec Inner [l_orderkey=l_orderkey]"] + [
+            "      " + ln for ln in probe] + [
+            "      TpuBroadcastExchangeExec"] + [
+            "        " + ln for ln in orders]
+    side = ["      " + _READER, "        TpuShuffleExchange SinglePartition"]
+    return head + [
+        "    TpuAdaptiveJoin(threshold=10485760)[TpuShuffledSymmetricHash"
+        "JoinExec Inner [l_orderkey=l_orderkey]]"] + side + [
+        "          " + ln for ln in probe] + side + [
+        "          " + ln for ln in orders]
+
+
+def pct_queries(sales, mod):
+    """Per store: the median profit, the 90th percentile of the sales,
+    the approximate median quantity, the least quantity and the largest
+    sale; over every row: the median profit and the distinct tickets
+    (the HLL single-phase beside the median)."""
+    return (sales.group_by("store_sk").agg(
+        mod.median_("net_profit", "med_profit"),
+        mod.percentile_("ext_sales", 0.9, "p90_sales"),
+        mod.approx_percentile_("quantity", 0.5, name="ap50_qty"),
+        mod.min_("quantity", "min_qty"), mod.max_("ext_sales", "max_sales")),
+        sales.agg(mod.median_("net_profit", "med_profit"),
+                  mod.approx_count_distinct_("ticket", "tickets")))
+
+
+def reach_queries(sales, mod):
+    """Distinct tickets and items per store, and distinct items."""
+    return (sales.group_by("store_sk").agg(
+        mod.approx_count_distinct_("ticket", "tickets"),
+        mod.approx_count_distinct_("item_sk", "items")),
+        sales.agg(mod.approx_count_distinct_("item_sk", "items")))
+
+
+def bloom_queries(orders, lineitem, mod):
+    """The runtime bloom filter join: ``bf`` over the keys of the orders
+    of 1993's third quarter; the lines whose key might be in it (a
+    one-row cross join, ``might_contain``, the filter); those lines
+    joined to the quarter's orders and counted by priority.  -> (the
+    filter, the join, the join's right side)."""
+    import datetime as dt
+
+    col, lit = mod.col, mod.lit
+    o_q = orders.filter((col("o_orderdate") >= lit(dt.date(1993, 7, 1)))
+                        & (col("o_orderdate") < lit(dt.date(1993, 10, 1))))
+    bf = o_q.agg(mod.bloom_filter_agg_("o_orderkey", "bf", BLOOM_ITEMS,
+                                       BLOOM_BITS))
+    probe = bloom_probe(lineitem, bf, mod)
+    right = o_q.select(col("o_orderkey").alias("l_orderkey"),
+                       "o_orderpriority")
+    join = (probe.join(right, "l_orderkey")
+            .group_by("o_orderpriority").agg(mod.count_(None, "lines"))
+            .order_by("o_orderpriority"))
+    return bf, join, right
+
+
+def bloom_probe(lineitem, bf, mod):
+    """The lines whose key might be in the one-row filter ``bf``: a cross
+    join, ``might_contain``, the filter."""
+    H = importlib.import_module(
+        mod.__name__.rsplit(".", 1)[0] + ".expr.hashexprs")
+    col = mod.col
+    return lineitem.cross_join(bf).select(
+        "l_orderkey", H.BloomFilterMightContain(
+            col("bf"), col("l_orderkey"), BLOOM_ITEMS,
+            BLOOM_BITS).alias("mc")).filter(col("mc"))
+
+
+def sets_query(orders, mod):
+    """Each customer's order dates (a list) and order years (a set)."""
+    Year = importlib.import_module(
+        mod.__name__.rsplit(".", 1)[0] + ".expr.datetime").Year
+    return orders.group_by("o_custkey").agg(
+        mod.collect_list_("o_orderdate", "dates"),
+        mod.collect_set_(Year(mod.col("o_orderdate")), "years"))
+
+
+def bounds_queries(customer, mod):
+    """The least and greatest phone per nation, and over every customer."""
+    aggs = (mod.min_("c_phone", "phone_min"), mod.max_("c_phone", "phone_max"))
+    return customer.group_by("c_nationkey").agg(*aggs), customer.agg(*aggs)
+
+
+def _np_percentile(group, values, ngroups: int, pct: float, scale: float):
+    """Each group's interpolated percentile of the int64 ``values``,
+    ``(v_lo (1 - frac) + v_hi frac) scale``, and its least and greatest
+    value: the values counted per group over their range, each rank's
+    value found in the running counts by a binary search."""
+    lo_v = int(values.min())
+    span = int(values.max()) - lo_v + 1
+    cum = np.bincount(group * span + (values - lo_v),
+                      minlength=ngroups * span).reshape(
+                          ngroups, span).cumsum(axis=1)
+    n = cum[:, -1]
+
+    def at(rank):
+        return np.array([np.searchsorted(cum[g], rank[g], side="right")
+                         for g in range(ngroups)], np.int64) + lo_v
+
+    r = pct * (np.maximum(n, 1) - 1).astype(np.float64)
+    lo = np.floor(r).astype(np.int64)
+    frac = r - lo.astype(np.float64)
+    v_lo, v_hi = at(lo), at(np.ceil(r).astype(np.int64))
+    res = (v_lo.astype(np.float64) * (1.0 - frac)
+           + v_hi.astype(np.float64) * frac) * scale
+    return res, v_lo, at(np.zeros(ngroups, np.int64)), at(n - 1)
+
+
+def store_agg_references(ss):
+    """store_pct's and store_reach's numpy references: per store (1..40)
+    and over every row, with the xxhash64s (of each distinct value,
+    gathered), registers and exact distinct counts behind the HLL
+    estimates."""
+    store = ss["store_sk"].astype(np.int64) - 1
+    ns = N_STORES
+    zero = np.zeros(len(store), np.int64)
+    med, _, _, _ = _np_percentile(store, ss["net_profit"], ns, 0.5, 0.01)
+    p90, _, _, max_sales = _np_percentile(store, ss["ext_sales"], ns, 0.9,
+                                          0.01)
+    _, ap50, min_qty, _ = _np_percentile(store, ss["quantity"], ns, 0.5,
+                                         1.0)
+    g_med = _np_percentile(zero, ss["net_profit"], 1, 0.5, 0.01)[0]
+    regs, exact = {}, {}
+    for name, col, kind in (("tickets", "ticket", "long"),
+                            ("items", "item_sk", "int")):
+        v = ss[col].astype(np.int64)
+        dom = np.arange(int(v.max()) + 1)
+        register, rank = np_hll_slots(np_xxhash64(
+            [(kind, dom, np.ones(len(dom), np.bool_))]))
+        regs[name] = np_hll_registers(register[v], rank[v], store, ns)
+        seen = np.zeros((ns, len(dom)), np.bool_)
+        seen[store, v] = True
+        exact[name] = seen.sum(axis=1)
+        exact[name + "_all"] = int(seen.any(axis=0).sum())
+    every = {k: np_hll_estimate(r.max(axis=0, keepdims=True))[0]
+             for k, r in regs.items()}
+    return {
+        "pct": [(s + 1, float(med[s]), float(p90[s]), int(ap50[s]),
+                 int(min_qty[s]), Decimal(int(max_sales[s])).scaleb(-2))
+                for s in range(ns)],
+        "pct_global": [(float(g_med[0]), int(every["tickets"]))],
+        "reach": [(s + 1, int(t), int(i)) for s, (t, i) in enumerate(zip(
+            np_hll_estimate(regs["tickets"]),
+            np_hll_estimate(regs["items"])))],
+        "reach_global": [(int(every["items"]),)],
+        "exact": exact}
+
+
+def bloom_tables(orders, lineitem):
+    """The columns phase 34's bloom filter join reads, kept when phase
+    19's data goes: the orders, each line's order row, the first lineitem
+    file's rows."""
+    n_li = len(lineitem["order_row"])
+    return {"orders": {k: orders[k] for k in (
+        "o_orderkey", "o_orderdate", "o_orderpriority")},
+        "order_row": lineitem["order_row"],
+        "first_file": int(np.linspace(0, n_li, N_FILES + 1).astype(
+            np.int64)[1])}
+
+
+def bloom_references(t):
+    """The bloom filter join's numpy references: the filter's words, the
+    probe's passes over the first lineitem file and the true positives;
+    the join's rows without a filter (each quarter line counted by its
+    order's priority)."""
+    o = t["orders"]
+    odate = o["o_orderdate"]
+    quarter = (odate >= Q4_QUARTER[0]) & (odate < Q4_QUARTER[1])
+    keys = o["o_orderkey"][quarter]
+    ones = np.ones(len(keys), np.bool_)
+    words = np_bloom_words(np_xxhash64([("long", keys, ones)]),
+                           np_xxhash64([("long", keys, ones)], 77),
+                           BLOOM_ITEMS, BLOOM_BITS)
+    rows = t["order_row"]
+    first = o["o_orderkey"][rows[:t["first_file"]]]
+    ones = np.ones(len(first), np.bool_)
+    passes_first = int(np_might_contain(
+        words, np_xxhash64([("long", first, ones)]),
+        np_xxhash64([("long", first, ones)], 77), BLOOM_ITEMS,
+        BLOOM_BITS).sum())
+    in_q = quarter[rows]
+    counts = np.bincount(o["o_orderpriority"][rows[in_q]],
+                         minlength=len(Q12_PRIORITIES))
+    return {"words": words, "passes_first": passes_first,
+            "keys": int(quarter.sum()), "true_lines": int(in_q.sum()),
+            "lines": len(rows),
+            "rows": [(Q12_PRIORITIES[i], int(c))
+                     for i, c in enumerate(counts) if c]}
+
+
+def _padded_rows(group, values, ngroups: int, width: int, fill):
+    """Rows of ``values`` (sorted by group, then value) as an (ngroups,
+    width) matrix, ``fill`` past each group's count."""
+    counts = np.bincount(group, minlength=ngroups)
+    starts = np.cumsum(counts) - counts
+    out = np.full((ngroups, width), fill, values.dtype)
+    out[group, np.arange(len(group)) - starts[group]] = values
+    return out, counts
+
+
+def sets_reference(orders):
+    """order_sets' reference, customers ascending: each one's dates
+    ascending (the list as a sorted multiset) and its distinct years
+    ascending, as (customer keys, dates, date counts, years, year
+    counts) with unused slots -1."""
+    cust = orders["o_custkey"].astype(np.int64)
+    date = orders["o_orderdate"].astype(np.int64)
+    keys, grp = np.unique(cust, return_inverse=True)
+    order = np.lexsort((date, grp))
+    g, d = grp[order], date[order]
+    year = d.astype("datetime64[D]").astype("datetime64[Y]").astype(
+        np.int64) + 1970
+    width = int(np.bincount(grp).max())
+    dates, n_dates = _padded_rows(g, d, len(keys), width, -1)
+    first = np.ones(len(g), np.bool_)
+    first[1:] = (g[1:] != g[:-1]) | (year[1:] != year[:-1])
+    years, n_years = _padded_rows(g[first], year[first], len(keys), width,
+                                  -1)
+    return {"keys": keys, "dates": dates, "n_dates": n_dates,
+            "years": years, "n_years": n_years, "largest": width}
+
+
+def bounds_reference(customer):
+    """phone_bounds' reference: each nation's least and greatest phone,
+    and over every customer, as strings."""
+    nation = customer["c_nationkey"].astype(np.int64)
+    chars, lens = customer["c_phone"].rows(0, len(nation))
+    num = phone_numbers(chars)
+    order = np.lexsort((num, nation))
+    ns = nation[order]
+    first = np.ones(len(ns), np.bool_)
+    first[1:] = ns[1:] != ns[:-1]
+    last = np.append(first[1:], True)
+
+    def text(i):
+        return bytes(chars[i, :lens[i]]).decode()
+
+    rows = [(int(n), text(a), text(b)) for n, a, b in zip(
+        ns[first], order[first], order[last])]
+    return {"rows": rows, "global": [(text(int(np.argmin(num))),
+                                      text(int(np.argmax(num))))]}
+
+
+def _rows_equal(label: str, want):
+    """A check: the rows, sorted, equal ``want`` exactly (doubles to the
+    last bit)."""
+    def check(rows):
+        got = sorted(rows, key=lambda r: (r[0] is not None, r[0]))
+        if got != want:
+            bad = [(g, w) for g, w in zip(got, want) if g != w][:3]
+            return (f"{label}: {len(got)} rows against {len(want)}; first "
+                    f"differences {bad}")
+        return None
+    return check
+
+
+def sets_check(want, seen: dict):
+    """order_sets' check on the host columns: customers as numpy's, each
+    set exactly numpy's (ascending), each list numpy's as a sorted
+    multiset, no valid element past a row's length; the element width
+    goes into ``seen``."""
+    w = want["dates"].shape[1]             # the largest customer's orders
+
+    def check(cols):
+        keys, dates, years = cols
+        seen["ewidth"] = dates.ewidth
+        order = np.argsort(keys.data)
+        if not np.array_equal(keys.data[order], want["keys"]):
+            return "order_sets: the customers differ"
+        for name, c in (("dates", dates), ("years", years)):
+            n = c.lengths[order].astype(np.int64)
+            if not np.array_equal(n, want["n_" + name]):
+                return f"order_sets: {name} lengths differ"
+            if c.ewidth < w or c.elem_valid[:, w:].any():
+                return f"order_sets: {name} has elements past {w}"
+            inside = np.arange(w)[None, :] < n[:, None]
+            if not np.array_equal(c.elem_valid[order, :w], inside):
+                return f"order_sets: {name}' element validity differs"
+            data = c.data[order, :w].astype(np.int64)
+            if name == "dates":
+                data = np.sort(np.where(inside, data, np.iinfo(
+                    np.int64).max), axis=1)
+            if not np.array_equal(np.where(inside, data, -1), want[name]):
+                return f"order_sets: {name} differ"
+        return None
+    return check
+
+
+def run_agg_phase(ss, ss_paths, bloom, q4_paths, tables, tpch_paths,
+                  device, smi: str):
+    """Phase 34: the runtime bloom filter join over phase 19's orders and
+    lineitem; order_sets and phone_bounds over phase 27's orders and
+    customer; store_pct and store_reach over phases 9-11's store_sales
+    files (last: their references take longest).  Every query planned as
+    the reference plans it, collected once under the profiler and twice
+    timed, held against numpy references computed in threads from the
+    phase's start, K1 once a dictionary chunk.  -> each query's launches
+    and seconds."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
+
+    refs = _start({"bloom": lambda: bloom_references(bloom),
+                   "sets": lambda: sets_reference(tables["orders"]),
+                   "bounds": lambda: bounds_reference(tables["customer"]),
+                   "store": lambda: store_agg_references(ss)})
+    out = {}
+
+    def run(label, q, check, plan, n, unit, chunks, host=False):
+        t0 = time.perf_counter()
+        out[label] = run_timed_query(label, q, check, plan, n, unit, chunks,
+                                     smi, host)
+        out[label]["wall"] = time.perf_counter() - t0
+        return out[label]
+
+    # the runtime bloom filter join over phase 19's files
+    ors = q12_schemas(T)[0]
+    lrs = T.StructType([T.StructField("l_orderkey", T.LONG, False)])
+    s = S.TpuSession(Q12_CONF, device=device)
+    orders = s.read.schema(ors).parquet(*q4_paths[0])
+    want = _reference(refs, "bloom")
+    t0 = time.perf_counter()
+    bf, join, right = bloom_queries(
+        orders, s.read.schema(lrs).parquet(*q4_paths[1]), S)
+    (words,) = bf.collect_host()
+    if not np.array_equal(words.data[0], want["words"]):
+        fail(f"bloom_join: the filter's words differ from numpy's in "
+             f"{int((words.data[0] != want['words']).sum())} of "
+             f"{len(want['words'])}")
+    # the counts probe the filter just checked, from memory
+    bf = S.DataFrame(LocalTableScan([words], bf.schema), s)
+    passes_first = bloom_probe(s.read.schema(lrs).parquet(q4_paths[1][0]),
+                               bf, S).count()
+    if passes_first != want["passes_first"]:
+        fail(f"bloom_join: the probe passes {passes_first} lines of the "
+             f"first file, numpy {want['passes_first']}")
+    passes = bloom_probe(s.read.schema(lrs).parquet(*q4_paths[1]), bf,
+                         S).count()
+    k = _bloom_k(BLOOM_ITEMS, BLOOM_BITS)
+    fpr = (passes - want["true_lines"]) / (want["lines"] - want["true_lines"])
+    expect = (1 - np.exp(-k * want["keys"] / BLOOM_BITS)) ** k
+    log(f"bloom_join: {want['keys']} keys, {BLOOM_BITS} bits, k={k}; words "
+        f"== numpy's; the probe passes {passes_first} lines of the first "
+        f"file (== numpy's) and {passes} of {want['lines']} in all, "
+        f"{want['true_lines']} of them true: false-positive rate {fpr:.5f} "
+        f"(expected {expect:.5f}); the filter and the two counts in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run("bloom_join", join, _rows_equal("bloom_join", want["rows"]),
+        bloom_plan(S._is_broadcastable(right.plan, s.conf)),
+        want["lines"], "lineitem rows",
+        2 * dict_chunks(q4_paths[0], ors) + dict_chunks(q4_paths[1], lrs))
+    log(f"bloom_join plan after the collects:\n{join.explain()}")
+
+    # customer order sets and phone bounds over phase 27's files
+    frames = tpch_frames(tpch_paths, s, {**SETS_READS, **BOUNDS_READS})
+    want = _reference(refs, "sets")
+    seen = {}
+    res = run("order_sets", sets_query(frames["orders"], S),
+              sets_check(want, seen), SETS_PLAN, len(tables["orders"][
+                  "o_custkey"]), "orders", query_chunks(
+                      tpch_paths, SETS_READS), host=True)
+    log(f"order_sets: {len(want['keys'])} customers, the largest with "
+        f"{want['largest']} orders: element width {seen['ewidth']} "
+        f"(round_up_bucket); {res['bytes_d2h']} bytes downloaded")
+    want = _reference(refs, "bounds")
+    grouped, total = bounds_queries(frames["customer"], S)
+    n_c = len(tables["customer"]["c_nationkey"])
+    chunks = query_chunks(tpch_paths, BOUNDS_READS)
+    run("phone_bounds", grouped, _rows_equal("phone_bounds", want["rows"]),
+        BOUNDS_PLAN, n_c, "customers", chunks)
+    run("phone_bounds_global", total, _rows_equal(
+        "phone_bounds_global", want["global"]), BOUNDS_GLOBAL_PLAN, n_c,
+        "customers", chunks)
+
+    # store percentiles and reach over phases 9-11's files
+    table = qa_schemas(T)[0]
+    n_ss = len(ss["store_sk"])
+    s = S.TpuSession(QA_CONF, device=device)
+    want = _reference(refs, "store")
+    for reads, queries, names, plans in (
+            (PCT_READS, pct_queries, ("pct", "pct_global"),
+             (PCT_PLAN, PCT_GLOBAL_PLAN)),
+            (REACH_READS, reach_queries, ("reach", "reach_global"),
+             (REACH_PLAN, REACH_GLOBAL_PLAN))):
+        chunks = dict_chunks(ss_paths, T.StructType(
+            [f for f in table.fields if f.name in reads]))
+        for name, q, plan in zip(names, queries(
+                _read(s, ss_paths, table, reads), S), plans):
+            run("store_" + name, q, _rows_equal("store_" + name,
+                                                want[name]),
+                plan, n_ss, "store_sales rows", chunks)
+    ex = want["exact"]
+    rel = [(r[1] / t - 1, r[2] / i - 1) for r, t, i in zip(
+        want["reach"], ex["tickets"], ex["items"])]
+    rel_all = [want["pct_global"][0][1] / ex["tickets_all"] - 1,
+               want["reach_global"][0][0] / ex["items_all"] - 1]
+    worst = max([abs(x) for pair in rel for x in pair]
+                + [abs(x) for x in rel_all])
+    log(f"store_reach: HLL (512 registers) against np.unique: tickets per "
+        f"store {min(r for r, _ in rel):+.4f}..{max(r for r, _ in rel):+.4f}"
+        f", items per store {min(i for _, i in rel):+.4f}.."
+        f"{max(i for _, i in rel):+.4f}; all tickets {rel_all[0]:+.4f} "
+        f"({ex['tickets_all']} distinct), all items {rel_all[1]:+.4f} "
+        f"({ex['items_all']} distinct); 4 standard errors "
+        f"{4 * 1.04 / 512 ** 0.5:.4f}")
+    if worst > 4 * 1.04 / 512 ** 0.5:
+        fail(f"store_reach: an HLL estimate is {worst:.4f} off the exact "
+             "count, past 4 standard errors")
+    log("phase 34 walls: " + ", ".join(f"{k} {v['wall']:.1f} s"
+                                       for k, v in out.items()))
     return out
 
 
@@ -7773,7 +8410,8 @@ def main(argv=None) -> int:
     q12 = run_q12(o_paths, l_paths, want_q12, q12_build_bytes(lineitem),
                   n_li, device, smi)
     q12_breakdown(q12["query"], smi)
-    profile_collect(q12["query"].collect, want_q12, "Q12 parquet")
+    # its profiled collect (idle 0.97, PRs 9-15) is left out for the time
+    # limit
     read_q12_plain(plain, orders, device, smi)
     del q12["query"]
     log(f"phase 19 wall time {time.perf_counter() - t0:.1f} s")
@@ -7791,7 +8429,8 @@ def main(argv=None) -> int:
     q4 = run_q4(o_paths, l_paths, want_q4, q4_build_bytes(lineitem), n_li,
                 device, smi)
     q4_breakdown(q4["query"], smi)
-    profile_collect(q4["query"].collect, want_q4, "Q4 parquet")
+    # its profiled collect (idle 0.97, PRs 10-15) is left out for the time
+    # limit
     del q4["query"]
     log(f"phase 21 wall time {time.perf_counter() - t0:.1f} s")
 
@@ -7808,6 +8447,7 @@ def main(argv=None) -> int:
     q4_ooc = run_q4_ooc({k: v[:half] for k, v in orders.items()},
                         {k: v[keep] for k, v in lineitem.items()}, OOC_POOL,
                         device, smi)
+    bloom = bloom_tables(orders, lineitem)     # for phase 34
     del orders, lineitem
     log(f"phase 22 wall time {time.perf_counter() - t0:.1f} s")
 
@@ -7836,8 +8476,8 @@ def main(argv=None) -> int:
         fail(f"Q1: the string index tables have widths {q1_widths}, not 1 "
              "and 2")
     q1 = run_q1(q1_paths, want_q1, n, device, smi)
-    q1_breakdown(q1["query"], smi)
-    # its profiled collect (about 18 s; idle 0.63-0.69 in PRs 10-13) is
+    # its profiled collect (about 18 s; idle 0.63-0.69 in PRs 10-13) and
+    # its breakdown (the CPU stage's round trip, PRs 10-15: PERF.md) are
     # left out for the time limit
     del q1["query"]
     log(f"phase 23 wall time {time.perf_counter() - t0:.1f} s")
@@ -7862,7 +8502,7 @@ def main(argv=None) -> int:
     store_refs = store_references(ss, dd)
     tpch_refs = tpch_references(tpch["windows"])
     w32 = run_store_windows(store_refs, ss, ss_paths, dd_path, device, smi)
-    del ss, store_refs
+    del store_refs                             # ss is kept for phase 34
     log(f"phase 32 wall time {time.perf_counter() - t0:.1f} s")
 
     # 33. windows over phase 27's orders and customer: order histories
@@ -7873,6 +8513,15 @@ def main(argv=None) -> int:
     w33 = run_tpch_windows(tpch_refs, tpch["paths"],
                            tpch["windows"], device, smi)
     log(f"phase 33 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 34. percentiles and HLL reach per store, a runtime bloom filter
+    # join, customers' order sets (array columns) and phone bounds
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    a34 = run_agg_phase(ss, ss_paths, bloom, (o_paths, l_paths),
+                        tpch["windows"], tpch["paths"], device, smi)
+    del ss, bloom
+    log(f"phase 34 wall time {time.perf_counter() - t0:.1f} s")
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
@@ -7924,6 +8573,7 @@ def main(argv=None) -> int:
         "stats_launches": w32["stats"]["launches"],
         "orders_history_launches": w33["orders_history"]["launches"],
         "customer_phones_launches": w33["customer_phones"]["launches"],
+        **{f"{name}_launches": r["launches"] for name, r in a34.items()},
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

@@ -1,9 +1,9 @@
 """ColumnarBatch — port of ``spark_rapids_tpu/columnar/batch.py``.
 
-A batch is a list of ``DeviceColumn``s (flat, string or struct) of
+A batch is a list of ``DeviceColumn``s (flat, string, array or struct) of
 exactly ``num_rows`` rows (no capacity padding, see ``column.py``) plus
 its schema.  Concatenation meets a string column's batches at their
-widest width.
+widest width, an array column's at their widest element width.
 """
 from __future__ import annotations
 
@@ -99,6 +99,13 @@ def empty_column(dt: T.DataType, device) -> DeviceColumn:
     if isinstance(dt, T.StructType):
         return DeviceColumn(dt, validity, children=[
             empty_column(f.dataType, device) for f in dt.fields])
+    if isinstance(dt, T.ArrayType):
+        ew = DEFAULT_WIDTH_BUCKETS[0]
+        return DeviceColumn(dt, validity, data=torch.zeros(
+            (0, ew), dtype=column_torch_dtype(dt.elementType),
+            device=device),
+            lengths=torch.zeros(0, dtype=torch.int32, device=device),
+            elem_valid=torch.zeros((0, ew), dtype=torch.bool, device=device))
     shape = (0, 2) if isinstance(dt, T.DecimalType) and dt.is_128 else (0,)
     return DeviceColumn(dt, validity, data=torch.zeros(
         shape, dtype=column_torch_dtype(dt), device=device))

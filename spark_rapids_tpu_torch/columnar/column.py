@@ -1,8 +1,9 @@
 """Device/host column vectors — port of ``spark_rapids_tpu/columnar/column.py``.
 
 Flat columns (int, long, date, bool, double, decimal64 and the
-decimal128 limbs), string columns and struct columns, with the
-reference's value semantics so results compare bit for bit:
+decimal128 limbs), string columns, array columns of flat elements and
+struct columns, with the reference's value semantics so results compare
+bit for bit:
 
 * validity is a bool vector (True = valid);
 * decimals of 18 digits or fewer are unscaled int64; above 18 digits a
@@ -17,12 +18,22 @@ reference's value semantics so results compare bit for bit:
   a host column's is its longest value.  Columns of different widths
   meet at the wider one (``with_width``) before they are compared or
   stacked.  A null row has length 0;
+* an array of flat elements (not decimal128) is the reference's padded
+  list layout (kind "array"): ``data`` ``(n, ewidth)`` of the element's
+  storage dtype, ``lengths`` ``(n,)`` int32 element counts and
+  ``elem_valid`` ``(n, ewidth)`` bool, elements past a row's length zero
+  and invalid.  A device column's ``ewidth`` comes from the same ladder
+  as a string's width; a host column's is its longest list.  Columns of
+  different element widths meet at the wider one (``with_ewidth``).  A
+  null list has length 0.  Arrays of strings, of decimal128 or of nested
+  values, and maps, are not ported;
 * a struct is a validity vector over one full child column per field
   (the reference's kind "struct", as cuDF stores STRUCT columns); its
   ``data`` is None.  A null struct row keeps whatever its children hold.
 
 Every row operation (slice, gather, concat, host transfer, the spill
-framework's buffers) recurses into a struct's children.
+framework's buffers) works on every buffer of a column in one fixed order
+(``tensors``/``rebuild_column``) and recurses into a struct's children.
 
 The reference pads every column to a power-of-two row capacity to bound XLA
 recompiles; PyTorch takes sizes at run time, so a port column holds exactly
@@ -58,8 +69,8 @@ def round_up_bucket(n: int) -> int:
 
 
 def _fit_chars(chars, width: int):
-    """A char matrix cut or zero-padded to ``width`` columns (numpy or
-    torch)."""
+    """A char matrix (or an array's element matrix) cut or zero-padded to
+    ``width`` columns (numpy or torch)."""
     w = int(chars.shape[1])
     if w >= width:
         return chars[:, :width]
@@ -82,10 +93,11 @@ class DeviceColumn:
     """One column on a torch device.
 
     data: (n,) tensor of the storage dtype, or (n, 2) int64 [hi, lo] limbs
-    for decimal(p>18); None for a struct, whose ``children`` hold one
-    column per field, and for a string, whose ``chars`` (n, width) uint8
-    and ``lengths`` (n,) int32 hold it.  validity: (n,) bool, True =
-    valid.
+    for decimal(p>18), or (n, ewidth) elements of an array (with
+    ``lengths`` (n,) int32 and ``elem_valid`` (n, ewidth) bool); None for
+    a struct, whose ``children`` hold one column per field, and for a
+    string, whose ``chars`` (n, width) uint8 and ``lengths`` (n,) int32
+    hold it.  validity: (n,) bool, True = valid.
     """
 
     dtype: T.DataType
@@ -94,6 +106,7 @@ class DeviceColumn:
     children: Optional[List["DeviceColumn"]] = None
     chars: Optional[torch.Tensor] = None
     lengths: Optional[torch.Tensor] = None
+    elem_valid: Optional[torch.Tensor] = None
 
     @property
     def is_struct(self) -> bool:
@@ -102,6 +115,24 @@ class DeviceColumn:
     @property
     def is_string(self) -> bool:
         return self.chars is not None
+
+    @property
+    def is_array(self) -> bool:
+        return self.elem_valid is not None
+
+    @property
+    def ewidth(self) -> int:
+        """An array column's element capacity per row (0 otherwise)."""
+        return int(self.data.shape[1]) if self.is_array else 0
+
+    def with_ewidth(self, ewidth: int) -> "DeviceColumn":
+        """An array column's elements cut or zero-padded to ``ewidth``."""
+        if self.ewidth == ewidth:
+            return self
+        return DeviceColumn(self.dtype, self.validity,
+                            data=_fit_chars(self.data, ewidth),
+                            lengths=self.lengths,
+                            elem_valid=_fit_chars(self.elem_valid, ewidth))
 
     @property
     def width(self) -> int:
@@ -134,13 +165,9 @@ class DeviceColumn:
 
     def tensors(self) -> List[torch.Tensor]:
         """Every buffer, depth first: the validity, then the data, a
-        string's chars and lengths, or each child's buffers."""
-        if self.is_struct:
-            return [self.validity] + [t for c in self.children
-                                      for t in c.tensors()]
-        if self.is_string:
-            return [self.validity, self.chars, self.lengths]
-        return [self.validity, self.data]
+        string's chars and lengths, an array's data, lengths and element
+        validity, or each child's buffers."""
+        return _buffers(self)
 
     def map_rows(self, fn) -> "DeviceColumn":
         """``fn`` (a row slice or gather) applied to every buffer."""
@@ -156,7 +183,8 @@ class DeviceColumn:
 
     @staticmethod
     def concat(cols: Sequence["DeviceColumn"]) -> "DeviceColumn":
-        """Rows of ``cols`` in order; strings at the widest width."""
+        """Rows of ``cols`` in order; strings at the widest width, arrays
+        at the widest element width."""
         cols = _common_width(cols)
         per = [c.tensors() for c in cols]
         return rebuild_column(cols[0].dtype, iter(
@@ -164,7 +192,8 @@ class DeviceColumn:
 
     @staticmethod
     def from_host(h: "HostColumn", device) -> "DeviceColumn":
-        """Upload; a string's chars widen to their bucket first."""
+        """Upload; a string's chars and an array's elements widen to
+        their bucket first."""
         return rebuild_column(h.dtype, iter([to_device(a, device) for a in
                                              h.bucketed().arrays()]))
 
@@ -174,11 +203,27 @@ class DeviceColumn:
 
 
 def _common_width(cols):
-    """String columns at the widest of their widths (others as given)."""
+    """String columns at the widest of their widths, array columns at the
+    widest of their element widths (others as given)."""
+    if cols[0].is_array:
+        w = max(c.ewidth for c in cols)
+        return [c.with_ewidth(w) for c in cols]
     if not cols[0].is_string:
         return cols
     w = max(c.width for c in cols)
     return [c.with_width(w) for c in cols]
+
+
+def _buffers(c) -> list:
+    """A column's buffers (``DeviceColumn`` or ``HostColumn``) in the one
+    order ``rebuild_column`` reads."""
+    if c.is_struct:
+        return [c.validity] + [t for k in c.children for t in _buffers(k)]
+    if c.is_string:
+        return [c.validity, c.chars, c.lengths]
+    if c.is_array:
+        return [c.validity, c.data, c.lengths, c.elem_valid]
+    return [c.validity, c.data]
 
 
 def rebuild_column(dtype: T.DataType, it: Iterator, cls=None):
@@ -191,6 +236,9 @@ def rebuild_column(dtype: T.DataType, it: Iterator, cls=None):
         return cls(dtype, validity, children=kids)
     if isinstance(dtype, T.StringType):
         return cls(dtype, validity, chars=next(it), lengths=next(it))
+    if isinstance(dtype, T.ArrayType):
+        return cls(dtype, validity, data=next(it), lengths=next(it),
+                   elem_valid=next(it))
     return cls(dtype, validity, data=next(it))
 
 
@@ -203,8 +251,9 @@ class HostColumn:
     validity: np.ndarray
     data: Optional[np.ndarray] = None
     children: Optional[List["HostColumn"]] = None
-    chars: Optional[np.ndarray] = None     # (n, width) uint8
-    lengths: Optional[np.ndarray] = None   # (n,) int32
+    chars: Optional[np.ndarray] = None       # (n, width) uint8
+    lengths: Optional[np.ndarray] = None     # (n,) int32
+    elem_valid: Optional[np.ndarray] = None  # (n, ewidth) bool (arrays)
 
     @property
     def is_struct(self) -> bool:
@@ -213,6 +262,22 @@ class HostColumn:
     @property
     def is_string(self) -> bool:
         return self.chars is not None
+
+    @property
+    def is_array(self) -> bool:
+        return self.elem_valid is not None
+
+    @property
+    def ewidth(self) -> int:
+        return int(self.data.shape[1]) if self.is_array else 0
+
+    def with_ewidth(self, ewidth: int) -> "HostColumn":
+        if self.ewidth == ewidth:
+            return self
+        return HostColumn(self.dtype, self.validity,
+                          data=_fit_chars(self.data, ewidth),
+                          lengths=self.lengths,
+                          elem_valid=_fit_chars(self.elem_valid, ewidth))
 
     @property
     def width(self) -> int:
@@ -224,12 +289,7 @@ class HostColumn:
 
     def arrays(self) -> List[np.ndarray]:
         """Every buffer in ``DeviceColumn.tensors`` order."""
-        if self.is_struct:
-            return [self.validity] + [a for c in self.children
-                                      for a in c.arrays()]
-        if self.is_string:
-            return [self.validity, self.chars, self.lengths]
-        return [self.validity, self.data]
+        return _buffers(self)
 
     def with_width(self, width: int) -> "HostColumn":
         if self.width == width:
@@ -240,14 +300,16 @@ class HostColumn:
 
     def bucketed(self) -> "HostColumn":
         """The column with every string (struct fields too) at the bucket
-        of its longest value, as it lives on the device."""
+        of its longest value, and every array at the bucket of its longest
+        list, as they live on the device."""
         if self.is_struct:
             return HostColumn(self.dtype, self.validity, children=[
                 c.bucketed() for c in self.children])
-        if not self.is_string:
+        if not (self.is_string or self.is_array):
             return self
         longest = int(self.lengths.max()) if self.num_rows else 0
-        return self.with_width(round_up_bucket(max(longest, 1)))
+        w = round_up_bucket(max(longest, 1))
+        return self.with_ewidth(w) if self.is_array else self.with_width(w)
 
     def slice_rows(self, start: int, end: int) -> "HostColumn":
         return rebuild_column(self.dtype, iter([a[start:end]
@@ -298,6 +360,8 @@ class HostColumn:
         validity = np.array([v is not None for v in values], dtype=np.bool_)
         if isinstance(dtype, T.StringType):
             return HostColumn.strings(values, validity)
+        if isinstance(dtype, T.ArrayType):
+            return HostColumn._lists(values, validity, dtype)
         if isinstance(dtype, T.StructType):
             # rows are dicts (by field name) or sequences (by position);
             # a null row's children are null (Spark reads null.field as
@@ -329,9 +393,44 @@ class HostColumn:
                 data[i] = v
         return HostColumn(dtype, validity, data=data)
 
+    @staticmethod
+    def _lists(values: List, validity: np.ndarray,
+               dtype: T.ArrayType) -> "HostColumn":
+        """An array column of Python lists (a null list ``None``, a null
+        element ``None``) at the width of the longest list."""
+        et = dtype.elementType
+        if isinstance(et, (T.StringType, T.StructType, T.ArrayType,
+                           T.MapType)) or (isinstance(et, T.DecimalType)
+                                           and et.is_128):
+            raise NotImplementedError(
+                f"{dtype.simpleString} columns are not ported (flat "
+                "elements only)")
+        rows = [v if v is not None else [] for v in values]
+        lengths = np.fromiter((len(v) for v in rows), np.int32, len(rows))
+        elems = HostColumn.from_pylist([e for v in rows for e in v], et)
+        width = max(int(lengths.max()) if len(rows) else 0, 1)
+        data = np.zeros((len(rows), width), elems.data.dtype)
+        ev = np.zeros((len(rows), width), np.bool_)
+        take = np.arange(width)[None, :] < lengths[:, None]
+        data[take] = elems.data
+        ev[take] = elems.validity
+        return HostColumn(dtype, validity, data=data, lengths=lengths,
+                          elem_valid=ev)
+
     def to_pylist(self) -> List:
         from spark_rapids_tpu_torch.expr.decimal128 import to_py
 
+        if self.is_array:
+            et = self.dtype.elementType
+            out = []
+            for i in range(self.num_rows):
+                if not self.validity[i]:
+                    out.append(None)
+                    continue
+                ln = int(self.lengths[i])
+                out.append(HostColumn(et, self.elem_valid[i, :ln],
+                                      data=self.data[i, :ln]).to_pylist())
+            return out
         if self.is_struct:
             kids = [c.to_pylist() for c in self.children]
             return [tuple(k[i] for k in kids) if self.validity[i] else None

@@ -35,7 +35,9 @@ expressions, those the port
 runs on the card (references, literals, ``Alias``, comparisons, boolean
 logic, ``IsNull``/``IsNotNull``, ``In``, ``If``/``CaseWhen``,
 ``Add``/``Subtract``/``Multiply``, integral and decimal ``Cast``,
-``Coalesce``/``Nvl``) and the struct expressions.  A string column passes
+``Coalesce``/``Nvl``), the struct expressions and the hash expressions
+(their device code; murmur3 and xxhash64 of a decimal above 18 digits
+are not ported).  An array column cannot reach a stage.  A string column passes
 through references, ``Alias``, ``If``/``CaseWhen`` and ``Coalesce``/
 ``Nvl`` and is read by comparisons (bytes, then length, as on the card),
 ``In`` and ``IsNull``/``IsNotNull``.  ``check_cpu_plan`` raises
@@ -56,6 +58,7 @@ from spark_rapids_tpu_torch.expr import arithmetic as A
 from spark_rapids_tpu_torch.expr import complextypes as CT
 from spark_rapids_tpu_torch.expr import conditional as CO
 from spark_rapids_tpu_torch.expr import datetime as DT
+from spark_rapids_tpu_torch.expr import hashexprs as H
 from spark_rapids_tpu_torch.expr import mathfuncs as M
 from spark_rapids_tpu_torch.expr import predicates as P
 from spark_rapids_tpu_torch.expr import strings as S
@@ -1015,7 +1018,8 @@ _HANDLERS.update({cls: _h_torch for cls in (
     M.Atan, M.Signum, M.Sinh, M.Cosh, M.Tanh, M.Asinh, M.Acosh, M.Atanh,
     M.Cbrt, M.Log2, M.Log1p, M.Expm1, M.Rint, M.Cot, M.Csc, M.Sec,
     M.ToDegrees, M.ToRadians, M.Pow, M.Atan2, M.Hypot,
-    M.Logarithm, M.WidthBucket, M.Factorial, M.BitwiseCount)})
+    M.Logarithm, M.WidthBucket, M.Factorial, M.BitwiseCount,
+    H.Murmur3Hash, H.XxHash64, H.HiveHash, H.BloomFilterMightContain)})
 
 
 # -- plans ------------------------------------------------------------------
@@ -1039,6 +1043,11 @@ def _check_expr(e: Expression, why: str) -> None:
     if isinstance(e, (S.Like, S.RLike)) and not isinstance(e.right, Literal):
         raise NotOnGpu(f"{type(e).__name__} with a pattern that is not a "
                        f"literal in a CPU stage ({why})")
+    if isinstance(e, (H.Murmur3Hash, H.XxHash64)) and any(
+            isinstance(c.dataType, T.DecimalType) and c.dataType.is_128
+            for c in e.children):
+        raise NotOnGpu(f"{type(e).__name__} of a decimal above 18 digits "
+                       f"in a CPU stage ({why})")
     if isinstance(e.dataType, (T.BinaryType, T.TimestampType, T.ArrayType,
                                T.MapType)) or (
             isinstance(e.dataType, T.StringType)
@@ -1062,6 +1071,12 @@ def check_cpu_plan(node: PN.SparkPlan, why: str) -> None:
     if type(node) not in CPU_PLAN_NODES:
         raise NotOnGpu(f"{node.node_name} in a CPU stage ({why}), which "
                        "the port's CPU engine does not run")
+    for f in node.output.fields:
+        if isinstance(f.dataType, (T.ArrayType, T.MapType)):
+            raise NotOnGpu(f"column {f.name} of type "
+                           f"{f.dataType.simpleString} in a CPU stage "
+                           f"({why}), which the port's CPU engine does not "
+                           "hold")
     cond = getattr(node, "condition", None)
     for e in list(getattr(node, "exprs", [])) + (
             [cond] if cond is not None else []):

@@ -1,10 +1,13 @@
 """Hash aggregation — port of ``TpuHashAggregateExec``
 (``spark_rapids_tpu/exec/aggregate.py``) for ``sum``, ``count``, ``min``,
-``max``, ``avg``, the variance family (``var_pop``, ``var_samp``,
-``stddev_pop``, ``stddev_samp``), the higher moments, the covariance and
-regression families, ``count_if``, ``bool_and``/``bool_or``,
-``bit_and``/``bit_or``/``bit_xor`` and ``first``/``last``/``any_value``,
-with and without grouping keys.
+``max`` (strings too), ``avg``, the variance family (``var_pop``,
+``var_samp``, ``stddev_pop``, ``stddev_samp``), the higher moments, the
+covariance and regression families, ``count_if``,
+``bool_and``/``bool_or``, ``bit_and``/``bit_or``/``bit_xor``,
+``first``/``last``/``any_value``, ``approx_count_distinct`` and the
+single-phase ``collect_list``, ``collect_set``, ``percentile``,
+``median``, ``approx_percentile`` and ``bloom_filter_agg``, with and
+without grouping keys.
 
 Group-by is sort-based, as in the reference: the key columns become key
 words (``ops/sortkeys.py``), one stable lexicographic sort orders the rows,
@@ -42,8 +45,25 @@ null).  ``skewness`` and ``kurtosis`` extend the variance buffer with m3
 (and m4), merged by the reference's closed forms (Pébay's, as segmented
 sums); ``covar_pop``, ``covar_samp``, ``corr`` and the nine ``regr_*``
 keep (n, xavg, yavg, ck[, xm2, ym2]) over the rows where both inputs are
-valid, merged Chan-style.  HLL, percentile and collect are not ported:
-building one raises ``NotOnGpu``.
+valid, merged Chan-style.  ``approx_count_distinct`` keeps 2^9
+HyperLogLog registers per group (xxhash64, seed 42) as an array<int>
+buffer, merged by max, estimated without Spark's bias tables, as the
+reference does.  A string ``min``/``max`` sorts each segment by the
+value's key words and takes its first row.
+
+An aggregate with a single-phase function (``SINGLE_PHASE_FUNCS``; the
+session plans it over an exchange that co-locates each key's rows) runs
+the reference's ``_execute_collect``: every input batch concatenated, one
+pass, no merge, ``approx_count_distinct`` among them included.  A
+collect's lists are as wide as the bucket (``round_up_bucket``) of the
+largest group's rows, one host sync; ``collect_list`` keeps arrival
+order (the key sort is stable), ``collect_set`` ascends by key word and
+drops duplicates, both skip nulls.  ``percentile``/``median`` sort each
+group by the float total order and interpolate ``(v_lo (1 - frac) +
+v_hi frac) scale`` in that order, ``approx_percentile`` takes the value
+at ``floor(p (n - 1))``.  ``bloom_filter_agg`` sets each value's bits
+(``expr/hashexprs.py``) and packs them into int64 words by ORs.  An
+empty global input gives the reference's ``_collect_empty_global`` row.
 """
 from __future__ import annotations
 
@@ -55,18 +75,25 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar.batch import (ColumnarBatch,
                                                    empty_batch, empty_column)
 from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
-                                                    column_torch_dtype)
+                                                    column_torch_dtype,
+                                                    round_up_bucket)
 from spark_rapids_tpu_torch.exec.base import TpuExec
 from spark_rapids_tpu_torch.expr.base import EvalContext, Expression
+from spark_rapids_tpu_torch.expr.hashexprs import bloom_bit_indices
 from spark_rapids_tpu_torch.memory.retry import with_retry
 from spark_rapids_tpu_torch.memory.spill import get_spill_framework
 from spark_rapids_tpu_torch.ops import segment as SEG
-from spark_rapids_tpu_torch.ops.sortkeys import (_column_key_words,
+from spark_rapids_tpu_torch.ops.hashing import _lsr, xxhash64_column
+from spark_rapids_tpu_torch.ops.sortkeys import (_CANONICAL_NAN,
+                                                 _column_key_words,
+                                                 _float_total_order,
                                                  group_segments, lexsort)
 from spark_rapids_tpu_torch.perfcounters import sync_get
 from spark_rapids_tpu_torch.plan.nodes import (COVARIANCE_FUNCS,
                                                HIGHER_MOMENT_FUNCS,
+                                               HLL_DEFAULT_P,
                                                MOMENT_BUFFERS, REGR_FUNCS,
+                                               SINGLE_PHASE_FUNCS,
                                                VARIANCE_FUNCS,
                                                AggregateExpression,
                                                AggregateMode)
@@ -90,10 +117,21 @@ class _Groups:
         self.num_groups = num_groups
         self.mask_sorted = mask_sorted
         self.first = first
+        self._max_rows = None
 
     @property
     def nseg(self) -> int:
         return self.num_groups + (1 if self.perm is not None else 0)
+
+    def max_rows(self) -> int:
+        """The most rows in one group (one host sync, made once): the
+        bound of a collect's element width."""
+        if self._max_rows is None:
+            cnt = SEG.seg_count(self.mask_sorted, self.seg, self.nseg)
+            (mx,) = sync_get(cnt[:self.num_groups].max()
+                             if self.num_groups else cnt.sum())
+            self._max_rows = int(mx)
+        return self._max_rows
 
 
 def _group(key_cols: List[DeviceColumn], mask: torch.Tensor) -> _Groups:
@@ -156,7 +194,11 @@ class TpuHashAggregateExec(TpuExec):
     def execute_columnar(self) -> Iterator[ColumnarBatch]:
         """A buffer per input batch, reduced before the next batch is read
         under ``with_retry`` over a tracked handle (a split input gives a
-        buffer per half); several buffers merge in one pass."""
+        buffer per half); several buffers merge in one pass.  With a
+        single-phase function, all input in one pass instead."""
+        if any(a.func in SINGLE_PHASE_FUNCS for a in self.aggregates):
+            yield self._single_phase()
+            return
         fw = get_spill_framework()
         bufs = []
         for b in self.children[0].execute_columnar():
@@ -169,14 +211,54 @@ class TpuHashAggregateExec(TpuExec):
                                self._merge_batch(ColumnarBatch.concat(bufs)))
         yield out
 
+    def _single_phase(self) -> ColumnarBatch:
+        """Every input batch (the exchange below has co-located each key's
+        rows) concatenated and aggregated in one pass, as the reference's
+        ``_execute_collect``: a group's list, percentile or filter needs
+        all its rows, and no buffer of theirs is merged.  An empty grouped
+        input has no rows; an empty global one the reference's
+        ``_collect_empty_global`` row."""
+        batches = list(self.children[0].execute_columnar())
+        if not batches:
+            return (empty_batch(self._output, self._device())
+                    if self.grouping else self._single_phase_empty())
+        batch = (batches[0] if len(batches) == 1
+                 else ColumnarBatch.concat(batches))
+        return self._finish(self._aggregate_batch(batch))
+
+    def _single_phase_empty(self) -> ColumnarBatch:
+        """The reference's global row over no input: an empty list for a
+        collect, an all-zero filter for ``bloom_filter_agg``, 0 for
+        ``count``, null for every other function."""
+        dev = self._device()
+        one = torch.ones(1, dtype=torch.bool, device=dev)
+        cols = []
+        for a, f in zip(self.aggregates, self._output.fields):
+            if a.func in ("collect_list", "collect_set"):
+                c = _null_column(f.dataType, 1, dev)
+                cols.append(_with_validity(c, one))
+            elif a.func == "bloom_filter_agg":
+                words = int(a.args[1]) // 64
+                cols.append(_array_col(f.dataType, torch.zeros(
+                    (1, words), dtype=torch.int64, device=dev)))
+            elif a.func in ("count", "count_star"):
+                cols.append(_count_col(torch.zeros(1, dtype=torch.int64,
+                                                   device=dev)))
+            else:
+                cols.append(_null_column(f.dataType, 1, dev))
+        return ColumnarBatch(cols, 1, self._output)
+
     # -- buffers ----------------------------------------------------------
     def _buf_fields(self, a: AggregateExpression, f: T.StructField
                     ) -> List[T.StructField]:
         """One aggregate's buffer columns (the reference's
         ``partial_buffer_schema``, plus the port's flags): a sum above 18
         digits and an ``avg`` over such a sum carry an overflow flag,
-        ``first``/``last``/``any_value`` a seen flag."""
+        ``first``/``last``/``any_value`` a seen flag; an
+        ``approx_count_distinct`` keeps its registers as an array<int>."""
         name = f.name
+        if a.func == "approx_count_distinct":
+            return [T.StructField(f"{name}_hll", _HLL_TYPE, False)]
         flag = T.StructField(f"{name}_overflow", T.BOOLEAN, False)
         if a.func == "sum":
             return [f] + ([flag] if _sum_flagged(a, f.dataType) else [])
@@ -302,6 +384,9 @@ class TpuHashAggregateExec(TpuExec):
 
 _PICK_FUNCS = ("first", "last", "any_value")
 
+#: an ``approx_count_distinct`` buffer: its registers, one row per group
+_HLL_TYPE = T.ArrayType(T.INT, containsNull=False)
+
 _BIT_OPS = {"bit_and": (torch.bitwise_and, -1),
             "bit_or": (torch.bitwise_or, 0),
             "bit_xor": (torch.bitwise_xor, 0)}
@@ -340,7 +425,20 @@ def _null_column(dt: T.DataType, n: int, device) -> DeviceColumn:
 
 def _with_validity(c: DeviceColumn, validity) -> DeviceColumn:
     return DeviceColumn(c.dtype, validity, data=c.data, chars=c.chars,
-                        lengths=c.lengths, children=c.children)
+                        lengths=c.lengths, children=c.children,
+                        elem_valid=c.elem_valid)
+
+
+def _array_col(dt: T.DataType, data: torch.Tensor) -> DeviceColumn:
+    """Valid rows of full lists: every row of ``data`` (rows, width)."""
+    n, w = data.shape
+    dev = data.device
+    return DeviceColumn(dt, torch.ones(n, dtype=torch.bool, device=dev),
+                        data=data,
+                        lengths=torch.full((n,), w, dtype=torch.int32,
+                                           device=dev),
+                        elem_valid=torch.ones((n, w), dtype=torch.bool,
+                                              device=dev))
 
 
 def _flag_col(fl: torch.Tensor) -> DeviceColumn:
@@ -380,6 +478,8 @@ def _pick(c: DeviceColumn, idx, seen, nseg: int) -> DeviceColumn:
 
 
 def _minmax_cols(c, func, validity, g, dt) -> List[DeviceColumn]:
+    if c.is_string:
+        return [_minmax_string(c, func, validity, g)]
     if c.is_dec128:
         return [_minmax_dec128(c, func, g.seg, validity, g.nseg, dt)]
     fn = SEG.seg_min if func == "min" else SEG.seg_max
@@ -476,6 +576,14 @@ def _update_agg(a: AggregateExpression, dt: T.DataType, bfs,
         higher = [SEG.seg_sum(d ** k, validity, g.seg, g.nseg)[0]
                   for k in ((3, 4) if func == "kurtosis" else (3,))]
         return _moment_cols(n, mean, m2, *higher)
+    if func == "approx_count_distinct":
+        return [_hll_registers(c, validity, g)]
+    if func in ("percentile", "median", "approx_percentile"):
+        return [_percentile(a, dt, c, validity, g)]
+    if func == "bloom_filter_agg":
+        return [_bloom_filter(a, dt, c, validity, g)]
+    if func in ("collect_list", "collect_set"):
+        return [_collect(func, dt, c, validity, g)]
     raise NotImplementedError(f"aggregate {func} is not ported yet")
 
 
@@ -516,6 +624,14 @@ def _merge_agg(a: AggregateExpression, dt: T.DataType, bfs,
         return _moment_cols(*_merge_moment_bufs(cols, g))
     if func in COVARIANCE_FUNCS or func in REGR_FUNCS:
         return _moment_cols(*_merge_cov_bufs(cols, g))
+    if func == "approx_count_distinct":
+        (c,) = cols
+        m = c.ewidth
+        seg = torch.where(c.validity & g.mask_sorted, g.seg, g.nseg)
+        regs = torch.zeros((g.nseg + 1, m), dtype=torch.int32,
+                           device=c.device)
+        regs.scatter_reduce_(0, seg[:, None].expand(-1, m), c.data, "amax")
+        return [_array_col(_HLL_TYPE, regs[:g.nseg])]
     return _update_agg(a, dt, bfs, cols, g)
 
 
@@ -543,6 +659,8 @@ def _final(a: AggregateExpression, dt: T.DataType, bfs,
         return _moment_final(func, *(c.data for c in cols))
     if func in COVARIANCE_FUNCS or func in REGR_FUNCS:
         return _cov_final(func, *(c.data for c in cols))
+    if func == "approx_count_distinct":
+        return _count_col(_hll_estimate(cols[0].data))
     return cols[0]
 
 
@@ -726,3 +844,166 @@ def _minmax_dec128(c: DeviceColumn, func: str, seg, validity, nseg: int,
     if func == "max":
         mh, ml = ~mh, ~ml
     return DeviceColumn(dt, has, data=D.pack(mh, ml ^ D._SIGN64))
+
+
+def _minmax_string(c: DeviceColumn, func: str, validity, g: _Groups
+                   ) -> DeviceColumn:
+    """min/max of strings (the reference's ``_minmax_string``): the rows
+    sorted by (segment, null last, the value's key words, complemented for
+    max); each segment's first row.  The words carry the length (ops/
+    sortkeys.py), so "a" sorts below "a\\x00" as in Spark."""
+    if c.capacity == 0:
+        return _null_column(c.dtype, g.nseg, c.device)
+    words = _column_key_words(c)
+    order = lexsort([g.seg, (~validity).to(torch.int64)]
+                    + [w if func == "min" else ~w for w in words])
+    first = SEG.seg_first_index(g.seg[order],
+                                torch.ones_like(validity), g.nseg)
+    out = c.gather(order[first.clamp(0, c.capacity - 1)])
+    has = SEG.seg_count(validity, g.seg, g.nseg) > 0
+    return _with_validity(out, out.validity & has)
+
+
+def _clz64(x: torch.Tensor) -> torch.Tensor:
+    """Leading zero bits of each int64 word read as unsigned (64 for 0):
+    a binary search by shifts, exact for every word."""
+    n = torch.zeros_like(x)
+    for s in (32, 16, 8, 4, 2, 1):
+        top_zero = _lsr(x, 64 - s) == 0
+        n = n + torch.where(top_zero, s, 0)
+        x = torch.where(top_zero, x << s, x)
+    return n + (x == 0).to(torch.int64)
+
+
+def _hll_registers(c: DeviceColumn, validity, g: _Groups) -> DeviceColumn:
+    """approx_count_distinct's registers (the reference's ``_eval_hll``):
+    each valid value's xxhash64 (seed 42) picks register ``h >>> (64 -
+    p)`` and offers the rank ``min(clz(h << p) + 1, 65 - p)``; each
+    register keeps its largest rank (a scatter-max), 2^p per group."""
+    p, m = HLL_DEFAULT_P, 1 << HLL_DEFAULT_P
+    h = xxhash64_column(c, torch.full((c.capacity,), 42, dtype=torch.int64,
+                                      device=c.device))
+    rank = (_clz64(h << p) + 1).clamp(max=65 - p).to(torch.int32)
+    slot = torch.where(validity, g.seg, g.nseg) * m + _lsr(h, 64 - p)
+    regs = torch.zeros((g.nseg + 1) * m, dtype=torch.int32, device=c.device)
+    regs.scatter_reduce_(0, slot, rank, "amax")
+    return _array_col(_HLL_TYPE, regs.view(g.nseg + 1, m)[:g.nseg])
+
+
+def _hll_estimate(regs: torch.Tensor) -> torch.Tensor:
+    """The reference's HyperLogLog estimate of each row of registers
+    (without Spark's bias tables): linear counting ``m ln(m / zeros)``
+    while the raw estimate is at most 2.5 m and a register is still 0,
+    else the raw ``alpha m^2 / sum(2^-register)``; rounded half to even.
+    Every division is tensor by tensor (a scalar over a tensor multiplies
+    by the reciprocal), and 2^-r is exact (``ldexp``)."""
+    m = regs.shape[1]
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    one = torch.ones_like(regs, dtype=torch.float64)
+    inv = torch.ldexp(one, -regs.to(torch.int64)).sum(dim=1)
+    raw = torch.full_like(inv, alpha * m * m) / inv
+    zeros = (regs == 0).sum(dim=1).to(torch.float64)
+    lin = m * torch.log(torch.full_like(zeros, float(m))
+                        / zeros.clamp(min=1.0))
+    est = torch.where((raw <= 2.5 * m) & (zeros > 0), lin, raw)
+    return torch.round(est).to(torch.int64)
+
+
+def _percentile(a: AggregateExpression, dt: T.DataType, c: DeviceColumn,
+                validity, g: _Groups) -> DeviceColumn:
+    """percentile and median (interpolated) and approx_percentile (the
+    value at floor(p (n - 1)), exact while a group is one batch, as the
+    reference's): the rows sorted stably by (segment, null last, the
+    value's key: the float total order with NaN canonical and last, -0.0
+    below 0.0), then each group's two ranks read from its run;
+    ``(v_lo (1 - frac) + v_hi frac) scale`` in that order of operations,
+    the reference's ``_eval_percentile``."""
+    pct = 0.5 if a.func == "median" else float(a.args[0])
+    n = c.capacity
+    if n == 0:
+        return _null_column(dt, g.nseg, c.device)
+    if _is_float(c.dtype):
+        f = c.data.to(torch.float64)
+        bits = torch.where(torch.isnan(f), _CANONICAL_NAN,
+                           f.view(torch.int64))
+        vkey = _float_total_order(bits)
+    else:
+        vkey = c.data.to(torch.int64)
+    order = lexsort([torch.where(g.mask_sorted, g.seg, g.nseg),
+                     (~validity).to(torch.int64), vkey])
+    sdata = c.data[order]
+    rows = SEG.seg_count(g.mask_sorted, g.seg, g.nseg)
+    starts = torch.cumsum(rows, 0) - rows
+    nv = SEG.seg_count(validity, g.seg, g.nseg)
+    r = pct * (nv.clamp(min=1) - 1).to(torch.float64)
+    lo = torch.floor(r).to(torch.int64)
+    v_lo = sdata[(starts + lo).clamp(0, n - 1)]
+    if a.func == "approx_percentile":
+        return DeviceColumn(dt, nv > 0, data=v_lo)
+    frac = r - lo.to(torch.float64)
+    v_hi = sdata[(starts + torch.ceil(r).to(torch.int64)).clamp(0, n - 1)]
+    scale = (10.0 ** -c.dtype.scale if isinstance(c.dtype, T.DecimalType)
+             else 1.0)
+    res = (v_lo.to(torch.float64) * (1.0 - frac)
+           + v_hi.to(torch.float64) * frac) * scale
+    return DeviceColumn(T.DOUBLE, nv > 0, data=res)
+
+
+def _bloom_filter(a: AggregateExpression, dt: T.DataType, c: DeviceColumn,
+                  validity, g: _Groups) -> DeviceColumn:
+    """bloom_filter_agg (the reference's ``_eval_bloom``): each valid
+    value sets its ``k`` bits (``expr/hashexprs.py``) in its group's
+    ``num_bits``; the bits pack into ``num_bits / 64`` int64 words, bit
+    ``b`` at bit ``b % 64`` of word ``b // 64``, by bitwise ORs."""
+    num_items, num_bits = int(a.args[0]), int(a.args[1])
+    base = torch.where(validity, g.seg, g.nseg) * num_bits
+    bits = torch.zeros((g.nseg + 1) * num_bits, dtype=torch.bool,
+                       device=c.device)
+    for bit in bloom_bit_indices(c, num_items, num_bits):
+        bits[base + bit] = True
+    x = bits.view(g.nseg + 1, num_bits // 64, 64)[:g.nseg].to(torch.int64) \
+        << torch.arange(64, dtype=torch.int64, device=c.device)
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] | x[..., half:]
+    return _array_col(dt, x[..., 0])
+
+
+def _collect(func: str, dt: T.DataType, c: DeviceColumn, validity,
+             g: _Groups) -> DeviceColumn:
+    """collect_list and collect_set (the reference's ``_eval_collect``):
+    each group's valid values in a list as wide as the largest group's
+    row bucket (``round_up_bucket``); a list in arrival order (the stable
+    key sort keeps it), a set ascending by the value's key words with
+    duplicates dropped.  Nulls are skipped."""
+    ew = round_up_bucket(max(g.max_rows(), 1))
+    seg = g.seg
+    n = c.capacity
+    if func == "collect_set" and n:
+        words = [torch.where(validity, w, 0) for w in _column_key_words(c)]
+        order = lexsort([seg, (~validity).to(torch.int64)] + words)
+        seg, validity, c = seg[order], validity[order], c.gather(order)
+        dup = torch.zeros_like(validity)
+        dup[1:] = seg[1:] == seg[:-1]
+        for w in words:
+            w = w[order]
+            dup[1:] &= w[1:] == w[:-1]
+        validity = validity & ~dup
+    csum = torch.cumsum(validity.to(torch.int64), 0)
+    rank = csum
+    if n:
+        # the valid rows before each row's segment
+        first = SEG.seg_first_index(seg, torch.ones_like(validity), g.nseg)
+        before = (csum - validity.to(torch.int64))[first.clamp(0, n - 1)]
+        rank = csum - 1 - before[seg]
+    slot = torch.where(validity, seg * ew + rank, g.nseg * ew)
+    edt = column_torch_dtype(dt.elementType)
+    data = torch.zeros(g.nseg * ew + 1, dtype=edt, device=c.device)
+    ev = torch.zeros(g.nseg * ew + 1, dtype=torch.bool, device=c.device)
+    data[slot] = c.data.to(edt)
+    ev[slot] = True
+    lengths = SEG.seg_count(validity, seg, g.nseg).to(torch.int32)
+    return DeviceColumn(dt, torch.ones(g.nseg, dtype=torch.bool,
+                                       device=c.device),
+                        data=data[:-1].view(g.nseg, ew), lengths=lengths,
+                        elem_valid=ev[:-1].view(g.nseg, ew))

@@ -631,8 +631,16 @@ MAX_PRODUCT_ROWS = 1 << 20
 def cross_pairs(lb: ColumnarBatch, rb: ColumnarBatch, schema: T.StructType
                 ) -> ColumnarBatch:
     """Every (left row, right row) pair, left-major: pair ``j`` is left
-    row ``j // n_right`` and right row ``j % n_right``."""
+    row ``j // n_right`` and right row ``j % n_right``.  A right side of
+    one row pairs with the left batch as it is, its row a stride-0
+    ``expand`` over the left rows: nothing is copied (a bloom filter's
+    words would be copied into every probe row)."""
     nr = rb.num_rows
+    if nr == 1:
+        n = lb.num_rows
+        return ColumnarBatch(list(lb.columns) + [
+            c.map_rows(lambda t: t[:1].expand(n, *t.shape[1:]))
+            for c in rb.columns], n, schema)
     total = lb.num_rows * nr
     j = torch.arange(total, dtype=torch.int64, device=lb.device)
     return ColumnarBatch(gather_columns(j // max(nr, 1), lb.columns)
@@ -642,7 +650,11 @@ def cross_pairs(lb: ColumnarBatch, rb: ColumnarBatch, schema: T.StructType
 
 def left_chunks(lb: ColumnarBatch, n_right: int, max_pairs: int):
     """``lb`` in slices (views) of at most ``max_pairs // n_right`` rows,
-    so that no step expands more than ``max_pairs`` pairs."""
+    so that no step expands more than ``max_pairs`` pairs; whole against
+    a right side of one row, which expands nothing."""
+    if n_right == 1:
+        yield lb
+        return
     step = max(1, max_pairs // max(n_right, 1))
     for start in range(0, lb.num_rows, step):
         yield lb.slice_rows(start, min(step, lb.num_rows - start))
@@ -661,7 +673,8 @@ class TpuCartesianProductExec(TpuExec):
     """The cross join (the reference's ``TpuCartesianProductExec``,
     GpuCartesianProductExec): the right side whole, then each left batch
     expanded by index arithmetic in steps of at most ``MAX_PRODUCT_ROWS``
-    pairs, then the condition, if any."""
+    pairs (a right side of one row as a view, ``cross_pairs``), then the
+    condition, if any."""
 
     MAX_PRODUCT = MAX_PRODUCT_ROWS
 

@@ -47,15 +47,18 @@ STATE_DISK = "DISK"
 
 def buffer_names(dt: T.DataType, prefix: str = "") -> List[str]:
     """Names of a column's buffers in ``DeviceColumn.tensors`` order:
-    ``validity`` and ``data`` (a string's ``chars`` and ``lengths``), and
-    for a struct the validity and then each child's buffers under
-    ``<field index>.``."""
+    ``validity`` and ``data`` (a string's ``chars`` and ``lengths``, an
+    array's ``data``, ``lengths`` and ``elem_valid``), and for a struct
+    the validity and then each child's buffers under ``<field index>.``."""
     if isinstance(dt, T.StructType):
         return [prefix + "validity"] + [
             n for j, f in enumerate(dt.fields)
             for n in buffer_names(f.dataType, f"{prefix}{j}.")]
     if isinstance(dt, T.StringType):
         return [prefix + "validity", prefix + "chars", prefix + "lengths"]
+    if isinstance(dt, T.ArrayType):
+        return [prefix + n for n in ("validity", "data", "lengths",
+                                     "elem_valid")]
     return [prefix + "validity", prefix + "data"]
 
 

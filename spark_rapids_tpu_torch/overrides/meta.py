@@ -18,8 +18,10 @@ decimal128 hash key, a ``LIKE``, ``ILIKE`` or
 (the tag-time DFA is stashed on the expression), a disabled file format, an
 aggregate's input type, ``avg`` or a variance over a decimal above 18
 digits, a residual condition on a join that is not inner, a join without
-keys that is not a cross join, a right or full outer nested-loop join) and
-an open circuit-breaker entry for the node's key
+keys that is not a cross join, a right or full outer nested-loop join,
+a collect of strings, decimal128 or nested elements, a Hive hash of a
+decimal, a timestamp or a nested column) and an open circuit-breaker
+entry for the node's key
 (``resilience/breaker.py::consult_plan``).  A node with a reason stays on the host as a CPU stage (``cpu/oracle.py``);
 ``explain`` prints the reasons in the reference's words.  What the
 reference runs on the device but the port has not ported yet is not a
@@ -38,6 +40,7 @@ from spark_rapids_tpu_torch.expr import arithmetic as A
 from spark_rapids_tpu_torch.expr import complextypes as CT
 from spark_rapids_tpu_torch.expr import conditional as CO
 from spark_rapids_tpu_torch.expr import datetime as DT
+from spark_rapids_tpu_torch.expr import hashexprs as H
 from spark_rapids_tpu_torch.expr import mathfuncs as M
 from spark_rapids_tpu_torch.expr import predicates as P
 from spark_rapids_tpu_torch.expr import strings as S
@@ -76,7 +79,8 @@ PORTED_EXPRS = frozenset({
     M.Cbrt, M.Log2, M.Log1p, M.Expm1, M.Rint, M.Cot, M.Csc, M.Sec,
     M.ToDegrees, M.ToRadians, M.Pow, M.Floor, M.Ceil, M.Round, M.BRound,
     M.Atan2, M.Hypot, M.Logarithm, M.WidthBucket, M.Factorial,
-    M.BitwiseCount})
+    M.BitwiseCount,
+    H.Murmur3Hash, H.XxHash64, H.HiveHash, H.BloomFilterMightContain})
 
 class BaseMeta:
     def __init__(self, conf: TpuConf):
@@ -445,6 +449,16 @@ def _check_ilike(meta: ExprMeta):
         e._dfa = compiled
 
 
+def _check_hive_hash(meta: ExprMeta):
+    for c in meta.expr.children:
+        if isinstance(c.dataType, (T.DecimalType, T.TimestampType,
+                                   T.ArrayType, T.MapType, T.StructType)):
+            meta.will_not_work_on_tpu(
+                f"hive_hash of {c.dataType.simpleString} is not supported "
+                f"on TPU")
+            break
+
+
 def _check_literal_children(*ordinals, names="argument"):
     def check(meta: ExprMeta):
         for o in ordinals:
@@ -543,6 +557,10 @@ EXPRESSIONS: Dict[Type, ExprRule] = {
     DT.TruncDate: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
                            _check_literal_children(
                                1, names="trunc format")),
+    H.Murmur3Hash: ExprRule(_COMMON128),
+    H.XxHash64: ExprRule(_COMMON128),
+    H.HiveHash: ExprRule(_COMMON, _check_hive_hash),
+    H.BloomFilterMightContain: ExprRule(_COMMON128 + _ARRAY_SIG),
 }
 EXPRESSIONS.update({cls: ExprRule(_NUM) for cls in (
     M.Sqrt, M.Exp, M.Log, M.Log10, M.Sin, M.Cos, M.Tan, M.Asin, M.Acos,
@@ -578,29 +596,87 @@ _NUMERIC_AGG_INPUT = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
                       T.FloatType, T.DoubleType, T.DecimalType)
 
 
-def _agg_check(meta: SparkPlanMeta):
-    """The reference's ``_agg_check`` and ``_agg_extra_checks``, narrowed
-    to the functions the port runs: input types the functions need (numeric
-    inputs, both numeric for the covariance and regression families), and
-    ``avg`` and the variance family over decimals above 18 digits (their
-    128-bit division is not on the reference's device)."""
-    for a in meta.plan.aggregates:
-        ct = a.child._dataType if a.child is not None else None
-        if a.func in ("count_if", "bool_and", "bool_or") \
-                and not isinstance(ct, T.BooleanType):
-            meta.will_not_work_on_tpu(f"{a.func} requires a boolean input")
-        if a.func in PN.BIT_AGG_FUNCS \
-                and not (ct is not None and ct.is_integral):
+#: the aggregate functions the reference's device runs
+AGG_FUNCS_SUPPORTED = frozenset(
+    {"sum", "count", "count_star", "min", "max", "avg", "first", "last",
+     "count_if", "bool_and", "bool_or", "any_value", "collect_list",
+     "collect_set", "percentile", "approx_percentile", "median",
+     "approx_count_distinct", "bloom_filter_agg"}
+    | PN.VARIANCE_FUNCS | PN.HIGHER_MOMENT_FUNCS | PN.COVARIANCE_FUNCS
+    | PN.REGR_FUNCS | PN.BIT_AGG_FUNCS)
+
+
+def _agg_extra_checks(meta: SparkPlanMeta, a) -> None:
+    """The reference's per-function input gates, in its words."""
+    ct = a.child._dataType if a.child is not None else None
+    if a.func in ("count_if", "bool_and", "bool_or") \
+            and not isinstance(ct, T.BooleanType):
+        meta.will_not_work_on_tpu(f"{a.func} requires a boolean input")
+    if a.func in ("skewness", "kurtosis", "percentile", "approx_percentile",
+                  "median") and not isinstance(ct, _NUMERIC_AGG_INPUT):
+        meta.will_not_work_on_tpu(f"{a.func} requires a numeric input")
+    if a.func in PN.COVARIANCE_FUNCS or a.func in PN.REGR_FUNCS:
+        c2 = a.child2._dataType if a.child2 is not None else None
+        if not all(isinstance(t, _NUMERIC_AGG_INPUT) for t in (ct, c2)):
+            meta.will_not_work_on_tpu(f"{a.func} requires numeric inputs")
+    if a.func in PN.BIT_AGG_FUNCS and not (ct is not None
+                                           and ct.is_integral):
+        meta.will_not_work_on_tpu(f"{a.func} requires an integral input")
+    if a.func == "median" and _is_dec128(ct):
+        meta.will_not_work_on_tpu(
+            "median over decimal128 is not supported on TPU")
+    if a.func in ("percentile", "approx_percentile"):
+        if not a.args or not 0.0 <= float(a.args[0]) <= 1.0:
             meta.will_not_work_on_tpu(
-                f"{a.func} requires an integral input")
-        if a.func in PN.HIGHER_MOMENT_FUNCS \
-                and not isinstance(ct, _NUMERIC_AGG_INPUT):
-            meta.will_not_work_on_tpu(f"{a.func} requires a numeric input")
-        if a.func in PN.COVARIANCE_FUNCS or a.func in PN.REGR_FUNCS:
-            c2 = a.child2._dataType if a.child2 is not None else None
-            if not all(isinstance(t, _NUMERIC_AGG_INPUT) for t in (ct, c2)):
-                meta.will_not_work_on_tpu(
-                    f"{a.func} requires numeric inputs")
+                f"{a.func}: percentage must be a literal in [0, 1]")
+        if _is_dec128(ct):
+            meta.will_not_work_on_tpu(
+                f"{a.func} over decimal128 is not supported on TPU")
+    if a.func in ("approx_count_distinct", "bloom_filter_agg"):
+        if isinstance(ct, T.DecimalType) and ct.precision > 18:
+            meta.will_not_work_on_tpu(
+                f"{a.func}: decimal128 inputs are not supported (xxhash64 "
+                "big-integer path missing)")
+        if isinstance(ct, (T.ArrayType, T.MapType, T.StructType)):
+            meta.will_not_work_on_tpu(
+                f"{a.func} over nested inputs is not supported on TPU")
+    if a.func == "bloom_filter_agg" and (
+            len(a.args) != 2 or int(a.args[1]) % 64 != 0
+            or not 64 <= int(a.args[1]) <= 1 << 22):
+        meta.will_not_work_on_tpu(
+            "bloom_filter_agg: num_bits must be a multiple of 64 in "
+            "[64, 4194304]")
+
+
+def _agg_check(meta: SparkPlanMeta):
+    """The reference's ``_agg_check`` and ``_agg_extra_checks``: no array
+    grouping key and no array input but to a collect, its functions and
+    their input types, collect of flat elements only (a string, nested or
+    decimal128 element is a CPU stage there), and ``avg`` and the
+    variance family over decimals above 18 digits (their 128-bit division
+    is not on the reference's device)."""
+    plan = meta.plan
+    for g in plan.grouping:
+        if isinstance(g._dataType, T.ArrayType):
+            meta.will_not_work_on_tpu(
+                "grouping by an array column is not supported on TPU")
+    for a in plan.aggregates:
+        ct = a.child._dataType if a.child is not None else None
+        if a.func not in ("collect_list", "collect_set") \
+                and isinstance(ct, T.ArrayType):
+            meta.will_not_work_on_tpu(
+                f"{a.func} over an array column is not supported on TPU")
+        if a.func not in AGG_FUNCS_SUPPORTED:
+            meta.will_not_work_on_tpu(
+                f"aggregate function {a.func} is not supported on TPU")
+        else:
+            _agg_extra_checks(meta, a)
+        if a.func in ("collect_list", "collect_set") and ct is not None \
+                and (isinstance(ct, (T.StringType, T.ArrayType, T.MapType,
+                                     T.StructType)) or _is_dec128(ct)):
+            meta.will_not_work_on_tpu(
+                f"{a.func} of {ct.simpleString} elements is not "
+                f"supported on TPU (primitive elements only)")
         if (a.func == "avg" or a.func in PN.VARIANCE_FUNCS) \
                 and _is_dec128(ct):
             meta.will_not_work_on_tpu(

@@ -17,7 +17,12 @@ A cross join (a ``SortMergeJoin`` without keys) becomes the cartesian
 product exec, a ``BroadcastNestedLoopJoin`` the nested-loop exec.
 A two-phase aggregate (Final <- Exchange(hash or single partition) <-
 Partial) collapses into one COMPLETE aggregate as the reference's
-single-device ``_collapse_complete_agg`` does, and a shuffled join over
+single-device ``_collapse_complete_agg`` does; a single-phase Complete
+aggregate stays over its exchange.  A two-phase ``approx_count_distinct``
+collapses too: the reference's Partial emits an array<int> register
+buffer that its Exchange's type signature refuses, so its exchange is a
+CPU stage, while the port's Partial never materializes (ROADMAP,
+"Differences that bind the port").  A shuffled join over
 two exchanges becomes the adaptive join when adaptive execution is on.
 On a device root the steps of the reference's
 ``TpuTransitionOverrides.apply`` that the port has follow, in its order:
@@ -80,8 +85,15 @@ _FLAT_TYPES = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
 
 
 def _ported_type(dt: T.DataType) -> bool:
+    """A type the port's device columns hold: flat, string, a struct of
+    them, or an array of flat elements other than decimal128."""
     if isinstance(dt, T.StructType):
         return all(_ported_type(f.dataType) for f in dt.fields)
+    if isinstance(dt, T.ArrayType):
+        et = dt.elementType
+        return isinstance(et, _FLAT_TYPES) and not isinstance(
+            et, (T.StringType, T.NullType)) and not (
+                isinstance(et, T.DecimalType) and et.is_128)
     return isinstance(dt, _FLAT_TYPES)
 
 
@@ -262,33 +274,35 @@ def _on_device(child, device, ansi: bool) -> TpuExec:
 
 def _convert_aggregate(meta: SparkPlanMeta, conf: TpuConf, device
                        ) -> TpuExec:
-    """A Final aggregate on the device: the collapsed COMPLETE aggregate
-    over the Partial's converted child."""
-    final = meta.plan
-    partial_meta = _collapse_complete_agg(meta)
-    if partial_meta is None:
-        raise NotOnGpu(f"aggregate {final.describe()} (only a two-phase "
-                       "aggregate on one device is ported)")
-    partial = partial_meta.plan
+    """An aggregate on the device as one COMPLETE aggregate: a Final one
+    collapsed over the Partial's converted child, or a single-phase
+    Complete one (the session's plan for collect, percentile and bloom
+    filter aggregates) over its converted exchange, as the reference's
+    transitions leave it."""
+    node = meta.plan
+    agg_meta = (meta if node.mode == PN.AggregateMode.COMPLETE
+                else _collapse_complete_agg(meta))
+    if agg_meta is None:
+        raise NotOnGpu(f"aggregate {node.describe()} (only a two-phase "
+                       "aggregate on one device, or a single-phase one, is "
+                       "ported)")
+    agg = agg_meta.plan
     ansi = bool(conf.ansi_enabled)
-    child = _on_device(TpuOverrides._convert(partial_meta.child_metas[0],
+    child = _on_device(TpuOverrides._convert(agg_meta.child_metas[0],
                                              conf, device), device, ansi)
-    for g in partial.grouping:
+    for g in agg.grouping:
         check_expression(g)
-    for a in partial.aggregates:
+    for a in agg.aggregates:
         if a.child2 is not None:
             check_expression(a.child2)
         if a.child is not None:
             check_expression(a.child)
-            if a.func in ("min", "max") and isinstance(a.child.dataType,
-                                                        T.StringType):
-                raise NotOnGpu(f"{a.func} of a string (not ported yet)")
             if (a.func == "avg" or a.func in PN.VARIANCE_FUNCS) \
                     and isinstance(a.child.dataType, T.StringType):
                 raise NotOnGpu(f"{a.func} of a string (not ported yet)")
     return TpuHashAggregateExec(
-        partial.grouping, partial.aggregates, PN.AggregateMode.COMPLETE,
-        child, partial.child.output, final.output, ansi)
+        agg.grouping, agg.aggregates, PN.AggregateMode.COMPLETE,
+        child, agg.child.output, node.output, ansi)
 
 
 def _convert_node(node: PN.SparkPlan, children, conf: TpuConf, device,

@@ -172,12 +172,25 @@ MOMENT_BUFFERS = {
        for f in REGR_FUNCS},
 }
 
+#: the single-phase aggregates, whose state is the whole group: planned
+#: as one COMPLETE aggregate over a hash exchange on the keys (a single
+#: partition without keys), as ``collect_list`` is
+SINGLE_PHASE_FUNCS = frozenset(
+    {"collect_list", "collect_set", "percentile", "approx_percentile",
+     "median", "bloom_filter_agg"})
+
+#: the register-count exponent of ``approx_count_distinct`` at Spark's
+#: default relativeSD of 0.05 (p = ceil(2 log2(1.106 / rsd))): 512
+#: registers
+HLL_DEFAULT_P = 9
+
 #: aggregate functions the port runs
 PORTED_AGG_FUNCS = frozenset(
     {"sum", "count", "count_star", "min", "max", "avg", "count_if",
-     "bool_and", "bool_or", "first", "last", "any_value"}
+     "bool_and", "bool_or", "first", "last", "any_value",
+     "approx_count_distinct"}
     | VARIANCE_FUNCS | HIGHER_MOMENT_FUNCS | COVARIANCE_FUNCS | REGR_FUNCS
-    | BIT_AGG_FUNCS)
+    | BIT_AGG_FUNCS | SINGLE_PHASE_FUNCS)
 
 
 @dataclasses.dataclass
@@ -185,7 +198,9 @@ class AggregateExpression:
     """One aggregate: func name + input expr (resolved) + result name;
     ``child2`` is the second input of the covariance and regression
     families (``regr_f(y, x)``: ``child`` is y, ``child2`` x), ``args``
-    the reference's literal extras (no ported aggregate reads them)."""
+    the literal extras: ``percentile``'s percentage,
+    ``approx_percentile``'s percentage and accuracy,
+    ``bloom_filter_agg``'s ``(num_items, num_bits)``."""
 
     func: str
     child: Optional[Expression]  # None for count(*)
@@ -207,8 +222,11 @@ class AggregateExpression:
         return self
 
     def _compute_type(self) -> T.DataType:
-        if self.func in ("count", "count_star", "count_if"):
+        if self.func in ("count", "count_star", "count_if",
+                         "approx_count_distinct"):
             return T.LONG
+        if self.func == "bloom_filter_agg":
+            return T.ArrayType(T.LONG, containsNull=False)
         ct = self.child.dataType
         if self.func == "sum":
             if isinstance(ct, T.DecimalType):
@@ -228,7 +246,12 @@ class AggregateExpression:
             return T.LONG
         if self.func in REGR_FUNCS:
             return T.DOUBLE
-        # min/max, bool_and/bool_or, bit_*, first/last/any_value
+        if self.func in ("percentile", "median"):
+            return T.DOUBLE
+        if self.func in ("collect_list", "collect_set"):
+            return T.ArrayType(ct)
+        # min/max, bool_and/bool_or, bit_*, first/last/any_value,
+        # approx_percentile
         return ct
 
     def describe(self):

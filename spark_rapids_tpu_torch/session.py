@@ -12,12 +12,15 @@ or on a condition), ``cross_join``, ``union``,
 ``stddev_pop_``, ``variance_``, ``var_pop_``, ``count_if_``,
 ``bool_and_``, ``bool_or_``, ``bit_and_``, ``bit_or_``, ``bit_xor_``,
 ``any_value_``, ``skewness_``, ``kurtosis_``, ``corr_``, ``covar_pop_``,
-``covar_samp_``, the nine ``regr_*_`` and ``SortSpec``, and
-``repartition``.  ``window`` takes every frame form of
+``covar_samp_``, the nine ``regr_*_``, ``collect_list_``,
+``collect_set_``, ``median_``, ``percentile_``, ``approx_percentile_``,
+``approx_count_distinct_``, ``bloom_filter_agg_``, ``hash_``,
+``xxhash64_`` and ``SortSpec``, and ``repartition``.  ``window`` takes every frame form of
 ``plan/nodes.py::normalize_frame``.  A session runs on ``cuda`` unless it
 is given another device (``TpuSession(conf, device="cpu")``); without a
 GPU and without a device argument it raises.  Aggregates are planned two-phase around a hash
-exchange on the keys; a join broadcasts its right side under
+exchange on the keys, or as one aggregate after it when a single-phase
+function (collect, percentile, bloom filter) is among them; a join broadcasts its right side under
 ``spark.sql.autoBroadcastJoinThreshold`` and is otherwise planned as a
 shuffled join over a hash exchange of ``spark.sql.shuffle.partitions`` on
 each side, exactly as in the reference.  The plan rewrite
@@ -356,7 +359,9 @@ class GroupedData:
         ``AggregateExpression``s.  Planned as the reference plans it:
         Partial, an exchange (hash on the keys over
         ``spark.sql.shuffle.partitions``, or a single partition without
-        keys), Final.  ``count_distinct_`` and ``sum_distinct_`` take
+        keys), Final; with a single-phase function among them
+        (``PN.SINGLE_PHASE_FUNCS``) the exchange, then one Complete
+        aggregate.  ``count_distinct_`` and ``sum_distinct_`` take
         Spark's single-distinct-column rewrite, as the reference's: an
         aggregate without functions on (keys, the column) drops the
         duplicates, then the plain aggregate runs over its rows."""
@@ -387,6 +392,15 @@ class GroupedData:
             ce = _to_expr(child) if child is not None else None
             aexprs.append(PN.AggregateExpression(func, ce, name)
                           .resolve(schema))
+        if any(a.func in PN.SINGLE_PHASE_FUNCS for a in aexprs):
+            # single phase: an exchange co-locates each key's rows, then
+            # ONE COMPLETE aggregate runs every function over them
+            part = (PN.HashPartitioning(self.keys,
+                                        self.df.session.shuffle_partitions)
+                    if self.keys else PN.SinglePartitioning())
+            return DataFrame(PN.HashAggregate(
+                self.keys, aexprs, PN.AggregateMode.COMPLETE,
+                PN.Exchange(part, self.df.plan)), self.df.session)
         partial = PN.HashAggregate(self.keys, aexprs,
                                    PN.AggregateMode.PARTIAL, self.df.plan)
         if self.keys:
@@ -450,6 +464,55 @@ def rlike_(c: ColumnLike, pattern: str):
     from spark_rapids_tpu_torch.expr.strings import RLike
 
     return RLike(_to_expr(c), _lit(pattern))
+
+
+def hash_(*cols: ColumnLike):
+    """Spark's ``hash(cols)``: murmur3, seed 42, an int."""
+    from spark_rapids_tpu_torch.expr.hashexprs import Murmur3Hash
+
+    return Murmur3Hash([_to_expr(c) for c in cols])
+
+
+def xxhash64_(*cols: ColumnLike):
+    """Spark's ``xxhash64(cols)``: seed 42, a long."""
+    from spark_rapids_tpu_torch.expr.hashexprs import XxHash64
+
+    return XxHash64([_to_expr(c) for c in cols])
+
+
+def collect_list_(c: ColumnLike, name: str = "collect_list"):
+    return ("collect_list", c, name)
+
+
+def collect_set_(c: ColumnLike, name: str = "collect_set"):
+    return ("collect_set", c, name)
+
+
+def median_(c: ColumnLike, name: str = "median"):
+    return PN.AggregateExpression("median", _to_expr(c), name)
+
+
+def percentile_(c: ColumnLike, percentage: float, name: str = "percentile"):
+    return PN.AggregateExpression("percentile", _to_expr(c), name,
+                                  args=(float(percentage),))
+
+
+def approx_percentile_(c: ColumnLike, percentage: float,
+                       accuracy: int = 10000,
+                       name: str = "approx_percentile"):
+    return PN.AggregateExpression("approx_percentile", _to_expr(c), name,
+                                  args=(float(percentage), int(accuracy)))
+
+
+def approx_count_distinct_(c: ColumnLike,
+                           name: str = "approx_count_distinct"):
+    return ("approx_count_distinct", c, name)
+
+
+def bloom_filter_agg_(c: ColumnLike, name: str = "bloom_filter_agg",
+                      num_items: int = 4096, num_bits: int = 65536):
+    return PN.AggregateExpression("bloom_filter_agg", _to_expr(c), name,
+                                  args=(int(num_items), int(num_bits)))
 
 
 def stddev_(c: ColumnLike, name: str = "stddev"):

@@ -1,5 +1,5 @@
 """The TKU2 wire format — port of ``spark_rapids_tpu/shuffle/serializer.py``
-for flat and string columns.
+for flat, string and array columns.
 
 A batch crossing the exchange's host boundary becomes one frame
 (little-endian), byte-compatible with the reference's:
@@ -10,22 +10,26 @@ A batch crossing the exchange's host boundary becomes one frame
     bytes  header: utf-8 JSON {num_rows, cols: [...]}
     buffers back to back, 8-byte aligned, in header order
 
-Per column the header records the kind ("flat" or "string"), for a flat
-column the numpy dtype string and the trailing shape (``[2]`` for
-decimal128 limbs), for a string its longest length (``width``), and each
+Per column the header records the kind ("flat", "string" or "array"),
+for a flat column the numpy dtype string and the trailing shape (``[2]``
+for decimal128 limbs), for a string its longest length (``width``), for
+an array its element dtype string and longest list (``ewidth``), and each
 buffer's (offset, length).  Validity travels bit-packed (LSB first).  A
 string travels ragged: its int32 lengths, then the rows' bytes back to
 back, so padding bytes never cross (the C copies of
 ``native/host_kernels.cpp``); the reader pads them again to the width's
-bucket.  The optional
+bucket.  An array travels ragged too: its int32 lengths, the elements
+inside each row's length back to back, then their validity bit-packed;
+the reader pads the rows to the longest list of all the frames, as the
+reference's does.  The optional
 codec compresses the whole frame: lz4 and zstd go to ``zstandard`` where
 it imports, else to zlib level 1, as in the reference (both sides of a
 shuffle resolve the codec through the same gate).  A frame whose CRC, magic
 or compressed stream is wrong raises ``ShuffleCorruption``.
 
 ``deserialize_concat`` assembles many frames into one batch: one host
-array per buffer across all frames, then one upload each.  Array and
-struct columns are not ported yet.
+array per buffer across all frames, then one upload each.  Struct
+columns are not ported yet.
 """
 from __future__ import annotations
 
@@ -128,6 +132,19 @@ def serialize_batch(batch: ColumnarBatch,
                                 "validity": vbuf, "lengths": lbuf,
                                 "chars": cbuf})
             continue
+        if c.is_array:
+            data, lengths, ev = next(host), next(host), next(host)
+            lengths = lengths.astype(np.int32)
+            take = np.arange(data.shape[1])[None, :] < lengths[:, None]
+            lbuf = add_buffer(lengths.tobytes())
+            dbuf = add_buffer(np.ascontiguousarray(data[take]).tobytes())
+            ebuf = add_buffer(np.packbits(ev[take],
+                                          bitorder="little").tobytes())
+            header_cols.append({"kind": "array", "dtype": data.dtype.str,
+                                "ewidth": int(lengths.max()) if n else 0,
+                                "validity": vbuf, "lengths": lbuf,
+                                "data": dbuf, "elem_valid": ebuf})
+            continue
         data = np.ascontiguousarray(next(host))
         dbuf = add_buffer(data.tobytes())
         header_cols.append({"kind": "flat", "dtype": data.dtype.str,
@@ -184,7 +201,10 @@ def deserialize_concat(blocks: Sequence[bytes], schema: T.StructType,
         if isinstance(f.dataType, T.StringType):
             cols.append(_string_column(parsed, ci, total, device))
             continue
-        if isinstance(f.dataType, (T.ArrayType, T.StructType)):
+        if isinstance(f.dataType, T.ArrayType):
+            cols.append(_array_column(parsed, ci, total, f.dataType, device))
+            continue
+        if isinstance(f.dataType, T.StructType):
             raise NotImplementedError(
                 f"deserializing {f.dataType.simpleString} columns is not "
                 "ported")
@@ -199,10 +219,7 @@ def deserialize_concat(blocks: Sequence[bytes], schema: T.StructType,
         for h, body in parsed:
             n = h["num_rows"]
             col = h["cols"][ci]
-            voff, vlen = col["validity"]
-            vbits = np.frombuffer(body, np.uint8, count=vlen, offset=voff)
-            validity[row: row + n] = np.unpackbits(
-                vbits, count=n, bitorder="little").astype(np.bool_)
+            validity[row: row + n] = _unpack_validity(body, col, n)
             doff, _ = col["data"]
             data[row: row + n] = np.frombuffer(
                 body, np.dtype(col["dtype"]), count=n * k, offset=doff
@@ -211,6 +228,46 @@ def deserialize_concat(blocks: Sequence[bytes], schema: T.StructType,
         cols.append(DeviceColumn(f.dataType, to_device(validity, device),
                                  data=to_device(data, device)))
     return ColumnarBatch(cols, total, schema)
+
+
+def _unpack_validity(body, col, n: int) -> np.ndarray:
+    voff, vlen = col["validity"]
+    vbits = np.frombuffer(body, np.uint8, count=vlen, offset=voff)
+    return np.unpackbits(vbits, count=n, bitorder="little").astype(np.bool_)
+
+
+def _array_column(parsed, ci: int, total: int, dt: T.ArrayType,
+                  device) -> DeviceColumn:
+    """Column ``ci`` of the frames as one array column, its rows padded
+    to the longest list of all the frames."""
+    ew = max([h["cols"][ci]["ewidth"] for h, _ in parsed] + [1])
+    sdt = np.dtype(T.storage_dtype(dt.elementType))
+    validity = np.empty(total, dtype=np.bool_)
+    data = np.zeros((total, ew), dtype=sdt)
+    ev = np.zeros((total, ew), dtype=np.bool_)
+    lengths = np.empty(total, dtype=np.int32)
+    row = 0
+    for h, body in parsed:
+        n = h["num_rows"]
+        col = h["cols"][ci]
+        validity[row: row + n] = _unpack_validity(body, col, n)
+        loff, _ = col["lengths"]
+        lens = np.frombuffer(body, np.int32, count=n, offset=loff)
+        lengths[row: row + n] = lens
+        total_e = int(lens.sum())
+        doff, _ = col["data"]
+        eoff, elen = col["elem_valid"]
+        take = np.arange(ew)[None, :] < lens[:, None]
+        data[row: row + n][take] = np.frombuffer(
+            body, np.dtype(col["dtype"]), count=total_e, offset=doff)
+        ev[row: row + n][take] = np.unpackbits(
+            np.frombuffer(body, np.uint8, count=elen, offset=eoff),
+            count=total_e, bitorder="little").astype(np.bool_)
+        row += n
+    return DeviceColumn(dt, to_device(validity, device),
+                        data=to_device(data, device),
+                        lengths=to_device(lengths, device),
+                        elem_valid=to_device(ev, device))
 
 
 def _string_column(parsed, ci: int, total: int, device) -> DeviceColumn:
@@ -227,10 +284,7 @@ def _string_column(parsed, ci: int, total: int, device) -> DeviceColumn:
     for h, body in parsed:
         n = h["num_rows"]
         col = h["cols"][ci]
-        voff, vlen = col["validity"]
-        vbits = np.frombuffer(body, np.uint8, count=vlen, offset=voff)
-        validity[row: row + n] = np.unpackbits(
-            vbits, count=n, bitorder="little").astype(np.bool_)
+        validity[row: row + n] = _unpack_validity(body, col, n)
         loff, _ = col["lengths"]
         lens = np.frombuffer(body, np.int32, count=n, offset=loff)
         lengths[row: row + n] = lens

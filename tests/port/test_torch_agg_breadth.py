@@ -258,9 +258,9 @@ def test_result_types_and_plan_equal_the_reference(tmp_path):
 def test_unported_aggregate_inputs_raise():
     """``avg`` of a decimal above 18 digits is tagged off the device by
     the reference's rule; the port's CPU engine has no aggregate, so it
-    raises ``NotOnGpu`` at plan time, as does the avg of a string; an
-    aggregate the port lacks (``median``) raises it when the aggregate is
-    built."""
+    raises ``NotOnGpu`` at plan time, as does the avg of a string, and a
+    ``collect_list`` of strings, which the reference's rule keeps off the
+    device too (primitive elements only)."""
     from spark_rapids_tpu_torch.exec.base import NotOnGpu
 
     s = S.TpuSession({}, device="cpu")
@@ -271,5 +271,6 @@ def test_unported_aggregate_inputs_raise():
         df.agg(S.avg_("x", "a")).explain()
     with pytest.raises(NotOnGpu, match="avg of a string"):
         df.agg(S.avg_("t", "a")).explain()
-    with pytest.raises(NotOnGpu, match="median is not ported"):
-        df.agg(("median", "x", "k"))
+    with pytest.raises(NotOnGpu, match="HashAggregate in a CPU stage .*"
+                       "collect_list of string elements"):
+        df.agg(S.collect_list_("t", "k")).explain()

@@ -175,10 +175,10 @@ def test_struct_reference_is_a_cpu_stage_under_the_aggregate(tmp_path):
 
 def test_unported_device_nodes_still_raise():
     """A string literal or column runs on the device and in a CPU stage
-    now; the max of a string runs on the reference's device but not the
-    port's: ``NotOnGpu``, never a CPU stage; so does a CPU stage the
-    port's engine cannot run (a string struct field in it, a disabled
-    sort or aggregate)."""
+    now, and so does the max of a string; the avg of a string runs on the
+    reference's device but not the port's: ``NotOnGpu``, never a CPU
+    stage; so does a CPU stage the port's engine cannot run (a string
+    struct field in it, a disabled sort or aggregate)."""
     s = S.TpuSession({}, device="cpu")
     df = base(S, s).select(S.col("i"), Literal("x", T.STRING).alias("x"))
     assert {x for _, x in df.collect()} == {"x"}
@@ -187,8 +187,9 @@ def test_unported_device_nodes_still_raise():
         [T.StructField("name", T.STRING)])), s)
     assert df.filter(S.col("name").is_not_null()).collect() == [("a",),
                                                                 ("b",)]
-    with pytest.raises(NotOnGpu, match="max of a string"):
-        df.agg(S.max_("name", "m")).collect()
+    assert df.agg(S.max_("name", "m")).collect() == [("b",)]
+    with pytest.raises(NotOnGpu, match="avg of a string"):
+        df.agg(S.avg_("name", "m")).collect()
     s = S.TpuSession({"spark.rapids.sql.exec.Project": "false"},
                      device="cpu")
     # a string literal now passes through a CPU stage; a string picked

@@ -1223,3 +1223,156 @@ def test_stats_aggregates_on_gpu_equal_cpu():
                 conf, device=dev), grouped).collect(), key=repr)
                 for dev in ("cuda", "cpu"))
             assert same_rows(got, want, 1e-9), (conf, grouped)
+
+
+def _hash_columns(rng, n=4000):
+    """One column of every type xxhash64 takes, nulls included, with its
+    numpy twin's (kind, data, validity): -0.0 and NaN among the floats,
+    strings of 0..75 bytes (past the 32-byte stripes)."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+
+    out = []
+    specs = [("int", T.INT, np.int32), ("long", T.LONG, np.int64),
+             ("int", T.DATE, np.int32), ("int", T.BYTE, np.int8),
+             ("int", T.SHORT, np.int16), ("int", T.BOOLEAN, np.bool_),
+             ("long", T.DecimalType(18, 4), np.int64)]
+    for kind, dt, npd in specs:
+        if npd is np.bool_:
+            data = rng.random(n) > 0.5
+        else:
+            info = np.iinfo(npd)
+            data = rng.integers(info.min, info.max, n, dtype=npd,
+                                endpoint=True)
+        valid = rng.random(n) > 0.1
+        out.append(((kind, data, valid), DeviceColumn(
+            dt, torch.from_numpy(valid), data=torch.from_numpy(data))))
+    for kind, dt, npd in (("float", T.FLOAT, np.float32),
+                          ("double", T.DOUBLE, np.float64)):
+        data = (rng.standard_normal(n) * 1e3).astype(npd)
+        data[:5] = [0.0, -0.0, np.nan, np.inf, -np.inf]
+        valid = rng.random(n) > 0.1
+        out.append(((kind, data, valid), DeviceColumn(
+            dt, torch.from_numpy(valid), data=torch.from_numpy(data))))
+    words = ["".join(chr(c) for c in rng.integers(32, 127, k))
+             for k in rng.integers(0, 76, n)]
+    h = HostColumn.from_pylist(words, T.STRING).bucketed()
+    valid = rng.random(n) > 0.1
+    out.append((("string", (h.chars, h.lengths), valid), DeviceColumn(
+        T.STRING, torch.from_numpy(valid), chars=torch.from_numpy(h.chars),
+        lengths=torch.from_numpy(h.lengths))))
+    return out
+
+
+def _cuda(c):
+    return c.map_rows(lambda t: t.cuda())
+
+
+@pytest.mark.gpu
+def test_xxhash64_on_gpu_equals_numpy_twin():
+    """xxhash64 of every type it takes, alone and chained, seed 42 and
+    another, on the card equals the numpy uint64 twin of
+    ``chip_smoke.py`` bit for bit; so does the Hive hash's card run its
+    CPU run."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.ops import hashing as H
+
+    cols = _hash_columns(np.random.default_rng(61))
+    for twin, col in cols:
+        for seed in (42, 7):
+            got = H.xxhash64_columns([_cuda(col)], seed=seed).cpu().numpy()
+            np.testing.assert_array_equal(got, C.np_xxhash64([twin], seed),
+                                          err_msg=f"{col.dtype} {seed}")
+    got = H.xxhash64_columns([_cuda(c) for _, c in cols]).cpu().numpy()
+    np.testing.assert_array_equal(got, C.np_xxhash64([t for t, _ in cols]))
+    hive = [c for (kind, _, _), c in cols if kind != "long"
+            or c.dtype == T.LONG]
+    assert torch.equal(H.hive_hash_columns([_cuda(c) for c in hive]).cpu(),
+                       H.hive_hash_columns(hive))
+
+
+@pytest.mark.gpu
+def test_hll_registers_and_bloom_words_on_gpu_equal_numpy():
+    """The card's HLL registers (per group, ints and longs), its
+    estimates, a bloom filter's words and its probe equal the numpy twins
+    of ``chip_smoke.py``."""
+    _need_gpu()
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.exec import aggregate as A
+    from spark_rapids_tpu_torch.expr.hashexprs import BloomFilterMightContain
+    from spark_rapids_tpu_torch.plan.nodes import AggregateExpression
+
+    rng = np.random.default_rng(62)
+    n, ng = 300_000, 7
+    group = np.sort(rng.integers(0, ng, n))
+    seg = torch.from_numpy(group).cuda()
+    mask = torch.ones(n, dtype=torch.bool, device="cuda")
+    g = A._Groups(torch.arange(n, device="cuda"), seg, ng, mask, None)
+    for kind, dt, data in (("long", T.LONG, rng.integers(0, n, n)),
+                           ("int", T.INT, rng.integers(-5000, 5000, n)
+                            .astype(np.int32))):
+        valid = rng.random(n) > 0.05
+        c = DeviceColumn(dt, torch.from_numpy(valid).cuda(),
+                         data=torch.from_numpy(data).cuda())
+        regs = A._hll_registers(c, c.validity, g).data[:ng].cpu().numpy()
+        h = C.np_xxhash64([(kind, data[valid], np.ones(valid.sum(), bool))])
+        want = C.np_hll_registers(*C.np_hll_slots(h), group[valid], ng)
+        np.testing.assert_array_equal(regs, want)
+        np.testing.assert_array_equal(
+            A._hll_estimate(torch.from_numpy(regs).cuda()).cpu().numpy(),
+            C.np_hll_estimate(want))
+    keys = rng.integers(-2 ** 62, 2 ** 62, 50_000)
+    items, bits = 50_000, 1 << 20
+    c = DeviceColumn(T.LONG, torch.ones(len(keys), dtype=torch.bool,
+                                        device="cuda"),
+                     data=torch.from_numpy(keys).cuda())
+    g1 = A._Groups(None, torch.zeros(len(keys), dtype=torch.int64,
+                                     device="cuda"), 1, c.validity, None)
+    agg = AggregateExpression("bloom_filter_agg", None, "bf",
+                              args=(items, bits))
+    words = A._bloom_filter(agg, T.ArrayType(T.LONG, False), c, c.validity,
+                            g1)
+    ones = np.ones(len(keys), bool)
+    h1 = C.np_xxhash64([("long", keys, ones)])
+    h2 = C.np_xxhash64([("long", keys, ones)], 77)
+    want = C.np_bloom_words(h1, h2, items, bits)
+    np.testing.assert_array_equal(words.data[0].cpu().numpy(), want)
+    probe = rng.integers(-2 ** 62, 2 ** 62, 100_000)
+    probe[:1000] = keys[:1000]
+    pc = DeviceColumn(T.LONG, torch.ones(len(probe), dtype=torch.bool,
+                                         device="cuda"),
+                      data=torch.from_numpy(probe).cuda())
+    spread = words.map_rows(lambda t: t[:1].expand(len(probe),
+                                                   *t.shape[1:]))
+    mc = BloomFilterMightContain(None, None, items, bits).do_columnar_eval(
+        None, [spread, pc])
+    ones = np.ones(len(probe), bool)
+    np.testing.assert_array_equal(mc.data.cpu().numpy(), C.np_might_contain(
+        want, C.np_xxhash64([("long", probe, ones)]),
+        C.np_xxhash64([("long", probe, ones)], 77), items, bits))
+    assert mc.data[:1000].all()
+
+
+@pytest.mark.gpu
+def test_single_phase_aggregates_on_gpu_equal_cpu():
+    """collect, percentile, HLL, the bloom filter and string min/max
+    (``test_torch_single_phase_aggs.py``'s families), grouped and global,
+    in one batch and in several, on the card equal their CPU run exactly
+    (no float is added; a list keeps its arrival order, the sort being
+    stable)."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from torch_port_aggs import BATCHES, FAMILIES, query
+    from torch_port_frames import rows_key
+
+    for family in FAMILIES:
+        for conf in BATCHES.values():
+            for grouped in (True, False):
+                got, want = (query(S, T, TpuSession(conf, device=dev),
+                                   family, grouped).collect()
+                             for dev in ("cuda", "cpu"))
+                assert rows_key(got) == rows_key(want), (family, conf,
+                                                         grouped)

@@ -1,8 +1,11 @@
-"""Spark-exact murmur3 (``ops/hashing.py``) and the exchange's partition
-slices (``exec/exchange.py``) against the JAX package, whose device code
-runs in the child process: every ported type with nulls, -0.0, NaN and
-the special floats of ``tests/test_hash_functions.py``, strings at
-several widths, several columns chained, another seed; then hash, round-robin and range slices of one
+"""Spark-exact murmur3, xxhash64 and Hive hash (``ops/hashing.py``) and
+the exchange's partition slices (``exec/exchange.py``) against the JAX
+package, whose device code runs in the child process: every ported type
+with nulls, -0.0, NaN and the special floats of
+``tests/test_hash_functions.py``, strings at several widths (past
+xxhash64's 32-byte stripes), several columns chained, another seed; the
+session's ``hash_`` and ``xxhash64_`` and ``hive_hash`` against the
+reference's CPU oracle; then hash, round-robin and range slices of one
 batch, row for row.  Every comparison is bit-exact."""
 import numpy as np
 import pytest
@@ -243,3 +246,165 @@ def test_partition_slices_match_reference(tmp_path):
             np.testing.assert_array_equal(got[pid], want[pid],
                                           err_msg=f"{name} {pid}")
         assert sum(len(v) for v in got.values()) == n
+
+
+# -- xxhash64 and Hive hash ----------------------------------------------------
+
+#: the types of ``tests/test_hash_functions.py`` (timestamps aside: the
+#: port has none), decimal(18, 4) among them
+XX_TYPES = dict(TYPES, dec18=(np.int64, "DecimalType(18, 4)"))
+XX_COMBOS = [[n] for n in XX_TYPES] + [["str5"], ["str75"]] + [
+    ["int", "str75", "double", "long"], ["dec18", "float", "short", "byte"],
+    ["str5", "bool", "date"]]
+
+
+def _strings(rng, longest):
+    """UTF-8 strings of 0..``longest`` bytes (multi-byte characters and
+    bytes above 127 included)."""
+    alphabet = list("abcXYZ 09") + ["é", "漢", "\x7f"]
+    out = []
+    for _ in range(N):
+        s = "".join(rng.choice(alphabet, rng.integers(0, longest + 1)))
+        out.append(s.encode("utf-8")[:longest].decode("utf-8", "ignore"))
+    return np.asarray(out, object)
+
+
+@pytest.fixture(scope="module")
+def xx_inputs(tmp_path_factory):
+    """Per type its data and validity; the reference's xxhash64 (seed 42
+    and another) and Hive hash of each combination, one child call."""
+    from torch_port_frames import string_host
+    import spark_rapids_tpu_torch.columnar.column as PCOL
+
+    rng = np.random.default_rng(77)
+    cols, inputs = {}, {}
+    for name in XX_TYPES:
+        npd = XX_TYPES[name][0]
+        if name == "dec18":
+            data = rng.integers(-10 ** 18 + 1, 10 ** 18, N)
+            valid = rng.random(N) > 0.125
+        else:
+            data, valid = column_data(name, rng)
+        cols[name] = (data.astype(npd), valid)
+        inputs[name], inputs[name + "_valid"] = cols[name]
+    for name, longest in (("str5", 5), ("str75", 75)):
+        h = string_host(PCOL, _strings(rng, longest), rng.random(N) > 0.125)
+        h = h.bucketed()
+        cols[name] = h
+        for k in ("validity", "chars", "lengths"):
+            inputs[f"{name}_{k}"] = getattr(h, k)
+    types = {k: v[1] for k, v in XX_TYPES.items()}
+    out = run_jax(f"""
+        import jax.numpy as jnp
+        from spark_rapids_tpu import types as T
+        from spark_rapids_tpu.columnar.column import DeviceColumn
+        from spark_rapids_tpu.ops.hashing import (hive_hash_columns,
+                                                  xxhash64_columns)
+        types = {types!r}
+
+        def col(n):
+            if n.startswith("str"):
+                return DeviceColumn(T.STRING,
+                                    jnp.asarray(inp[n + "_validity"]),
+                                    chars=jnp.asarray(inp[n + "_chars"]),
+                                    lengths=jnp.asarray(inp[n + "_lengths"]))
+            return DeviceColumn(eval("T." + types[n]),
+                                jnp.asarray(inp[n + "_valid"]),
+                                data=jnp.asarray(inp[n]))
+
+        for i, names in enumerate({XX_COMBOS!r}):
+            cs = [col(n) for n in names]
+            out[f"xx42_{{i}}"] = np.asarray(xxhash64_columns(cs))
+            out[f"xx7_{{i}}"] = np.asarray(xxhash64_columns(cs, seed=7))
+            if not any(n.startswith("dec") for n in names):
+                out[f"hive_{{i}}"] = np.asarray(hive_hash_columns(cs))
+    """, tmp_path_factory.mktemp("xx"), inputs)
+    return cols, out
+
+
+def _xx_col(cols, name):
+    if name.startswith("str"):
+        h = cols[name]
+        return DeviceColumn(T.STRING, torch.from_numpy(h.validity),
+                            chars=torch.from_numpy(h.chars),
+                            lengths=torch.from_numpy(h.lengths))
+    data, valid = cols[name]
+    return DeviceColumn(eval("T." + XX_TYPES[name][1]),
+                        torch.from_numpy(valid), data=torch.from_numpy(data))
+
+
+@pytest.mark.parametrize("combo", range(len(XX_COMBOS)),
+                         ids=["+".join(c) for c in XX_COMBOS])
+def test_xxhash64_and_hive_hash_match_reference(xx_inputs, combo):
+    cols, out = xx_inputs
+    names = XX_COMBOS[combo]
+    pcols = [_xx_col(cols, n) for n in names]
+    for seed in (42, 7):
+        got = H.xxhash64_columns(pcols, seed=seed)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), out[f"xx{seed}_{combo}"],
+                                      err_msg=f"xxhash64 seed {seed}")
+    if f"hive_{combo}" in out:
+        got = H.hive_hash_columns(pcols)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), out[f"hive_{combo}"])
+
+
+def test_xxhash64_special_floats_and_decimal128():
+    """-0.0 hashes as 0.0 and every NaN as one, float and double; a null
+    passes the seed; a decimal above 18 digits raises ``NotOnGpu``."""
+    for name in ("float", "double"):
+        d = np.array([0.0, -0.0, np.nan, 1.0, -np.nan], XX_TYPES[name][0])
+        h = H.xxhash64_columns([port_col(name, d, np.ones(5, bool))])
+        assert h[0] == h[1] and h[2] == h[4] and h[0] != h[3]
+    nulls = port_col("long", np.arange(3, dtype=np.int64), np.zeros(3, bool))
+    assert H.xxhash64_columns([nulls]).tolist() == [42] * 3
+    c = DeviceColumn(T.DecimalType(20, 0), torch.ones(2, dtype=torch.bool),
+                     data=torch.zeros((2, 2), dtype=torch.int64))
+    with pytest.raises(NotOnGpu, match="above 18 digits"):
+        H.xxhash64_columns([c])
+
+
+def _hash_frame(mod, types, session):
+    from torch_port_frames import frame
+
+    rng = np.random.default_rng(5)
+    sch = types.StructType([
+        types.StructField("a", types.INT), types.StructField("b", types.STRING),
+        types.StructField("c", types.DOUBLE),
+        types.StructField("d", types.DecimalType(9, 2)),
+        types.StructField("e", types.DATE)])
+    arr = {"a": rng.integers(-2 ** 31, 2 ** 31, 256).astype(np.int32),
+           "b": _strings(rng, 40)[:256],
+           "c": np.where(rng.random(256) < 0.1, -0.0,
+                         rng.normal(0, 1e6, 256)),
+           "d": rng.integers(-10 ** 9 + 1, 10 ** 9, 256),
+           "e": rng.integers(-1000, 30000, 256).astype(np.int32)}
+    valid = {k: rng.random(256) > 0.3 for k in arr}
+    return frame(mod, session, arr, sch, valid)
+
+
+def test_session_hash_expressions_match_the_oracle():
+    """``hash_`` and ``xxhash64_`` over one column and over five chained,
+    and ``hive_hash`` over the types it takes, equal the reference's CPU
+    oracle row for row (also run in a CPU stage: the Project disabled)."""
+    import spark_rapids_tpu.session as RS
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu import types as RT
+    from spark_rapids_tpu.expr.hashexprs import HiveHash as RHive
+    from spark_rapids_tpu_torch.expr.hashexprs import HiveHash
+    from torch_port_frames import ORACLE
+
+    def q(mod, types, session, hive):
+        df = _hash_frame(mod, types, session)
+        return df.select(
+            mod.hash_("a").alias("h1"), mod.xxhash64_("b").alias("x1"),
+            mod.hash_("a", "b", "c", "d", "e").alias("h5"),
+            mod.xxhash64_("a", "b", "c", "d", "e").alias("x5"),
+            hive([mod.col("a"), mod.col("b"), mod.col("c"),
+                  mod.col("e")]).alias("hv"))
+
+    want = q(RS, RT, RS.TpuSession(ORACLE), RHive).collect()
+    for conf in ({}, {"spark.rapids.sql.exec.Project": "false"}):
+        got = q(S, T, S.TpuSession(conf, device="cpu"), HiveHash).collect()
+        assert got == want, conf

@@ -65,6 +65,10 @@ def test_import_leaves_no_jax_in_sys_modules():
             "spark_rapids_tpu_torch.expr.mathfuncs, "
             "spark_rapids_tpu_torch.expr.arithmetic, "
             "spark_rapids_tpu_torch.expr.cast, "
+            "spark_rapids_tpu_torch.expr.hashexprs, "
+            "spark_rapids_tpu_torch.ops.hashing, "
+            "spark_rapids_tpu_torch.columnar.column, "
+            "spark_rapids_tpu_torch.columnar.batch, "
             "spark_rapids_tpu_torch.native\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]\n"
