@@ -30,7 +30,26 @@ where Python integers take minutes.
 
 The nodes it runs are ``LocalTableScan``, ``Filter``, ``Project``,
 ``Union``, ``BroadcastNestedLoopJoin`` (every join type; the tagging
-sends it the right and full outer ones) and ``TpuMaterializedScan``; the
+sends it the right and full outer ones), ``HashAggregate`` in each mode,
+the ``SortMergeJoin``, ``ShuffledHashJoin`` and ``BroadcastHashJoin`` of
+every type, ``Sort``, ``GlobalLimit``/``LocalLimit``, ``Window``, the
+exchanges (passed through) and ``TpuMaterializedScan``.  The aggregate
+and the window run the device operators' own code (``exec/aggregate.py``
+group-by, reduce, merge and finish; ``exec/window.py``) on CPU tensors
+over the columns this engine evaluates, the sort the device's key words,
+so a CPU stage computes what the card computes; the inputs only a CPU
+stage sees take the limb paths there (``avg`` and the variance family
+over decimals above 18 digits, percentiles of them, a string's or a
+decimal128's min/max over any frame).  A hash join sorts the right
+side's keys, finds each left key's run by binary search and evaluates
+its residual condition on the expanded pairs in chunks, with Spark's
+meaning on every join type: the reference's oracle applies it to inner
+joins only (ROADMAP R26).  Not run: a list column (``collect_*``,
+``bloom_filter_agg``, a two-phase ``approx_count_distinct``'s registers:
+ROADMAP Queue 1 item 5), ``approx_count_distinct`` of a decimal above 18
+digits, and the windows the reference names invalid (a ``sum``, ``avg``
+or variance of a string, a negative frame offset, a RANGE frame over a
+string key).  The
 expressions, those the port
 runs on the card (references, literals, ``Alias``, comparisons, boolean
 logic, ``IsNull``/``IsNotNull``, ``In``, ``If``/``CaseWhen``,
@@ -1060,8 +1079,94 @@ def _check_expr(e: Expression, why: str) -> None:
 
 #: the plan nodes this engine runs (a device subtree under one of them
 #: reaches it as ``TpuMaterializedScan``)
-CPU_PLAN_NODES = frozenset({PN.LocalTableScan, PN.Filter, PN.Project,
-                            PN.Union, PN.BroadcastNestedLoopJoin})
+CPU_PLAN_NODES = frozenset({
+    PN.LocalTableScan, PN.Filter, PN.Project, PN.Union,
+    PN.BroadcastNestedLoopJoin, PN.HashAggregate, PN.SortMergeJoin,
+    PN.ShuffledHashJoin, PN.BroadcastHashJoin, PN.Sort, PN.GlobalLimit,
+    PN.LocalLimit, PN.Window, PN.Exchange, PN.BroadcastExchange})
+
+_NESTED = (T.ArrayType, T.MapType, T.StructType)
+_NUMERIC = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+            T.FloatType, T.DoubleType, T.DecimalType)
+
+
+def _node_exprs(node: PN.SparkPlan) -> List[Expression]:
+    """The expressions this engine evaluates for ``node``."""
+    if isinstance(node, PN.HashAggregate):
+        out = list(node.grouping)
+        for a in node.aggregates:
+            out += [e for e in (a.child, a.child2) if e is not None]
+        return out
+    if isinstance(node, PN._BaseJoin):
+        out = list(node.left_keys) + list(node.right_keys)
+    elif isinstance(node, PN.Sort):
+        out = [e for e, _ in node.orders]
+    elif isinstance(node, PN.Window):
+        out = list(node.partition_by) + [e for e, _ in node.order_by] + [
+            f.child for f in node.functions if f.child is not None]
+    else:
+        out = list(getattr(node, "exprs", []))
+    cond = getattr(node, "condition", None)
+    return out + ([cond] if cond is not None else [])
+
+
+def _unrun_aggregate(node: PN.HashAggregate) -> Optional[str]:
+    """What of an aggregate this engine does not run, or None."""
+    for a in node.aggregates:
+        ct = a.child.dataType if a.child is not None else None
+        if a.func == "approx_count_distinct" and _is_dec128(ct):
+            return ("approx_count_distinct of a decimal above 18 digits "
+                    "(its xxhash64 is not ported)")
+        if a.func == "approx_count_distinct" and \
+                node.mode != PN.AggregateMode.COMPLETE:
+            return ("a two-phase approx_count_distinct, whose partial "
+                    "buffer is an array<int> column (ROADMAP Queue 1 "
+                    "item 5)")
+        if a.func in PN.HIGHER_MOMENT_FUNCS | {
+                "percentile", "approx_percentile", "median"} \
+                and not isinstance(ct, _NUMERIC):
+            return f"{a.func} of {ct.simpleString}, which is not a number"
+        if (a.func in PN.COVARIANCE_FUNCS or a.func in PN.REGR_FUNCS) \
+                and not all(isinstance(e.dataType, _NUMERIC)
+                            for e in (a.child, a.child2)):
+            return f"{a.func} of inputs that are not numbers"
+        if a.func in PN.BIT_AGG_FUNCS and not ct.is_integral:
+            return f"{a.func} of {ct.simpleString}, which is not integral"
+        if a.func in ("percentile", "approx_percentile") and not (
+                a.args and 0.0 <= float(a.args[0]) <= 1.0):
+            return f"{a.func} with a percentage outside [0, 1]"
+        if isinstance(ct, _NESTED):
+            return f"{a.func} of the nested type {ct.simpleString}"
+    return None
+
+
+def _unrun_window(node: PN.Window) -> Optional[str]:
+    """What of a window this engine does not run, or None: the shapes the
+    reference's rules name invalid (a ``sum``, ``avg`` or variance of a
+    string; a negative frame offset; a RANGE frame over a key that is not
+    a number or a date, which the reference's oracle cannot bound
+    either), and nested inputs."""
+    frame = node.frame
+    for f in node.functions:
+        ct = f.child.dataType if f.child is not None else None
+        if isinstance(ct, T.StringType) and (
+                f.func in ("sum", "avg") or f.func.startswith(
+                    ("var", "stddev"))):
+            return f"{f.func} of a string"
+        if isinstance(ct, _NESTED):
+            return f"{f.func} of the nested type {ct.simpleString}"
+    if isinstance(frame, tuple) and (frame[1] < 0 or frame[2] < 0):
+        return "a negative frame offset"
+    if (isinstance(frame, tuple) and frame[0] == "range") \
+            or frame == "range_running":
+        if not node.order_by:
+            return "a RANGE frame without an ORDER BY"
+    if isinstance(frame, tuple) and frame[0] == "range":
+        ot = node.order_by[0][0].dataType
+        if not (ot.is_integral or isinstance(
+                ot, (T.FloatType, T.DoubleType, T.DateType))):
+            return f"a RANGE frame over a {ot.simpleString} order key"
+    return None
 
 
 def check_cpu_plan(node: PN.SparkPlan, why: str) -> None:
@@ -1075,11 +1180,19 @@ def check_cpu_plan(node: PN.SparkPlan, why: str) -> None:
         if isinstance(f.dataType, (T.ArrayType, T.MapType)):
             raise NotOnGpu(f"column {f.name} of type "
                            f"{f.dataType.simpleString} in a CPU stage "
-                           f"({why}), which the port's CPU engine does not "
-                           "hold")
-    cond = getattr(node, "condition", None)
-    for e in list(getattr(node, "exprs", [])) + (
-            [cond] if cond is not None else []):
+                           f"({why}): the port's CPU engine holds no list "
+                           f"column yet, so it does not run "
+                           f"{node.node_name} in a CPU stage (ROADMAP "
+                           "Queue 1 item 5)")
+    what = (_unrun_aggregate(node) if isinstance(node, PN.HashAggregate)
+            else _unrun_window(node) if isinstance(node, PN.Window)
+            else None)
+    if what is not None:
+        raise NotOnGpu(f"{node.node_name} in a CPU stage ({why}): {what}, "
+                       "which the port's CPU engine does not run")
+    if isinstance(node, (PN.Exchange, PN.BroadcastExchange)):
+        return                  # passed through: its keys are not read
+    for e in _node_exprs(node):
         _check_expr(e, why)
 
 
@@ -1105,52 +1218,300 @@ def execute_cpu_plan(plan: PN.SparkPlan,
         cols = [CpuCol.concat([p[0][i] for p in parts])
                 for i in range(len(parts[0][0]))]
         return cols, sum(p[1] for p in parts)
-    if isinstance(plan, PN.BroadcastNestedLoopJoin):
-        return _cpu_bnlj(plan, ansi)
+    if isinstance(plan, PN.HashAggregate):
+        return _cpu_aggregate(plan, ansi)
+    if isinstance(plan, PN._BaseJoin):
+        return _cpu_join(plan, ansi)
+    if isinstance(plan, PN.Sort):
+        return _cpu_sort(plan, ansi)
+    if isinstance(plan, PN.Window):
+        return _cpu_window(plan, ansi)
+    if isinstance(plan, (PN.GlobalLimit, PN.LocalLimit)):
+        cols, n = execute_cpu_plan(plan.children[0], ansi)
+        k = min(plan.n, n)
+        return [c.take(slice(0, k)) for c in cols], k
+    if isinstance(plan, (PN.Exchange, PN.BroadcastExchange)):
+        return execute_cpu_plan(plan.children[0], ansi)
     raise NotOnGpu(f"plan node {plan.node_name} in a CPU stage")
 
 
-def _cpu_bnlj(plan: PN.BroadcastNestedLoopJoin, ansi: bool
-              ) -> Tuple[CpuBatch, int]:
-    """The nested-loop join of every type (the reference's ``_cpu_bnlj``,
-    vectorized): all pairs, left-major, the condition on the pair table,
-    then the matched pairs, the unmatched left rows (left and full outer,
-    a null right side) and the unmatched right rows (right and full
-    outer, a null left side, as Spark gives them; the reference's oracle
-    drops these, ROADMAP Queue 3 R5), or the left rows with (semi) or
-    without (anti) a match."""
+# -- aggregate, hash join, sort, limit and window -----------------------------
+
+class _HostInput:
+    """The leaf that the device operators, run here on CPU tensors, read
+    their device from (``TpuExec._device``)."""
+
+    children: list = []
+    device = torch.device("cpu")
+
+
+def _empty_cols(schema: T.StructType) -> CpuBatch:
+    return [CpuCol.from_host(HostColumn.from_pylist([], f.dataType))
+            for f in schema.fields]
+
+
+def _agg_exec(plan: PN.HashAggregate, ansi: bool):
+    """The device aggregate over ``plan``'s functions, whose group-by,
+    reduce, merge and finish (``exec/aggregate.py``) this engine runs on
+    CPU tensors."""
+    from spark_rapids_tpu_torch.exec.aggregate import TpuHashAggregateExec
+
+    agg = TpuHashAggregateExec(plan.grouping, plan.aggregates,
+                               PN.AggregateMode.COMPLETE, None,
+                               plan.child.output, plan.result_schema, ansi)
+    agg.children = [_HostInput()]
+    return agg
+
+
+def _agg_inputs(plan: PN.HashAggregate, cols: CpuBatch, n: int, ansi: bool):
+    """Each aggregate's input columns (CPU tensors): ``count(*)`` a column
+    of ones, a string under ``avg`` or a variance parsed to doubles."""
+    from spark_rapids_tpu_torch.columnar.column import DeviceColumn
+    from spark_rapids_tpu_torch.exec.aggregate import string_input_as_double
+
+    out = []
+    for a in plan.aggregates:
+        if a.child is None:
+            out.append([DeviceColumn(T.LONG, torch.ones(n, dtype=torch.bool),
+                                     data=torch.ones(n, dtype=torch.int64))])
+            continue
+        first = string_input_as_double(
+            a, _to_torch(eval_expr(a.child, cols, n, ansi)), ansi)
+        out.append([first] + ([_to_torch(eval_expr(a.child2, cols, n, ansi))]
+                              if a.child2 is not None else []))
+    return out
+
+
+def _cpu_aggregate(plan: PN.HashAggregate, ansi: bool
+                   ) -> Tuple[CpuBatch, int]:
+    """The reference's ``_cpu_aggregate`` in each mode, vectorized: the
+    device aggregate's sort-based group-by and segmented reductions on CPU
+    tensors, so a CPU stage computes what the card computes.  COMPLETE
+    reduces the rows and finishes; PARTIAL emits one buffer row per group
+    (``HashAggregate.output``); FINAL merges buffer rows and finishes.  An
+    empty grouped input gives no rows, an empty global one the device's
+    row (counts 0, the rest null; a single-phase function's own row)."""
+    from spark_rapids_tpu_torch.exec.aggregate import _null_column
+
+    cols, n = execute_cpu_plan(plan.child, ansi)
+    agg = _agg_exec(plan, ansi)
+    mode = plan.mode
+    if n == 0 and plan.grouping:
+        return _empty_cols(plan.output), 0
+    if n == 0:
+        if mode == PN.AggregateMode.PARTIAL:
+            inputs = [[_null_column(e.dataType, 1, "cpu") for e in
+                       (a.child, a.child2) if e is not None]
+                      or [_null_column(T.LONG, 1, "cpu")]
+                      for a in plan.aggregates]
+            out = agg._reduce([], inputs, torch.zeros(1, dtype=torch.bool),
+                              False)
+        elif any(a.func in PN.SINGLE_PHASE_FUNCS for a in plan.aggregates):
+            out = agg._single_phase_empty()
+        else:
+            out = agg._global_agg_empty()
+    else:
+        mask = torch.ones(n, dtype=torch.bool)
+        keys = [_to_torch(eval_expr(g, cols, n, ansi)) for g in plan.grouping]
+        if mode == PN.AggregateMode.FINAL:
+            k = len(plan.grouping)
+            bufs = agg._split_buffer([_to_torch(c) for c in cols[k:]])
+            out = agg._finish(agg._reduce(keys, bufs, mask, True))
+        else:
+            out = agg._reduce(keys, _agg_inputs(plan, cols, n, ansi), mask,
+                              False)
+            if mode == PN.AggregateMode.COMPLETE:
+                out = agg._finish(out)
+    return [_from_torch(c) for c in out.columns], out.num_rows
+
+
+def _key_words(cols: CpuBatch) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """The int64 key words of ``cols`` (``ops/sortkeys.py``: a string's
+    bytes, then its length; a decimal128 both limbs; -0.0 with 0.0 and
+    every NaN as one value) and where every key is valid."""
+    from spark_rapids_tpu_torch.ops.sortkeys import _column_key_words
+
+    words, valid = [], None
+    for c in cols:
+        d = _to_torch(c)
+        words += _column_key_words(d)
+        valid = d.validity if valid is None else valid & d.validity
+    return words, valid
+
+
+#: the most candidate pairs a residual condition is evaluated on at once
+JOIN_PAIR_CHUNK = 1 << 22
+
+
+def _join_matches(plan: PN._BaseJoin, lcols, nl, rcols, nr, ansi):
+    """The matched (left, right) row pairs, left-major (each left row's
+    right rows in the right side's order), of an equi-join: the right
+    side's valid keys sorted, each left key's run found by binary search,
+    the runs expanded and, with a residual condition, the condition
+    evaluated on the pair table ``JOIN_PAIR_CHUNK`` pairs at a time.  A
+    null key never matches; NaN matches NaN.  Without a condition a semi
+    or anti join needs only whether a run is empty: (None, has-match)."""
+    from spark_rapids_tpu_torch.ops.sortkeys import word_ranks
+
+    lk = [eval_expr(k, lcols, nl, ansi) for k in plan.left_keys]
+    rk = [eval_expr(k, rcols, nr, ansi) for k in plan.right_keys]
+    for i, (a, b) in enumerate(zip(lk, rk)):
+        if a.is_string:
+            w = max(a.chars.shape[1], b.chars.shape[1])
+            lk[i], rk[i] = a.with_width(w), b.with_width(w)
+    if lk:
+        lw, lvalid = _key_words(lk)
+        rw, rvalid = _key_words(rk)
+        words = [torch.cat([a, b]) for a, b in zip(lw, rw)]
+        # one int64 a row, equal where every word is equal
+        ids = words[0] if len(words) == 1 else word_ranks(words)[0]
+        lid, rid = ids[:nl], ids[nl:]
+    else:                      # a nested-loop or a cross join
+        lid, rid = torch.zeros(nl, dtype=torch.int64), torch.zeros(
+            nr, dtype=torch.int64)
+        lvalid = torch.ones(nl, dtype=torch.bool)
+        rvalid = torch.ones(nr, dtype=torch.bool)
+    r_rows = torch.nonzero(rvalid).flatten()
+    skey, order = torch.sort(rid[r_rows], stable=True)
+    s_rows = r_rows[order]
+    l_rows = torch.nonzero(lvalid).flatten()
+    lkey = lid[l_rows]
+    lo = torch.searchsorted(skey, lkey)
+    cnt = torch.searchsorted(skey, lkey, right=True) - lo
+    jt, J = plan.join_type, PN.JoinType
+    if plan.condition is None and jt in (J.LEFT_SEMI, J.LEFT_ANTI):
+        has = torch.zeros(nl, dtype=torch.bool)
+        has[l_rows] = cnt > 0
+        return None, has
+    out_l, out_r = [], []
+    ends = torch.cumsum(cnt, 0)
+    start, m = 0, len(l_rows)
+    while start < m:
+        base = int(ends[start - 1]) if start else 0
+        end = max(int(torch.searchsorted(ends, base + JOIN_PAIR_CHUNK,
+                                         right=True)), start + 1)
+        c = cnt[start:end]
+        tot = int(c.sum())
+        if tot:
+            li = torch.repeat_interleave(l_rows[start:end], c)
+            off = torch.arange(tot) - torch.repeat_interleave(
+                torch.cumsum(c, 0) - c, c)
+            ri = s_rows[torch.repeat_interleave(lo[start:end], c) + off]
+            if plan.condition is not None:
+                lin, rin = li.numpy(), ri.numpy()
+                pairs = [x.take(lin) for x in lcols] + \
+                    [x.take(rin) for x in rcols]
+                pred = eval_expr(plan.condition, pairs, tot, ansi)
+                ok = torch.from_numpy(pred.values.astype(bool)
+                                      & pred.validity)
+                li, ri = li[ok], ri[ok]
+            out_l.append(li)
+            out_r.append(ri)
+        start = end
+    empty = torch.zeros(0, dtype=torch.int64)
+    return (torch.cat(out_l) if out_l else empty,
+            torch.cat(out_r) if out_r else empty), None
+
+
+def _cpu_join(plan: PN._BaseJoin, ansi: bool) -> Tuple[CpuBatch, int]:
+    """The reference's ``_cpu_join`` for the sort-merge, shuffled hash and
+    broadcast hash joins of every type, and its ``_cpu_bnlj`` for the
+    nested-loop join (no keys: every pair a candidate), vectorized
+    (``_join_matches``).  The condition applies on every type with
+    Spark's meaning: an inner join keeps the pairs that pass it; a semi
+    (anti) join keeps the left rows with (without) a pair that passes; an
+    outer join gives a row whose every pair fails nulls on the other
+    side.  The reference's oracle applies a hash join's condition to
+    inner joins only (ROADMAP R26) and drops the unmatched right rows of
+    a right or full outer nested-loop join (R5).  Output: the matched
+    pairs left-major, then the unmatched left rows (left and full outer),
+    then the unmatched right rows (right and full outer)."""
     lcols, nl = execute_cpu_plan(plan.left, ansi)
     rcols, nr = execute_cpu_plan(plan.right, ansi)
     jt, J = plan.join_type, PN.JoinType
-    li = np.repeat(np.arange(nl), nr)
-    ri = np.tile(np.arange(nr), nl)
-    pairs = [c.take(li) for c in lcols] + [c.take(ri) for c in rcols]
-    if plan.condition is not None and nl * nr:
-        pred = eval_expr(plan.condition, pairs, nl * nr, ansi)
-        ok = pred.values.astype(bool) & pred.validity
-    else:
-        ok = np.ones(nl * nr, np.bool_)
-    lmatch = np.zeros(nl, np.bool_)
-    lmatch[li[ok]] = True
+    pairs, has = _join_matches(plan, lcols, nl, rcols, nr, ansi)
+    if pairs is not None:
+        li, ri = pairs
+        has = torch.zeros(nl, dtype=torch.bool)
+        has[li] = True
     if jt in (J.LEFT_SEMI, J.LEFT_ANTI):
-        keep = lmatch if jt == J.LEFT_SEMI else ~lmatch
+        keep = (has if jt == J.LEFT_SEMI else ~has).numpy()
         return [c.take(keep) for c in lcols], int(keep.sum())
-    out = [c.take(ok) for c in pairs]
-    m = int(ok.sum())
-    if jt in (J.LEFT_OUTER, J.FULL_OUTER) and not lmatch.all():
-        um = ~lmatch
+    lin, rin = li.numpy(), ri.numpy()
+    out = [c.take(lin) for c in lcols] + [c.take(rin) for c in rcols]
+    m = len(lin)
+    if jt in (J.LEFT_OUTER, J.FULL_OUTER):
+        um = ~has.numpy()
         k = int(um.sum())
-        out = [CpuCol.concat([o, c.take(um)]) for o, c in zip(out, lcols)] \
-            + [CpuCol.concat([o, c.nulls(k)])
-               for o, c in zip(out[len(lcols):], rcols)]
-        m += k
-    rmatch = np.zeros(nr, np.bool_)
-    rmatch[ri[ok]] = True
-    if jt in (J.RIGHT_OUTER, J.FULL_OUTER) and not rmatch.all():
-        um = ~rmatch
+        if k:
+            out = [CpuCol.concat([o, c.take(um)])
+                   for o, c in zip(out, lcols)] + \
+                [CpuCol.concat([o, c.nulls(k)])
+                 for o, c in zip(out[len(lcols):], rcols)]
+            m += k
+    if jt in (J.RIGHT_OUTER, J.FULL_OUTER):
+        rhas = np.zeros(nr, np.bool_)
+        rhas[rin] = True
+        um = ~rhas
         k = int(um.sum())
-        out = [CpuCol.concat([o, c.nulls(k)]) for o, c in zip(out, lcols)] \
-            + [CpuCol.concat([o, c.take(um)])
-               for o, c in zip(out[len(lcols):], rcols)]
-        m += k
+        if k:
+            out = [CpuCol.concat([o, c.nulls(k)])
+                   for o, c in zip(out, lcols)] + \
+                [CpuCol.concat([o, c.take(um)])
+                 for o, c in zip(out[len(lcols):], rcols)]
+            m += k
     return out, m
+
+
+def _cpu_sort(plan: PN.Sort, ansi: bool) -> Tuple[CpuBatch, int]:
+    """The reference's ``_cpu_sort``: one stable sort by the device's key
+    words (``ops/sortkeys.py``): nulls first or last by each term, NaN the
+    greatest value, -0.0 with 0.0, a string by its bytes, then its
+    length, a descending term's words complemented."""
+    from spark_rapids_tpu_torch.ops.sortkeys import sort_permutation
+
+    cols, n = execute_cpu_plan(plan.child, ansi)
+    keys = [_to_torch(eval_expr(e, cols, n, ansi)) for e, _ in plan.orders]
+    perm = sort_permutation(keys, [s for _, s in plan.orders],
+                            torch.ones(n, dtype=torch.bool)).numpy()
+    return [c.take(perm) for c in cols], n
+
+
+def _cpu_window(plan: PN.Window, ansi: bool) -> Tuple[CpuBatch, int]:
+    """The reference's ``_cpu_window`` for the windows its rules keep off
+    the device: the device window (``exec/window.py``) on CPU tensors,
+    over the partition keys, order keys and inputs this engine evaluates.
+    Its frames and functions are the reference oracle's (a RANGE frame's
+    bounds over the first order key, as the oracle's ``_frame_rows``),
+    with Spark's values where the oracle errs: ``avg`` and the variance
+    family over a decimal read the scaled value (ROADMAP R27)."""
+    import dataclasses as _dc
+
+    from spark_rapids_tpu_torch.columnar.batch import ColumnarBatch
+    from spark_rapids_tpu_torch.exec.window import TpuWindowExec
+
+    cols, n = execute_cpu_plan(plan.child, ansi)
+    if n == 0:
+        return cols + _empty_cols(T.StructType(
+            plan.output.fields[len(cols):])), 0
+    exprs = list(plan.partition_by) + [e for e, _ in plan.order_by] + [
+        f.child for f in plan.functions if f.child is not None]
+    dcols = [_to_torch(eval_expr(e, cols, n, ansi)) for e in exprs]
+    refs = [BoundReference(i, e.dataType, e.nullable, e.sql_string())
+            for i, e in enumerate(exprs)]
+    npb, nob = len(plan.partition_by), len(plan.order_by)
+    fns, i = [], npb + nob
+    for f in plan.functions:
+        if f.child is not None:
+            f = _dc.replace(f, child=refs[i])
+            i += 1
+        fns.append(f)
+    schema = T.StructType([T.StructField(f"_w{i}", e.dataType)
+                           for i, e in enumerate(exprs)])
+    win = TpuWindowExec(fns, refs[:npb],
+                        [(r, s) for r, (_, s) in zip(refs[npb:npb + nob],
+                                                     plan.order_by)],
+                        None, schema, plan.frame, ansi)
+    win.children = [_HostInput()]
+    res = win._window(ColumnarBatch(dcols, n, schema))[len(dcols):]
+    return cols + [_from_torch(c) for c in res], n

@@ -79,6 +79,7 @@ from spark_rapids_tpu_torch.columnar.column import (DeviceColumn,
                                                     round_up_bucket)
 from spark_rapids_tpu_torch.exec.base import TpuExec
 from spark_rapids_tpu_torch.expr.base import EvalContext, Expression
+from spark_rapids_tpu_torch.expr.cast import unscaled_double
 from spark_rapids_tpu_torch.expr.hashexprs import bloom_bit_indices
 from spark_rapids_tpu_torch.memory.retry import with_retry
 from spark_rapids_tpu_torch.memory.spill import get_spill_framework
@@ -249,35 +250,10 @@ class TpuHashAggregateExec(TpuExec):
         return ColumnarBatch(cols, 1, self._output)
 
     # -- buffers ----------------------------------------------------------
-    def _buf_fields(self, a: AggregateExpression, f: T.StructField
-                    ) -> List[T.StructField]:
-        """One aggregate's buffer columns (the reference's
-        ``partial_buffer_schema``, plus the port's flags): a sum above 18
-        digits and an ``avg`` over such a sum carry an overflow flag,
-        ``first``/``last``/``any_value`` a seen flag; an
-        ``approx_count_distinct`` keeps its registers as an array<int>."""
-        name = f.name
-        if a.func == "approx_count_distinct":
-            return [T.StructField(f"{name}_hll", _HLL_TYPE, False)]
-        flag = T.StructField(f"{name}_overflow", T.BOOLEAN, False)
-        if a.func == "sum":
-            return [f] + ([flag] if _sum_flagged(a, f.dataType) else [])
-        if a.func == "avg":
-            sdt = _avg_sum_type(a)
-            return ([T.StructField(f"{name}_sum", sdt),
-                     T.StructField(f"{name}_count", T.LONG, False)]
-                    + ([flag] if _is_dec128_type(sdt) else []))
-        if a.func in MOMENT_BUFFERS:
-            return [T.StructField(name + sfx, T.DOUBLE)
-                    for sfx in MOMENT_BUFFERS[a.func]]
-        if a.func in _PICK_FUNCS:
-            return [f, T.StructField(f"{name}_seen", T.BOOLEAN, False)]
-        return [f]
-
     def _buffer_layout(self):
         """Per aggregate: (its output field, its buffer fields)."""
         k = len(self.grouping)
-        return [(f, self._buf_fields(a, f)) for a, f in
+        return [(f, buffer_fields(a, f)) for a, f in
                 zip(self.aggregates, self._output.fields[k:])]
 
     def _buffer_schema(self) -> T.StructType:
@@ -349,7 +325,7 @@ class TpuHashAggregateExec(TpuExec):
                                 torch.ones(cap, dtype=torch.bool, device=dev),
                                 data=torch.ones(cap, dtype=torch.int64,
                                                 device=dev))
-        return a.child.eval_tpu(ctx)
+        return string_input_as_double(a, a.child.eval_tpu(ctx), self.ansi)
 
     def _reduce(self, keys, inputs, mask, merge: bool) -> ColumnarBatch:
         """Rows (each aggregate's input column) or, with ``merge``, buffer
@@ -390,6 +366,33 @@ _HLL_TYPE = T.ArrayType(T.INT, containsNull=False)
 _BIT_OPS = {"bit_and": (torch.bitwise_and, -1),
             "bit_or": (torch.bitwise_or, 0),
             "bit_xor": (torch.bitwise_xor, 0)}
+
+
+def buffer_fields(a: AggregateExpression, f: T.StructField
+                  ) -> List[T.StructField]:
+    """One aggregate's buffer columns (the reference's
+    ``partial_buffer_schema``, plus the port's flags): a sum above 18
+    digits and an ``avg`` over such a sum carry an overflow flag,
+    ``first``/``last``/``any_value`` a seen flag; an
+    ``approx_count_distinct`` keeps its registers as an array<int>.
+    ``f`` is the aggregate's output field."""
+    name = f.name
+    if a.func == "approx_count_distinct":
+        return [T.StructField(f"{name}_hll", _HLL_TYPE, False)]
+    flag = T.StructField(f"{name}_overflow", T.BOOLEAN, False)
+    if a.func == "sum":
+        return [f] + ([flag] if _sum_flagged(a, f.dataType) else [])
+    if a.func == "avg":
+        sdt = _avg_sum_type(a)
+        return ([T.StructField(f"{name}_sum", sdt),
+                 T.StructField(f"{name}_count", T.LONG, False)]
+                + ([flag] if _is_dec128_type(sdt) else []))
+    if a.func in MOMENT_BUFFERS:
+        return [T.StructField(name + sfx, T.DOUBLE)
+                for sfx in MOMENT_BUFFERS[a.func]]
+    if a.func in _PICK_FUNCS:
+        return [f, T.StructField(f"{name}_seen", T.BOOLEAN, False)]
+    return [f]
 
 
 def _is_dec128_type(dt) -> bool:
@@ -696,11 +699,27 @@ def _avg_final(a: AggregateExpression, dt: T.DataType,
 
 
 def _as_double(c: DeviceColumn) -> torch.Tensor:
-    """A numeric column as doubles (a decimal scaled, as Spark casts it)."""
+    """A numeric column as doubles (a decimal scaled, as Spark casts it;
+    a decimal above 18 digits, which only a CPU stage aggregates, from its
+    limbs, as the cast to DOUBLE reads them)."""
+    if c.is_dec128:
+        return unscaled_double(c) * (10.0 ** -c.dtype.scale)
     x = c.data.to(torch.float64)
     if isinstance(c.dtype, T.DecimalType):
         x = x * (10.0 ** -c.dtype.scale)
     return x
+
+
+def string_input_as_double(a: AggregateExpression, c: DeviceColumn,
+                           ansi: bool) -> DeviceColumn:
+    """``avg`` and the variance family read a string input as doubles
+    (``expr/cast.py::strings_to_double``, on the host, as the reference's
+    cast); every other input as it is."""
+    if c.is_string and (a.func == "avg" or a.func in VARIANCE_FUNCS):
+        from spark_rapids_tpu_torch.expr.cast import strings_to_double
+
+        return strings_to_double(c, ansi)
+    return c
 
 
 def _merged_mean(cols: List[DeviceColumn], g: _Groups, valid, n_r):
@@ -922,15 +941,19 @@ def _percentile(a: AggregateExpression, dt: T.DataType, c: DeviceColumn,
     n = c.capacity
     if n == 0:
         return _null_column(dt, g.nseg, c.device)
+    dec128 = c.is_dec128
     if _is_float(c.dtype):
         f = c.data.to(torch.float64)
         bits = torch.where(torch.isnan(f), _CANONICAL_NAN,
                            f.view(torch.int64))
-        vkey = _float_total_order(bits)
+        vkeys = [_float_total_order(bits)]
+    elif dec128:
+        # only a CPU stage reaches here (the rules keep it off the card)
+        vkeys = _column_key_words(c)
     else:
-        vkey = c.data.to(torch.int64)
+        vkeys = [c.data.to(torch.int64)]
     order = lexsort([torch.where(g.mask_sorted, g.seg, g.nseg),
-                     (~validity).to(torch.int64), vkey])
+                     (~validity).to(torch.int64)] + vkeys)
     sdata = c.data[order]
     rows = SEG.seg_count(g.mask_sorted, g.seg, g.nseg)
     starts = torch.cumsum(rows, 0) - rows
@@ -944,6 +967,9 @@ def _percentile(a: AggregateExpression, dt: T.DataType, c: DeviceColumn,
     v_hi = sdata[(starts + torch.ceil(r).to(torch.int64)).clamp(0, n - 1)]
     scale = (10.0 ** -c.dtype.scale if isinstance(c.dtype, T.DecimalType)
              else 1.0)
+    if dec128:
+        v_lo = unscaled_double(DeviceColumn(c.dtype, nv > 0, data=v_lo))
+        v_hi = unscaled_double(DeviceColumn(c.dtype, nv > 0, data=v_hi))
     res = (v_lo.to(torch.float64) * (1.0 - frac)
            + v_hi.to(torch.float64) * frac) * scale
     return DeviceColumn(T.DOUBLE, nv > 0, data=res)

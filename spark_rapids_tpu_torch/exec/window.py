@@ -64,7 +64,7 @@ from spark_rapids_tpu_torch.expr.base import EvalContext, Expression, Literal
 from spark_rapids_tpu_torch.ops import segment as SEG
 from spark_rapids_tpu_torch.ops.sortkeys import (SortSpec, _column_key_words,
                                                  float_order_key, lexsort,
-                                                 pack_sort_keys)
+                                                 pack_sort_keys, word_ranks)
 from spark_rapids_tpu_torch.perfcounters import sync_get
 from spark_rapids_tpu_torch.plan.nodes import WindowFunction
 
@@ -174,6 +174,11 @@ class TpuWindowExec(TpuExec):
         geom = _Geometry(self.frame, iota, starts, ochange, mask_s,
                          iota - SEG.seg_first_rows(starts),
                          [c.gather(perm) for c in ocols[:1]], ospecs[:1])
+        if len(ocols) > 1:
+            # a RANGE frame bounds by the first order key alone (only a
+            # CPU stage runs one over several keys, as the reference's
+            # oracle does)
+            geom.key1_change = _change_flags(ocols[:1], perm, starts)
         for wf in self.functions:
             res = self._one_function(wf, ctx, perm, geom)
             if isinstance(res, DeviceColumn):
@@ -226,24 +231,53 @@ class TpuWindowExec(TpuExec):
             return self._lead_lag(wf, ctx, cs, g)
         if wf.func in ("first_value", "last_value"):
             return self._first_last(wf, cs, valid_s, g)
-        if cs.is_string and wf.func in ("min", "max"):
+        wide = cs.is_string or cs.is_dec128
+        if cs.is_string and wf.func in ("min", "max") \
+                and not isinstance(self.frame, tuple):
             arg, seen = SEG.seg_scan_arg_words(
                 _column_key_words(cs), valid_s, g.starts, wf.func == "min")
             at = g.running_at()
             res = cs.gather(arg[at])
             return _with_validity(res, seen[at])
+        if wide and wf.func in ("min", "max"):
+            return self._ranked_minmax(wf, cs, valid_s, g)
         if wf.func == "count":
             return self._count(valid_s, g), ones
         rt = wf.result_type
         if isinstance(rt, T.DecimalType) and rt.is_128:
             return self._sum128(rt, cs, valid_s, g)
         is_f = isinstance(rt, (T.FloatType, T.DoubleType))
-        x = cs.data.to(torch.float64 if is_f else torch.int64)
+        if is_f and isinstance(cs.dtype, T.DecimalType):
+            # avg and the variance family of a decimal, which only a CPU
+            # stage runs: the scaled value, as Spark reads it
+            from spark_rapids_tpu_torch.exec.aggregate import _as_double
+
+            x = _as_double(cs)
+        else:
+            x = cs.data.to(torch.float64 if is_f else torch.int64)
+        return self._numeric(wf, x, valid_s, is_f, g)
+
+    def _numeric(self, wf, x, valid_s, is_f: bool, g: "_Geometry"):
+        """sum, avg, min, max and the variance family over numbers ``x``
+        (sorted order) in the window's frame."""
         if isinstance(self.frame, tuple):
             return self._bounded(wf, x, valid_s, is_f, g)
         res, ok = self._running_agg(wf.func, x, valid_s, g.starts, is_f)
         at = g.running_at()
         return res[at], ok[at]
+
+    def _ranked_minmax(self, wf, cs: DeviceColumn, valid_s,
+                       g: "_Geometry") -> DeviceColumn:
+        """min/max of strings over a bounded frame, or of decimals above
+        18 digits over any frame, which only a CPU stage runs: each value
+        replaced by its dense rank among the column's key words (equal
+        words, equal values), the integer min/max taken over the ranks,
+        and the value of the winning rank read back."""
+        n = g.iota.shape[0]
+        rank, holder = word_ranks(_column_key_words(cs))
+        m, ok = self._numeric(wf, rank, valid_s, False, g)
+        res = cs.gather(holder[m.clamp(0, n - 1)])
+        return _with_validity(res, ok)
 
     def _lead_lag(self, wf, ctx, cs: DeviceColumn, g: "_Geometry"):
         """The row ``offset`` after (``lead``) or before (``lag``) in the
@@ -453,6 +487,7 @@ class _Geometry:
         self.pos_in_part = pos_in_part
         self.ocol_sorted = ocol_sorted
         self.ospecs = ospecs
+        self.key1_change = ochange
         self._memo = {}
 
     def _once(self, key, fn):
@@ -575,8 +610,9 @@ class _Geometry:
         peers = ~valid
         if is_f:
             peers = peers | torch.isnan(v)
-        fs = torch.where(peers, self.peer_first(), fs)
-        fe = torch.where(peers, self.peer_last() + 1, fe)
+        fs = torch.where(peers, SEG.seg_first_rows(self.key1_change), fs)
+        fe = torch.where(peers, _run_last(self.key1_change, self.mask_s,
+                                          self.iota).clamp(min=0) + 1, fe)
         return fs, torch.maximum(fe, fs)
 
     def levels(self) -> int:

@@ -297,16 +297,19 @@ def _dec_to_int(ctx, c, src: T.DecimalType, dst, ansi):
     return DeviceColumn(dst, validity, data=q.to(_tdt(dst)))
 
 
-def _dec_to_fp(ctx, c, src: T.DecimalType, dst, ansi):
-    if src.is_128:
-        from spark_rapids_tpu_torch.expr import decimal128 as D
+def unscaled_double(c: DeviceColumn) -> torch.Tensor:
+    """A decimal128 column's unscaled values as doubles: ``hi * 2^64 +
+    lo``, ``lo`` read unsigned."""
+    from spark_rapids_tpu_torch.expr import decimal128 as D
 
-        hi, lo = D.unpack(c.data)
-        lo_f = lo.to(torch.float64)
-        lo_u = torch.where(lo < 0, lo_f + 18446744073709551616.0, lo_f)
-        val = hi.to(torch.float64) * 18446744073709551616.0 + lo_u
-    else:
-        val = c.data.to(torch.float64)
+    hi, lo = D.unpack(c.data)
+    lo_f = lo.to(torch.float64)
+    lo_u = torch.where(lo < 0, lo_f + 18446744073709551616.0, lo_f)
+    return hi.to(torch.float64) * 18446744073709551616.0 + lo_u
+
+
+def _dec_to_fp(ctx, c, src: T.DecimalType, dst, ansi):
+    val = unscaled_double(c) if src.is_128 else c.data.to(torch.float64)
     data = val / _p10_tensor(src.scale, val)
     return DeviceColumn(dst, c.validity, data=data.to(_tdt(dst)))
 
@@ -398,3 +401,59 @@ _CASTS = {
     ("null", "date"): _null_to_any,
     ("null", "ts"): _null_to_any,
 }
+
+
+# -- string -> double, for avg and the variance family over a string ----------
+
+def spark_string_to_double(s: str):
+    """Spark's cast(string as double), a copy of the reference's
+    ``spark_string_to_double``: the trimmed Java ``Double.parseDouble``
+    grammar; None for input Spark reads as invalid.  Python-only syntax
+    that Java rejects (digit underscores, the bare 'inf'/'-inf') is
+    rejected; Java's trailing d/f suffix is accepted."""
+    t = s.strip()
+    if not t or "_" in t:
+        return None
+    low = t.lower()
+    if low.lstrip("+-") in ("inf",):
+        return None              # Java wants 'Infinity'
+    if low and low[-1] in "df" and any(ch.isdigit() for ch in low[:-1]) \
+            and "x" not in low:
+        t = t[:-1]               # Java FP suffix
+    try:
+        return float(t)
+    except ValueError:
+        return None
+
+
+def strings_to_double(c: DeviceColumn, ansi: bool) -> DeviceColumn:
+    """A string column parsed to doubles on the host, row by row, as the
+    reference's ``_string_to_fp`` host kernel parses: a string that does
+    not parse is null, or under ANSI an error in the reference's words.
+    The result lies on the column's device."""
+    from spark_rapids_tpu_torch.expr.base import SparkArithmeticException
+
+    valid = c.validity.cpu().numpy()
+    lengths = c.lengths.cpu().numpy()
+    chars = c.chars.cpu().numpy()
+    n = len(valid)
+    vals = [0.0] * n
+    ok = [False] * n
+    bad = False
+    for i in range(n):
+        if not valid[i]:
+            continue
+        f = spark_string_to_double(
+            bytes(chars[i, :lengths[i]]).decode("utf-8", "replace"))
+        if f is None:
+            bad = True
+        else:
+            vals[i], ok[i] = f, True
+    if bad and ansi:
+        raise SparkArithmeticException(
+            "invalid input syntax for type numeric (ANSI)")
+    dev = c.validity.device
+    return DeviceColumn(T.DOUBLE, torch.tensor(ok, dtype=torch.bool,
+                                               device=dev),
+                        data=torch.tensor(vals, dtype=torch.float64,
+                                          device=dev))

@@ -321,22 +321,13 @@ def seg_scan_arg_words(words, validity, starts, is_min: bool) -> Pair:
     One stable lexsort ranks the rows (equal words share a rank), and the
     running optimum of the ranks is the integer doubling scan; invalid
     rows never win."""
-    from spark_rapids_tpu_torch.ops.sortkeys import lexsort
+    from spark_rapids_tpu_torch.ops.sortkeys import word_ranks
 
     n = validity.shape[0]
     dev = validity.device
     if n == 0:
         return torch.zeros(0, dtype=torch.int64, device=dev), validity
-    order = lexsort(words)
-    change = torch.zeros(n, dtype=torch.bool, device=dev)
-    change[0] = True
-    for w in words:
-        ws = w[order]
-        change[1:] |= ws[1:] != ws[:-1]
-    rank_sorted = torch.cumsum(change.to(torch.int64), 0) - 1
-    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
-    holder = torch.zeros(n, dtype=torch.int64, device=dev).scatter_(
-        0, rank_sorted[change], order[change])
+    rank, holder = word_ranks(words)
     if is_min:
         r = _seg_scan(torch.where(validity, rank, n), starts, torch.minimum)
     else:

@@ -121,6 +121,25 @@ def lexsort(keys: Sequence[torch.Tensor]) -> torch.Tensor:
     return perm
 
 
+def word_ranks(words: Sequence[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each row's dense rank among the rows' key ``words`` (equal words
+    share a rank; ranks in the words' order), and for each rank the index
+    of a row that holds it: one stable ``lexsort``."""
+    n = words[0].shape[0]
+    order = lexsort(words)
+    change = torch.zeros(n, dtype=torch.bool, device=order.device)
+    change[:1] = True
+    for w in words:
+        ws = w[order]
+        change[1:] |= ws[1:] != ws[:-1]
+    rank_sorted = torch.cumsum(change.to(torch.int64), 0) - 1
+    rank = torch.empty_like(rank_sorted).scatter_(0, order, rank_sorted)
+    holder = torch.zeros(n, dtype=torch.int64, device=order.device).scatter_(
+        0, rank_sorted[change], order[change])
+    return rank, holder
+
+
 def sort_permutation(cols: Sequence[DeviceColumn],
                      specs: Sequence[SortSpec],
                      row_mask: torch.Tensor) -> torch.Tensor:

@@ -826,6 +826,7 @@ EXECS: Dict[Type, ExecRule] = {
     PN.Filter: ExecRule(_WITH_NESTED),
     PN.HashAggregate: ExecRule(_WITH_ARRAYS, _agg_check),
     PN.SortMergeJoin: ExecRule(_WITH_ARRAYS, _join_check),
+    PN.ShuffledHashJoin: ExecRule(_WITH_ARRAYS, _join_check),
     PN.BroadcastHashJoin: ExecRule(_WITH_ARRAYS, _join_check),
     PN.BroadcastNestedLoopJoin: ExecRule(_DEC128_FULL, _bnlj_check),
     PN.Sort: ExecRule(_DEC128_FULL),

@@ -297,9 +297,6 @@ def _convert_aggregate(meta: SparkPlanMeta, conf: TpuConf, device
             check_expression(a.child2)
         if a.child is not None:
             check_expression(a.child)
-            if (a.func == "avg" or a.func in PN.VARIANCE_FUNCS) \
-                    and isinstance(a.child.dataType, T.StringType):
-                raise NotOnGpu(f"{a.func} of a string (not ported yet)")
     return TpuHashAggregateExec(
         agg.grouping, agg.aggregates, PN.AggregateMode.COMPLETE,
         child, agg.child.output, node.output, ansi)
@@ -335,7 +332,7 @@ def _convert_node(node: PN.SparkPlan, children, conf: TpuConf, device,
         return TpuBroadcastNestedLoopJoinExec(
             children[0], children[1], node.join_type, node.condition,
             node.output, ansi)
-    if isinstance(node, PN.SortMergeJoin):
+    if isinstance(node, (PN.SortMergeJoin, PN.ShuffledHashJoin)):
         _check_join(node)
         if node.join_type == PN.JoinType.CROSS:
             return TpuCartesianProductExec(children[0], children[1],

@@ -273,11 +273,34 @@ class HashAggregate(SparkPlan):
         return self.children[0]
 
     @property
-    def output(self):
+    def result_schema(self) -> T.StructType:
+        """The keys, then each aggregate's result."""
         fields = [T.StructField(g.name, g.dataType, g.nullable)
                   for g in self.grouping]
         fields += [T.StructField(a.result_name, a.result_type)
                    for a in self.aggregates]
+        return T.StructType(fields)
+
+    @property
+    def output(self):
+        """The result schema; a PARTIAL aggregate's buffers instead (the
+        reference's ``partial_buffer_schema`` with the port's flags,
+        ``exec/aggregate.py::buffer_fields``), which only a CPU stage's
+        Partial emits: on the card the pair collapses into one COMPLETE
+        aggregate.  ``approx_count_distinct`` keeps its result's field
+        there, so that its exchange stays on the card (ROADMAP,
+        "Differences that bind the port")."""
+        out = self.result_schema
+        if self.mode != AggregateMode.PARTIAL:
+            return out
+        # exec/aggregate.py imports this module: imported at call time
+        from spark_rapids_tpu_torch.exec.aggregate import buffer_fields
+
+        k = len(self.grouping)
+        fields = list(out.fields[:k])
+        for a, f in zip(self.aggregates, out.fields[k:]):
+            fields += ([f] if a.func == "approx_count_distinct"
+                       else buffer_fields(a, f))
         return T.StructType(fields)
 
     def describe(self):
@@ -337,6 +360,11 @@ class _BaseJoin(SparkPlan):
 class SortMergeJoin(_BaseJoin):
     """The shuffled join the session plans, over an exchange on each side,
     when the right side is too big to broadcast."""
+
+
+class ShuffledHashJoin(_BaseJoin):
+    """Converted as the sort-merge join is, as in the reference; the
+    session never plans one, a plan built by hand may hold one."""
 
 
 class BroadcastHashJoin(_BaseJoin):

@@ -176,7 +176,8 @@ def test_list_column_through_scan_filter_and_projection():
     """A LocalTableScan of a list column, filtered (a row gather) and
     projected, collected as Python lists.  An exchange cannot hold one
     (the reference's Exchange rule has no arrays, so it is a CPU stage,
-    which the port's engine does not run): ``NotOnGpu`` at plan time."""
+    and the port's engine holds no list column): ``NotOnGpu`` at plan
+    time."""
     import spark_rapids_tpu_torch.session as S
     from spark_rapids_tpu_torch.plan.nodes import LocalTableScan
 

@@ -175,10 +175,13 @@ def test_struct_reference_is_a_cpu_stage_under_the_aggregate(tmp_path):
 
 def test_unported_device_nodes_still_raise():
     """A string literal or column runs on the device and in a CPU stage
-    now, and so does the max of a string; the avg of a string runs on the
-    reference's device but not the port's: ``NotOnGpu``, never a CPU
-    stage; so does a CPU stage the port's engine cannot run (a string
-    struct field in it, a disabled sort or aggregate)."""
+    now, and so do the max and the avg of a string (the avg parses it, as
+    the reference's cast does: 2.0 over "1.5", "2.5" and NULL, the
+    oracle's row); a string picked out of a struct in a CPU stage is not
+    ported: ``NotOnGpu``, never a wrong row.  A disabled sort or aggregate
+    is a CPU stage of the port's engine, with the oracle's rows; the
+    whole-query oracle still raises.  (The name is kept from when more of
+    these raised.)"""
     s = S.TpuSession({}, device="cpu")
     df = base(S, s).select(S.col("i"), Literal("x", T.STRING).alias("x"))
     assert {x for _, x in df.collect()} == {"x"}
@@ -188,8 +191,13 @@ def test_unported_device_nodes_still_raise():
     assert df.filter(S.col("name").is_not_null()).collect() == [("a",),
                                                                 ("b",)]
     assert df.agg(S.max_("name", "m")).collect() == [("b",)]
-    with pytest.raises(NotOnGpu, match="avg of a string"):
-        df.agg(S.avg_("name", "m")).collect()
+    nums = HostColumn.from_pylist(["1.5", None, "2.5"], T.STRING)
+    df = S.DataFrame(LocalTableScan([nums], T.StructType(
+        [T.StructField("t", T.STRING)])), s)
+    want = RS.TpuSession(ORACLE).create_dataframe(
+        {"t": ["1.5", None, "2.5"]}, RT.StructType(
+            [RT.StructField("t", RT.STRING)])).agg(RS.avg_("t", "m"))
+    assert df.agg(S.avg_("t", "m")).collect() == want.collect() == [(2.0,)]
     s = S.TpuSession({"spark.rapids.sql.exec.Project": "false"},
                      device="cpu")
     # a string literal now passes through a CPU stage; a string picked
@@ -201,12 +209,16 @@ def test_unported_device_nodes_still_raise():
     with pytest.raises(NotOnGpu, match="type string in a CPU stage"):
         df.explain()
     for node in ("Sort", "HashAggregate"):
-        s = S.TpuSession({f"spark.rapids.sql.exec.{node}": "false"},
-                         device="cpu")
-        df = base(S, s).order_by("i") if node == "Sort" else \
-            base(S, s).agg(S.sum_("i", "t"))
-        with pytest.raises(NotOnGpu, match=f"{node} in a CPU stage"):
-            df.collect()
+        conf = {f"spark.rapids.sql.exec.{node}": "false"}
+
+        def build(mod, sess, node=node):
+            return (base(mod, sess).order_by("i") if node == "Sort"
+                    else base(mod, sess).agg(mod.sum_("i", "t")))
+        df = build(S, S.TpuSession(conf, device="cpu"))
+        assert df.explain().startswith(node)
+        want = build(RS, RS.TpuSession(dict(conf, **ORACLE))).collect()
+        assert rows_key(df.collect(), ordered=True) == rows_key(
+            want, ordered=True)
     s = S.TpuSession({"spark.rapids.sql.enabled": False}, device="cpu")
     with pytest.raises(NotOnGpu, match="whole-query CPU oracle"):
         base(S, s).collect()
@@ -256,18 +268,24 @@ def test_cpu_engine_runs_every_ported_expression():
 
 
 def test_cpu_engine_runs_the_nested_loop_join():
-    """The CPU engine's plan nodes are the scan, filter, project, union and
-    the nested-loop join: a nested-loop join kept off the device (its exec
-    disabled) is a CPU stage, with the reference's reason, whose rows are
-    the device's; an equi-join with a residual condition that is not
-    inner, which the reference runs as a CPU stage, raises ``NotOnGpu``
-    (the engine has no hash join yet)."""
+    """The CPU engine's plan nodes are the scan, filter, project, union,
+    the nested-loop join, the aggregate, the three hash joins, the sort,
+    the limits, the window and the exchanges passed through: a
+    nested-loop join kept off the device (its exec disabled) is a CPU
+    stage, with the reference's reason, whose rows are the device's; an
+    equi-join with a residual condition that is not inner, which the
+    reference runs as a CPU stage, gives Spark's rows there: each left
+    row with the right rows that pass the condition, or nulls (the
+    reference's hash-join oracle drops the condition, ROADMAP R26).
+    (The name is kept from when the engine ran no hash join.)"""
     from spark_rapids_tpu_torch.cpu import oracle
     from spark_rapids_tpu_torch.plan import nodes as PN
 
-    assert oracle.CPU_PLAN_NODES == {PN.LocalTableScan, PN.Filter,
-                                     PN.Project, PN.Union,
-                                     PN.BroadcastNestedLoopJoin}
+    assert oracle.CPU_PLAN_NODES == {
+        PN.LocalTableScan, PN.Filter, PN.Project, PN.Union,
+        PN.BroadcastNestedLoopJoin, PN.HashAggregate, PN.SortMergeJoin,
+        PN.ShuffledHashJoin, PN.BroadcastHashJoin, PN.Sort, PN.GlobalLimit,
+        PN.LocalLimit, PN.Window, PN.Exchange, PN.BroadcastExchange}
 
     def joined(s, how="inner"):
         left = base(S, s).select("i", "d")
@@ -294,10 +312,20 @@ def test_cpu_engine_runs_the_nested_loop_join():
         [S.col("i").resolve(left.schema)], [S.col("k").resolve(right.schema)],
         PN.JoinType.LEFT_OUTER)
     df = S.DataFrame(node, s)
-    node.condition = (S.col("l") > S.col("n")).resolve(df.schema)
-    with pytest.raises(NotOnGpu, match="BroadcastHashJoin in a CPU stage "
-                       r"\(non-inner join with residual condition"):
-        df.explain()
+    node.condition = (S.col("n") > S.col("i")).resolve(df.schema)
+    lines = df.explain().splitlines()
+    assert lines[0].startswith("BroadcastHashJoin LeftOuter")
+    assert lines[-1].endswith("non-inner join with residual condition is "
+                              "not supported on TPU")
+    # each key meets its own row only (i is unique): a row whose l > i
+    # keeps its pair, the others (and the null keys) get nulls
+    rows = base(S, s).select("i", "l").collect()
+    assert len({i for i, _ in rows if i is not None}) == sum(
+        1 for i, _ in rows if i is not None)
+    want = [(i, l, i, l) if i is not None and l is not None and l > i
+            else (i, l, None, None) for i, l in rows]
+    assert 20 < sum(1 for w in want if w[2] is not None) < len(want) - 20
+    assert rows_key(df.collect()) == rows_key(want)
 
 
 def test_open_breaker_entry_keeps_the_node_on_the_host():

@@ -1376,3 +1376,87 @@ def test_single_phase_aggregates_on_gpu_equal_cpu():
                              for dev in ("cuda", "cpu"))
                 assert rows_key(got) == rows_key(want), (family, conf,
                                                          grouped)
+
+
+def _engine_table(s, n: int, seed: int):
+    """A table for the CPU engine's card tests: int keys with nulls,
+    strings, a decimal(22,2), doubles with NaN."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random(n) > 0.1
+    d = rng.normal(0, 50, n)
+    d[rng.random(n) < 0.05] = np.nan
+    cols = {"k": [int(v) if ok else None for v, ok in
+                  zip(rng.integers(0, 40, n), valid)],
+            "s": [["", "a", "ab", "b", "zz"][v]
+                  for v in rng.integers(0, 5, n)],
+            "i": [int(v) for v in rng.integers(-10 ** 6, 10 ** 6, n)],
+            "w": [Decimal(int(v)).scaleb(-2) if ok else None for v, ok in
+                  zip(rng.integers(-10 ** 18, 10 ** 18, n), valid[::-1])],
+            "d": [float(v) for v in d],
+            "t": [f"{v:.3f}" for v in rng.normal(0, 9, n)]}
+    sch = T.StructType([T.StructField("k", T.INT),
+                        T.StructField("s", T.STRING),
+                        T.StructField("i", T.INT),
+                        T.StructField("w", T.DecimalType(22, 2)),
+                        T.StructField("d", T.DOUBLE),
+                        T.StructField("t", T.STRING)])
+    return s.create_dataframe(cols, sch)
+
+
+def _engine_queries(s):
+    """name -> a query whose CPU stages read device subtrees."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.plan import nodes as PN
+
+    left = _engine_table(s, 3000, 1)
+    right = _engine_table(s, 2000, 2).select(
+        S.col("k").alias("k2"), S.col("i").alias("j"), S.col("s").alias("s2"))
+    out = {}
+    for how in ("LEFT_SEMI", "LEFT_ANTI", "LEFT_OUTER", "RIGHT_OUTER",
+                "FULL_OUTER"):
+        j = PN.SortMergeJoin(left.plan, right.plan,
+                             [S.col("k").resolve(left.schema)],
+                             [S.col("k2").resolve(right.schema)],
+                             getattr(PN.JoinType, how))
+        j.condition = (S.col("i") > S.col("j")).resolve(T.StructType(
+            list(left.schema.fields) + list(right.schema.fields)))
+        out[how] = S.DataFrame(j, s)
+    out["sort"] = left.order_by("s", "d", "k", ascending=[False, True, True])
+    out["avg128"] = left.group_by("s").agg(S.avg_("w", "a"),
+                                           S.variance_("w", "v"),
+                                           S.sum_("w", "t"))
+    out["rows300"] = left.window(
+        [PN.WindowFunction(f, S.col(c), f"x{f}")
+         for f, c in (("sum", "i"), ("min", "d"), ("max", "s"),
+                      ("avg", "w"))], partition_by=["k"],
+        order_by=[S.col("i")], frame=("rows", 150, 149))
+    out["avg_string"] = left.group_by("k").agg(S.avg_("t", "a"),
+                                               S.var_pop_("t", "v"))
+    return out
+
+
+@pytest.mark.gpu
+def test_cpu_engine_nodes_on_gpu_equal_cpu():
+    """The CPU engine's hash joins with a residual condition (semi, anti,
+    left, right and full outer), a disabled sort, a decimal128 ``avg``, a
+    window frame 300 rows wide and ``avg`` of a string, over device
+    subtrees on the card, equal the same plans run on the CPU (doubles
+    to 12 digits: the card adds the subtrees' doubles in its order)."""
+    _need_gpu()
+    from torch_port_frames import rows_key
+
+    conf = {"spark.rapids.sql.exec.Sort": "false"}
+    got = _engine_queries(TpuSession(conf, device="cuda"))
+    want = _engine_queries(TpuSession(conf, device="cpu"))
+    for name, q in got.items():
+        g, w = q.collect(), want[name].collect()
+        assert len(g) >= 5, name
+        ordered = name == "sort"
+        assert rows_key(g, approx_float=True, ordered=ordered) == rows_key(
+            w, approx_float=True, ordered=ordered), name
+    # O5: the avg of a string on the card, the oracle's 2.0
+    s = TpuSession({}, device="cuda")
+    df = s.create_dataframe({"t": ["1.5", "2.5", None]},
+                            T.StructType([T.StructField("t", T.STRING)]))
+    from spark_rapids_tpu_torch.session import avg_
+    assert df.agg(avg_("t", "a")).collect() == [(2.0,)]

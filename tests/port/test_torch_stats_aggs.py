@@ -158,8 +158,8 @@ def test_result_types_equal_the_reference():
 def test_non_numeric_inputs_raise():
     """The reference's ``_agg_extra_checks``: a string input to a moment
     or covariance aggregate is tagged off the device; the port's CPU
-    engine has no aggregate, so the plan raises with the reference's
-    words."""
+    engine does not run a moment of what is not a number either, so the
+    plan raises with the reference's words."""
     s = S.TpuSession({}, device="cpu")
     arr, valid = stats_data()
     df = frame(S, s, arr, stats_schema(T), valid)

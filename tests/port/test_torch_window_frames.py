@@ -10,9 +10,9 @@ exactly, doubles to 12 significant digits (``torch_port_frames``): the
 port adds in the scans' and tables' orders where the oracle adds row by
 row.  A window ``sum`` whose decimal result is above 18 digits equals the
 oracle; the reference's device raises there (ROADMAP R23).  Every case
-the reference tags off the device raises ``NotOnGpu`` with the
-reference's words (the port's CPU engine has no window:
-``test_torch_window.py``).  The tables, functions and frames are
+the reference tags off the device runs as a CPU stage, or raises
+``NotOnGpu`` with the reference's words where the port's CPU engine
+leaves it out (``test_torch_window.py``).  The tables, functions and frames are
 ``torch_port_windows``'s, shared with the card test."""
 import math
 from decimal import Decimal
