@@ -7133,11 +7133,11 @@ def phones_check(cols, names, want):
 
 def run_timed_query(label: str, q, check, plan, n: int, unit: str,
                     want_k1: int, smi: str, host: bool = True,
-                    probe=None):
-    """One of phases 32-35's queries: the plan the reference's (its
+                    probe=None, timed: int = 2):
+    """One of phases 32-36's queries: the plan the reference's (its
     window-chain and join-aggregate fusions aside), one untimed collect
     under the profiler (the idle share; inside ``probe(label)``, a
-    context whose value the result keeps as ``probe``), two timed
+    context whose value the result keeps as ``probe``), ``timed`` timed
     collects, each held by ``check`` (the rows, or with ``host`` the host
     columns: -> None or a complaint), K1 once a dictionary chunk, the
     counts read around the last."""
@@ -7155,7 +7155,7 @@ def run_timed_query(label: str, q, check, plan, n: int, unit: str,
     with (probe(label) if probe else contextlib.nullcontext()) as probed:
         profile_collect(collect, None, f"{label} parquet", key=check)
     secs = []
-    for _ in range(2):
+    for _ in range(timed):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         decode.unpack_launches = 0
@@ -8422,6 +8422,386 @@ def run_q21_phase(tables, q21, paths, out_dir: str, device, smi: str):
     return out
 
 
+# -- phase 36: ClickBench's time queries over hits ----------------------------
+
+#: a quarter of ClickBench's 99,997,497 hits rows (the depth cut, for the
+#: script's time limit)
+HITS_ROWS = 25_000_000
+HITS_T0 = 1_372_636_800            # 2013-07-01 00:00:00 UTC, in seconds
+HITS_DAYS = 31                     # July 2013, ClickBench's month
+HITS_COUNTERS = 6_500
+HITS_USERS = 4_400_000
+HITS_PHRASES = 20_000
+Q42_DAYS = ("2013-07-14", "2013-07-15")
+Q42_OFFSET = 1_000                 # no OFFSET in the port: LIMIT 1010 kept
+Q42_LIMIT = 10                     # from row 1000 on the host
+HITS_ZONE = "America/Los_Angeles"
+#: the hits columns the queries read, with ClickBench's types (SMALLINT
+#: IsRefresh and DontCountHits held as INT, as Parquet stores them)
+HITS_COLUMNS = (("EventTime", "TIMESTAMP"), ("EventDate", "DATE"),
+                ("CounterID", "INT"), ("UserID", "LONG"),
+                ("SearchPhrase", "STRING"), ("IsRefresh", "INT"),
+                ("DontCountHits", "INT"))
+
+
+def hits_schema(T):
+    return T.StructType([T.StructField(n, getattr(T, t), False)
+                         for n, t in HITS_COLUMNS])
+
+
+def hits_phrases(seed: int, k: int = HITS_PHRASES) -> np.ndarray:
+    """SearchPhrase's vocabulary: '' (index 0), then ``k`` phrases of 5 to
+    60 bytes, words drawn from TPC-H's word lists."""
+    rng = np.random.default_rng(seed)
+    words = np.array([w for w, _ in TEXT_NOUNS + TEXT_VERBS
+                      + TEXT_ADJECTIVES], object)
+    out = [""]
+    for want in rng.integers(5, 61, k):
+        text = " ".join(words[rng.integers(0, len(words), 12)])[:want]
+        out.append(text[:-1] + "s" if text.endswith(" ") else text)
+    return np.array(out, object)
+
+
+def make_hits(n: int, seed: int):
+    """hits as the queries read it, from ``seed``: ``EventTime`` whole
+    seconds over July 2013 UTC and ``EventDate`` its day; ``CounterID``
+    62 on one row in ten, the rest Zipf over about 6,500 counters;
+    ``UserID`` from 4,400,000 random ids, skewed; ``SearchPhrase`` empty
+    on about seven rows in eight, else a skewed draw of the vocabulary
+    (codes into ``hits_phrases``); ``IsRefresh`` 1 on a tenth,
+    ``DontCountHits`` 1 on a twentieth.  Also ``user_ix``, each row's id
+    index (the numpy references group on it)."""
+    rng = np.random.default_rng(seed)
+    secs = HITS_T0 + rng.integers(0, HITS_DAYS * 86_400, n)
+    counter = (rng.zipf(1.3, n) - 1) % HITS_COUNTERS + 1
+    counter = np.where(counter == 62, 63, counter)
+    counter[rng.random(n) < 0.1] = 62
+    users = rng.integers(-2 ** 62, 2 ** 62, HITS_USERS)
+    user_ix = (HITS_USERS * rng.random(n) ** 2).astype(np.int64)
+    phrase = np.where(rng.random(n) < 0.875, 0, 1 + (
+        HITS_PHRASES * rng.random(n) ** 2).astype(np.int64))
+    return {"EventTime": secs * 1_000_000,
+            "EventDate": (secs // 86_400).astype(np.int32),
+            "CounterID": counter.astype(np.int32),
+            "UserID": users[user_ix], "user_ix": user_ix,
+            "SearchPhrase": phrase.astype(np.int32),
+            "IsRefresh": (rng.random(n) < 0.1).astype(np.int32),
+            "DontCountHits": (rng.random(n) < 0.05).astype(np.int32)}
+
+
+def write_hits_files(hits, phrases, out_dir: str, device,
+                     n_files: int = N_FILES):
+    from spark_rapids_tpu_torch import types as T
+
+    return write_tpch_files("hits", hits, {"SearchPhrase": phrases},
+                            hits_schema(T), out_dir, device, n_files)
+
+
+def _dt_exprs(mod):
+    import importlib
+
+    pkg = mod.__name__.rsplit(".", 1)[0]
+    return (importlib.import_module(pkg + ".expr.datetime"),
+            importlib.import_module(pkg + ".expr.cast").Cast,
+            importlib.import_module(pkg + ".types"))
+
+
+def q18_query(hits, mod):
+    """ClickBench Q18: SELECT UserID, extract(minute FROM EventTime) AS m,
+    SearchPhrase, COUNT(*) FROM hits GROUP BY UserID, m, SearchPhrase
+    ORDER BY COUNT(*) DESC LIMIT 10."""
+    D, _, _ = _dt_exprs(mod)
+    col = mod.col
+    m = D.Extract(mod.lit("minute"), col("EventTime")).alias("m")
+    return (hits.group_by(col("UserID"), m, col("SearchPhrase"))
+            .agg(mod.count_(None, "c")).order_by(col("c"), ascending=False)
+            .limit(10))
+
+
+def q24_query(hits, mod):
+    """ClickBench Q24: SELECT SearchPhrase FROM hits WHERE SearchPhrase <>
+    '' ORDER BY EventTime LIMIT 10."""
+    col = mod.col
+    return (hits.filter(~col("SearchPhrase").eq(mod.lit("")))
+            .order_by(col("EventTime")).limit(10).select(col("SearchPhrase")))
+
+
+def q42_query(hits, mod):
+    """ClickBench Q42 without its OFFSET (the port has none, like the
+    reference): SELECT DATE_TRUNC('minute', EventTime) AS M, COUNT(*) AS
+    PageViews FROM hits WHERE CounterID = 62 AND EventDate >= '2013-07-14'
+    AND EventDate <= '2013-07-15' AND IsRefresh = 0 AND DontCountHits = 0
+    GROUP BY DATE_TRUNC('minute', EventTime) ORDER BY DATE_TRUNC('minute',
+    EventTime) LIMIT 1010; the date literals are casts of strings, which
+    the card evaluates (the reference folds no constant)."""
+    D, Cast, T = _dt_exprs(mod)
+    col, lit = mod.col, mod.lit
+    day = [Cast(lit(d), T.DATE) for d in Q42_DAYS]
+    keep = (col("CounterID").eq(lit(62)) & (col("EventDate") >= day[0])
+            & (col("EventDate") <= day[1]) & col("IsRefresh").eq(lit(0))
+            & col("DontCountHits").eq(lit(0)))
+    return (hits.filter(keep)
+            .group_by(D.TruncTimestamp(lit("minute"), col("EventTime"))
+                      .alias("M"))
+            .agg(mod.count_(None, "PageViews")).order_by(col("M"))
+            .limit(Q42_OFFSET + Q42_LIMIT))
+
+
+def hours_query(hits, mod):
+    """Page views by hour of the day in America/Los_Angeles: hour(
+    from_utc_timestamp(EventTime, zone)), counted and ordered."""
+    D, _, _ = _dt_exprs(mod)
+    col = mod.col
+    h = D.Hour(D.FromUTCTimestamp(col("EventTime"), mod.lit(HITS_ZONE)))
+    return (hits.group_by(h.alias("h")).agg(mod.count_(None, "n"))
+            .order_by(col("h")))
+
+
+HITS_QUERIES = {"Q18": q18_query, "Q24": q24_query, "Q42": q42_query,
+                "hours_la": hours_query}
+
+
+def _ts(micros: int):
+    import datetime as _dt
+
+    return (_dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+            + _dt.timedelta(microseconds=int(micros)))
+
+
+def q18_reference(hits, phrases):
+    """(every group's count by its key, the top ten counts): the groups
+    of (user, minute, phrase) counted by ``np.unique`` on one int64 key."""
+    minute = (hits["EventTime"] // 60_000_000) % 60
+    key = ((hits["user_ix"] * 60 + minute) * (len(phrases))
+           + hits["SearchPhrase"])
+    keys, counts = np.unique(key, return_counts=True)
+    top = np.argsort(-counts, kind="stable")[:10]
+    return keys, counts, sorted(counts[top].tolist(), reverse=True)
+
+
+def q18_check(hits, phrases, ref):
+    """Q18's rows: ten distinct groups in descending count, the counts
+    numpy's top ten, each group's count its own (ties at the tenth count
+    may pick any of the tied groups)."""
+    keys, counts, top = ref
+    users = {}
+
+    def check(rows):
+        got = [r[3] for r in rows]
+        if got != top:
+            return f"Q18 counts {got} against numpy's {top}"
+        if len({r[:3] for r in rows}) != len(rows):
+            return f"Q18 repeats a group: {rows}"
+        for uid, m, phrase, c in rows:
+            if uid not in users:
+                users[uid] = int(hits["user_ix"][np.flatnonzero(
+                    hits["UserID"] == uid)[0]])
+            code = int(np.flatnonzero(phrases == phrase)[0])
+            k = (users[uid] * 60 + m) * len(phrases) + code
+            j = np.searchsorted(keys, k)
+            if j >= len(keys) or keys[j] != k or counts[j] != c:
+                return f"Q18 group {(uid, m, phrase)} counted {c}"
+        return None
+    return check
+
+
+def q24_reference(hits, phrases):
+    """(the phrases of the rows before the tenth instant, those at it):
+    the non-empty rows ordered by EventTime."""
+    ne = np.flatnonzero(hits["SearchPhrase"] != 0)
+    t = hits["EventTime"][ne]
+    t10 = np.partition(t, 9)[9]
+    return (sorted(phrases[hits["SearchPhrase"][ne[t < t10]]].tolist()),
+            phrases[hits["SearchPhrase"][ne[t == t10]]].tolist())
+
+
+def q24_check(ref):
+    """Q24's rows: every phrase before the tenth instant, the rest from
+    those at it (ties at it may pick any)."""
+    before, at = ref
+
+    def check(rows):
+        got = [r[0] for r in rows]
+        rest = list(got)
+        for p in before:
+            if p not in rest:
+                return f"Q24 lacks {p!r}: {got}"
+            rest.remove(p)
+        pool = list(at)
+        for p in rest:
+            if p not in pool:
+                return f"Q24 {p!r} is not at the tenth instant: {got}"
+            pool.remove(p)
+        return None if len(got) == 10 else f"Q24 gave {len(got)} rows"
+    return check
+
+
+def q42_reference(hits):
+    """Q42's rows 1000 to 1009: (minute, page views), minutes ascending."""
+    lo, hi = ((np.datetime64(d) - np.datetime64("1970-01-01")).astype(int)
+              for d in Q42_DAYS)
+    keep = ((hits["CounterID"] == 62) & (hits["EventDate"] >= lo)
+            & (hits["EventDate"] <= hi) & (hits["IsRefresh"] == 0)
+            & (hits["DontCountHits"] == 0))
+    minutes, counts = np.unique(hits["EventTime"][keep] // 60_000_000,
+                                return_counts=True)
+    end = Q42_OFFSET + Q42_LIMIT
+    return [(_ts(m * 60_000_000), int(c))
+            for m, c in zip(minutes[Q42_OFFSET:end], counts[Q42_OFFSET:end])]
+
+
+def q42_check(want):
+    def check(rows):
+        got = rows[Q42_OFFSET:]
+        return None if got == want else (
+            f"Q42 rows {Q42_OFFSET}-: {got[:3]} against {want[:3]}")
+    return check
+
+
+def hours_reference(hits):
+    """Page views by the zone's hour: July 2013 lies inside one DST period
+    of the zone, so one offset, read from Python's zoneinfo (not from the
+    port's tables), holds for the month."""
+    import datetime as _dt
+    from zoneinfo import ZoneInfo
+
+    zi = ZoneInfo(HITS_ZONE)
+    offs = {zi.utcoffset(_dt.datetime(2013, 7, d)) for d in (1, 16, 31)}
+    if len(offs) != 1:
+        fail(f"{HITS_ZONE} changes offset in July 2013: {offs}")
+    off = int(offs.pop().total_seconds())
+    h = ((hits["EventTime"] // 1_000_000 + off) // 3600) % 24
+    return [(i, int(c)) for i, c in enumerate(np.bincount(h, minlength=24))]
+
+
+def hits_references(hits, phrases, tz: bool):
+    """The numpy references of phase 36, each in a thread."""
+    jobs = {"Q18": lambda: q18_reference(hits, phrases),
+            "Q24": lambda: q24_reference(hits, phrases),
+            "Q42": lambda: q42_reference(hits)}
+    if tz:
+        jobs["hours_la"] = lambda: hours_reference(hits)
+    return _start(jobs)
+
+
+def hits_checks(hits, phrases, refs):
+    return {"Q18": q18_check(hits, phrases, refs["Q18"].result()),
+            "Q24": q24_check(refs["Q24"].result()),
+            "Q42": q42_check(refs["Q42"].result()),
+            **({"hours_la": _rows_in_order(
+                "hours_la", refs["hours_la"].result())}
+               if "hours_la" in refs else {})}
+
+
+#: the port's plans of phase 36, scans as ``<scan>`` (the reference's:
+#: ``tests/port/test_torch_clickbench.py``)
+HITS_PLANS = {
+    "Q18": ["TpuTopN 10",
+            "  TpuHashAggregate(Complete) keys=[UserID, extract('minute' "
+            "FROM EventTime) AS m, SearchPhrase] aggs=[count_star(*) AS c]",
+            "    <scan>"],
+    "Q24": ["TpuProject [SearchPhrase]",
+            "  TpuTopN 10",
+            "    TpuFilter ((NOT (SearchPhrase = '')))",
+            "      <scan>"],
+    "Q42": ["TpuTopN 1010",
+            "  TpuHashAggregate(Complete) keys=[trunctimestamp('minute', "
+            "EventTime) AS M] aggs=[count_star(*) AS PageViews] "
+            "fused=[Filter]",
+            "    <scan>"],
+    "hours_la": ["TpuSort [h ASC]",
+                 "  TpuHashAggregate(Complete) keys=[hour(fromutctimestamp("
+                 "EventTime, 'America/Los_Angeles')) AS h] "
+                 "aggs=[count_star(*) AS n]",
+                 "    <scan>"]}
+
+
+def has_zoneinfo() -> bool:
+    """Whether this machine has the zone files ``tzdb`` reads."""
+    from spark_rapids_tpu_torch.tzdb import is_known_zone
+
+    return is_known_zone(HITS_ZONE)
+
+
+def run_hits_phase(hits, phrases, paths, device, smi: str, tz: bool,
+                   refs):
+    """Phase 36: ClickBench Q18, Q24 and Q42 (and, with ``tz``, page views
+    by the hour in America/Los_Angeles) from the hits files, each planned
+    as the reference plans it, profiled, collected twice timed, exact
+    against numpy (``refs``: the references' futures), K1 once a
+    dictionary chunk; K1 against its plain version on the first file's
+    EventTime and UserID index tables.  -> each query's launches and
+    seconds, and K1's largest difference."""
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch import types as T
+
+    sch = hits_schema(T)
+    k1_err, widths = check_k1_tables(
+        [paths[0]], lambda p: T.StructType(
+            [f for f in sch.fields if f.name in ("EventTime", "UserID")]),
+        device, smi, "hits EventTime and UserID")
+    s = S.TpuSession(Q12_CONF, device=device)
+    checks = hits_checks(hits, phrases, refs)
+    out = {"k1_err": k1_err, "widths": widths}
+    n = len(hits["EventTime"])
+    for label, build in HITS_QUERIES.items():
+        if label not in checks:
+            continue
+        reads = hits_reads(T, label)
+        q = build(s.read.schema(reads).parquet(*paths), S)
+        t1 = time.perf_counter()
+        # Q42's collect is 27 s of the host's snappy op walk (PERF.md):
+        # one timed collect beside the profiled one, for the time limit
+        out[label] = run_timed_query(
+            label, q, checks[label], HITS_PLANS[label], n,
+            "hits rows", dict_chunks(paths, reads), smi, host=False,
+            timed=1 if label == "Q42" else 2)
+        out[label]["wall"] = time.perf_counter() - t1
+    log("phase 36 walls: " + ", ".join(
+        f"{k} {v['wall']:.1f} s" for k, v in out.items()
+        if isinstance(v, dict)))
+    return out
+
+
+def hits_reads(T, label: str):
+    """The hits columns a query reads, as the scan's schema."""
+    names = {"Q18": ("UserID", "EventTime", "SearchPhrase"),
+             "Q24": ("SearchPhrase", "EventTime"),
+             "Q42": ("EventTime", "CounterID", "EventDate", "IsRefresh",
+                     "DontCountHits"),
+             "hours_la": ("EventTime",)}[label]
+    return T.StructType([f for f in hits_schema(T).fields
+                         if f.name in names])
+
+
+def run_hits_main(seed: int, device, smi: str):
+    """Phase 36 at its size: hits made from ``seed + 306``, its numpy
+    references started in threads beside the writes, the files written,
+    then ``run_hits_phase``; the zone query where the zone files exist."""
+    t0 = time.perf_counter()
+    hits = make_hits(HITS_ROWS, seed + 306)
+    phrases = hits_phrases(seed + 307)
+    gen_s = time.perf_counter() - t0
+    tz = has_zoneinfo()
+    log(f"phase 36: zone files for {HITS_ZONE} "
+        f"{'present' if tz else 'missing: the zone query does not run'}")
+    refs = hits_references(hits, phrases, tz)
+    out_dir = os.path.join(HERE, "spark_rapids_tpu_torch", "build",
+                           f"hits_seed{seed + 306}")
+    paths = write_hits_files(hits, phrases, out_dir, device)
+    log(f"hits data: {HITS_ROWS} rows in {N_FILES} files "
+        f"({sum(os.path.getsize(p) for p in paths)} bytes); generated in "
+        f"{gen_s:.1f} s, written in {time.perf_counter() - t0 - gen_s:.1f} "
+        f"s beside the numpy references")
+    widths = sorted({(name, page.index_bit_width) for p in paths
+                     for name, page in main_path_pages(p)
+                     if page.index_bit_width})
+    log(f"hits dictionary index widths: {widths}")
+    if max(w for _, w in widths) > 24:
+        fail(f"hits: an index width past K1's 24: {widths}")
+    return run_hits_phase(hits, phrases, paths, device, smi, tz, refs)
+
+
 def _date(days: int):
     import datetime as _dt
 
@@ -8766,6 +9146,14 @@ def main(argv=None) -> int:
     a35 = run_q21_phase(tpch["tables"], tpch.pop("q21"), tpch["paths"],
                         tpch_dir, device, smi)
     log(f"phase 35 wall time {time.perf_counter() - t0:.1f} s")
+
+    # 36. ClickBench Q18, Q24 and Q42 over a 25,000,000-row hits table
+    # from 8 new files: TIMESTAMP keys, extract, date_trunc, a string ->
+    # DATE cast on the card; the zone query where the zone files exist
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    a36 = run_hits_main(args.seed, device, smi)
+    log(f"phase 36 wall time {time.perf_counter() - t0:.1f} s")
     kernels = {"kernels": [{
         "name": "unpack_runs",
         "route": "cuda",
@@ -8773,7 +9161,7 @@ def main(argv=None) -> int:
         "replaces": K1_REPLACES,
         "launches": q6["launches"],
         "max_abs_err": max(err, q12_k1_err, q1_k1_err, tpch["k1_err"],
-                           w32["k1_err"], a35["k1_err"]),
+                           w32["k1_err"], a35["k1_err"], a36["k1_err"]),
         "ms": k1["ms"],
         "plain_ms": k1["plain_ms"],
         "bound_ms": k1["bound_bytes"] / HBM_BYTES_PER_S * 1e3,
@@ -8820,6 +9208,8 @@ def main(argv=None) -> int:
         **{f"{name}_launches": r["launches"] for name, r in a34.items()},
         "q21_launches": a35["Q21"]["launches"],
         "supp_revenue_avg_launches": a35["supp_revenue_avg"]["launches"],
+        **{f"{name.lower()}_launches": r["launches"]
+           for name, r in a36.items() if isinstance(r, dict)},
     }]}
     log(f"chip_smoke: whole run {time.perf_counter() - t_start:.1f} s")
     log(json.dumps(kernels))

@@ -53,6 +53,17 @@ from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.perfcounters import sync_get, to_device
 
 _EPOCH = _dt.date(1970, 1, 1)
+_EPOCH_TS = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+
+
+def micros_of(v: _dt.datetime) -> int:
+    """A datetime's microseconds since the epoch (a naive one read as
+    UTC), exact."""
+    if v.tzinfo is None:
+        v = v.replace(tzinfo=_dt.timezone.utc)
+    return (v - _EPOCH_TS) // _dt.timedelta(microseconds=1)
+
+
 DEFAULT_WIDTH_BUCKETS = (8, 32, 128, 512, 2048)
 
 
@@ -389,6 +400,8 @@ class HostColumn:
                 data[i] = bool(v)
             elif isinstance(dtype, T.DateType):
                 data[i] = (v - _EPOCH).days if isinstance(v, _dt.date) else v
+            elif isinstance(dtype, T.TimestampType):
+                data[i] = micros_of(v) if isinstance(v, _dt.datetime) else v
             else:
                 data[i] = v
         return HostColumn(dtype, validity, data=data)
@@ -452,6 +465,9 @@ class HostColumn:
                 out.append(float(self.data[i]))
             elif isinstance(self.dtype, T.DateType):
                 out.append(_EPOCH + _dt.timedelta(days=int(self.data[i])))
+            elif isinstance(self.dtype, T.TimestampType):
+                out.append(_EPOCH_TS + _dt.timedelta(
+                    microseconds=int(self.data[i])))
             else:
                 out.append(int(self.data[i]))
         return out

@@ -434,6 +434,12 @@ STRING_WIDTH_BUCKETS = conf("spark.rapids.tpu.string.widthBuckets").doc(
     "8,32,128,512,2048")
 
 
+ENABLE_CAST_STRING_TO_TIMESTAMP = conf(
+    "spark.rapids.sql.castStringToTimestamp.enabled").doc(
+    "String->timestamp cast compat switch (device civil parser; named "
+    "timezones parse as null).").boolean_conf(True)
+
+
 class TpuConf:
     """Immutable snapshot view over a settings dict (RapidsConf analog)."""
 

@@ -48,18 +48,28 @@ joins only (ROADMAP R26).  Not run: a list column (``collect_*``,
 ``bloom_filter_agg``, a two-phase ``approx_count_distinct``'s registers:
 ROADMAP Queue 1 item 5), ``approx_count_distinct`` of a decimal above 18
 digits, and the windows the reference names invalid (a ``sum``, ``avg``
-or variance of a string, a negative frame offset, a RANGE frame over a
+or variance of a string, a negative RANGE offset, a RANGE frame over a
 string key).  The
 expressions, those the port
 runs on the card (references, literals, ``Alias``, comparisons, boolean
 logic, ``IsNull``/``IsNotNull``, ``In``, ``If``/``CaseWhen``,
-``Add``/``Subtract``/``Multiply``, integral and decimal ``Cast``,
-``Coalesce``/``Nvl``), the struct expressions and the hash expressions
-(their device code; murmur3 and xxhash64 of a decimal above 18 digits
-are not ported).  An array column cannot reach a stage.  A string column passes
-through references, ``Alias``, ``If``/``CaseWhen`` and ``Coalesce``/
-``Nvl`` and is read by comparisons (bytes, then length, as on the card),
-``In`` and ``IsNull``/``IsNotNull``.  ``check_cpu_plan`` raises
+``Add``/``Subtract``/``Multiply``, every ``Cast``, ``Coalesce``/``Nvl``,
+the date and time functions), the struct expressions and the hash
+expressions (their device code; murmur3 and xxhash64 of a decimal above
+18 digits are not ported).  Of the date and time shapes the reference's
+rules tag off, the engine runs a ``date_format``/``from_unixtime``
+pattern of the reference oracle's wider token set on the host, row by
+row as that oracle renders it; a zone column by the device's table
+search, one distinct zone at a time (an unknown zone raises, as in the
+oracle); ``to_date``/``to_timestamp`` with another pattern, and the
+string -> timestamp cast while its switch is off, by the device code
+(the oracle too reads the default grammar); ``extract(EPOCH ...)`` as
+seconds; and ``hive_hash`` of a TIMESTAMP over its low 32 bits, as the
+oracle hashes it.  An array column cannot reach a stage.  A string
+column passes through references, ``Alias``, ``If``/``CaseWhen``,
+``Coalesce``/``Nvl`` and casts, and is read by comparisons (bytes, then
+length, as on the card), ``In``, ``IsNull``/``IsNotNull`` and the string
+functions and casts.  ``check_cpu_plan`` raises
 ``NotOnGpu`` at plan time for anything else, naming it.
 """
 from __future__ import annotations
@@ -1001,6 +1011,144 @@ def _h_dec_unary(e, cols, n, ansi):
     return CpuCol(dt, _from_py_ints(out, validity, dt), validity)
 
 
+# -- dates and times ----------------------------------------------------------
+
+_DOW_ABBR = ("Sun", "Mon", "Tue", "Wed", "Thu", "Fri", "Sat")
+_DOW_FULL = ("Sunday", "Monday", "Tuesday", "Wednesday", "Thursday",
+             "Friday", "Saturday")
+_MON_FULL = ("January", "February", "March", "April", "May", "June",
+             "July", "August", "September", "October", "November",
+             "December")
+#: the reference oracle's pattern tokens (a wider set than the device's)
+_HOST_FMT_TOKENS = ("yyyy", "MMMM", "MMM", "MM", "dd", "DD", "HH", "mm",
+                    "ss", "EEEE", "EEE", "a")
+
+
+def host_format_tokens(fmt: str):
+    """A pattern as the reference's oracle reads it: a list of tokens of
+    ``_HOST_FMT_TOKENS`` and literal characters; None for another
+    letter (the oracle cannot render it either)."""
+    out, i = [], 0
+    while i < len(fmt):
+        for t in _HOST_FMT_TOKENS:
+            if fmt.startswith(t, i):
+                out.append(("tok", t))
+                i += len(t)
+                break
+        else:
+            if fmt[i].isalpha():
+                return None
+            out.append(("lit", fmt[i]))
+            i += 1
+    return out
+
+
+def _format_micros(micros: np.ndarray, tokens) -> List[str]:
+    """Instants rendered as the reference's oracle renders them (UTC),
+    the fields by the device's civil math over all rows at once."""
+    from spark_rapids_tpu_torch.expr.cast import (civil_from_days,
+                                                  days_from_civil)
+
+    days = np.floor_divide(micros, 86_400_000_000)
+    rem = micros - days * 86_400_000_000
+    y, mo, d = (t.numpy() for t in civil_from_days(torch.from_numpy(days)))
+    one = torch.ones(len(days), dtype=torch.int64)
+    doy = days - days_from_civil(torch.from_numpy(y), one, one).numpy() + 1
+    fields = zip(y.tolist(), mo.tolist(), d.tolist(), doy.tolist(),
+                 (rem // 3_600_000_000).tolist(),
+                 (rem // 60_000_000 % 60).tolist(),
+                 (rem // 1_000_000 % 60).tolist(),
+                 ((days + 4) % 7).tolist())
+    out = []
+    for y_, mo_, d_, doy_, h, mi, s_, dow in fields:
+        text = {"yyyy": f"{y_:04d}", "MM": f"{mo_:02d}",
+                "MMM": DT.MonthName._NAMES[mo_ - 1],
+                "MMMM": _MON_FULL[mo_ - 1], "dd": f"{d_:02d}",
+                "DD": f"{doy_:03d}", "HH": f"{h:02d}", "mm": f"{mi:02d}",
+                "ss": f"{s_:02d}", "EEE": _DOW_ABBR[dow],
+                "EEEE": _DOW_FULL[dow], "a": "AM" if h < 12 else "PM"}
+        out.append("".join(text[v] if k == "tok" else v
+                           for k, v in tokens))
+    return out
+
+
+def _h_format_time(e, cols, n, ansi):
+    """from_unixtime/date_format: a pattern of the device's subset runs
+    the device code; a wider one (tagged off the device) is rendered on
+    the host, as the reference's oracle renders it."""
+    fmt = DT.literal_text(e.children[1])
+    if DT.parse_format(fmt) is not None:
+        return _h_torch(e, cols, n, ansi)
+    c = eval_expr(e.children[0], cols, n, ansi)
+    v = np.where(c.validity, c.values.astype(np.int64), 0)
+    if isinstance(e, DT.FromUnixTime):
+        micros = v * 1_000_000          # wraps, as Java's long multiply
+    elif isinstance(e.children[0].dataType, T.DateType):
+        micros = v * 86_400_000_000
+    else:
+        micros = v
+    out = _format_micros(micros, host_format_tokens(fmt))
+    return CpuCol.from_host(HostColumn.strings(out, c.validity.copy()))
+
+
+def _h_utc_shift(e, cols, n, ansi):
+    """from/to_utc_timestamp with any zone column: each distinct zone's
+    rows shifted by the device code's table search on CPU tensors (an
+    unknown zone raises, as in the reference's oracle)."""
+    ts, tz = _kids(e, cols, n, ansi)
+    to_utc = isinstance(e, DT.ToUTCTimestamp)
+    validity = ts.validity & tz.validity
+    zones = (np.array(_rows_text(tz), object) if tz.is_string
+             else np.full(n, None, object))
+    micros = torch.from_numpy(ts.values.astype(np.int64))
+    secs = torch.div(micros, 1_000_000, rounding_mode="floor")
+    out = np.zeros(n, np.int64)
+    for zone in sorted({z for z, ok in zip(zones, validity) if ok}):
+        rows = validity & (zones == zone)
+        off = DT._zone_offsets(zone, secs[torch.from_numpy(rows)],
+                               "wall_starts" if to_utc
+                               else "utc_instants").numpy() * 1_000_000
+        out[rows] = ts.values[rows] - off if to_utc \
+            else ts.values[rows] + off
+    return CpuCol(T.TIMESTAMP, out, validity)
+
+
+def _h_captured(e, cols, n, ansi):
+    v = (e.captured_micros // 86_400_000_000
+         if isinstance(e, DT.CurrentDate) else e.captured_micros)
+    return CpuCol(e.dataType, np.full(n, v, T.storage_dtype(e.dataType)),
+                  np.ones(n, np.bool_))
+
+
+def _h_extract(e, cols, n, ansi):
+    """The field's expression; ``epoch`` (tagged off the device) the
+    seconds since the epoch, as the reference's oracle gives them."""
+    if e._delegate is not None:
+        return eval_expr(e._delegate, cols, n, ansi)
+    c = eval_expr(e.children[1], cols, n, ansi)
+    v = c.values.astype(np.int64)
+    out = (v * 86_400 if isinstance(e.children[1].dataType, T.DateType)
+           else np.floor_divide(v, 1_000_000))
+    return CpuCol(T.LONG, out, c.validity.copy())
+
+
+def _h_date_part(e, cols, n, ansi):
+    return eval_expr(e._inner, cols, n, ansi)
+
+
+def _h_hive_hash(e, cols, n, ansi):
+    """The device's Hive hash; a TIMESTAMP (tagged off the device) hashes
+    its low 32 bits as an INT, as the reference's oracle hashes it."""
+    kids = []
+    for k in _kids(e, cols, n, ansi):
+        if isinstance(k.dtype, T.TimestampType):
+            k = CpuCol(T.INT, k.values.astype(np.int64).astype(np.int32),
+                       k.validity)
+        kids.append(k)
+    return _from_torch(e.do_columnar_eval(_HostCtx(ansi),
+                                          [_to_torch(k) for k in kids]))
+
+
 _HANDLERS = {
     BoundReference: _h_bound, Literal: _h_literal, Alias: _h_alias,
     A.Add: _h_binarith, A.Subtract: _h_binarith, A.Multiply: _h_binarith,
@@ -1029,6 +1177,13 @@ _HANDLERS.update({cls: _h_torch for cls in (
     DT.Year, DT.Month, DT.DayOfMonth, DT.DayOfWeek, DT.DayOfYear,
     DT.Quarter, DT.WeekOfYear, DT.LastDay, DT.DateAdd, DT.DateSub,
     DT.DateDiff, DT.AddMonths, DT.MonthsBetween, DT.TruncDate,
+    DT.Hour, DT.Minute, DT.Second, DT.UnixTimestamp, DT.NextDay,
+    DT.ToUnixTimestamp, DT.WeekDay, DT.MakeDate, DT.MakeTimestamp,
+    DT.TimestampSeconds, DT.TimestampMillis, DT.TimestampMicros,
+    DT.UnixDate, DT.DateFromUnixDate, DT.UnixSeconds, DT.UnixMillis,
+    DT.UnixMicros, DT.ToDate, DT.ToTimestamp, DT.TruncTimestamp,
+    DT.TimestampAdd, DT.TimestampDiff, DT.ConvertTimezone, DT.MonthName,
+    DT.DayName, DT.ParseToDate, DT.ParseToTimestamp, DT.TryToTimestamp,
     A.IntegralDivide, A.UnaryPositive, A.BitwiseAnd, A.BitwiseOr,
     A.BitwiseXor, A.BitwiseNot, A.ShiftLeft, A.ShiftRight,
     A.ShiftRightUnsigned, P.EqualNullSafe, P.IsNaN, CO.NaNvl, CO.Greatest,
@@ -1038,7 +1193,13 @@ _HANDLERS.update({cls: _h_torch for cls in (
     M.Cbrt, M.Log2, M.Log1p, M.Expm1, M.Rint, M.Cot, M.Csc, M.Sec,
     M.ToDegrees, M.ToRadians, M.Pow, M.Atan2, M.Hypot,
     M.Logarithm, M.WidthBucket, M.Factorial, M.BitwiseCount,
-    H.Murmur3Hash, H.XxHash64, H.HiveHash, H.BloomFilterMightContain)})
+    H.Murmur3Hash, H.XxHash64, H.BloomFilterMightContain)})
+_HANDLERS.update({
+    DT.FromUnixTime: _h_format_time, DT.DateFormat: _h_format_time,
+    DT.FromUTCTimestamp: _h_utc_shift, DT.ToUTCTimestamp: _h_utc_shift,
+    DT.CurrentDate: _h_captured, DT.CurrentTimestamp: _h_captured,
+    DT.LocalTimestamp: _h_captured, DT.Extract: _h_extract,
+    DT.DatePart: _h_date_part, H.HiveHash: _h_hive_hash})
 
 
 # -- plans ------------------------------------------------------------------
@@ -1050,7 +1211,9 @@ _STRING_EXPRS = frozenset({BoundReference, Literal, Alias, CO.If,
                            CO.Least, CO.Nvl2, CO.NullIf, S.Upper,
                            S.Lower, S.Substring, S.StringLeft,
                            S.StringRight, S.Concat, S.StringTrim,
-                           S.StringTrimLeft, S.StringTrimRight})
+                           S.StringTrimLeft, S.StringTrimRight, Cast,
+                           DT.FromUnixTime, DT.DateFormat, DT.MonthName,
+                           DT.DayName})
 
 def _check_expr(e: Expression, why: str) -> None:
     if type(e) not in PORTED_EXPRS:
@@ -1067,7 +1230,23 @@ def _check_expr(e: Expression, why: str) -> None:
             for c in e.children):
         raise NotOnGpu(f"{type(e).__name__} of a decimal above 18 digits "
                        f"in a CPU stage ({why})")
-    if isinstance(e.dataType, (T.BinaryType, T.TimestampType, T.ArrayType,
+    if isinstance(e, (DT.FromUTCTimestamp, DT.ToUTCTimestamp)) \
+            and not isinstance(e.children[1].dataType,
+                               (T.StringType, T.NullType)):
+        raise NotOnGpu(f"{type(e).__name__} with a zone of type "
+                       f"{e.children[1].dataType.simpleString} in a CPU "
+                       f"stage ({why})")
+    if isinstance(e, (DT.FromUnixTime, DT.DateFormat)) and (
+            DT.literal_text(e.children[1]) is None
+            or host_format_tokens(DT.literal_text(e.children[1])) is None):
+        raise NotOnGpu(f"{type(e).__name__} with the format "
+                       f"{e.children[1].sql_string()} in a CPU stage "
+                       f"({why})")
+    if isinstance(e, DT.Extract) and e._delegate is None and DT.literal_text(
+            e.children[0]) != "epoch":
+        raise NotOnGpu(f"extract of the field {e.children[0].sql_string()} "
+                       f"in a CPU stage ({why})")
+    if isinstance(e.dataType, (T.BinaryType, T.ArrayType,
                                T.MapType)) or (
             isinstance(e.dataType, T.StringType)
             and type(e) not in _STRING_EXPRS):
@@ -1143,9 +1322,10 @@ def _unrun_aggregate(node: PN.HashAggregate) -> Optional[str]:
 def _unrun_window(node: PN.Window) -> Optional[str]:
     """What of a window this engine does not run, or None: the shapes the
     reference's rules name invalid (a ``sum``, ``avg`` or variance of a
-    string; a negative frame offset; a RANGE frame over a key that is not
-    a number or a date, which the reference's oracle cannot bound
-    either), and nested inputs."""
+    string; a negative RANGE offset; a RANGE frame over a key that is not
+    a number, a date or a timestamp, which the reference's oracle cannot
+    bound either), and nested inputs.  A negative ROWS offset runs: the
+    frame of ``("rows", -1, 1)`` is the row after, as in the oracle."""
     frame = node.frame
     for f in node.functions:
         ct = f.child.dataType if f.child is not None else None
@@ -1155,8 +1335,9 @@ def _unrun_window(node: PN.Window) -> Optional[str]:
             return f"{f.func} of a string"
         if isinstance(ct, _NESTED):
             return f"{f.func} of the nested type {ct.simpleString}"
-    if isinstance(frame, tuple) and (frame[1] < 0 or frame[2] < 0):
-        return "a negative frame offset"
+    if isinstance(frame, tuple) and frame[0] == "range" \
+            and (frame[1] < 0 or frame[2] < 0):
+        return "a negative RANGE frame offset"
     if (isinstance(frame, tuple) and frame[0] == "range") \
             or frame == "range_running":
         if not node.order_by:
@@ -1164,7 +1345,8 @@ def _unrun_window(node: PN.Window) -> Optional[str]:
     if isinstance(frame, tuple) and frame[0] == "range":
         ot = node.order_by[0][0].dataType
         if not (ot.is_integral or isinstance(
-                ot, (T.FloatType, T.DoubleType, T.DateType))):
+                ot, (T.FloatType, T.DoubleType, T.DateType,
+                     T.TimestampType))):
             return f"a RANGE frame over a {ot.simpleString} order key"
     return None
 

@@ -269,7 +269,9 @@ class Literal(Expression):
             precision = max(len(digits), scale + 1)
             return Literal(v, T.DecimalType(min(precision, 38), scale))
         if isinstance(v, _dt.datetime):
-            raise TypeError("timestamp literals are not ported yet")
+            from spark_rapids_tpu_torch.columnar.column import micros_of
+
+            return Literal(micros_of(v), T.TIMESTAMP)
         if isinstance(v, _dt.date):
             return Literal((v - _dt.date(1970, 1, 1)).days, T.DATE)
         raise TypeError(f"cannot make literal from {type(v)}")

@@ -1,5 +1,6 @@
 """Parquet ENCODE — port of ``spark_rapids_tpu/io/parquet_encode.py`` for
-flat INT32 / INT64 / DATE columns, decimals of up to 18 digits, stored
+flat INT32 / INT64 / DATE / TIMESTAMP (INT64 with the TIMESTAMP_MICROS
+annotation) columns, decimals of up to 18 digits, stored
 as parquet-mr stores them (annotated INT32 up to 9 digits, INT64 above),
 and strings as PLAIN BYTE_ARRAY with the UTF8 annotation, as the
 reference writes them (no dictionary for strings: the reference's writer
@@ -147,8 +148,10 @@ def _hybrid_bitpacked(packed: bytes, n_values: int, bw: int) -> bytes:
 
 
 _PHYS = {T.IntegerType: TYPE_INT32, T.DateType: TYPE_INT32,
-         T.LongType: TYPE_INT64, T.StringType: TYPE_BYTE_ARRAY}
+         T.LongType: TYPE_INT64, T.TimestampType: TYPE_INT64,
+         T.StringType: TYPE_BYTE_ARRAY}
 _CONVERTED_UTF8, _CONVERTED_DECIMAL, _CONVERTED_DATE = 0, 5, 6
+_CONVERTED_TIMESTAMP_MICROS = 10
 
 
 def _phys(dt: T.DataType) -> int:
@@ -310,7 +313,8 @@ def write_parquet_device(path: str, schema: T.StructType, cols, n: int,
     Returns stats for tests and metrics."""
     device = resolve_device(device)
     if not supported_schema(schema):
-        raise TypeError("the port's writer takes INT32/INT64/DATE, "
+        raise TypeError("the port's writer takes INT32/INT64/DATE/"
+                        "TIMESTAMP, "
                         "decimal(p<=18) and string columns only: "
                         f"{schema.simpleString}")
     codec = CODEC_SNAPPY if compression == "snappy" \
@@ -351,6 +355,9 @@ def write_chunks(path: str, schema: T.StructType, chunks, n: int
         e_last = el.write_bin(4, e_last, f.name.encode())
         if isinstance(f.dataType, T.DateType):
             e_last = el.write_i(6, e_last, _CONVERTED_DATE, _CT_I32)
+        elif isinstance(f.dataType, T.TimestampType):
+            e_last = el.write_i(6, e_last, _CONVERTED_TIMESTAMP_MICROS,
+                                _CT_I32)
         elif isinstance(f.dataType, T.StringType):
             e_last = el.write_i(6, e_last, _CONVERTED_UTF8, _CT_I32)
         elif isinstance(f.dataType, T.DecimalType):

@@ -20,8 +20,12 @@ aggregate's input type, ``avg`` or a variance over a decimal above 18
 digits, a residual condition on a join that is not inner, a join without
 keys that is not a cross join, a right or full outer nested-loop join,
 a collect of strings, decimal128 or nested elements, a Hive hash of a
-decimal, a timestamp or a nested column) and an open circuit-breaker
-entry for the node's key
+decimal, a timestamp or a nested column, a time format outside
+``parse_format``'s subset, a zone that is not a known literal, a
+``to_date``/``to_timestamp`` pattern outside the default grammar, an
+``extract`` field outside its table, the string -> timestamp cast while
+``spark.rapids.sql.castStringToTimestamp.enabled`` is off) and an open
+circuit-breaker entry for the node's key
 (``resilience/breaker.py::consult_plan``).  A node with a reason stays on the host as a CPU stage (``cpu/oracle.py``);
 ``explain`` prints the reasons in the reference's words.  What the
 reference runs on the device but the port has not ported yet is not a
@@ -35,7 +39,8 @@ import dataclasses
 from typing import Callable, Dict, List, Optional, Type
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.config import TpuConf
+from spark_rapids_tpu_torch.config import (ENABLE_CAST_STRING_TO_TIMESTAMP,
+                                           TpuConf)
 from spark_rapids_tpu_torch.expr import arithmetic as A
 from spark_rapids_tpu_torch.expr import complextypes as CT
 from spark_rapids_tpu_torch.expr import conditional as CO
@@ -47,8 +52,7 @@ from spark_rapids_tpu_torch.expr import strings as S
 from spark_rapids_tpu_torch.expr.base import (Alias, AttributeReference,
                                               BoundReference, Expression,
                                               Literal)
-from spark_rapids_tpu_torch.expr.cast import (STRING_CASTS, Cast, _kind,
-                                              cast_supported)
+from spark_rapids_tpu_torch.expr.cast import Cast, cast_supported
 from spark_rapids_tpu_torch.plan import nodes as PN
 
 
@@ -68,6 +72,16 @@ PORTED_EXPRS = frozenset({
     DT.Year, DT.Month, DT.DayOfMonth, DT.DayOfWeek, DT.DayOfYear,
     DT.Quarter, DT.WeekOfYear, DT.LastDay, DT.DateAdd, DT.DateSub,
     DT.DateDiff, DT.AddMonths, DT.MonthsBetween, DT.TruncDate,
+    DT.Hour, DT.Minute, DT.Second, DT.UnixTimestamp, DT.NextDay,
+    DT.FromUnixTime, DT.DateFormat, DT.FromUTCTimestamp, DT.ToUTCTimestamp,
+    DT.ToUnixTimestamp, DT.WeekDay, DT.MakeDate, DT.MakeTimestamp,
+    DT.CurrentDate, DT.CurrentTimestamp, DT.LocalTimestamp,
+    DT.TimestampSeconds, DT.TimestampMillis, DT.TimestampMicros,
+    DT.UnixDate, DT.DateFromUnixDate, DT.UnixSeconds, DT.UnixMillis,
+    DT.UnixMicros, DT.ToDate, DT.ToTimestamp, DT.TruncTimestamp,
+    DT.TimestampAdd, DT.TimestampDiff, DT.ConvertTimezone, DT.MonthName,
+    DT.DayName, DT.DatePart, DT.ParseToDate, DT.ParseToTimestamp,
+    DT.Extract, DT.TryToTimestamp,
     A.Divide, A.IntegralDivide, A.Remainder, A.Pmod, A.UnaryMinus, A.Abs,
     A.UnaryPositive, A.BitwiseAnd, A.BitwiseOr, A.BitwiseXor, A.BitwiseNot,
     A.ShiftLeft, A.ShiftRight, A.ShiftRightUnsigned, A.TryAdd,
@@ -381,27 +395,29 @@ def _cast_kind(t) -> str:
 
 
 def _check_cast(meta: ExprMeta):
-    """The reference's ``_check_cast``: a cast outside the table, and the
-    decimal128 pairs its limb paths lack.  The string casts are in the
-    reference's table but not ported; the conversion raises ``NotOnGpu``
-    for them (``overrides.py::check_expression``).  The reference's
-    string -> timestamp gate (a string cast) is not ported."""
+    """The reference's ``_check_cast``: a cast outside the table, the
+    decimal128 pairs its limb paths lack, and the string -> timestamp
+    cast while ``spark.rapids.sql.castStringToTimestamp.enabled`` is
+    off."""
     e = meta.expr
     src = e.child._dataType
     if src is None:
         return
-    if not cast_supported(src, e.to) and (
-            _kind(src), _kind(e.to)) not in STRING_CASTS:
+    if not cast_supported(src, e.to):
         meta.will_not_work_on_tpu(
             f"cast from {src.simpleString} to {e.to.simpleString} is not "
             f"supported on TPU")
-    if not (_is_dec128(src) or _is_dec128(e.to)):
-        return
-    if (_cast_kind(src), _cast_kind(e.to)) not in {
+    if (_is_dec128(src) or _is_dec128(e.to)) and (
+            _cast_kind(src), _cast_kind(e.to)) not in {
             ("dec", "dec"), ("int", "dec"), ("dec", "int"), ("dec", "fp")}:
         meta.will_not_work_on_tpu(
             f"cast {src.simpleString} -> {e.to.simpleString} above 18 "
             f"decimal digits is not supported on TPU")
+    if isinstance(src, T.StringType) and isinstance(e.to, T.TimestampType) \
+            and not meta.conf.get(ENABLE_CAST_STRING_TO_TIMESTAMP):
+        meta.will_not_work_on_tpu(
+            "string->timestamp cast is disabled "
+            "(spark.rapids.sql.castStringToTimestamp.enabled)")
 
 
 def _check_like(meta: ExprMeta):
@@ -467,6 +483,68 @@ def _check_literal_children(*ordinals, names="argument"):
                 meta.will_not_work_on_tpu(
                     f"{names} (child {o}) must be a non-null literal on TPU")
     return check
+
+
+def _check_time_format(meta: ExprMeta):
+    """from_unixtime/date_format: a literal pattern of the supported
+    token subset."""
+    fmt = meta.expr.children[1]
+    if not isinstance(fmt, Literal) or fmt.value is None:
+        meta.will_not_work_on_tpu("time format must be a non-null literal")
+        return
+    if DT.parse_format(str(fmt.value)) is None:
+        meta.will_not_work_on_tpu(
+            f"time format {fmt.value!r} contains unsupported pattern "
+            f"letters (supported: yyyy MM dd HH mm ss + separators)")
+
+
+def _check_timezone(meta: ExprMeta):
+    from spark_rapids_tpu_torch.tzdb import is_known_zone
+
+    tz = meta.expr.children[1]
+    if not isinstance(tz, Literal):
+        meta.will_not_work_on_tpu(
+            "from/to_utc_timestamp: timezone must be a literal")
+        return
+    if not is_known_zone(tz.value):
+        meta.will_not_work_on_tpu(
+            f"unknown or unsupported timezone {tz.value!r}")
+
+
+def _check_convert_timezone(meta: ExprMeta):
+    from spark_rapids_tpu_torch.tzdb import is_known_zone
+
+    e = meta.expr
+    for tz in (e.source_tz, e.target_tz):
+        if not is_known_zone(tz):
+            meta.will_not_work_on_tpu(f"unknown timezone {tz!r}")
+
+
+def _check_literal_fmt(meta: ExprMeta):
+    if not isinstance(meta.expr.children[0], Literal) \
+            or meta.expr.children[0].value is None:
+        meta.will_not_work_on_tpu("format must be a non-null literal")
+
+
+#: the formats of ``to_date``/``to_timestamp`` that the civil parser reads
+PARSE_FORMATS = ("yyyy-MM-dd", "yyyy-MM-dd HH:mm:ss")
+
+
+def _check_parse_to_datetime(meta: ExprMeta):
+    fmt = meta.expr.fmt_literal
+    if fmt is None:
+        return
+    if fmt is False or fmt not in PARSE_FORMATS:
+        meta.will_not_work_on_tpu(
+            f"to_date/to_timestamp format {fmt!r} is outside the "
+            f"default-grammar subset {PARSE_FORMATS} supported on TPU")
+
+
+def _check_extract(meta: ExprMeta):
+    if getattr(meta.expr, "_delegate", None) is None:
+        meta.will_not_work_on_tpu(
+            "extract: field must be a literal among "
+            + "/".join(sorted(DT._EXTRACT_FIELDS)))
 
 
 _ASCII_CASE = T.STRING_SIG.with_note(T.StringType,
@@ -557,6 +635,47 @@ EXPRESSIONS: Dict[Type, ExprRule] = {
     DT.TruncDate: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
                            _check_literal_children(
                                1, names="trunc format")),
+    DT.Hour: ExprRule(_DATE_INT), DT.Minute: ExprRule(_DATE_INT),
+    DT.Second: ExprRule(_DATE_INT), DT.UnixTimestamp: ExprRule(_DATE_INT),
+    DT.NextDay: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
+                         _check_literal_children(1, names="day of week")),
+    DT.FromUTCTimestamp: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
+                                  _check_timezone),
+    DT.ToUTCTimestamp: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
+                                _check_timezone),
+    DT.FromUnixTime: ExprRule(_DATE_INT + T.STRING_SIG, _check_time_format),
+    DT.DateFormat: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
+                            _check_time_format),
+    DT.ToUnixTimestamp: ExprRule(_DATE_INT),
+    DT.ToDate: ExprRule(T.DATETIME_SIG + T.STRING_SIG),
+    DT.ToTimestamp: ExprRule(T.DATETIME_SIG + T.STRING_SIG),
+    DT.WeekDay: ExprRule(_DATE_INT), DT.MakeDate: ExprRule(_DATE_INT),
+    DT.MakeTimestamp: ExprRule(_DATE_INT + T.FP_SIG + T.DECIMAL_64_SIG),
+    DT.CurrentDate: ExprRule(T.DATETIME_SIG),
+    DT.CurrentTimestamp: ExprRule(T.DATETIME_SIG),
+    DT.LocalTimestamp: ExprRule(T.DATETIME_SIG),
+    DT.TimestampSeconds: ExprRule(_DATE_INT + T.FP_SIG),
+    DT.TimestampMillis: ExprRule(_DATE_INT),
+    DT.TimestampMicros: ExprRule(_DATE_INT),
+    DT.UnixSeconds: ExprRule(_DATE_INT), DT.UnixMillis: ExprRule(_DATE_INT),
+    DT.UnixMicros: ExprRule(_DATE_INT), DT.UnixDate: ExprRule(_DATE_INT),
+    DT.DateFromUnixDate: ExprRule(_DATE_INT),
+    DT.TruncTimestamp: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
+                                _check_literal_fmt),
+    DT.TimestampAdd: ExprRule(_DATE_INT),
+    DT.TimestampDiff: ExprRule(_DATE_INT),
+    DT.ConvertTimezone: ExprRule(T.DATETIME_SIG, _check_convert_timezone),
+    DT.MonthName: ExprRule(T.DATETIME_SIG + T.STRING_SIG),
+    DT.DayName: ExprRule(T.DATETIME_SIG + T.STRING_SIG),
+    DT.DatePart: ExprRule(_DATE_INT),
+    DT.ParseToDate: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
+                             _check_parse_to_datetime),
+    DT.ParseToTimestamp: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
+                                  _check_parse_to_datetime),
+    DT.Extract: ExprRule(T.DATETIME_SIG + T.STRING_SIG + T.INTEGRAL_SIG,
+                         _check_extract),
+    DT.TryToTimestamp: ExprRule(T.DATETIME_SIG + T.STRING_SIG,
+                                _check_parse_to_datetime),
     H.Murmur3Hash: ExprRule(_COMMON128),
     H.XxHash64: ExprRule(_COMMON128),
     H.HiveHash: ExprRule(_COMMON, _check_hive_hash),

@@ -81,7 +81,7 @@ from spark_rapids_tpu_torch.plan import nodes as PN
 
 _FLAT_TYPES = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
                T.LongType, T.FloatType, T.DoubleType, T.DateType,
-               T.DecimalType, T.NullType, T.StringType)
+               T.TimestampType, T.DecimalType, T.NullType, T.StringType)
 
 
 def _ported_type(dt: T.DataType) -> bool:

@@ -385,8 +385,9 @@ def test_bround_of_a_decimal_is_half_even_in_a_cpu_stage():
 def test_casts_outside_the_table_and_string_casts():
     """A cast outside the reference's table is tagged with its words (and
     the CPU engine, which has no such cast either, refuses it when
-    planned); a string cast (in the reference's table, not ported)
-    raises ``NotOnGpu`` when planned."""
+    planned); a string cast (in the reference's table, ported in slice
+    17: ``test_torch_timestamps.py`` holds every one) runs and equals the
+    reference oracle's rows."""
     from spark_rapids_tpu_torch.exec.base import NotOnGpu
 
     df = _frame(S, T, S.TpuSession({}, device="cpu"))
@@ -394,8 +395,11 @@ def test_casts_outside_the_table_and_string_casts():
     with pytest.raises(NotOnGpu, match="cast from boolean to date is not "
                        "supported on TPU"):
         df.select(X.C.Cast(S.col("b"), T.DATE).alias("v")).collect()
-    with pytest.raises(NotOnGpu):
-        df.select(X.C.Cast(S.col("i"), T.STRING).alias("v")).collect()
+    got = df.select(X.C.Cast(S.col("i"), T.STRING).alias("v")).collect()
+    RX = mods(RS)
+    want = _frame(RS, RT, RS.TpuSession(ORACLE)).select(
+        RX.C.Cast(RS.col("i"), RT.STRING).alias("v")).collect()
+    assert got == want and any(r[0] is not None for r in got)
 
 
 def test_operators_build_expressions():

@@ -104,8 +104,9 @@ def test_date_case_equals_reference(name, reference, port_and_oracle):
 
 @pytest.fixture(scope="module")
 def timestamp_cases():
-    """The port's TIMESTAMP cases, evaluated on a batch on the CPU (the
-    port scans no TIMESTAMP column yet), and the reference oracle's."""
+    """The port's TIMESTAMP cases, evaluated on a batch on the CPU
+    (TIMESTAMP columns through a session: ``test_torch_timestamps.py``),
+    and the reference oracle's."""
     arrays, validity = date_table(SEED)
     got = eval_cases(arrays, validity, timestamp_schema(T), TS_CASES)
     orows = select_cases(RS, _ts_frame(RS, RT, RS.TpuSession(ORACLE)),

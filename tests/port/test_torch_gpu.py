@@ -1460,3 +1460,70 @@ def test_cpu_engine_nodes_on_gpu_equal_cpu():
                             T.StructType([T.StructField("t", T.STRING)]))
     from spark_rapids_tpu_torch.session import avg_
     assert df.agg(avg_("t", "a")).collect() == [(2.0,)]
+
+
+@pytest.mark.gpu
+def test_timestamps_and_string_casts_on_gpu_equal_cpu():
+    """Every case of ``torch_port_times`` (the date and time functions of
+    slice 17, every string cast) on the card equals its CPU run over the
+    seeded table, exactly; with ANSI on, the clean table's rows equal
+    the CPU's and the full table raises; each shape the reference tags
+    off runs as a CPU stage under the card's plan with the CPU's rows."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from spark_rapids_tpu_torch.expr.base import SparkArithmeticException
+    from torch_port_frames import frame
+    from torch_port_times import (ANSI_CASES, CASES, TAGGED_CONF, TAGGED_OFF,
+                                  columns, same, select_cases, times_schema,
+                                  times_table)
+
+    def run(cases, dev, conf=None, clean=False):
+        arrays, validity = times_table(29, n=2000, clean=clean)
+        return columns(select_cases(S, frame(
+            S, TpuSession(conf or {}, device=dev), arrays, times_schema(T),
+            validity), cases).collect(), cases)
+
+    ansi = {"spark.sql.ansi.enabled": True}
+    ansi_cases = {n: CASES[n] for n in ANSI_CASES}
+    for cases, conf, clean in ((CASES, {}, False), (ansi_cases, ansi, True)):
+        got, want = (run(cases, d, conf, clean) for d in ("cuda", "cpu"))
+        for name in cases:
+            bad = [(i, a, b) for i, (a, b) in enumerate(
+                zip(got[name], want[name])) if not same(a, b)]
+            assert not bad, (name, bad[:5])
+    for name, build in ansi_cases.items():
+        with pytest.raises(SparkArithmeticException):
+            run({name: build}, "cuda", ansi)
+    for name, (build, words) in TAGGED_OFF.items():
+        conf = TAGGED_CONF.get(name, {})
+        got, want = (run({name: build}, d, conf)[name]
+                     for d in ("cuda", "cpu"))
+        assert all(same(a, b) for a, b in zip(got, want)), name
+
+
+@pytest.mark.gpu
+def test_clickbench_queries_on_gpu_equal_numpy():
+    """Phase 36's queries over 300,000 hits rows from memory on the card:
+    Q18 and Q24 against their numpy checks (ties at the tenth row may
+    pick any tied group), Q42's rows (LIMIT 1010) equal the CPU's and
+    numpy's, the zone query numpy's."""
+    _need_gpu()
+    import spark_rapids_tpu_torch.session as S
+    from torch_port_frames import frame
+    sys.path.insert(0, REPO)
+    import chip_smoke as C
+
+    hits = C.make_hits(300_000, 5)
+    phrases = C.hits_phrases(6)
+    arrays = {f.name: (phrases[hits[f.name]] if f.name == "SearchPhrase"
+                       else hits[f.name]) for f in C.hits_schema(T).fields}
+    refs = C.hits_references(hits, phrases, True)
+    checks = C.hits_checks(hits, phrases, refs)
+    rows = {}
+    for dev in ("cuda", "cpu"):
+        df = frame(S, TpuSession({}, device=dev), arrays, C.hits_schema(T))
+        rows[dev] = {k: b(df, S).collect() for k, b in C.HITS_QUERIES.items()}
+    for label, check in checks.items():
+        assert check(rows["cuda"][label]) is None, label
+    assert rows["cuda"]["Q42"] == rows["cpu"]["Q42"]
+    assert len(rows["cuda"]["Q42"]) == C.Q42_OFFSET + C.Q42_LIMIT

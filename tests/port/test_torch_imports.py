@@ -62,6 +62,7 @@ def test_import_leaves_no_jax_in_sys_modules():
             "spark_rapids_tpu_torch.regex.transpiler, "
             "spark_rapids_tpu_torch.expr.strings, "
             "spark_rapids_tpu_torch.expr.datetime, "
+            "spark_rapids_tpu_torch.tzdb, "
             "spark_rapids_tpu_torch.expr.mathfuncs, "
             "spark_rapids_tpu_torch.expr.arithmetic, "
             "spark_rapids_tpu_torch.expr.cast, "

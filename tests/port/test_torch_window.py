@@ -296,10 +296,8 @@ TAGGED_OFF = {
                          "max over decimals above 18 digits in a window"),
 }
 #: the shapes that still raise: the reference's oracle cannot bound a
-#: RANGE frame over a string key (a TypeError) nor sum strings, and a
-#: negative offset keeps the rule's error
-STILL_RAISE = ("range_over_a_string_key", "sum_of_a_string",
-               "negative_offset")
+#: RANGE frame over a string key (a TypeError) nor sum strings
+STILL_RAISE = ("range_over_a_string_key", "sum_of_a_string")
 
 
 def _tagged_off(mod, WF, types, session, what):
@@ -321,9 +319,10 @@ def test_tagged_off_windows_raise(what):
     """The reference's ``_window_check`` tags these off the device, with
     its words.  The port's CPU engine runs them as a Window CPU stage,
     with the oracle's rows (a decimal ``avg`` the scaled value, where the
-    oracle reads the unscaled one, ROADMAP R27), but for the three it
-    leaves out, which raise ``NotOnGpu`` with the rule's words.  (The
-    name is kept from when every case raised.)"""
+    oracle reads the unscaled one, ROADMAP R27; a negative ROWS offset
+    the oracle's frame, ``("rows", -1, 1)`` the row after), but for the
+    two it leaves out, which raise ``NotOnGpu`` with the rule's words.
+    (The name is kept from when every case raised.)"""
     words = TAGGED_OFF[what][-1]
     w = _tagged_off(S, PWF, T, S.TpuSession({}, device="cpu"), what)
     if what in STILL_RAISE:

@@ -172,8 +172,8 @@ DATE_CASES = {
 }
 
 #: the date functions over a TIMESTAMP: its day, floored (months_between
-#: adds the time of day); the port scans no TIMESTAMP column yet, so the
-#: port runs these on columns (``eval_cases``)
+#: adds the time of day); the port runs these on columns (``eval_cases``;
+#: TIMESTAMP columns through a session: ``test_torch_timestamps.py``)
 TS_CASES = {
     "ts_year": lambda D, c, l: D.Year(c("ts")),
     "ts_month": lambda D, c, l: D.Month(c("ts")),
